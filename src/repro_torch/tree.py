@@ -1,0 +1,55 @@
+"""Nested dicts, lists and tuples of tensors: flatten, rebuild, map.
+
+Dict keys flatten in sorted order, as ``jax.tree_util`` does, so a leaf
+list (and every bucket built from one) is laid out as in the reference.
+``None`` is an empty subtree, not a leaf.
+"""
+from __future__ import annotations
+
+_LEAF, _NONE, _DICT = "leaf", "none", "dict"
+
+
+def tree_flatten(tree):
+    """tree -> (leaves, treedef)."""
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            keys = sorted(t)
+            return (_DICT, keys, [walk(t[k]) for k in keys])
+        if isinstance(t, (list, tuple)):
+            return (type(t), None, [walk(x) for x in t])
+        if t is None:
+            return (_NONE, None, [])
+        leaves.append(t)
+        return (_LEAF, None, [])
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(treedef, leaves):
+    it = iter(leaves)
+
+    def build(node):
+        kind, keys, kids = node
+        if kind == _LEAF:
+            return next(it)
+        if kind == _NONE:
+            return None
+        if kind == _DICT:
+            return {k: build(c) for k, c in zip(keys, kids)}
+        return kind(build(c) for c in kids)
+
+    return build(treedef)
+
+
+def tree_leaves(tree) -> list:
+    return tree_flatten(tree)[0]
+
+
+def tree_map(f, tree, *rest):
+    """``f`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (trees of the same structure)."""
+    leaves, treedef = tree_flatten(tree)
+    others = [tree_leaves(r) for r in rest]
+    return tree_unflatten(treedef, [f(*xs) for xs in zip(leaves, *others)])

@@ -1,0 +1,155 @@
+"""The port's entry points on the CPU: the round driver on device-resident
+data, the training CLI, the refusals of what is not ported yet, the
+weight converter, byte accounting against the JAX reference, and the
+import isolation of the port."""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from torch_shared import BATCH, GRID, HW, _batches, _pair, one_torch_thread  # noqa: F401
+
+from repro_torch.comm import IntQuant
+from repro_torch.convert import from_jax_params, to_jax_params
+from repro_torch.core import FedAvgSync
+from repro_torch.data import DeviceFederatedData
+from repro_torch.kernels.fedavg.kernel import fedavg_flat
+from repro_torch.kernels.qsync.kernel import qsync_flat
+from repro_torch.launch import train
+from repro_torch.run import RoundDriver, profile
+from repro_torch.tree import tree_leaves
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_comm_bytes_per_round_match_jax():
+    """The §3.2 accounting, uncompressed and int8-coded, bills what the
+    reference bills for the same state."""
+    for codec in (False, True):
+        jfed, tfed, _ = _pair("adam", codec)
+        jstate = jfed.init_state(jax.random.key(0))
+        tstate = from_jax_params(jax.device_get(jstate))
+        assert tfed.comm_bytes_per_round(tstate) == jfed.comm_bytes_per_round(jstate)
+
+
+def test_driver_runs_device_data_and_keeps_agents_synced():
+    """The round driver on the device-resident pipeline (here the CPU):
+    minibatches come from each agent's own shard, metrics are fetched at
+    the end, every agent holds the synced parameters after each round, and
+    the CPU path launches no kernel."""
+    g = torch.Generator().manual_seed(0)
+    shards = [{"x": torch.full((n, HW, HW, 3), float(i)), "y": torch.full((n,), i)}
+              for i, n in enumerate((7, 9, 11, 5, 8))]
+    data = DeviceFederatedData.from_agent_data(
+        shards, GRID, BATCH, device="cpu",
+        sample_extra=lambda gen, s: {"z": torch.randn(s + (62,), generator=gen)})
+    batch = data.sample_step(g)
+    assert batch["x"].shape == GRID + (BATCH, HW, HW, 3)
+    assert batch["z"].shape == GRID + (BATCH, 62)
+    for a in range(5):   # agent a only ever sees its own shard
+        assert (batch["y"][0, a] == a).all() and (batch["x"][0, a] == a).all()
+    _, tfed, _ = _pair("adam", True)
+    seen = []
+
+    def check_synced(fed, state, r):
+        for x in tree_leaves(state["params"]):
+            assert torch.equal(x, x[:1, :1].expand_as(x))
+        seen.append(r)
+        return {"synced": 1.0}
+
+    launches = (fedavg_flat.launches, qsync_flat.launches)
+    result = RoundDriver(tfed, data, 2, log_every=0, eval_every=1,
+                         eval_hooks=(check_synced,)).run(seed=3)
+    assert seen == [0, 1] and [e["round"] for e in result.evals] == [0, 1]
+    assert len(result.history) == 2
+    assert all(np.isfinite(v) for m in result.history for v in m.values())
+    assert set(result.timings) == {"total_s", "steps_per_s", "round_gap_s",
+                                   "data_kind"}
+    assert result.timings["data_kind"] == "device"
+    # the intermediary's average of synced agents is what each agent holds
+    for m, x in zip(tree_leaves(tfed.averaged_params(result.state)),
+                    tree_leaves(result.state["params"])):
+        torch.testing.assert_close(m, x[0, 0], rtol=1e-6, atol=1e-7)
+    assert (fedavg_flat.launches, qsync_flat.launches) == launches
+
+
+def test_unported_paths_refuse_instead_of_falling_back():
+    """The composed coded sync, secure aggregation and DP-SGD wait for
+    their slices; asking for them raises instead of running something
+    else."""
+    _, tfed, _ = _pair("adam", True)
+    state = tfed.init_state(torch.Generator().manual_seed(0), device="cpu")
+    composed = dataclasses.replace(tfed, cfg=dataclasses.replace(
+        tfed.cfg, strategy=FedAvgSync(codec=IntQuant(8), fused_sync=False)))
+    batches = from_jax_params(_batches(np.random.default_rng(0)))
+    with pytest.raises(NotImplementedError, match="qpack"):
+        composed.round(state, batches)
+    with pytest.raises(NotImplementedError, match="qpack"):
+        IntQuant(8).roundtrip(torch.zeros(4))
+    for cfg in (dataclasses.replace(tfed.cfg, strategy=FedAvgSync(secure_agg=1)),
+                dataclasses.replace(tfed.cfg, dp=1)):
+        with pytest.raises(NotImplementedError):
+            cfg.validate()
+
+
+def test_train_cli_needs_a_gpu_unless_told_cpu():
+    """The entry point runs on the card by default and refuses to fall
+    back to the CPU; ``--device cpu`` runs there on purpose."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without a GPU")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--experiment", "image_acgan", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.experiment_spec("image_acgan")
+    result = train.main(["--experiment", "image_acgan", "--device", "cpu",
+                         "--K", "1", "--steps", "1", "--batch-size", "2",
+                         "--codec", "int8", "--log-every", "0"])
+    assert result.timings["data_kind"] == "device"
+    assert np.isfinite(result.history[0]["d_loss"])
+
+
+def test_profile_runs_rounds_and_reports_no_device_numbers_on_the_cpu():
+    """The profiling entry point drives real rounds; on the CPU it states
+    no device number."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without a GPU")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile.main(["--rounds", "1"])
+    out = profile.profile_rounds(codec_bits=8, rounds=1, device="cpu", K=1,
+                                 steps=1, batch_size=2)
+    assert out["device"] == "cpu" and out["rounds"] == 1 and out["K"] == 1
+    assert out["device_busy_share"] is None and out["device_ms_per_round"] is None
+    assert out["top_kernels"] == [] and out["ms_per_round"] > 0
+
+
+def test_convert_round_trips_the_reference_state():
+    jfed, _, _ = _pair("adam", True)
+    jstate = jax.device_get(jfed.init_state(jax.random.key(1)))
+    back = to_jax_params(from_jax_params(jstate))
+    for a, b in zip(jax.tree_util.tree_leaves(jstate), jax.tree_util.tree_leaves(back)):
+        assert np.asarray(a).dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), b)
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    """Importing every module of the port pulls in neither JAX nor the
+    reference package.  Run in a fresh interpreter: this process has both
+    loaded already."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 25

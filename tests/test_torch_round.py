@@ -1,0 +1,87 @@
+"""The port's FedGAN round against the JAX reference, on the CPU, at
+ACGAN width with 8x8 images, B = 5 agents, K = 2, batch 8.
+
+Round parity is checked one round at a time, each from the same state on
+both sides (round 1 from the reference's init, round 2 from the
+reference's round-1 state, EF residuals included), because the GAN's
+trajectory amplifies any difference: a ReLU whose pre-activation sits at
+float-noise distance from zero flips, and a few steps later the two runs
+disagree at the size of a learning-rate step.  Tolerances, with reasons:
+
+* SGD, plain sync: 1e-5 of each leaf's magnitude; float32 roundoff of two
+  steps through the library convolutions, then the eq. (2) reduce.
+* Adam, plain sync: 2·K·lr.  Adam scales every element's step to about lr
+  whatever its gradient's size, so an element whose gradient is float
+  noise (a bias feeding a batch norm has a true gradient of zero) takes a
+  ±lr step with the noise's sign, which the two packages need not share.
+* int8 sync: the above plus one quantum of the leaf's coarsest block, on
+  at most 2% of the elements: a value within roundoff of a rounding tie
+  may take the neighbouring code, and its EF residual then differs by one
+  quantum.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from torch_shared import GRID, K, _batches, _pair, one_torch_thread  # noqa: F401
+
+from repro_torch.convert import from_jax_params, to_jax_params
+from repro_torch.core import LocalOnly
+from repro_torch.tree import tree_leaves
+
+
+def _coarsest_quantum(tfed, state, batches):
+    """Per leaf, the quantum of its coarsest block on either wire: max|v| /
+    127 over the agents' uplink values y = pre-sync params + EF residual
+    (the same K steps without the sync, run by the port) and the synced
+    values, with 1% for the float16 rounding of the scale."""
+    local = dataclasses.replace(
+        tfed, cfg=dataclasses.replace(tfed.cfg, strategy=LocalOnly()))
+    pre, _ = local.round(state, batches)
+    ys = [p + e for p, e in zip(tree_leaves(pre["params"]), tree_leaves(state["ef"]))]
+    return [1.01 * float(y.abs().max()) / 127 for y in ys]
+
+
+@pytest.mark.parametrize("codec", [False, True], ids=["plain", "int8"])
+@pytest.mark.parametrize("opt", ["sgd", "adam"])
+def test_round_matches_jax(opt, codec):
+    jfed, tfed, lr = _pair(opt, codec)
+    rng = np.random.default_rng(0)
+    jstate = jfed.init_state(jax.random.key(0))
+    jround = jax.jit(jfed.round)
+    seeds = jnp.zeros((K,) + GRID, jnp.uint32)
+    for r in range(2):
+        batches = _batches(rng)
+        start = from_jax_params(jax.device_get(jstate))
+        tstate, tm = tfed.round(start, from_jax_params(batches))
+        quanta = (_coarsest_quantum(tfed, start, from_jax_params(batches))
+                  if codec else None)
+        jstate, jm = jround(jstate, jax.tree_util.tree_map(jnp.asarray, batches),
+                            seeds)
+        # the first step's losses come from the same weights and batch
+        for k in ("d_loss", "g_loss"):
+            np.testing.assert_allclose(tm[k][0].item(), float(jm[k][0]), rtol=1e-6)
+        want, got = jax.device_get(jstate), to_jax_params(tstate)
+        assert sorted(got) == sorted(want)
+        assert int(got["step"]) == int(want["step"]) == (r + 1) * K
+        leaves = lambda t: [np.asarray(x) for x in jax.tree_util.tree_leaves(t)]
+        for g in leaves(got["params"]):
+            assert (g == g[:1, :1]).all()   # every agent holds the synced value
+        over, total = 0, 0
+        for key in ("params", "ef") if codec else ("params",):
+            for i, (g, w) in enumerate(zip(leaves(got[key]), leaves(want[key]))):
+                tol = (1e-5 * max(1.0, float(np.abs(w).max())) if opt == "sgd"
+                       else 2 * K * lr)
+                diff = np.abs(g - w)
+                if codec:
+                    q = max(quanta[i], 1.01 * float(np.abs(w).max()) / 127
+                            if key == "params" else 0.0)
+                    assert np.all(diff <= tol + q), (key, i, float(diff.max()), q)
+                    over += int((diff > tol).sum())
+                    total += diff.size
+                else:
+                    assert np.all(diff <= tol), (key, i, float(diff.max()), tol)
+        assert over <= 0.02 * max(total, 1), (over, total)

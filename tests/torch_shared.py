@@ -1,0 +1,53 @@
+"""Shared set-up of the port's round and entry-point tests: the image
+experiment's nets at 8x8 in both packages, and one torch thread per test
+process (the tier-1 run puts several pytest workers on the same cores,
+where torch's default of one thread per core oversubscribes them)."""
+import jax  # noqa: F401  (the reference package below needs it loaded)
+import numpy as np
+import pytest
+import torch
+
+from repro.comm import IntQuant as JQuant
+from repro.core import FedGAN as JFedGAN, FedGANConfig as JConfig
+from repro.core.strategies import FedAvgSync as JSync
+from repro.launch.train import acgan_task as j_acgan_task
+from repro.optim import SGD as JSGD, Adam as JAdam, constant as jconst, \
+    equal_timescale as jequal
+
+from repro_torch.comm import IntQuant
+from repro_torch.core import FedAvgSync, FedGAN, FedGANConfig
+from repro_torch.launch import train
+from repro_torch.optim import SGD, Adam, constant, equal_timescale
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+K, GRID, BATCH, HW = 2, (1, 5), 8, 8
+OPTS = {"sgd": (JSGD, SGD, 0.05), "adam": (JAdam, Adam, 1e-3)}
+
+
+def _pair(opt, codec):
+    jopt, topt, lr = OPTS[opt]
+    jtask, _ = j_acgan_task(hw=HW)
+    ttask, _ = train.acgan_task(hw=HW)
+    jfed = JFedGAN(jtask, JConfig(agent_grid=GRID, sync_interval=K,
+                                  strategy=JSync(codec=JQuant(8)) if codec else None),
+                   opt_g=jopt(), opt_d=jopt(), scales=jequal(jconst(lr)))
+    tfed = FedGAN(ttask, FedGANConfig(agent_grid=GRID, sync_interval=K,
+                                      strategy=FedAvgSync(codec=IntQuant(8))
+                                      if codec else None),
+                  opt_g=topt(), opt_d=topt(), scales=equal_timescale(constant(lr)))
+    return jfed, tfed, lr
+
+
+def _batches(rng):
+    lead = (K,) + GRID + (BATCH,)
+    return {"x": rng.uniform(-1, 1, lead + (HW, HW, 3)).astype(np.float32),
+            "y": rng.integers(0, 10, lead).astype(np.int32),
+            "z": rng.standard_normal(lead + (62,)).astype(np.float32)}
