@@ -6,26 +6,39 @@
 Run from the root of a checkout on a machine with one CUDA card and the
 CUDA toolkit.  Phases, each of which fails the run when it fails:
 
-1. Build both kernels from ``src/repro_torch/csrc`` (one ``nvcc`` each, in
-   parallel) and print the card's name and power limit.
+1. Build the three kernel libraries from ``src/repro_torch/csrc`` (fedavg,
+   qsync, qpack; one ``nvcc`` each, in parallel) and print the card's name
+   and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it: the bucketed generator and discriminator
-   streams of the image experiment's ACGAN nets, B = 5 agents.  fedavg
-   within 1e-6 of sum_b |w_b x_bn| in float32 (the plain version's library
-   sum groups the B products in another order), one bfloat16 ulp more in
-   bfloat16; qsync at 8 and 4 bits, with and without error feedback,
-   bit-identical (both sum in agent order).  Time kernel, plain version
-   and (fedavg) the one PyTorch call that computes the same function, with
-   CUDA events, median of 20 L2-cold launches.
-3. Check one small round on the card against the same round on the CPU.
-4. Drive the main path, ``experiment_spec("image_acgan")`` at full width
-   (B = 5, K = 20, batch 64) for 3 rounds, once with the plain
-   ``FedAvgSync()`` and once with ``FedAvgSync(codec=IntQuant(8))`` (error
-   feedback on).  The kernel launch counters are set to 0 just before each
-   run and read just after it: the plain run must launch fedavg twice a
-   round (one launch per subtree), the int8 run qsync twice a round.
-   Losses and parameters must be finite and every agent must hold the
-   synced parameters after every round.
+   shapes the main path gives it.  fedavg and qsync at the bucketed
+   generator and discriminator streams of the image experiment's ACGAN
+   nets, B = 5 agents: fedavg within 1e-6 of sum_b |w_b x_bn| in float32
+   (the plain version's library sum groups the B products in another
+   order), one bfloat16 ulp more in bfloat16; qsync at 8 and 4 bits, with
+   and without error feedback, bit-identical (both sum in agent order).
+   The four qpack kernels bit-identical (elementwise): quant and dequant at
+   the largest ACGAN leaf, (5, 2,097,152) float32, at 8 and 4 bits; pack4
+   and unpack4 at that leaf's int4 codes after top-k 0.25, (5, 524,288);
+   every row holds an all-zero block, an overflowing block and a block of
+   exact .5 ties.  Time each kernel, its plain version and (fedavg) the one
+   PyTorch call that computes the same function, with CUDA events, median
+   of 20 L2-cold launches.
+3. Composed vs fused: from the full-width state after one int8 round with
+   error feedback, ``coded_sync`` of each subtree both ways, for
+   IntQuant(8) and IntQuant(4) with the residuals and the experiment's
+   weights: ``synced``, ``new_ef`` and ``new_ef_down`` bit-identical.  Then
+   one small round on the card against the same round on the CPU.
+4. Drive the main paths, ``experiment_spec("image_acgan")`` at full width
+   (B = 5, K = 20, batch 64) for 3 rounds each: ``FedAvgSync()``,
+   ``FedAvgSync(codec=IntQuant(8))`` (fused), ``FedAvgSync(codec=TopK(0.25)
+   + IntQuant(4))`` and ``FedAvgSync(codec=IntQuant(8), fused_sync=False)``
+   (composed), error feedback on.  Every kernel launch counter is set to 0
+   just before each run and read just after it, and must equal the count
+   the path implies: per round, the plain run one fedavg per subtree, the
+   fused run one qsync per subtree, the composed runs per float32 leaf one
+   fedavg and, per direction, one quant and one dequant (and for int4 one
+   pack4 and one unpack4).  Losses and parameters must be finite and every
+   agent must hold the synced parameters after every round.
 
 The second-to-last line is the kernels' record as one JSON object, the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -49,6 +62,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 peak outside the tensor cores
 B = 5                          # agents of the image experiment
 REPS = 20
+SPIN_CYCLES = 4_000_000        # about 2 ms at the H100's clocks
 
 
 class SmokeFailure(RuntimeError):
@@ -75,12 +89,17 @@ def card_line():
 def time_ms(torch, fn, flush):
     """Median milliseconds of ``fn`` over REPS launches on the current
     stream, each after overwriting ``flush`` (larger than the 50 MB L2) so
-    the inputs come from device memory, as they do after the local steps."""
+    the inputs come from device memory, as they do after the local steps.
+    A spin of about 2 ms is queued after the flush: the device is still
+    busy with it while the host records the start event and dispatches
+    ``fn``, so the events time the device's work and not the host's
+    dispatch."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(REPS):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -209,6 +228,143 @@ def check_qsync(torch, shapes, dev, flush):
     return record
 
 
+QPACK_LEAF = (B, 2_097_152)    # gen.fc2.w and disc.fc.w, the largest ACGAN leaves
+
+
+def same_bits(torch, a, b):
+    """Equal in every byte: a comparison that sees the sign of zero."""
+    return a.dtype == b.dtype and torch.equal(a.contiguous().view(torch.uint8),
+                                              b.contiguous().view(torch.uint8))
+
+
+def _planted(torch, gen, dev, shape, qmax, block=128):
+    """float32 of mixed magnitudes with, in every row, an all-zero block,
+    an overflowing block (max-abs / qmax beyond float16: the scale clamps
+    to 65504 and the codes clip) and a block of exact .5 ties (max-abs
+    qmax / 2 gives the scale 0.5; odd multiples of 0.25 sit halfway)."""
+    rows, n = shape
+    scale = torch.tensor([1e-3, 1.0, 30.0], device=dev)[
+        torch.randint(0, 3, shape, generator=gen, device=dev)]
+    x = 0.02 * torch.randn(shape, generator=gen, device=dev) * scale
+    x[:, :block] = 0.0
+    x[:, block:2 * block] = 1e7 * torch.randn((rows, block), generator=gen, device=dev)
+    odd = 2 * torch.randint(-qmax, qmax, (rows, block), generator=gen, device=dev) + 1
+    x[:, 2 * block:3 * block] = 0.25 * odd.float()
+    x[:, 2 * block] = qmax / 2
+    return x
+
+
+def check_qpack(torch, dev, flush):
+    """The four qpack kernels against their plain versions, bit for bit,
+    at the main path's shapes; one timing record each."""
+    from repro_torch.comm import TopK
+    from repro_torch.kernels.qpack import kernel as pk
+    from repro_torch.kernels.qpack import ref as pr
+    gen = torch.Generator(device=dev).manual_seed(5)
+    records = {}
+    R, N = QPACK_LEAF
+    for bits in (8, 4):
+        qmax = 2 ** (bits - 1) - 1
+        x = _planted(torch, gen, dev, QPACK_LEAF, qmax)
+        q, s = pk.quant_flat(x, qmax=qmax)
+        wq, ws = pr.quant_blocks_ref(x, qmax=qmax, block=128)
+        out = pk.dequant_flat(q, s)
+        want = pr.dequant_blocks_ref(q, s, block=128)
+        torch.cuda.synchronize()
+        check(bool((s[:, 0] == 0).all() & (s[:, 1] == 65504).all() & (s[:, 2] == 0.5).all()),
+              f"qpack int{bits}: the planted zero, overflow and tie blocks are not there")
+        check(same_bits(torch, q, wq) and same_bits(torch, s, ws),
+              f"quant int{bits} ({R}, {N}): codes or scales are not bit-identical "
+              f"({int((q != wq).sum())} codes, {int((s != ws).sum())} scales differ)")
+        check(same_bits(torch, out, want),
+              f"dequant int{bits} ({R}, {N}): not bit-identical "
+              f"(max {float((out - want).abs().max())})")
+        log(f"quant + dequant ({R}, {N}) int{bits}: bit-identical")
+        if bits == 8:
+            nbytes_q = R * N * 4 + R * N + R * (N // 128) * 2
+            ms = time_ms(torch, lambda: pk.quant_flat(x, qmax=qmax), flush)
+            plain = time_ms(torch, lambda: pr.quant_blocks_ref(x, qmax=qmax, block=128), flush)
+            b_ms, b_by = bound(nbytes_q, 6 * R * N)
+            records["quant"] = _record("quant", 37, ms, plain, b_ms, b_by)
+            ms = time_ms(torch, lambda: pk.dequant_flat(q, s), flush)
+            plain = time_ms(torch, lambda: pr.dequant_blocks_ref(q, s, block=128), flush)
+            b_ms, b_by = bound(nbytes_q, R * N)
+            records["dequant"] = _record("dequant", 48, ms, plain,
+                                         b_ms, b_by)
+        else:
+            # the int4 codes of the leaf's top-k 0.25 values, as the main
+            # path's uplink packs them
+            vals, _ = TopK(0.25).encode(x, batch_ndims=1)
+            k = vals.shape[1]
+            codes, _ = pk.quant_flat(vals.contiguous(), qmax=qmax)
+            p = pk.pack4_flat(codes)
+            back = pk.unpack4_flat(p)
+            torch.cuda.synchronize()
+            check(same_bits(torch, p, pr.pack4_ref(codes)),
+                  f"pack4 ({R}, {k}): not bit-identical")
+            check(torch.equal(back, codes) and torch.equal(back, pr.unpack4_ref(p)),
+                  f"unpack4 ({R}, {k // 2}): not bit-identical")
+            check(bool((codes == -qmax).any() & (codes == qmax).any()),
+                  "pack4: the codes do not reach both -7 and 7")
+            log(f"pack4 + unpack4 ({R}, {k}) int4: bit-identical")
+            nbytes_p = R * k + R * k // 2
+            ms = time_ms(torch, lambda: pk.pack4_flat(codes), flush)
+            plain = time_ms(torch, lambda: pr.pack4_ref(codes), flush)
+            b_ms, b_by = bound(nbytes_p, 4 * R * k // 2)
+            records["pack4"] = _record("pack4", 53, ms, plain, b_ms, b_by)
+            ms = time_ms(torch, lambda: pk.unpack4_flat(p), flush)
+            plain = time_ms(torch, lambda: pr.unpack4_ref(p), flush)
+            b_ms, b_by = bound(nbytes_p, 6 * R * k // 2)
+            records["unpack4"] = _record("unpack4", 61, ms, plain,
+                                         b_ms, b_by)
+    for r in records.values():
+        log(f"{r['name']} timing: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    try:
+        pk.quant_flat(x.t().contiguous().t(), qmax=127)
+    except ValueError:
+        pass
+    else:
+        raise SmokeFailure("quant took a non-contiguous CUDA tensor")
+    return [records[k] for k in ("quant", "dequant", "pack4", "unpack4")]
+
+
+def _record(name, line, ms, plain, b_ms, b_by):
+    return {"name": name, "route": "cuda", "source": "src/repro_torch/csrc/qpack.cu",
+            "replaces": f"src/repro/kernels/qpack/kernel.py:{line}",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
+def check_composed_vs_fused(torch, dev):
+    """From the full-width state after one int8 round with error feedback,
+    the coded sync of each subtree fused and composed, at 8 and 4 bits:
+    every output bit-identical."""
+    from repro_torch.comm import IntQuant
+    from repro_torch.core import FedAvgSync
+    from repro_torch.dist import collectives
+    from repro_torch.launch.train import experiment_spec
+    from repro_torch.tree import tree_leaves
+    spec = experiment_spec("image_acgan", steps=20, log_every=0, device=dev,
+                           strategy=FedAvgSync(codec=IntQuant(8)))
+    result = spec.run_result()
+    state, w = result.state, result.fed._w(dev)
+    for bits in (8, 4):
+        for k in ("gen", "disc"):
+            args = (state["params"][k], w, IntQuant(bits))
+            kw = {"ef": state["ef"][k], "ef_down": state["ef_down"][k]}
+            fused = collectives.coded_sync(*args, **kw, fused=True)
+            composed = collectives.coded_sync(*args, **kw, fused=False)
+            torch.cuda.synchronize()
+            for what, f, c in zip(("synced", "new_ef", "new_ef_down"), fused, composed):
+                for i, (a, b) in enumerate(zip(tree_leaves(f), tree_leaves(c))):
+                    check(same_bits(torch, a, b),
+                          f"composed vs fused int{bits} {k} leaf {i}: {what} differs "
+                          f"on {int((a != b).sum())} elements")
+        log(f"composed vs fused int{bits} + EF, full-width state after one round: "
+            f"bit-identical")
+
+
 def check_small_round(torch, dev):
     """One K = 2 round of the image experiment's nets at 8x8, SGD, from the
     same weights and batches on the card and on the CPU (the plain
@@ -255,12 +411,13 @@ def check_small_round(torch, dev):
         log(f"small round card vs CPU ({'int8' if codec else 'plain'}): agree")
 
 
-def run_main_path(torch, dev, strategy, label):
-    from repro_torch.kernels.fedavg.kernel import fedavg_flat
-    from repro_torch.kernels.qsync.kernel import qsync_flat
+def run_main_path(torch, dev, strategy, label, per_round):
+    """Three full-width rounds of ``image_acgan`` under ``strategy``, every
+    launch counter set to 0 just before and read just after.
+    ``per_round`` is the launches per round of each kernel the path runs;
+    every other kernel must launch no time."""
     from repro_torch.launch.train import experiment_spec
     from repro_torch.tree import tree_leaves
-    from repro_torch.core import FedAvgSync
     rounds, K = 3, 20
     # warm-up round: cuDNN's first calls pick algorithms; not counted
     experiment_spec("image_acgan", steps=K, strategy=strategy, log_every=0,
@@ -278,30 +435,37 @@ def run_main_path(torch, dev, strategy, label):
         return {}
 
     spec = dataclasses.replace(spec, eval_every=1, eval_hooks=(synced,))
-    fedavg_flat.launches = 0
-    qsync_flat.launches = 0
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
     result = spec.run_result()
     torch.cuda.synchronize()
-    counts = {"fedavg": fedavg_flat.launches, "qsync": qsync_flat.launches}
+    counts = {name: c.launches for name, c in counters.items()}
     check(len(mismatched) == rounds and not any(bool(m) for m in mismatched),
           f"{label}: agents do not hold identical params after a sync")
     check(all(torch.isfinite(torch.tensor(list(m.values()))).all()
               for m in result.history), f"{label}: non-finite losses")
     check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(result.state)
               if x.is_floating_point()), f"{label}: non-finite state")
-    coded = isinstance(strategy, FedAvgSync) and strategy.codec is not None
-    if coded:
-        check(counts["qsync"] == 2 * rounds,
-              f"{label}: qsync launched {counts['qsync']} times in {rounds} rounds")
-    else:
-        check(counts["fedavg"] >= 2 * rounds,
-              f"{label}: fedavg launched {counts['fedavg']} times in {rounds} rounds")
+    want = {name: rounds * per_round.get(name, 0) for name in counters}
+    check(counts == want, f"{label}: launches {counts} in {rounds} rounds, "
+                          f"expected {want}")
     t = result.timings
     log(f"main path {label}: {rounds} rounds x K={K}, B={B}, batch 64: "
         f"{t['steps_per_s']:.3f} steps/s, {t['total_s'] / rounds * 1e3:.1f} ms/round, "
         f"round gap {t['round_gap_s'] * 1e3:.2f} ms, launches {counts}, "
         f"last losses {result.history[-1]}")
     return counts, t
+
+
+def launch_counters():
+    """Every kernel wrapper of the port, by kernel name."""
+    from repro_torch.kernels.fedavg.kernel import fedavg_flat
+    from repro_torch.kernels.qpack import kernel as pk
+    from repro_torch.kernels.qsync.kernel import qsync_flat
+    return {"fedavg": fedavg_flat, "qsync": qsync_flat, "quant": pk.quant_flat,
+            "dequant": pk.dequant_flat, "pack4": pk.pack4_flat,
+            "unpack4": pk.unpack4_flat}
 
 
 def main() -> int:
@@ -316,30 +480,45 @@ def main() -> int:
         return 1
     sys.path.insert(0, SRC)
     import repro_torch  # noqa: F401  (turns TF32 off)
-    from repro_torch.comm import IntQuant
+    from repro_torch.comm import IntQuant, get_codec
     from repro_torch.core import FedAvgSync
     from repro_torch.kernels import _build
     dev = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    per_source = _build.build(["fedavg", "qsync"])
+    per_source = _build.build(["fedavg", "qsync", "qpack"])
     log(f"nvcc build: {time.perf_counter() - t0:.1f} s wall "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in per_source.items()) or 'cached'})")
 
     shapes = stream_shapes()
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
     records = [check_fedavg(torch, shapes, dev, flush),
-               check_qsync(torch, shapes, dev, flush)]
+               check_qsync(torch, shapes, dev, flush),
+               *check_qpack(torch, dev, flush)]
     del flush
+    check_composed_vs_fused(torch, dev)
     check_small_round(torch, dev)
 
-    plain_counts, _ = run_main_path(torch, dev, None, "FedAvgSync()")
+    L = sum(len(v) for v in shapes.values())   # float32 leaves of gen + disc
+    plain_counts, _ = run_main_path(torch, dev, None, "FedAvgSync()", {"fedavg": 2})
     int8_counts, _ = run_main_path(
         torch, dev, FedAvgSync(codec=IntQuant(bits=8), error_feedback=True),
-        "FedAvgSync(codec=IntQuant(8), error_feedback=True)")
+        "FedAvgSync(codec=IntQuant(8), error_feedback=True)", {"qsync": 2})
+    chain_counts, _ = run_main_path(
+        torch, dev, FedAvgSync(codec=get_codec("topk+int4", fraction=0.25),
+                               error_feedback=True),
+        "FedAvgSync(codec=TopK(0.25)+IntQuant(4), error_feedback=True)",
+        {"fedavg": L, "quant": 2 * L, "pack4": 2 * L, "unpack4": 2 * L,
+         "dequant": 2 * L})
+    run_main_path(
+        torch, dev, FedAvgSync(codec=IntQuant(bits=8), fused_sync=False),
+        "FedAvgSync(codec=IntQuant(8), fused_sync=False)",
+        {"fedavg": L, "quant": 2 * L, "dequant": 2 * L})
     records[0]["launches"] = plain_counts["fedavg"]
     records[1]["launches"] = int8_counts["qsync"]
+    for r in records[2:]:
+        r["launches"] = chain_counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card_line(), flush=True)

@@ -11,13 +11,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.tree import tree_map
 
 
-def from_jax_params(tree, device="cpu"):
+def from_jax_params(tree, device="cuda"):
     """A tree of numpy arrays (dicts, lists, tuples) -> the same tree of
-    tensors on ``device``, dtypes kept."""
-    return tree_map(lambda x: torch.from_numpy(np.array(x, copy=True)).to(device),
+    tensors on ``device``, dtypes kept.  The card by default, which raises
+    without a GPU; pass ``device="cpu"`` to convert onto the CPU."""
+    dev = resolve_device(device)
+    return tree_map(lambda x: torch.from_numpy(np.array(x, copy=True)).to(dev),
                     tree)
 
 

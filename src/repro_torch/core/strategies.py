@@ -12,9 +12,9 @@ A :class:`SyncStrategy` owns when, what and how agents sync, and its own
   ``bytes_per_round(cfg, params, opt=None)``
                                  per-agent send+receive wire bytes per round
 
-Ported: ``LocalOnly`` and ``FedAvgSync`` (plain and fused coded sync).
-Secure aggregation, robust reduces, participation subsampling and the
-other schedules are not ported yet.
+Ported: ``LocalOnly``, ``FedAvgSync`` (plain average, fused and composed
+coded sync) and ``PartialSharing``.  Secure aggregation, robust reduces,
+participation subsampling and the other schedules are not ported yet.
 """
 from __future__ import annotations
 
@@ -100,14 +100,18 @@ class FedAvgSync(SyncStrategy):
     """The paper's Algorithm 1 intermediary: K local steps, then a
     dataset-size-weighted parameter average of ``subtrees``.
 
-    ``codec`` (a ``repro_torch.comm.IntQuant``) ships both directions of
-    the sync block-quantized, through the fused qsync kernel; with
+    ``codec`` (a ``repro_torch.comm.Codec``: ``IntQuant``, ``TopK`` or a
+    ``Sequential`` chain) ships both directions of the sync encoded; with
     ``error_feedback`` each agent carries an uplink residual and the
-    intermediary a downlink residual.  ``fused_sync``: None or True run the
-    fused kernel (the only coded path ported); False asks for the composed
-    per-leaf pipeline and raises ``NotImplementedError``.
-    ``average_opt_state`` averages the optimizer moments of the synced
-    subtrees too.  ``secure_agg`` is not ported and raises."""
+    intermediary a downlink residual.  ``fused_sync`` picks the path of the
+    coded sync (the values are the same): None lets
+    ``collectives.coded_sync`` fuse the float32 leaves through the qsync
+    kernel when the codec has a ``fused_sync_spec``; False forces the
+    composed per-leaf pipeline (the qpack kernels around the fedavg
+    reduce); True requires the fused path and fails validation when the
+    codec cannot ride it.  ``average_opt_state`` averages the optimizer
+    moments of the synced subtrees too.  ``secure_agg`` is not ported and
+    raises."""
 
     average_opt_state: bool = False
     subtrees: tuple = ("gen", "disc")
@@ -132,7 +136,8 @@ class FedAvgSync(SyncStrategy):
             if self.codec.fused_sync_spec() is None:
                 raise ValueError(
                     f"fused_sync=True needs a codec with a fused_sync_spec; "
-                    f"{self.codec.name!r} cannot run the fused sync")
+                    f"{self.codec.name!r} reshapes the payload and can only "
+                    "run the composed per-leaf pipeline")
         if self.secure_agg is not None:
             raise NotImplementedError(
                 "secure_agg= (pairwise-masked sync) is not ported yet")
@@ -167,3 +172,32 @@ class FedAvgSync(SyncStrategy):
             wire += sum(collectives.sync_bytes(opt[_OPT_KEY[k]], codec=self.codec)
                         for k in self.subtrees if _OPT_KEY[k] in opt)
         return 2 * wire  # send + receive, once per round
+
+
+@dataclasses.dataclass(frozen=True)
+class PartialSharing(FedAvgSync):
+    """PS-FedGAN-style generator-only sharing (Wijesinghe et al. 2023):
+    the intermediary averages the ``gen`` subtree; every discriminator
+    stays local, adapted to its agent's data."""
+
+    subtrees: tuple = ("gen",)
+    name = "partial_sharing"
+
+
+# the strategies the port has; the reference's others are not ported yet
+STRATEGIES = {
+    "fedgan": FedAvgSync,
+    "local_only": LocalOnly,
+    "partial_sharing": PartialSharing,
+    "ps_fedgan": PartialSharing,
+}
+
+
+def get_strategy(name: str, **kwargs) -> SyncStrategy:
+    """Instantiate a ported strategy by name (the CLI entry point)."""
+    try:
+        cls = STRATEGIES[name]
+    except KeyError:
+        raise ValueError(f"unknown or unported strategy {name!r}; "
+                         f"ported: {sorted(STRATEGIES)}") from None
+    return cls(**kwargs)

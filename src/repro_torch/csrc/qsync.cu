@@ -25,15 +25,18 @@
 // which is what the fusion is for: the composed pipeline writes and re-reads
 // it.  The downlink re-quantize runs in the same block on the summed value.
 //
-// Numerics follow the reference exactly where it is elementwise: the scale
-// is __float2half_rn(fminf(amax / qmax, 65504)), a zero scale divides by 1,
-// codes round half to even (rintf, as jnp.round), division is IEEE (no fast
-// math), and every multiply and add is explicitly rounded (__fmul_rn,
-// __fadd_rn, __fsub_rn) so nothing is contracted into an FMA.  The plain
-// version sums the products in the same agent order, so every output is
-// bit-identical to it.
-#include <cuda_fp16.h>
+// Numerics follow the reference exactly where it is elementwise: the
+// quantizer's arithmetic is the one of csrc/qpack.cu, shared through
+// blockquant.cuh (f16 wire scale of amax / qmax, a zero scale divides by 1,
+// codes round half to even, IEEE division), and every multiply and add is
+// explicitly rounded (__fmul_rn, __fadd_rn, __fsub_rn) so nothing is
+// contracted into an FMA.  The plain version sums the products in the same
+// agent order, so every output is bit-identical to it, and so is the
+// composed coded sync on the card (qpack quantize / dequantize around the
+// fedavg reduce, which sums in the same order).
 #include <cuda_runtime.h>
+
+#include "blockquant.cuh"
 
 namespace {
 
@@ -51,15 +54,8 @@ __device__ __forceinline__ float block_max(float v, float* smem) {
   return r;
 }
 
-// The value both wire ends divide by: the f16 scale that ships, or 1 for a
-// block whose scale is zero.
-__device__ __forceinline__ float decode_scale(float amax, float qmax) {
-  const float s = __half2float(__float2half_rn(fminf(__fdiv_rn(amax, qmax), 65504.f)));
-  return s > 0.f ? s : 1.f;
-}
-
 __device__ __forceinline__ float roundtrip(float y, float s, float qmax) {
-  return __fmul_rn(fminf(fmaxf(rintf(__fdiv_rn(y, s)), -qmax), qmax), s);
+  return dequantize(quantize(y, s, qmax), s);
 }
 
 __global__ void qsync_kernel(const float* __restrict__ w, const float* __restrict__ x,
@@ -73,14 +69,14 @@ __global__ void qsync_kernel(const float* __restrict__ w, const float* __restric
     const long long i = (long long)b * N + col;
     float y = x[i];
     if (ef != nullptr) y = __fadd_rn(y, ef[i]);
-    const float s = decode_scale(block_max(fabsf(y), smem), qmax);
+    const float s = decode_scale(wire_scale(block_max(fabsf(y), smem), qmax));
     const float dq = roundtrip(y, s, qmax);
     if (new_ef != nullptr) new_ef[i] = __fsub_rn(y, dq);
     acc = __fadd_rn(acc, __fmul_rn(w[b], dq));
   }
   float yd = acc;
   if (ef_down != nullptr) yd = __fadd_rn(yd, ef_down[col]);
-  const float sd = decode_scale(block_max(fabsf(yd), smem), qmax);
+  const float sd = decode_scale(wire_scale(block_max(fabsf(yd), smem), qmax));
   const float dqd = roundtrip(yd, sd, qmax);
   synced[col] = dqd;
   if (new_ef_down != nullptr) new_ef_down[col] = __fsub_rn(yd, dqd);

@@ -2,11 +2,13 @@
 ``repro.dist.collectives``).
 
 FedGAN state is agent-stacked: every leaf carries a leading (P, A) grid.
-The eq. (2) weighted mean over that grid runs through the fedavg kernel;
-the compressed sync through the fused qsync kernel.  Both bucket a
-subtree's leaves into one (B, N) buffer first, so a subtree costs one
-launch however many leaves it has.  Results are broadcast back over the
-grid (eq. (3)) as expanded views.
+The eq. (2) weighted mean over that grid runs through the fedavg kernel.
+The coded sync runs either fused, through the qsync kernel, or composed,
+leaf by leaf through the codec (the qpack kernels) around the fedavg
+reduce.  The plain average and the fused sync bucket a subtree's leaves
+into one (B, N) buffer first, so a subtree costs one launch however many
+leaves it has.  Results are broadcast back over the grid (eq. (3)) as
+expanded views.
 """
 from __future__ import annotations
 
@@ -16,19 +18,17 @@ from repro_torch.kernels.fedavg.kernel import fedavg_flat
 from repro_torch.kernels.qsync import ops as qsync_ops
 from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
-QPACK_SLICE = ("the composed coded sync needs the qpack kernels "
-               "(quantize, dequantize, int4 pack), which the port has not "
-               "ported yet")
-
 
 def _inexact(x) -> bool:
     return x.is_floating_point() or x.is_complex()
 
 
 def weighted_mean(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """Weighted mean of one (P, A, ...) leaf over its leading grid."""
+    """Weighted mean of one (P, A, ...) leaf over its leading grid.  A
+    broadcast leaf (the synced params are expanded views) is copied to the
+    contiguous (B, N) the kernel takes."""
     B = weights.numel()
-    return fedavg_flat(weights, x.reshape(B, -1)).reshape(x.shape[2:])
+    return fedavg_flat(weights, x.reshape(B, -1).contiguous()).reshape(x.shape[2:])
 
 
 def _bucketed_mean(leaves, weights):
@@ -64,45 +64,56 @@ def average_agents(tree, weights):
 
 
 def coded_sync(tree, weights, codec, *, ef=None, ef_down=None, fused=None):
-    """The compressed intermediary sync of one subtree, fused path only:
-    every float32 leaf of the subtree rides one bucketed qsync launch
-    (uplink EF add, per-agent block quantize, weighted reduce, downlink
-    residual, re-quantize).  Integer leaves pass through.
+    """The compressed intermediary sync of one subtree.
+
+    Per inexact leaf: the agent adds its residual (``ef``), encodes through
+    ``codec`` (the uplink wire image; blocks and top-k never span agents),
+    the intermediary decodes and takes the weighted mean over (P, A), adds
+    its own residual (``ef_down``), re-encodes the mean (the downlink wire
+    image) and broadcasts it back.  Integer leaves pass through.
 
     Returns ``(synced, new_ef, new_ef_down)``; the residual trees are None
-    when the corresponding input residuals are None.  ``fused=False``, a
-    codec without a ``fused_sync_spec`` or a leaf the fused path cannot
-    take raises ``NotImplementedError``: the composed per-leaf pipeline
-    waits for the qpack kernels."""
+    when the corresponding input residuals are None.
+
+    ``fused``: None (the default) sends the float32 leaves through one
+    bucketed qsync launch when the codec has a ``fused_sync_spec``; False
+    runs every leaf through the composed pipeline (the codec's roundtrip,
+    i.e. the qpack kernels, around one fedavg launch per leaf); True
+    requires the fused path and raises ``ValueError`` for a codec without
+    a spec.  Leaves the fused kernel cannot take (not float32) fall back to
+    the composed pipeline leaf by leaf.  On the card both paths reduce in
+    agent order with the same roundings, so they agree bit for bit."""
     spec = codec.fused_sync_spec()
-    if fused is False or spec is None:
-        raise NotImplementedError(
-            f"coded_sync(fused={fused}, codec={codec.name!r}): {QPACK_SLICE}; "
-            "only the fused path (a codec with a fused_sync_spec) runs")
+    if fused is None:
+        fused = spec is not None
+    elif fused and spec is None:
+        raise ValueError(f"fused=True needs a codec with a fused_sync_spec "
+                         f"(got {codec.name!r})")
     leaves, treedef = tree_flatten(tree)
-    e_leaves = tree_leaves(ef) if ef is not None else None
-    ed_leaves = tree_leaves(ef_down) if ef_down is not None else None
-    fuse_idx = []
-    for i, x in enumerate(leaves):
-        if qsync_ops.fusable_leaf(x):
-            fuse_idx.append(i)
-        elif _inexact(x):
-            raise NotImplementedError(
-                f"leaf {i} ({x.dtype}, shape {tuple(x.shape)}) cannot ride "
-                f"the fused sync: {QPACK_SLICE}")
-    outs = list(leaves)
-    new_e = list(e_leaves) if ef is not None else None
-    new_ed = list(ed_leaves) if ef_down is not None else None
+    e_leaves = tree_leaves(ef) if ef is not None else [None] * len(leaves)
+    ed_leaves = tree_leaves(ef_down) if ef_down is not None else [None] * len(leaves)
+    outs, new_e, new_ed = list(leaves), list(e_leaves), list(ed_leaves)
+    fuse_idx = [i for i, x in enumerate(leaves)
+                if fused and qsync_ops.fusable_leaf(x)]
+    fuse_set = set(fuse_idx)
+    for i, (x, e, ed) in enumerate(zip(leaves, e_leaves, ed_leaves)):
+        if i in fuse_set or not _inexact(x):
+            continue
+        y = x + e if e is not None else x
+        q = codec.roundtrip(y, batch_ndims=2)            # uplink wire image
+        m = weighted_mean(q, weights)
+        yd = m + ed if ed is not None else m
+        qd = codec.roundtrip(yd)                         # downlink wire image
+        outs[i] = qd.to(x.dtype).expand(x.shape)
+        new_e[i] = y - q if e is not None else None
+        new_ed[i] = yd - qd if ed is not None else None
     if fuse_idx:
-        pick = lambda ls: [ls[i] for i in fuse_idx] if ls is not None else None
+        pick = lambda ls: [ls[i] for i in fuse_idx]
         f_out, f_ne, f_ned = qsync_ops.qsync_leaves(
-            pick(leaves), weights, pick(e_leaves), pick(ed_leaves), **spec)
+            pick(leaves), weights, pick(e_leaves) if ef is not None else None,
+            pick(ed_leaves) if ef_down is not None else None, **spec)
         for j, i in enumerate(fuse_idx):
-            outs[i] = f_out[j]
-            if new_e is not None:
-                new_e[i] = f_ne[j]
-            if new_ed is not None:
-                new_ed[i] = f_ned[j]
+            outs[i], new_e[i], new_ed[i] = f_out[j], f_ne[j], f_ned[j]
     return (tree_unflatten(treedef, outs),
             tree_unflatten(treedef, new_e) if ef is not None else None,
             tree_unflatten(treedef, new_ed) if ef_down is not None else None)

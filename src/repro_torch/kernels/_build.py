@@ -6,9 +6,10 @@ into a shared library with a plain C interface, at first use, into
 that does not include PyTorch's headers builds in seconds, where
 ``torch.utils.cpp_extension.load`` takes minutes.
 
-The library name carries a digest of the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded.  Sources
-that need building are compiled in parallel, one ``nvcc`` each.
+The library name carries a digest of the source, of every header under
+``csrc/`` (``*.cuh``, which a source may include) and of the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+Sources that need building are compiled in parallel, one ``nvcc`` each.
 
 No ``--use_fast_math``: the quantizer divides (``rint(y / s)``), and an
 approximate division moves codes that sit at .5 ties.
@@ -48,10 +49,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict:

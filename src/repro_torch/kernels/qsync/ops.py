@@ -15,14 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.qpack.ops import _check
 from repro_torch.kernels.qsync import kernel
-
-
-def _check(bits: int, block: int):
-    if bits not in (4, 8):
-        raise ValueError(f"bits must be 4 or 8, got {bits}")
-    if block < 2 or block % 2:
-        raise ValueError(f"block must be even and >= 2, got {block}")
 
 
 def qsync_flat(weights, stacked, ef=None, ef_down=None, *, bits: int = 8,

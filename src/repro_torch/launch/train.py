@@ -5,7 +5,11 @@ card unless told otherwise:
 
   PYTHONPATH=src python -m repro_torch.launch.train --experiment image_acgan
   PYTHONPATH=src python -m repro_torch.launch.train --experiment image_acgan \
-      --codec int8 --steps 60          # int8 sync wire + error feedback
+      --codec int8 --steps 60          # int8 sync wire + error feedback (fused)
+  PYTHONPATH=src python -m repro_torch.launch.train --experiment image_acgan \
+      --codec int4 --topk 0.25         # top-k then int4: the composed sync
+  PYTHONPATH=src python -m repro_torch.launch.train --experiment image_acgan \
+      --strategy partial_sharing --codec int8   # generator-only sync
   PYTHONPATH=src python -m repro_torch.launch.train --experiment image_acgan \
       --device cpu --steps 20
 
@@ -21,9 +25,9 @@ from typing import Any
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.comm import IntQuant
+from repro_torch.comm import codec_from_flags
 from repro_torch.core import ACGAN, FedAvgSync, FedGAN, FedGANConfig, GANTask, \
-    make_gan_task
+    make_gan_task, strategies
 from repro_torch.data import DeviceFederatedData, synthetic
 from repro_torch.optim import Adam, constant, constant_ttur, equal_timescale
 
@@ -136,9 +140,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="local steps per round (0 = experiment default)")
     ap.add_argument("--steps", type=int, default=0,
                     help="total local steps (0 = experiment default)")
-    ap.add_argument("--codec", default="", choices=["", "int8", "int4"],
-                    help="quantized sync wire with error feedback, through "
-                         "the fused qsync kernel")
+    ap.add_argument("--strategy", default="",
+                    choices=[""] + sorted(strategies.STRATEGIES))
+    ap.add_argument("--codec", default="",
+                    help="wire codec spec for the compressed sync "
+                         "(repro_torch.comm): int8 | int4 | topk | chains "
+                         "like topk+int8; error feedback on")
+    ap.add_argument("--codec-bits", type=int, default=0, choices=[0, 4, 8],
+                    help="quantizer bits; retunes (or appends) the codec's "
+                         "quantizer stage")
+    ap.add_argument("--topk", type=float, default=0.0,
+                    help="top-k sparsification fraction; retunes (or "
+                         "prepends) the codec's sparsifier stage")
+    ap.add_argument("--average-opt-state", action="store_true",
+                    help="FedAvg the optimizer moments along with the params")
     ap.add_argument("--batch-size", type=int, default=0,
                     help="per-agent minibatch size (0 = experiment default)")
     ap.add_argument("--log-every", type=int, default=-1,
@@ -149,10 +164,32 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def strategy_from_args(args) -> strategies.SyncStrategy | None:
+    """CLI flags -> SyncStrategy (None keeps the default ``FedAvgSync()``).
+    A knob the chosen strategy does not declare is an error, not a silent
+    no-op.  A bare ``--codec`` or ``--average-opt-state`` implies the
+    ``fedgan`` strategy."""
+    codec = codec_from_flags(args.codec, bits=args.codec_bits, topk=args.topk)
+    if not (args.strategy or codec is not None or args.average_opt_state):
+        return None
+    cls = strategies.STRATEGIES[args.strategy] if args.strategy else FedAvgSync
+    fields = {f.name for f in dataclasses.fields(cls)}
+    requested = {}
+    if codec is not None:
+        requested["codec"] = codec
+    if args.average_opt_state:
+        requested["average_opt_state"] = True
+    stray = sorted(set(requested) - fields)
+    if stray:
+        name = args.strategy or "fedgan (implied by --codec)"
+        raise ValueError(f"--strategy {name} does not accept {stray} "
+                         f"(its knobs: {sorted(fields)})")
+    return cls(**requested)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    strategy = (FedAvgSync(codec=IntQuant(bits=int(args.codec[3:])))
-                if args.codec else None)
+    strategy = strategy_from_args(args)
     spec = experiment_spec(
         args.experiment, K=args.K or None, steps=args.steps or None,
         strategy=strategy, batch_size=args.batch_size or None,

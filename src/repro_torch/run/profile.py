@@ -3,6 +3,10 @@
 
     PYTHONPATH=src python -m repro_torch.run.profile --experiment image_acgan
     PYTHONPATH=src python -m repro_torch.run.profile --experiment image_acgan --codec int8
+    PYTHONPATH=src python -m repro_torch.run.profile --experiment image_acgan \
+        --codec int4 --topk 0.25             # the composed coded sync
+    PYTHONPATH=src python -m repro_torch.run.profile --experiment image_acgan \
+        --codec int8 --composed              # int8, fused_sync=False
 
 One warm-up round, then ``--rounds`` rounds timed on the host clock
 without the profiler, then the same number under it (CPU and CUDA
@@ -11,7 +15,9 @@ without the profiler, the device busy share (the summed time of the
 device kernels over the profiled wall time; one stream, so kernels do not
 overlap), that time split into convolutions and matrix products, the sync
 kernels and everything else, and the kernels that take the most device
-time.  On the CPU the device numbers are null.
+time.  The sync kernels are fedavg, qsync and the four qpack kernels; the
+top-k selection's sort and the composed path's small PyTorch operations
+count as everything else.  On the CPU the device numbers are null.
 """
 from __future__ import annotations
 
@@ -22,12 +28,12 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.comm import IntQuant
+from repro_torch.comm import codec_from_flags
 from repro_torch.core import FedAvgSync
 from repro_torch.data.federated import round_key_schedule
 from repro_torch.launch.train import experiment_spec
 
-SYNC_KERNELS = ("fedavg_kernel", "qsync_kernel")
+SYNC_KERNELS = ("fedavg_kernel", "qsync_kernel", "qpack_")
 MATMUL_MARKS = ("conv", "gemm", "xmma", "cudnn", "cutlass", "wgrad", "dgrad")
 
 
@@ -40,9 +46,13 @@ def _category(name: str) -> str:
     return "other"
 
 
-def profile_rounds(name="image_acgan", *, codec_bits=0, rounds=2, top=12,
-                   device="cuda", **spec_kw) -> dict:
-    strategy = FedAvgSync(codec=IntQuant(bits=codec_bits)) if codec_bits else None
+def profile_rounds(name="image_acgan", *, codec="", topk=0.0, composed=False,
+                   rounds=2, top=12, device="cuda", **spec_kw) -> dict:
+    """``codec`` and ``topk`` as the training CLI's flags (error feedback
+    on); ``composed`` forces the per-leaf pipeline (``fused_sync=False``)."""
+    c = codec_from_flags(codec, topk=topk)
+    strategy = (FedAvgSync(codec=c, fused_sync=False if composed else None)
+                if c is not None else None)
     spec = experiment_spec(name, strategy=strategy, log_every=0, device=device,
                            **spec_kw)
     dev = torch.device(spec.device)
@@ -73,7 +83,9 @@ def profile_rounds(name="image_acgan", *, codec_bits=0, rounds=2, top=12,
         split[_category(e.key)] += e.self_device_time_total / 1e3 / rounds
     on_card = dev.type == "cuda"
     return {
-        "experiment": name, "codec_bits": codec_bits, "rounds": rounds,
+        "experiment": name, "codec": c.name if c is not None else None,
+        "fused_sync": None if c is None else not composed and c.fused_sync_spec() is not None,
+        "rounds": rounds,
         "K": spec.K, "agents": fed.cfg.num_agents, "batch": spec.batch_size,
         "device": torch.cuda.get_device_name(dev) if on_card else "cpu",
         "ms_per_round": plain_ms, "ms_per_round_profiled": profiled_ms,
@@ -88,12 +100,18 @@ def profile_rounds(name="image_acgan", *, codec_bits=0, rounds=2, top=12,
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.run.profile")
     ap.add_argument("--experiment", default="image_acgan", choices=["image_acgan"])
-    ap.add_argument("--codec", default="", choices=["", "int8", "int4"])
+    ap.add_argument("--codec", default="",
+                    help="wire codec spec, as the training CLI's --codec")
+    ap.add_argument("--topk", type=float, default=0.0,
+                    help="top-k fraction, as the training CLI's --topk")
+    ap.add_argument("--composed", action="store_true",
+                    help="the composed per-leaf coded sync (fused_sync=False)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    out = profile_rounds(args.experiment, codec_bits=int(args.codec[3:] or 0),
-                         rounds=args.rounds, device=args.device)
+    out = profile_rounds(args.experiment, codec=args.codec, topk=args.topk,
+                         composed=args.composed, rounds=args.rounds,
+                         device=args.device)
     print(json.dumps(out))
     return out
 

@@ -11,15 +11,21 @@ Tolerances, with their reasons: fedavg float32 within 1e-6 of
 sum_b |w_b x_bn| (another summation order of B products), bfloat16 one
 bfloat16 ulp more (the f32 sum may round to the neighbouring bfloat16);
 qsync bit-identical in every output (kernel and plain version both sum
-the rounded products in agent order and round every step alike).
+the rounded products in agent order and round every step alike); the four
+qpack kernels bit-identical (elementwise, the block max-abs is exact in
+any order); the composed coded sync bit-identical to the fused one (both
+reduce in agent order with the same roundings).
 """
 import pytest
 import torch
 
-from repro_torch.comm import IntQuant
+from repro_torch.comm import IntQuant, get_codec
 from repro_torch.core import FedAvgSync
+from repro_torch.dist import collectives
 from repro_torch.kernels.fedavg.kernel import fedavg_flat
 from repro_torch.kernels.fedavg.ref import fedavg_flat_ref
+from repro_torch.kernels.qpack import kernel as pkernel
+from repro_torch.kernels.qpack import ref as pref
 from repro_torch.kernels.qsync import kernel as qkernel
 from repro_torch.kernels.qsync.ref import qsync_flat_ref
 from repro_torch.launch.train import experiment_spec
@@ -101,5 +107,99 @@ def test_round_on_card_runs_through_the_kernels(cuda, codec):
     torch.cuda.synchronize()
     assert counter.launches - before == 2   # one per subtree (gen, disc)
     for x in tree_leaves(result.state["params"]):
+        assert bool(torch.isfinite(x).all())
+        assert torch.equal(x, x[:1, :1].expand_as(x))
+
+
+def _bits(t):
+    """The tensor's bytes, for comparisons that see the sign of zero."""
+    return t.contiguous().view(torch.uint8)
+
+
+def _planted(gen, dev, rows, n, qmax, block=128):
+    """(rows, n) float32 of mixed magnitudes with an all-zero block, an
+    overflowing block (the scale clamps to 65504) and a block of exact .5
+    ties (max-abs qmax / 2 gives the scale 0.5) in every row."""
+    scale = torch.tensor([1e-3, 1.0, 30.0], device=dev)[
+        torch.randint(0, 3, (rows, n), generator=gen, device=dev)]
+    x = torch.randn((rows, n), generator=gen, device=dev) * scale
+    x[:, :block] = 0.0
+    x[:, block:2 * block] *= 1e7
+    odd = 2 * torch.randint(-qmax, qmax, (rows, block), generator=gen, device=dev) + 1
+    x[:, 2 * block:3 * block] = 0.25 * odd.float()
+    x[:, 2 * block] = qmax / 2
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("block", [128, 6])
+def test_qpack_kernels_match_plain(cuda, bits, block):
+    g = torch.Generator(device=cuda).manual_seed(bits + block)
+    qmax = 2 ** (bits - 1) - 1
+    x = _planted(g, cuda, 3, block * 401, qmax, block)
+    counters = (pkernel.quant_flat, pkernel.dequant_flat, pkernel.pack4_flat,
+                pkernel.unpack4_flat)
+    before = [f.launches for f in counters]
+    q, s = pkernel.quant_flat(x, qmax=qmax, block=block)
+    out = pkernel.dequant_flat(q, s, block=block)
+    q4 = q if bits == 4 else q.clamp(-7, 7)   # nibbles hold codes in [-7, 7]
+    p = pkernel.pack4_flat(q4)
+    back = pkernel.unpack4_flat(p)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 1]
+    wq, ws = pref.quant_blocks_ref(x, qmax=qmax, block=block)
+    assert torch.equal(_bits(q), _bits(wq)) and torch.equal(_bits(s), _bits(ws))
+    assert torch.equal(_bits(out), _bits(pref.dequant_blocks_ref(q, s, block=block)))
+    assert torch.equal(_bits(p), _bits(pref.pack4_ref(q4)))
+    assert torch.equal(back, q4) and torch.equal(back, pref.unpack4_ref(p))
+    with pytest.raises(ValueError, match="contiguous"):
+        pkernel.quant_flat(x.t().contiguous().t(), qmax=qmax, block=block)
+    with pytest.raises(ValueError, match="CUDA device"):
+        pkernel.dequant_flat(q, s.cpu(), block=block)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+def test_composed_sync_matches_fused_bit_for_bit(cuda, bits):
+    """Both paths reduce in agent order with the same roundings and decode
+    a code of 0 to +0, so every output agrees in every bit."""
+    g = torch.Generator(device=cuda).manual_seed(10 + bits)
+    w = _weights(g, cuda)
+    shapes = [(3, 50), (129,), (4, 4, 2, 8), (1,), (1000,)]
+    tree = {str(i): 0.05 * torch.randn((1, 5) + s, generator=g, device=cuda)
+            for i, s in enumerate(shapes)}
+    ef = {k: 1e-3 * torch.randn(v.shape, generator=g, device=cuda) for k, v in tree.items()}
+    ed = {k: 1e-3 * torch.randn(v.shape[2:], generator=g, device=cuda)
+          for k, v in tree.items()}
+    codec = IntQuant(bits)
+    fused = collectives.coded_sync(tree, w, codec, ef=ef, ef_down=ed, fused=True)
+    before = (pkernel.quant_flat.launches, fedavg_flat.launches)
+    composed = collectives.coded_sync(tree, w, codec, ef=ef, ef_down=ed, fused=False)
+    torch.cuda.synchronize()
+    assert (pkernel.quant_flat.launches - before[0],
+            fedavg_flat.launches - before[1]) == (2 * len(shapes), len(shapes))
+    for f, c in zip(fused, composed):
+        for k in tree:
+            assert torch.equal(_bits(f[k]), _bits(c[k])), k
+
+
+@pytest.mark.cuda
+def test_composed_round_on_card_runs_through_the_qpack_kernels(cuda):
+    """One ACGAN round at full width under top-k then int4: per f32 leaf
+    and direction one quant, pack4, unpack4 and dequant, and one fedavg per
+    leaf; no fused sync."""
+    strategy = FedAvgSync(codec=get_codec("topk+int4", fraction=0.25))
+    spec = experiment_spec("image_acgan", K=2, steps=2, strategy=strategy,
+                           log_every=0, device=cuda)
+    counters = (pkernel.quant_flat, pkernel.pack4_flat, pkernel.unpack4_flat,
+                pkernel.dequant_flat, fedavg_flat, qkernel.qsync_flat)
+    before = [f.launches for f in counters]
+    result = spec.run_result()
+    torch.cuda.synchronize()
+    leaves = [x for x in tree_leaves(result.state["params"]) if x.dtype == torch.float32]
+    L = len(leaves)
+    assert [f.launches - b for f, b in zip(counters, before)] == [2 * L] * 4 + [L, 0]
+    for x in leaves:
         assert bool(torch.isfinite(x).all())
         assert torch.equal(x, x[:1, :1].expand_as(x))

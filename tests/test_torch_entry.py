@@ -12,9 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_shared import BATCH, GRID, HW, _batches, _pair, one_torch_thread  # noqa: F401
+from torch_shared import BATCH, GRID, HW, _pair, one_torch_thread  # noqa: F401
 
-from repro_torch.comm import IntQuant
 from repro_torch.convert import from_jax_params, to_jax_params
 from repro_torch.core import FedAvgSync
 from repro_torch.data import DeviceFederatedData
@@ -33,7 +32,7 @@ def test_comm_bytes_per_round_match_jax():
     for codec in (False, True):
         jfed, tfed, _ = _pair("adam", codec)
         jstate = jfed.init_state(jax.random.key(0))
-        tstate = from_jax_params(jax.device_get(jstate))
+        tstate = from_jax_params(jax.device_get(jstate), device="cpu")
         assert tfed.comm_bytes_per_round(tstate) == jfed.comm_bytes_per_round(jstate)
 
 
@@ -79,18 +78,9 @@ def test_driver_runs_device_data_and_keeps_agents_synced():
 
 
 def test_unported_paths_refuse_instead_of_falling_back():
-    """The composed coded sync, secure aggregation and DP-SGD wait for
-    their slices; asking for them raises instead of running something
-    else."""
+    """Secure aggregation and DP-SGD wait for their slice; asking for them
+    raises instead of running something else."""
     _, tfed, _ = _pair("adam", True)
-    state = tfed.init_state(torch.Generator().manual_seed(0), device="cpu")
-    composed = dataclasses.replace(tfed, cfg=dataclasses.replace(
-        tfed.cfg, strategy=FedAvgSync(codec=IntQuant(8), fused_sync=False)))
-    batches = from_jax_params(_batches(np.random.default_rng(0)))
-    with pytest.raises(NotImplementedError, match="qpack"):
-        composed.round(state, batches)
-    with pytest.raises(NotImplementedError, match="qpack"):
-        IntQuant(8).roundtrip(torch.zeros(4))
     for cfg in (dataclasses.replace(tfed.cfg, strategy=FedAvgSync(secure_agg=1)),
                 dataclasses.replace(tfed.cfg, dp=1)):
         with pytest.raises(NotImplementedError):
@@ -113,6 +103,25 @@ def test_train_cli_needs_a_gpu_unless_told_cpu():
     assert np.isfinite(result.history[0]["d_loss"])
 
 
+@pytest.mark.parametrize("flags", [["--codec", "int4", "--topk", "0.25"],
+                                   ["--strategy", "partial_sharing", "--codec", "int8"]],
+                         ids=["topk_int4", "partial_sharing"])
+def test_train_cli_runs_the_slice_two_syncs(flags):
+    """The composed coded sync and generator-only sharing through the
+    training CLI: on the card by default, refused without one, run on the
+    CPU when asked."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without a GPU")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--experiment", "image_acgan", "--steps", "1", *flags])
+    result = train.main(["--experiment", "image_acgan", "--device", "cpu", "--K", "1",
+                         "--steps", "1", "--batch-size", "2", "--log-every", "0", *flags])
+    assert np.isfinite(result.history[0]["d_loss"])
+    for x in tree_leaves(result.state["params"]["gen"]):
+        assert torch.equal(x, x[:1, :1].expand_as(x))
+    assert sorted(result.state["ef"]) == sorted(result.fed.cfg.strategy.subtrees)
+
+
 def test_profile_runs_rounds_and_reports_no_device_numbers_on_the_cpu():
     """The profiling entry point drives real rounds; on the CPU it states
     no device number."""
@@ -120,17 +129,32 @@ def test_profile_runs_rounds_and_reports_no_device_numbers_on_the_cpu():
         pytest.skip("checks the behaviour of a machine without a GPU")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profile.main(["--rounds", "1"])
-    out = profile.profile_rounds(codec_bits=8, rounds=1, device="cpu", K=1,
+    out = profile.profile_rounds(codec="int8", rounds=1, device="cpu", K=1,
                                  steps=1, batch_size=2)
     assert out["device"] == "cpu" and out["rounds"] == 1 and out["K"] == 1
+    assert out["codec"] == "int8" and out["fused_sync"] is True
+    out = profile.profile_rounds(codec="int4", topk=0.25, rounds=1, device="cpu",
+                                 K=1, steps=1, batch_size=2)
+    assert out["codec"] == "topk+int4" and out["fused_sync"] is False
     assert out["device_busy_share"] is None and out["device_ms_per_round"] is None
     assert out["top_kernels"] == [] and out["ms_per_round"] > 0
+
+
+def test_from_jax_params_defaults_to_the_card():
+    """The converter puts the reference's weights on the card unless told
+    the CPU, and refuses to fall back to the CPU without a GPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without a GPU")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_jax_params({"w": np.zeros(3, np.float32)})
+    assert from_jax_params({"w": np.zeros(3, np.float32)},
+                           device="cpu")["w"].device.type == "cpu"
 
 
 def test_convert_round_trips_the_reference_state():
     jfed, _, _ = _pair("adam", True)
     jstate = jax.device_get(jfed.init_state(jax.random.key(1)))
-    back = to_jax_params(from_jax_params(jstate))
+    back = to_jax_params(from_jax_params(jstate, device="cpu"))
     for a, b in zip(jax.tree_util.tree_leaves(jstate), jax.tree_util.tree_leaves(back)):
         assert np.asarray(a).dtype == b.dtype
         np.testing.assert_array_equal(np.asarray(a), b)

@@ -54,7 +54,7 @@ def _parity(jmod, tmod, inputs, *, seed=0):
     """Forward and gradient (of sum(out * r) wrt params and the float
     inputs) of a JAX module and its port on the same weights."""
     jparams = jmod.init(jax.random.key(seed))
-    tparams = from_jax_params(jax.device_get(jparams))
+    tparams = from_jax_params(jax.device_get(jparams), device="cpu")
     rng = np.random.default_rng(seed + 1)
     jout = jax.jit(jmod.apply)(jparams, *[jnp.asarray(x) for x in inputs])
     touts = tmod.apply(tparams, *[torch.from_numpy(x) for x in inputs])
@@ -153,7 +153,7 @@ def test_optimizer_matches_jitted_jax(make):
     rng = np.random.default_rng(7)
     params = {"a": rng.standard_normal((4, 3)).astype(np.float32),
               "b": {"c": rng.standard_normal(5).astype(np.float32)}}
-    jp, tp = jax.tree_util.tree_map(jnp.asarray, params), from_jax_params(params)
+    jp, tp = jax.tree_util.tree_map(jnp.asarray, params), from_jax_params(params, device="cpu")
     js, ts = jopt.init(jp), topt.init(tp)
     jupd = jax.jit(jopt.update)
     for i in range(3):
@@ -161,7 +161,7 @@ def test_optimizer_matches_jitted_jax(make):
             lambda x: rng.standard_normal(x.shape).astype(np.float32), params)
         lr = np.float32(1e-2 * (i + 1))
         jp, js = jupd(jp, jax.tree_util.tree_map(jnp.asarray, g), js, lr)
-        tp, ts = topt.update(tp, from_jax_params(g), ts, torch.tensor(lr))
+        tp, ts = topt.update(tp, from_jax_params(g, device="cpu"), ts, torch.tensor(lr))
     _assert_tree_close(tp, jp, atol=0.0, rtol=1e-6)
     _assert_tree_close(ts, js, atol=0.0, rtol=1e-6)
 
@@ -174,7 +174,7 @@ def test_clip_by_global_norm_matches_jax(scale):
     grads = {"a": scale * rng.standard_normal((4, 3)).astype(np.float32),
              "b": scale * rng.standard_normal(5).astype(np.float32)}
     jg, jn = joptim.clip_by_global_norm(jax.tree_util.tree_map(jnp.asarray, grads), 1.0)
-    tg, tn = toptim.clip_by_global_norm(from_jax_params(grads), 1.0)
+    tg, tn = toptim.clip_by_global_norm(from_jax_params(grads, device="cpu"), 1.0)
     np.testing.assert_allclose(tn.item(), float(jn), rtol=1e-6)
     _assert_tree_close(tg, jg, atol=0.0, rtol=1e-6)
 

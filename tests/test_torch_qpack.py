@@ -1,0 +1,169 @@
+"""The port's qpack ops and wrappers against the JAX reference, on the
+CPU (the CUDA kernels against their plain versions on the card are in
+``test_torch_cuda.py``).
+
+Every output here is elementwise (a block's max-abs is exact in any
+order), so everything must be bit-identical: codes, f16 scales, packed
+nibbles and decoded values.  The reference runs both through its Pallas
+kernels in interpret mode and through its jnp oracle.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+from torch_shared import one_torch_thread  # noqa: F401
+
+from repro.kernels.qpack import ops as jops
+from repro.kernels.qpack import ref as jref
+
+from repro_torch.kernels.qpack import kernel as tkernel
+from repro_torch.kernels.qpack import ops as tops
+from repro_torch.kernels.qpack import ref as tref
+
+
+def qpack_stream(rng, lead, n, block, bits):
+    """float32 (*lead, n) of mixed magnitudes with, in every row, an
+    all-zero block, an overflowing block (max-abs / qmax beyond float16's
+    range: the scale clamps to 65504 and the codes clip) and a block of
+    exact .5 ties (max-abs qmax / 2 gives the scale 0.5, and entries at
+    odd multiples of 0.25 sit halfway between two codes)."""
+    qmax = 2 ** (bits - 1) - 1
+    x = (rng.standard_normal(lead + (n,))
+         * rng.choice([1e-3, 1.0, 30.0], lead + (n,))).astype(np.float32)
+    if n >= 3 * block:
+        x[..., :block] = 0.0
+        x[..., block:2 * block] *= 1e7
+        ties = 0.25 * (2 * rng.integers(-qmax, qmax, lead + (block,)) + 1)
+        ties[..., 0] = qmax / 2
+        x[..., 2 * block:3 * block] = ties
+    return x
+
+
+def _np(t):
+    return t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _assert_bits_equal(got, want):
+    got, want = _np(got), _np(want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(np.atleast_1d(got).view(np.uint8),
+                                  np.atleast_1d(want).view(np.uint8))
+
+
+CASES = [(8, 128, 1000), (4, 128, 1000), (8, 6, 100), (4, 6, 100), (4, 2, 33)]
+
+
+@pytest.mark.parametrize("bits,block,n", CASES)
+@pytest.mark.parametrize("jax_kernel", [False, True], ids=["jnp-ref", "pallas-interpret"])
+def test_qpack_ops_match_jax_bit_for_bit(bits, block, n, jax_kernel):
+    """quantize, dequantize and roundtrip through the port's ops (pad to
+    the block multiple, kernel or plain version, trim) against the
+    reference's, on a (2, 3) batch of streams whose length is not a block
+    multiple."""
+    x = qpack_stream(np.random.default_rng(bits + n), (2, 3), n, block, bits)
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    jp, js = jops.quantize_blocks(jx, bits=bits, block=block, use_kernel=jax_kernel)
+    tp, ts = tops.quantize_blocks(tx, bits=bits, block=block)
+    _assert_bits_equal(tp, jp)
+    _assert_bits_equal(ts, js)
+    _assert_bits_equal(
+        tops.dequantize_blocks(tp, ts, n=n, bits=bits, block=block),
+        jops.dequantize_blocks(jp, js, n=n, bits=bits, block=block,
+                               use_kernel=jax_kernel))
+    _assert_bits_equal(
+        tops.roundtrip_blocks(tx, bits=bits, block=block),
+        jops.roundtrip_blocks(jx, bits=bits, block=block, use_kernel=jax_kernel))
+
+
+def test_planted_blocks_decode_as_the_reference_says():
+    """The planted cases do what they are for: the zero block decodes to
+    exact zeros, the overflowing block clips at 65504 * qmax, and the tie
+    block rounds half to even."""
+    for bits in (4, 8):
+        qmax = 2 ** (bits - 1) - 1
+        x = qpack_stream(np.random.default_rng(bits), (1,), 512, 128, bits)
+        q, s = tref.quant_blocks_ref(torch.from_numpy(x), qmax=qmax, block=128)
+        out = tref.dequant_blocks_ref(q, s, block=128).numpy()[0]
+        assert float(s[0, 0]) == 0.0 and np.all(out[:128] == 0.0)
+        assert float(s[0, 1]) == 65504.0 and np.abs(out[128:256]).max() == 65504.0 * qmax
+        assert float(s[0, 2]) == 0.5
+        want = np.round(x[0, 256:384] / 0.5)   # numpy rounds half to even
+        np.testing.assert_array_equal(q.numpy()[0, 256:384], want)
+        assert np.any(want % 2 == 0) and np.all(np.abs(x[0, 257:384] / 0.5) % 1 == 0.5)
+
+
+def test_pack4_and_unpack4_match_jax_on_every_code():
+    """All sixteen 4-bit codes, in both nibble positions."""
+    codes = np.arange(-8, 8, dtype=np.int8)
+    q = np.stack([np.repeat(codes, 16), np.tile(codes, 16)], -1).reshape(2, -1)
+    p = tkernel.pack4_flat(torch.from_numpy(q))
+    _assert_bits_equal(p, jref.pack4_ref(jnp.asarray(q)))
+    _assert_bits_equal(tkernel.unpack4_flat(p), jref.unpack4_ref(jnp.asarray(_np(p))))
+    _assert_bits_equal(tkernel.unpack4_flat(p), q)
+
+
+@settings(max_examples=25, deadline=None)
+@given(n=st.integers(1, 700), rows=st.integers(1, 5), bits=st.sampled_from([4, 8]),
+       block=st.sampled_from([2, 4, 64, 128]), seed=st.integers(0, 99))
+def test_qpack_property_matches_jax_oracle(n, rows, bits, block, seed):
+    x = qpack_stream(np.random.default_rng(seed), (rows,), n, block, bits)
+    jp, js = jops.quantize_blocks(jnp.asarray(x), bits=bits, block=block,
+                                  use_kernel=False)
+    tp, ts = tops.quantize_blocks(torch.from_numpy(x), bits=bits, block=block)
+    _assert_bits_equal(tp, jp)
+    _assert_bits_equal(ts, js)
+    _assert_bits_equal(tops.dequantize_blocks(tp, ts, n=n, bits=bits, block=block),
+                       jops.dequantize_blocks(jp, js, n=n, bits=bits, block=block,
+                                              use_kernel=False))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_roundtrip_ref_is_quant_then_dequant(bits):
+    """The fused sync's one-pass roundtrip (kernels/qsync) equals the
+    codec's two-step one bit for bit."""
+    qmax = 2 ** (bits - 1) - 1
+    x = torch.from_numpy(qpack_stream(np.random.default_rng(7), (3,), 640, 128, bits))
+    q, s = tref.quant_blocks_ref(x, qmax=qmax, block=128)
+    _assert_bits_equal(tref.roundtrip_blocks_ref(x, qmax=qmax, block=128),
+                       tref.dequant_blocks_ref(q, s, block=128))
+
+
+def test_qpack_wrappers_check_and_count():
+    """CPU tensors take the plain version and launch nothing; anything
+    else goes to the kernel's checks and is refused there; dtypes and
+    shapes are checked on every device."""
+    x = torch.zeros((2, 256))
+    counters = (tkernel.quant_flat, tkernel.dequant_flat, tkernel.pack4_flat,
+                tkernel.unpack4_flat)
+    before = [f.launches for f in counters]
+    q, s = tkernel.quant_flat(x, qmax=7)
+    tkernel.unpack4_flat(tkernel.pack4_flat(q))
+    tkernel.dequant_flat(q, s)
+    assert [f.launches for f in counters] == before
+    meta = torch.empty((2, 256), device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        tkernel.quant_flat(meta, qmax=127)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tkernel.dequant_flat(q.to("meta"), s)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tkernel.pack4_flat(q.to("meta"))
+    with pytest.raises(ValueError, match="CUDA device"):
+        tkernel.unpack4_flat(torch.empty((2, 8), dtype=torch.uint8, device="meta"))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tkernel.quant_flat(x[:, :200], qmax=127)
+    with pytest.raises(ValueError, match="even"):
+        tkernel.quant_flat(x, qmax=127, block=7)
+    with pytest.raises(TypeError, match="float32"):
+        tkernel.quant_flat(x.double(), qmax=127)
+    with pytest.raises(ValueError, match="scales"):
+        tkernel.dequant_flat(q, s[:, :1])
+    with pytest.raises(TypeError, match="int8"):
+        tkernel.pack4_flat(q.to(torch.int16))
+    with pytest.raises(ValueError, match="multiple of 2"):
+        tkernel.pack4_flat(q[:, :3])
+    with pytest.raises(TypeError, match="uint8"):
+        tkernel.unpack4_flat(q)
+    with pytest.raises(ValueError, match="bits"):
+        tops.quantize_blocks(x, bits=6)

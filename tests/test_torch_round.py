@@ -19,30 +19,22 @@ disagree at the size of a learning-rate step.  Tolerances, with reasons:
   may take the neighbouring code, and its EF residual then differs by one
   quantum.
 """
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from torch_shared import GRID, K, _batches, _pair, one_torch_thread  # noqa: F401
+from torch_shared import (GRID, K, _batches, _pair, coarsest_quanta,  # noqa: F401
+                          one_torch_thread)
 
 from repro_torch.convert import from_jax_params, to_jax_params
-from repro_torch.core import LocalOnly
-from repro_torch.tree import tree_leaves
 
 
 def _coarsest_quantum(tfed, state, batches):
-    """Per leaf, the quantum of its coarsest block on either wire: max|v| /
-    127 over the agents' uplink values y = pre-sync params + EF residual
-    (the same K steps without the sync, run by the port) and the synced
-    values, with 1% for the float16 rounding of the scale."""
-    local = dataclasses.replace(
-        tfed, cfg=dataclasses.replace(tfed.cfg, strategy=LocalOnly()))
-    pre, _ = local.round(state, batches)
-    ys = [p + e for p, e in zip(tree_leaves(pre["params"]), tree_leaves(state["ef"]))]
-    return [1.01 * float(y.abs().max()) / 127 for y in ys]
+    """Per leaf, the quantum of its coarsest block on either wire (see
+    ``torch_shared.coarsest_quanta``)."""
+    quanta = coarsest_quanta(tfed, state, batches)
+    return quanta["disc"] + quanta["gen"]
 
 
 @pytest.mark.parametrize("codec", [False, True], ids=["plain", "int8"])
@@ -55,9 +47,9 @@ def test_round_matches_jax(opt, codec):
     seeds = jnp.zeros((K,) + GRID, jnp.uint32)
     for r in range(2):
         batches = _batches(rng)
-        start = from_jax_params(jax.device_get(jstate))
-        tstate, tm = tfed.round(start, from_jax_params(batches))
-        quanta = (_coarsest_quantum(tfed, start, from_jax_params(batches))
+        start = from_jax_params(jax.device_get(jstate), device="cpu")
+        tstate, tm = tfed.round(start, from_jax_params(batches, device="cpu"))
+        quanta = (_coarsest_quantum(tfed, start, from_jax_params(batches, device="cpu"))
                   if codec else None)
         jstate, jm = jround(jstate, jax.tree_util.tree_map(jnp.asarray, batches),
                             seeds)

@@ -2,6 +2,8 @@
 experiment's nets at 8x8 in both packages, and one torch thread per test
 process (the tier-1 run puts several pytest workers on the same cores,
 where torch's default of one thread per core oversubscribes them)."""
+import dataclasses
+
 import jax  # noqa: F401  (the reference package below needs it loaded)
 import numpy as np
 import pytest
@@ -15,9 +17,10 @@ from repro.optim import SGD as JSGD, Adam as JAdam, constant as jconst, \
     equal_timescale as jequal
 
 from repro_torch.comm import IntQuant
-from repro_torch.core import FedAvgSync, FedGAN, FedGANConfig
+from repro_torch.core import FedAvgSync, FedGAN, FedGANConfig, LocalOnly
 from repro_torch.launch import train
 from repro_torch.optim import SGD, Adam, constant, equal_timescale
+from repro_torch.tree import tree_leaves
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -33,17 +36,36 @@ OPTS = {"sgd": (JSGD, SGD, 0.05), "adam": (JAdam, Adam, 1e-3)}
 
 
 def _pair(opt, codec):
+    return _strategy_pair(opt, JSync(codec=JQuant(8)) if codec else None,
+                          FedAvgSync(codec=IntQuant(8)) if codec else None)
+
+
+def _strategy_pair(opt, jstrategy, tstrategy, hw=HW, grid=GRID):
+    """The same FedGAN in both packages, ACGAN nets at ``hw``, with the
+    given sync strategies (None for the default)."""
     jopt, topt, lr = OPTS[opt]
-    jtask, _ = j_acgan_task(hw=HW)
-    ttask, _ = train.acgan_task(hw=HW)
-    jfed = JFedGAN(jtask, JConfig(agent_grid=GRID, sync_interval=K,
-                                  strategy=JSync(codec=JQuant(8)) if codec else None),
+    jtask, _ = j_acgan_task(hw=hw)
+    ttask, _ = train.acgan_task(hw=hw)
+    jfed = JFedGAN(jtask, JConfig(agent_grid=grid, sync_interval=K,
+                                  strategy=jstrategy),
                    opt_g=jopt(), opt_d=jopt(), scales=jequal(jconst(lr)))
-    tfed = FedGAN(ttask, FedGANConfig(agent_grid=GRID, sync_interval=K,
-                                      strategy=FedAvgSync(codec=IntQuant(8))
-                                      if codec else None),
+    tfed = FedGAN(ttask, FedGANConfig(agent_grid=grid, sync_interval=K,
+                                      strategy=tstrategy),
                   opt_g=topt(), opt_d=topt(), scales=equal_timescale(constant(lr)))
     return jfed, tfed, lr
+
+
+def coarsest_quanta(tfed, state, batches, qmax=127):
+    """Per synced subtree, per leaf, the quantum of its coarsest block on
+    either wire: max|v| / qmax over the agents' uplink values y = pre-sync
+    params + EF residual (the same K steps without the sync, run by the
+    port), with 1% for the float16 rounding of the scale."""
+    local = dataclasses.replace(
+        tfed, cfg=dataclasses.replace(tfed.cfg, strategy=LocalOnly()))
+    pre, _ = local.round(state, batches)
+    return {k: [1.01 * float((p + e).abs().max()) / qmax
+                for p, e in zip(tree_leaves(pre["params"][k]), tree_leaves(e_tree))]
+            for k, e_tree in state["ef"].items()}
 
 
 def _batches(rng):
