@@ -6,9 +6,9 @@
 Run from the root of a checkout on a machine with one CUDA card and the
 CUDA toolkit.  Phases, each of which fails the run when it fails:
 
-1. Build the three kernel libraries from ``src/repro_torch/csrc`` (fedavg,
-   qsync, qpack; one ``nvcc`` each, in parallel) and print the card's name
-   and power limit.
+1. Build the five kernel libraries from ``src/repro_torch/csrc`` (fedavg,
+   qsync, qpack, flash_attention, ssd_scan; one ``nvcc`` each, in parallel)
+   and print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it.  fedavg and qsync at the bucketed
    generator and discriminator streams of the image experiment's ACGAN
@@ -40,8 +40,39 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    pack4 and one unpack4).  Losses and parameters must be finite and every
    agent must hold the synced parameters after every round.
 
-The second-to-last line is the kernels' record as one JSON object, the
-last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+5. Flash attention against its plain version on the card: at gemma3-4b's
+   shapes in bfloat16 (B = 2, q (2, 8, 2000, 256), k and v (2, 4, 2000,
+   256), causal, window 1024 and 0) and in float32 with nh = nkv and with
+   GQA 4:1, T a multiple of no tile.  float32 within 1e-5 of max |o|;
+   bfloat16 that plus two bfloat16 ulps of the element.  Time the kernel,
+   its plain version and ``F.scaled_dot_product_attention`` with
+   ``enable_gqa=True`` and the same boolean mask (named by the kernel the
+   profiler sees; timed only, never on the path).
+6. The SSD scan against its plain version at mamba2-2.7b's shapes (x (2,
+   2048, 80, 64) bfloat16, state 128, chunk 128), with the same tolerance;
+   time both.
+7. gemma3-4b at full width (34 layers, d_model 2560, vocab 262,144): init
+   on the card from a seeded generator; ``prefill`` of 2 prompts of 2,048
+   tokens with ``max_seq`` 2,064 through ``use_flash=True`` (34 flash
+   launches), 16 greedy ``decode`` steps with a per-row index (0 flash
+   launches: decode attends through ``_decode_attend``), and the same
+   prefill with ``use_flash=False``: last-token logits within 2^-5 of the
+   largest |logit| (the plain route rounds scores and probabilities to
+   bfloat16, the kernel does not).  Every logit finite.
+8. mamba2-2.7b at full width (64 layers, d_inner 5120, vocab 50,280):
+   ``apply`` on 2 x 2,048 tokens through ``use_ssd_kernel=True`` in
+   bfloat16 (64 SSD launches, every logit finite), held to
+   ``use_ssd_kernel=False`` layer by layer in bfloat16 (each layer's
+   mixer, ``Mamba2Block.apply`` without the residual, from the same normed
+   input, within 2^-5 of that mixer's largest |output|) and at the
+   logits in float32 compute on the same weights (within 2^-6 of the
+   largest |logit|): at bfloat16 the random-init model amplifies the two
+   scans' last-bit differences over 64 layers.
+
+In every main-path run each kernel's launch counter is set to 0 just
+before it and read just after it, and the kernels the path does not run
+must read 0.  The second-to-last line is the kernels' record as one JSON
+object, the last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without ``src/repro_torch`` beside this file, the script exits non-zero and
 prints no result.
 """
@@ -60,6 +91,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 peak outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bfloat16 tensor-core peak
 B = 5                          # agents of the image experiment
 REPS = 20
 SPIN_CYCLES = 4_000_000        # about 2 ms at the H100's clocks
@@ -109,10 +141,11 @@ def time_ms(torch, fn, flush):
     return statistics.median(times)
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     """The least time the card could take: bytes over the memory rate or
-    float32 operations over their peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    operations over their peak (float32 unless given), whichever is
+    larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -411,6 +444,307 @@ def check_small_round(torch, dev):
         log(f"small round card vs CPU ({'int8' if codec else 'plain'}): agree")
 
 
+def _kernel_close(torch, got, want, what):
+    """float32: within 1e-5 of max |want|; bfloat16: that plus two bfloat16
+    ulps (2^-6 of the larger magnitude) of the element.  Returns the
+    largest error."""
+    g, w = got.float(), want.float()
+    bound_ = 1e-5 * float(w.abs().max()) + torch.zeros_like(w)
+    if got.dtype == torch.bfloat16:
+        bound_ = bound_ + 2.0 ** -6 * torch.maximum(g.abs(), w.abs())
+    err = (g - w).abs()
+    check(bool((err <= bound_).all()), f"{what}: kernel disagrees with plain "
+                                       f"(max {float(err.max())})")
+    return float(err.max())
+
+
+def _flash_pairs(T, S, window):
+    """(query, key) pairs per head that the causal mask, ``kpos < S`` and
+    the window leave unmasked: the least work attention needs."""
+    n = 0
+    for q in range(T):
+        lo = max(0, q - window + 1) if window > 0 else 0
+        n += max(0, min(q, S - 1) - lo + 1)
+    return n
+
+
+def _sdpa_backend(torch, fn):
+    """The name of the device kernel that takes most of ``fn``'s time, as
+    the profiler sees it: a label for the log, not a check."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    except Exception as exc:  # the profiler is a label here; the timing stands
+        return f"not measured ({type(exc).__name__})"
+    if not events:
+        return "not measured"
+    top = max(events, key=lambda e: getattr(e, "device_time_total", 0))
+    return top.key[:120]
+
+
+def check_flash(torch, dev, flush):
+    """The flash kernel against its plain version: gemma3-4b's shapes in
+    bfloat16 (windows 1024 and 0), float32 without GQA and with GQA 4:1.
+    Timing at the local layers' window 1024 (29 of the 34 launches of a
+    prefill) and the global layers' 0."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cases = [(2, 8, 4, 2000, 256, 1024, torch.bfloat16), (2, 8, 4, 2000, 256, 0, torch.bfloat16),
+             (2, 4, 4, 333, 64, 0, torch.float32), (2, 8, 2, 333, 128, 100, torch.float32)]
+    record, err_max = None, 0.0
+    for (Bq, nh, nkv, T, hd, window, dtype) in cases:
+        q = torch.randn((Bq, nh, T, hd), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((Bq, nkv, T, hd), generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        got = flash_attention_bhsd(q, k, v, causal=True, window=window)
+        want = attention_ref(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        what = f"flash q {tuple(q.shape)} kv {tuple(k.shape)} window {window} {dtype}"
+        err = _kernel_close(torch, got, want, what)
+        err_max = max(err_max, err) if dtype == torch.bfloat16 else err_max
+        log(f"{what}: max_abs_err={err} (max |o| {float(want.float().abs().max())})")
+        if hd != 256:
+            continue
+        pos = torch.arange(T, device=dev)
+        mask = pos[:, None] >= pos[None, :]
+        if window:
+            mask &= pos[:, None] - pos[None, :] < window
+
+        def lib():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+        # the yardstick must compute the same function (it rounds p to
+        # bfloat16 for p.v, so it is held loosely: 2^-5 of max |o|)
+        check(float((lib().float() - want.float()).abs().max())
+              <= 2.0 ** -5 * float(want.float().abs().max()),
+              f"{what}: scaled_dot_product_attention disagrees with the plain version")
+        ms = time_ms(torch, lambda: flash_attention_bhsd(q, k, v, causal=True, window=window),
+                     flush)
+        plain = time_ms(torch, lambda: attention_ref(q, k, v, causal=True, window=window),
+                        flush)
+        lib_ms = time_ms(torch, lib, flush)
+        pairs = _flash_pairs(T, T, window)
+        ops = Bq * nh * pairs * 4 * hd                  # q.k and p.v of the unmasked pairs
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
+        log(f"flash timing {what}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"scaled_dot_product_attention {lib_ms:.4f} ms "
+            f"({_sdpa_backend(torch, lib)}), bound {b_ms:.4f} ms ({b_by}, {pairs} unmasked "
+            f"pairs per head, {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        if window:
+            record = {"name": "flash_attention", "route": "cuda",
+                      "source": "src/repro_torch/csrc/flash_attention.cu",
+                      "replaces": "src/repro/kernels/flash_attention/kernel.py:29",
+                      "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib_ms}
+    record["max_abs_err"] = err_max
+    return record
+
+
+def check_ssd(torch, dev, flush):
+    """The SSD kernel against its plain version at mamba2-2.7b's shapes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan.kernel import ssd_bthd
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    gen = torch.Generator(device=dev).manual_seed(7)
+    Bsz, T, nh, hd, ds, Q = 2, 2048, 80, 64, 128, 128
+    x = (0.5 * torch.randn((Bsz, T, nh, hd), generator=gen, device=dev)).bfloat16()
+    dt = F.softplus(torch.randn((Bsz, T, nh), generator=gen, device=dev))
+    A = -torch.exp(torch.randn((nh,), generator=gen, device=dev))
+    Bm, Cm = ((0.5 * torch.randn((Bsz, T, ds), generator=gen, device=dev)).bfloat16()
+              for _ in range(2))
+    got = ssd_bthd(x, dt, A, Bm, Cm, chunk=Q)
+    want = ssd_ref(x, dt, A, Bm, Cm, chunk=Q)
+    torch.cuda.synchronize()
+    what = f"ssd x {tuple(x.shape)} state {ds} chunk {Q} bfloat16"
+    err = _kernel_close(torch, got, want, what)
+    log(f"{what}: max_abs_err={err} (max |y| {float(want.float().abs().max())})")
+    ms = time_ms(torch, lambda: ssd_bthd(x, dt, A, Bm, Cm, chunk=Q), flush)
+    plain = time_ms(torch, lambda: ssd_ref(x, dt, A, Bm, Cm, chunk=Q), flush)
+    NC = T // Q
+    # the chunked algorithm's products: C.B^T once per (batch, chunk); per
+    # head the intra-chunk product, the inter-chunk product and the state
+    ops = Bsz * NC * (2 * Q * Q * ds + nh * (2 * Q * Q * hd + 4 * Q * hd * ds))
+    nbytes = 2 * x.numel() * 2 + dt.numel() * 4 + A.numel() * 4 + 2 * Bm.numel() * 2
+    b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
+    log(f"ssd timing: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}, {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    return {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:26", "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def _reset(counters):
+    for c in counters.values():
+        c.launches = 0
+
+
+def _read(counters):
+    return {name: c.launches for name, c in counters.items()}
+
+
+def _logits_close(torch, got, want, rel, what):
+    """|got - want| within ``rel`` of the largest |want|; both finite."""
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all()),
+          f"{what}: non-finite logits")
+    err, top = float((got - want).abs().max()), float(want.abs().max())
+    check(err <= rel * top, f"{what}: logits differ by {err}, over {rel} x {top}")
+    return err, top
+
+
+def run_gemma(torch, dev):
+    """gemma3-4b at full width: prefill through the flash kernel, greedy
+    decode with a per-row index, the plain route's prefill beside it."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import Backbone
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("gemma3-4b")
+    B, T, steps = 2, 2048, 16
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.resolved_head_dim, cfg.d_ff, cfg.padded_vocab) ==
+          (34, 2560, 8, 4, 256, 10240, 262_144), "gemma3-4b is not at full width")
+    bb = Backbone(cfg, use_flash=True)
+    t0 = time.perf_counter()
+    params = bb.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"gemma3-4b: {n_params} parameters initialised on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    toks = torch.randint(0, cfg.vocab_size, (B, T),
+                         generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    counters = launch_counters()
+    bb.prefill(params, toks, max_seq=T + steps)     # warm-up: cuBLAS picks its kernels
+    torch.cuda.synchronize()
+    _reset(counters)
+    t0 = time.perf_counter()
+    pre = bb.prefill(params, toks, max_seq=T + steps)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_counts = _read(counters)
+    want = {n: 34 if n == "flash_attention" else 0 for n in counters}
+    check(prefill_counts == want, f"gemma3-4b prefill: launches {prefill_counts}, "
+                                  f"expected {want}")
+    logits = pre["logits"]
+    check(tuple(logits.shape) == (B, 1, cfg.padded_vocab), "gemma3-4b prefill: logits shape")
+    check(bool(torch.isfinite(logits).all()), "gemma3-4b prefill: non-finite logits")
+    cache = pre["cache"]
+    check(tuple(cache["local"]["k"].shape) == (5, 5, B, T + steps, 4, 256) and
+          tuple(cache["tail"]["k"].shape) == (4, B, T + steps, 4, 256),
+          "gemma3-4b prefill: cache shapes")
+    _reset(counters)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    out = []
+    t0 = time.perf_counter()
+    for s in range(steps):
+        index = torch.full((B,), T + s, device=dev)
+        lg, cache = bb.decode(params, tok, cache, index)
+        check(tuple(lg.shape) == (B, 1, cfg.padded_vocab), "gemma3-4b decode: logits shape")
+        out.append(lg)
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / steps
+    decode_counts = _read(counters)
+    check(all(v == 0 for v in decode_counts.values()),
+          f"gemma3-4b decode: launches {decode_counts}, expected none")
+    check(all(bool(torch.isfinite(lg).all()) for lg in out), "gemma3-4b decode: non-finite")
+    plain = Backbone(cfg, use_flash=False).prefill(params, toks, max_seq=T + steps)["logits"]
+    torch.cuda.synchronize()
+    err, top = _logits_close(torch, logits, plain, 2.0 ** -5,
+                             "gemma3-4b prefill, flash vs plain route")
+    same = float((logits[:, -1].argmax(-1) == plain[:, -1].argmax(-1)).float().mean())
+    log(f"gemma3-4b: prefill {B} x {T} tokens {prefill_ms:.1f} ms, decode "
+        f"{decode_ms:.2f} ms per step ({steps} greedy steps, per-row index), flash "
+        f"launches {prefill_counts['flash_attention']} in the prefill and "
+        f"{decode_counts['flash_attention']} in the decode; last-token logits vs "
+        f"use_flash=False: max |diff| {err} of max |logit| {top}, same argmax on "
+        f"{same:.2f} of rows; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return prefill_counts["flash_attention"]
+
+
+def run_mamba(torch, dev):
+    """mamba2-2.7b at full width: the bfloat16 forward through the SSD
+    kernel (the main path), held to the plain chunked scan layer by layer
+    and, in float32 compute on the same weights, at the logits.
+
+    A random-init mamba2 at bfloat16 is chaotic: the kernel and the plain
+    scan round y to bfloat16 at different elements (each within two ulps),
+    and over 64 layers those differences grow to the size of the logits
+    (measured 70% of max |logit|).  So the bf16 run is compared layer by
+    layer, each mixer from the same normed input, and the whole model in
+    float32."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import Backbone
+    from repro_torch.models.layers import make_norm
+    from repro_torch.models.transformer import _layer
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("mamba2-2.7b")
+    B, T = 2, 2048
+    check((cfg.num_layers, cfg.d_model, cfg.d_inner, cfg.resolved_ssm_heads, cfg.ssm_state,
+           cfg.ssm_chunk, cfg.padded_vocab) == (64, 2560, 5120, 80, 128, 128, 50_432),
+          "mamba2-2.7b is not at full width")
+    bb = Backbone(cfg, use_ssd_kernel=True)
+    params = bb.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    toks = torch.randint(0, cfg.vocab_size, (B, T),
+                         generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    counters = launch_counters()
+    bb.apply(params, toks)                           # warm-up
+    torch.cuda.synchronize()
+    _reset(counters)
+    t0 = time.perf_counter()
+    logits = bb.apply(params, toks)["logits"]
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    counts = _read(counters)
+    want = {n: 64 if n == "ssd_scan" else 0 for n in counters}
+    check(counts == want, f"mamba2-2.7b forward: launches {counts}, expected {want}")
+    check(tuple(logits.shape) == (B, T, cfg.padded_vocab), "mamba2-2.7b: logits shape")
+    check(bool(torch.isfinite(logits).all()), "mamba2-2.7b: non-finite logits")
+    # the whole bf16 model against the plain scan, logged and not held: the
+    # gap is the amplification described above
+    plain16 = Backbone(cfg).apply(params, toks)["logits"]
+    drift = float((logits - plain16).abs().max()) / float(plain16.abs().max())
+    agree = float((logits.argmax(-1) == plain16.argmax(-1)).float().mean())
+    del logits, plain16
+    # bf16, layer by layer: each layer's mixer (Mamba2Block.apply, no
+    # residual, which both routes would share exactly) through the kernel,
+    # within 2^-5 of the largest |output| of the plain scan's mixer, from
+    # the same normed input (the plain route's own hidden state)
+    kern, plain = bb._mamba().inner, Backbone(cfg)._mamba().inner
+    norm = make_norm(cfg, cfg.d_model)
+    h, worst = bb._embed(params, toks), 0.0
+    for i in range(cfg.num_layers):
+        bp = _layer(params["blocks"], i)
+        u = norm.apply(bp["ln"], h)
+        got, want = kern.apply(bp["mixer"], u), plain.apply(bp["mixer"], u)
+        err = float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= 2.0 ** -5,
+              f"mamba2-2.7b layer {i}: the kernel route's mixer differs by {err} of "
+              f"its max |output|")
+        worst = max(worst, err)
+        h = h + want
+    del got, want, u, h
+    # float32 compute, the same weights: logits within 2^-6 of max |logit|
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    got = Backbone(cfg32, use_ssd_kernel=True).apply(params, toks)["logits"]
+    ref = Backbone(cfg32).apply(params, toks)["logits"]
+    torch.cuda.synchronize()
+    err, top = _logits_close(torch, got, ref, 2.0 ** -6,
+                             "mamba2-2.7b float32 forward, kernel vs plain scan")
+    log(f"mamba2-2.7b: {n_params} parameters; bf16 forward {B} x {T} tokens {fwd_ms:.1f} ms, "
+        f"SSD launches {counts['ssd_scan']}; kernel vs plain scan: bf16 mixer by mixer "
+        f"at most {worst:.3e} of its max |output|, float32 logits max |diff| {err} of "
+        f"max |logit| {top}; (not held) bf16 logits max |diff| {drift:.3f} of max |logit|, argmax "
+        f"agreeing on {agree:.3f} of positions; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return counts["ssd_scan"]
+
+
 def run_main_path(torch, dev, strategy, label, per_round):
     """Three full-width rounds of ``image_acgan`` under ``strategy``, every
     launch counter set to 0 just before and read just after.
@@ -436,11 +770,10 @@ def run_main_path(torch, dev, strategy, label, per_round):
 
     spec = dataclasses.replace(spec, eval_every=1, eval_hooks=(synced,))
     counters = launch_counters()
-    for c in counters.values():
-        c.launches = 0
+    _reset(counters)
     result = spec.run_result()
     torch.cuda.synchronize()
-    counts = {name: c.launches for name, c in counters.items()}
+    counts = _read(counters)
     check(len(mismatched) == rounds and not any(bool(m) for m in mismatched),
           f"{label}: agents do not hold identical params after a sync")
     check(all(torch.isfinite(torch.tensor(list(m.values()))).all()
@@ -461,11 +794,14 @@ def run_main_path(torch, dev, strategy, label, per_round):
 def launch_counters():
     """Every kernel wrapper of the port, by kernel name."""
     from repro_torch.kernels.fedavg.kernel import fedavg_flat
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
     from repro_torch.kernels.qpack import kernel as pk
     from repro_torch.kernels.qsync.kernel import qsync_flat
+    from repro_torch.kernels.ssd_scan.kernel import ssd_bthd
     return {"fedavg": fedavg_flat, "qsync": qsync_flat, "quant": pk.quant_flat,
             "dequant": pk.dequant_flat, "pack4": pk.pack4_flat,
-            "unpack4": pk.unpack4_flat}
+            "unpack4": pk.unpack4_flat, "flash_attention": flash_attention_bhsd,
+            "ssd_scan": ssd_bthd}
 
 
 def main() -> int:
@@ -487,7 +823,7 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    per_source = _build.build(["fedavg", "qsync", "qpack"])
+    per_source = _build.build(["fedavg", "qsync", "qpack", "flash_attention", "ssd_scan"])
     log(f"nvcc build: {time.perf_counter() - t0:.1f} s wall "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in per_source.items()) or 'cached'})")
 
@@ -495,7 +831,9 @@ def main() -> int:
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
     records = [check_fedavg(torch, shapes, dev, flush),
                check_qsync(torch, shapes, dev, flush),
-               *check_qpack(torch, dev, flush)]
+               *check_qpack(torch, dev, flush),
+               check_flash(torch, dev, flush),
+               check_ssd(torch, dev, flush)]
     del flush
     check_composed_vs_fused(torch, dev)
     check_small_round(torch, dev)
@@ -517,8 +855,11 @@ def main() -> int:
         {"fedavg": L, "quant": 2 * L, "dequant": 2 * L})
     records[0]["launches"] = plain_counts["fedavg"]
     records[1]["launches"] = int8_counts["qsync"]
-    for r in records[2:]:
+    for r in records[2:6]:
         r["launches"] = chain_counts[r["name"]]
+    records[6]["launches"] = run_gemma(torch, dev)
+    torch.cuda.empty_cache()
+    records[7]["launches"] = run_mamba(torch, dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card_line(), flush=True)

@@ -18,10 +18,27 @@ from repro_torch.tree import tree_map
 def from_jax_params(tree, device="cuda"):
     """A tree of numpy arrays (dicts, lists, tuples) -> the same tree of
     tensors on ``device``, dtypes kept.  The card by default, which raises
-    without a GPU; pass ``device="cpu"`` to convert onto the CPU."""
+    without a GPU; pass ``device="cpu"`` to convert onto the CPU.  A
+    bfloat16 leaf (numpy's ``ml_dtypes`` type, which torch cannot wrap)
+    goes through float32, exactly."""
     dev = resolve_device(device)
-    return tree_map(lambda x: torch.from_numpy(np.array(x, copy=True)).to(dev),
-                    tree)
+
+    def leaf(x):
+        x = np.asarray(x)
+        if x.dtype.name == "bfloat16":
+            return torch.from_numpy(x.astype(np.float32)).to(dev, torch.bfloat16)
+        return torch.from_numpy(np.array(x, copy=True)).to(dev)
+
+    return tree_map(leaf, tree)
+
+
+def backbone_params_from_jax(tree, device="cuda"):
+    """The reference Backbone's params (``jax.device_get`` of
+    ``Backbone.init``: nested dicts of numpy arrays, stacked layers with
+    their leading ``(L,)`` or ``(G, r)`` dims) -> the port's Backbone params
+    on ``device``.  Keys, shapes and layouts are the same in both packages,
+    so this is ``from_jax_params``, leaf by leaf."""
+    return from_jax_params(tree, device=device)
 
 
 def to_jax_params(tree):

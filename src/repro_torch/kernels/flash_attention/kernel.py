@@ -1,0 +1,61 @@
+"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+
+On CPU tensors ``flash_attention_bhsd`` computes the plain version; on
+CUDA tensors it launches the kernel or raises.  The kernel is forward
+only, as the TPU kernel it replaces: a CUDA input that requires grad
+raises.  ``flash_attention_bhsd.launches`` counts kernel launches and
+nothing else.  The tile sizes (64 queries x 64 keys) are the kernel's
+own.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
+_SIGNATURES = {"flash_attention_f32": _ARGS, "flash_attention_bf16": _ARGS}
+_ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B, nh, T, hd); k/v: (B, nkv, S, hd), nh a multiple of nkv.
+    Returns (B, nh, T, hd) in q's dtype."""
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 or \
+            (q.shape[0], q.shape[3]) != (k.shape[0], k.shape[3]) or \
+            q.shape[1] % k.shape[1]:
+        raise ValueError(f"flash attention takes q (B, nh, T, hd) and k, v "
+                         f"(B, nkv, S, hd) with nkv dividing nh, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return attention_ref(q, k, v, causal=causal, window=window)
+    _build.require_cuda("flash attention", q, k, v)
+    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash attention takes q, k, v all float32 or all "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash attention is forward only (the TPU kernel has "
+                           "no backward); call it under torch.no_grad()")
+    B, nh, T, hd = q.shape
+    nkv, S = k.shape[1], k.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash attention takes head_dim in {HEAD_DIMS}, got {hd}")
+    out = torch.empty_like(q)
+    lib = _build.load("flash_attention", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        err = getattr(lib, _ENTRY[q.dtype])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, nh, nkv,
+            T, S, hd, 1.0 / math.sqrt(hd), int(causal), int(window),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "flash attention")
+    flash_attention_bhsd.launches += 1
+    return out
+
+
+flash_attention_bhsd.launches = 0

@@ -1,0 +1,265 @@
+"""Transformer building blocks: RoPE, GQA attention (full-sequence and
+cache decode), SwiGLU, norms (a port of ``repro.models.layers``).
+
+Parameters keep the reference's keys and layouts (Dense ``w`` is
+``(in, out)``).  The reference's sharding constraints have no counterpart
+on one card and are dropped.  The ring-buffer decode, cross-attention and
+the encoder memory caches belong to later slices and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import nn
+from repro_torch.models.config import ArchConfig
+
+NEG_INF = -2.0 ** 30  # large-but-finite mask value (NaN-safe under softmax)
+
+
+def decode_positions(index, batch: int, device=None) -> torch.Tensor:
+    """Normalize a decode index — scalar () or per-row (B,) — to (B,) int64.
+
+    The scalar form is the lockstep case (every row writes the same cache
+    position); the vector form is what continuous batching needs, where each
+    batch slot sits at its own sequence position."""
+    idx = torch.as_tensor(index, device=device).long()
+    if idx.dim() == 0:
+        idx = idx.expand(batch)
+    return idx
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., T, H, D); positions: broadcastable to (..., T)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                      # (D/2,)
+    angles = positions[..., None].float() * freqs               # (..., T, D/2)
+    angles = angles[..., None, :]                               # (..., T, 1, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norm factory
+# ---------------------------------------------------------------------------
+
+def make_norm(cfg: ArchConfig, dim: int) -> nn.Module:
+    if cfg.norm == "layernorm":
+        return nn.LayerNorm(dim, dtype=cfg.param_dtype)
+    return nn.RMSNorm(dim, dtype=cfg.param_dtype)
+
+
+def _later(what: str):
+    raise NotImplementedError(f"{what} is not ported yet: ROADMAP queue 1, slice 5 "
+                              f"(serving, audio and vlm)")
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Attention(nn.Module):
+    """Grouped-query attention with RoPE, optional qk-norm and sliding window.
+
+    Modes:
+      full-sequence  apply(params, x, *, window, positions) -> y
+      decode         decode(params, x1, cache, index, *, window) -> y1, cache'
+    KV cache layout: (B, S, n_kv, head_dim) per layer (stacked outside).
+    ``use_flash`` routes the full-sequence path through the flash-attention
+    kernel.
+    """
+
+    cfg: ArchConfig
+    causal: bool = True
+    use_flash: bool = False
+
+    @property
+    def dims(self):
+        c = self.cfg
+        return c.num_heads, c.num_kv_heads, c.resolved_head_dim
+
+    def init(self, gen):
+        c = self.cfg
+        nh, nkv, hd = self.dims
+        d = c.d_model
+        p = {
+            "wq": nn.Dense(d, nh * hd, use_bias=False, dtype=c.param_dtype).init(gen),
+            "wk": nn.Dense(d, nkv * hd, use_bias=False, dtype=c.param_dtype).init(gen),
+            "wv": nn.Dense(d, nkv * hd, use_bias=False, dtype=c.param_dtype).init(gen),
+            "wo": nn.Dense(nh * hd, d, use_bias=False, dtype=c.param_dtype).init(gen),
+        }
+        if c.qk_norm:
+            p["q_norm"] = nn.RMSNorm(hd, dtype=c.param_dtype).init(gen)
+            p["k_norm"] = nn.RMSNorm(hd, dtype=c.param_dtype).init(gen)
+        return p
+
+    # -- shared projection helpers ------------------------------------------------
+    def _qkv(self, params, x, positions):
+        c = self.cfg
+        nh, nkv, hd = self.dims
+        B, T = x.shape[0], x.shape[1]
+        q = (x @ params["wq"]["w"].to(c.dtype)).reshape(B, T, nh, hd)
+        k = (x @ params["wk"]["w"].to(c.dtype)).reshape(B, T, nkv, hd)
+        v = (x @ params["wv"]["w"].to(c.dtype)).reshape(B, T, nkv, hd)
+        if c.qk_norm:
+            q = nn.RMSNorm(hd).apply(params["q_norm"], q)
+            k = nn.RMSNorm(hd).apply(params["k_norm"], k)
+        q = apply_rope(q, positions, c.rope_theta)
+        k = apply_rope(k, positions, c.rope_theta)
+        return q, k, v
+
+    # -- full-sequence (train / prefill) ------------------------------------------
+    def apply(self, params, x, *, window=None, positions=None, memory=None,
+              return_kv: bool = False):
+        """x: (B, T, d_model) -> (B, T, d_model) [, {"k", "v"}]."""
+        c = self.cfg
+        nh, nkv, hd = self.dims
+        B, T, _ = x.shape
+        if memory is not None:
+            _later("cross-attention")
+        if positions is None:
+            positions = torch.arange(T, device=x.device)[None, :]
+        q, k, v = self._qkv(params, x, positions)
+        if self.use_flash and q.shape[1] == k.shape[1] and \
+                isinstance(window, (int, type(None))):
+            from repro_torch.kernels.flash_attention import ops as flash_ops
+            y = flash_ops.flash_attention(q, k, v, causal=self.causal, window=window or 0)
+        else:
+            y = self._sdpa(q, k, v, window=window, causal=self.causal,
+                           q_positions=positions)
+        y = y.reshape(B, T, nh * hd)
+        y = y @ params["wo"]["w"].to(c.dtype)
+        if return_kv:
+            return y, {"k": k, "v": v}
+        return y
+
+    def _sdpa(self, q, k, v, *, window, causal, q_positions=None, k_positions=None):
+        nh, nkv, hd = self.dims
+        group = nh // max(nkv, 1)
+        B, T = q.shape[0], q.shape[1]
+        S = k.shape[1]
+        qh = q.reshape(B, T, nkv, group, hd)
+        logits = torch.einsum("btkgd,bskd->bkgts", qh, k).float()
+        logits = logits * (1.0 / math.sqrt(hd))
+        qpos = torch.arange(T, device=q.device) if q_positions is None else q_positions[0]
+        kpos = torch.arange(S, device=q.device) if k_positions is None else k_positions
+        mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= qpos[:, None] >= kpos[None, :]
+        if window is not None:
+            mask &= qpos[:, None] - kpos[None, :] < window
+        logits = torch.where(mask[None, None, None], logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        y = torch.einsum("bkgts,bskd->btkgd", probs, v)
+        return y.reshape(B, T, nh, hd)
+
+    # -- single-token decode against a KV cache -----------------------------------
+    def decode(self, params, x, cache, index, *, window=None, memory=None):
+        """x: (B, 1, d); cache: dict(k=(B,S,nkv,hd), v=...); index: the
+        position being written — a scalar int (lockstep batch) or a (B,)
+        vector of per-row positions (continuous batching).  Returns
+        (y, new_cache); the cache given is not modified."""
+        c = self.cfg
+        nh, nkv, hd = self.dims
+        B = x.shape[0]
+        if memory is not None:
+            _later("cross-attention decode")
+        idx = decode_positions(index, B, x.device)
+        q, k1, v1 = self._qkv(params, x, idx[:, None])
+        kpos = torch.arange(cache["k"].shape[1], device=x.device)
+        if torch.as_tensor(index).dim() == 0:
+            # lockstep: one slice written, shared (S,) mask
+            i = int(index)
+            k, v = cache["k"].clone(), cache["v"].clone()
+            k[:, i:i + 1] = k1.to(k.dtype)
+            v[:, i:i + 1] = v1.to(v.dtype)
+            valid = kpos <= i
+            if window is not None:
+                valid &= kpos > i - window
+        else:
+            # per-row scatter: row b writes its own position idx[b]
+            hit = kpos[None, :] == idx[:, None]                    # (B, S)
+            k = torch.where(hit[..., None, None], k1.to(cache["k"].dtype), cache["k"])
+            v = torch.where(hit[..., None, None], v1.to(cache["v"].dtype), cache["v"])
+            valid = kpos[None, :] <= idx[:, None]
+            if window is not None:
+                valid &= kpos[None, :] > idx[:, None] - window
+        y = self._decode_attend(q, k, v, valid)
+        y = y.reshape(B, 1, nh * hd) @ params["wo"]["w"].to(c.dtype)
+        return y, {"k": k, "v": v}
+
+    def decode_ring(self, params, x, cache, index):
+        _later("the ring-buffer decode (Attention.decode_ring)")
+
+    def build_memory_cache(self, params, memory):
+        _later("cross-attention memory caches")
+
+    def decode_memory(self, params, x, mem_cache):
+        _later("cross-attention memory caches")
+
+    def _decode_attend(self, q, k, v, valid):
+        nh, nkv, hd = self.dims
+        group = nh // max(nkv, 1)
+        B = k.shape[0]
+        qh = q.reshape(B, nkv, group, hd)
+        logits = torch.einsum("bkgd,bskd->bkgs", qh, k.to(q.dtype)).float()
+        logits = logits * (1.0 / math.sqrt(hd))
+        # valid: (S,) shared mask, or (B, S) per-row (continuous batching)
+        mask = valid[None, None, None] if valid.dim() == 1 else valid[:, None, None, :]
+        logits = torch.where(mask, logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        y = torch.einsum("bkgs,bskd->bkgd", probs, v.to(q.dtype))
+        return y.reshape(B, 1, nh, hd)
+
+    def init_cache(self, batch: int, seq: int, dtype=None, *, ring: bool = False,
+                   device=None):
+        if ring:
+            _later("the ring-buffer cache")
+        c = self.cfg
+        _, nkv, hd = self.dims
+        dt = dtype or c.dtype
+        return {"k": torch.zeros((batch, seq, nkv, hd), dtype=dt, device=device),
+                "v": torch.zeros((batch, seq, nkv, hd), dtype=dt, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SwiGLU(nn.Module):
+    cfg: ArchConfig
+    d_ff: int = 0
+
+    def init(self, gen):
+        c = self.cfg
+        ff = self.d_ff or c.d_ff
+        return {
+            "w_gate": nn.Dense(c.d_model, ff, use_bias=False, dtype=c.param_dtype).init(gen),
+            "w_up": nn.Dense(c.d_model, ff, use_bias=False, dtype=c.param_dtype).init(gen),
+            "w_down": nn.Dense(ff, c.d_model, use_bias=False, dtype=c.param_dtype).init(gen),
+        }
+
+    def apply(self, params, x):
+        c = self.cfg
+        g = x @ params["w_gate"]["w"].to(c.dtype)
+        u = x @ params["w_up"]["w"].to(c.dtype)
+        h = F.silu(g) * u
+        return h @ params["w_down"]["w"].to(c.dtype)

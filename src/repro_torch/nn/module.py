@@ -9,8 +9,9 @@ with the parameter keys and layouts of the JAX reference: Dense ``w`` is
 ``(in, out)``, conv weights are HWIO, transpose-conv weights HWOI, and
 activations NHWC.  Inside, a layer permutes to PyTorch's NCHW/OIHW for the
 library call and back.  ``init`` draws on the CPU from an explicit
-``torch.Generator`` (same distributions as the reference, different bits);
-the caller moves the parameters to the device.
+``torch.Generator`` on the generator's own device (same distributions as
+the reference, different bits): a CPU generator draws on the CPU, and the
+caller moves the parameters; a CUDA generator draws on the card.
 """
 from __future__ import annotations
 
@@ -24,18 +25,18 @@ import torch.nn.functional as F
 from repro_torch.tree import tree_leaves
 
 # ---------------------------------------------------------------------------
-# initializers: fn(generator, shape) -> float32 CPU tensor
+# initializers: fn(generator, shape) -> float32 tensor on gen.device
 # ---------------------------------------------------------------------------
 
 
 def glorot_uniform(gen, shape, in_axis=-2, out_axis=-1):
     limit = math.sqrt(6.0 / (shape[in_axis] + shape[out_axis]))
-    return torch.empty(shape).uniform_(-limit, limit, generator=gen)
+    return torch.empty(shape, device=gen.device).uniform_(-limit, limit, generator=gen)
 
 
 def normal_init(stddev: float = 0.02):
     def init(gen, shape):
-        return stddev * torch.randn(shape, generator=gen)
+        return stddev * torch.randn(shape, generator=gen, device=gen.device)
 
     return init
 
@@ -43,7 +44,7 @@ def normal_init(stddev: float = 0.02):
 def truncated_normal_init(stddev: float = 0.02):
     def init(gen, shape):
         return stddev * torch.nn.init.trunc_normal_(
-            torch.empty(shape), a=-2.0, b=2.0, generator=gen)
+            torch.empty(shape, device=gen.device), a=-2.0, b=2.0, generator=gen)
 
     return init
 
@@ -51,7 +52,7 @@ def truncated_normal_init(stddev: float = 0.02):
 def fan_in_init(gen, shape):
     """LeCun-normal: stddev = 1/sqrt(fan_in) with fan_in = prod(shape[:-1])."""
     fan_in = max(math.prod(shape[:-1]), 1)
-    return torch.randn(shape, generator=gen) / math.sqrt(fan_in)
+    return torch.randn(shape, generator=gen, device=gen.device) / math.sqrt(fan_in)
 
 
 # ---------------------------------------------------------------------------
@@ -79,11 +80,12 @@ class Dense(Module):
     out_dim: int
     use_bias: bool = True
     init_fn: Callable = glorot_uniform
+    dtype: Any = torch.float32
 
     def init(self, gen):
-        p = {"w": self.init_fn(gen, (self.in_dim, self.out_dim))}
+        p = {"w": self.init_fn(gen, (self.in_dim, self.out_dim)).to(self.dtype)}
         if self.use_bias:
-            p["b"] = torch.zeros(self.out_dim)
+            p["b"] = torch.zeros(self.out_dim, dtype=self.dtype, device=gen.device)
         return p
 
     def apply(self, params, x):
@@ -91,6 +93,62 @@ class Dense(Module):
         if self.use_bias:
             y = y + params["b"]
         return y
+
+
+@dataclasses.dataclass(frozen=True)
+class Embedding(Module):
+    vocab: int
+    dim: int
+    dtype: Any = torch.float32
+    stddev: float = 0.02
+
+    def init(self, gen):
+        table = torch.randn((self.vocab, self.dim), generator=gen, device=gen.device)
+        return {"table": (self.stddev * table).to(self.dtype)}
+
+    def apply(self, params, ids):
+        return params["table"][ids]
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerNorm(Module):
+    dim: int
+    eps: float = 1e-5
+    use_bias: bool = True
+    dtype: Any = torch.float32
+
+    def init(self, gen):
+        p = {"scale": torch.ones(self.dim, dtype=self.dtype, device=gen.device)}
+        if self.use_bias:
+            p["bias"] = torch.zeros(self.dim, dtype=self.dtype, device=gen.device)
+        return p
+
+    def apply(self, params, x):
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = torch.square(xf - mu).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + self.eps) * params["scale"].float()
+        if self.use_bias:
+            y = y + params["bias"].float()
+        return y.to(x.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class RMSNorm(Module):
+    """The reference's cast order: the mean square in float32, the inverse
+    root cast to x's dtype before it scales x, then the scale in x's dtype."""
+
+    dim: int
+    eps: float = 1e-6
+    dtype: Any = torch.float32
+
+    def init(self, gen):
+        return {"scale": torch.ones(self.dim, dtype=self.dtype, device=gen.device)}
+
+    def apply(self, params, x):
+        var = torch.square(x.float()).mean(-1, keepdim=True)
+        y = x * torch.rsqrt(var + self.eps).to(x.dtype)
+        return y * params["scale"].to(x.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,7 +162,8 @@ class BatchNorm(Module):
     eps: float = 1e-5
 
     def init(self, gen):
-        return {"scale": torch.ones(self.dim), "bias": torch.zeros(self.dim)}
+        return {"scale": torch.ones(self.dim, device=gen.device),
+                "bias": torch.zeros(self.dim, device=gen.device)}
 
     def apply(self, params, x):
         axes = tuple(range(x.dim() - 1))
@@ -143,7 +202,7 @@ class Conv2D(Module):
     def init(self, gen):
         p = {"w": fan_in_init(gen, (*self.kernel, self.in_ch, self.out_ch))}
         if self.use_bias:
-            p["b"] = torch.zeros(self.out_ch)
+            p["b"] = torch.zeros(self.out_ch, device=gen.device)
         return p
 
     def apply(self, params, x):
@@ -192,7 +251,7 @@ class ConvTranspose2D(Module):
     def init(self, gen):
         p = {"w": fan_in_init(gen, (*self.kernel, self.out_ch, self.in_ch))}
         if self.use_bias:
-            p["b"] = torch.zeros(self.out_ch)
+            p["b"] = torch.zeros(self.out_ch, device=gen.device)
         return p
 
     def apply(self, params, x):

@@ -7,6 +7,8 @@
         --codec int4 --topk 0.25             # the composed coded sync
     PYTHONPATH=src python -m repro_torch.run.profile --experiment image_acgan \
         --codec int8 --composed              # int8, fused_sync=False
+    PYTHONPATH=src python -m repro_torch.run.profile --arch gemma3-4b    # prefill + decode
+    PYTHONPATH=src python -m repro_torch.run.profile --arch mamba2-2.7b  # forward
 
 One warm-up round, then ``--rounds`` rounds timed on the host clock
 without the profiler, then the same number under it (CPU and CUDA
@@ -18,6 +20,18 @@ kernels and everything else, and the kernels that take the most device
 time.  The sync kernels are fedavg, qsync and the four qpack kernels; the
 top-k selection's sort and the composed path's small PyTorch operations
 count as everything else.  On the CPU the device numbers are null.
+
+``--arch`` profiles a backbone at full width instead (random weights from
+a seed, bfloat16 compute, through its kernel: ``use_flash`` for the
+attention archs, ``use_ssd_kernel`` for the SSM), at ``chip_smoke.py``'s
+shapes: for gemma3-4b one prefill of 2 x 2,048 tokens and decode steps
+with a per-row index, for mamba2-2.7b one forward; each part timed
+without the profiler, then under it, with its device busy share, the
+device time of its kernel, of the bfloat16 copy kernels (the
+float32-to-bfloat16 casts: of the weights, which the reference's
+``.astype`` asks for on every call, and of activations such as RoPE's
+outputs and the probabilities), and of everything else, and its top
+kernels.
 """
 from __future__ import annotations
 
@@ -29,6 +43,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.comm import codec_from_flags
+from repro_torch.configs.registry import list_archs
 from repro_torch.core import FedAvgSync
 from repro_torch.data.federated import round_key_schedule
 from repro_torch.launch.train import experiment_spec
@@ -97,6 +112,79 @@ def profile_rounds(name="image_acgan", *, codec="", topk=0.0, composed=False,
     }
 
 
+BF16_COPY_MARK = "bfloat16_copy_kernel"
+
+
+def _device_split(prof, calls, kernel_mark, top):
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
+    kern = sum(e.self_device_time_total for e in kernels if kernel_mark in e.key) / 1e3 / calls
+    copy = sum(e.self_device_time_total for e in kernels if BF16_COPY_MARK in e.key) / 1e3 / calls
+    return total, {
+        "device_ms": total, "kernel_ms": kern, "bf16_copy_ms": copy,
+        "other_ms": total - kern - copy,
+        "launches": sum(e.count for e in kernels) / calls,
+        "top_kernels": [{"name": e.key[:120], "calls": e.count / calls,
+                         "ms": e.self_device_time_total / 1e3 / calls}
+                        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]]}
+
+
+def profile_backbone(arch="gemma3-4b", *, batch=2, seq=2048, steps=4, top=8,
+                     device="cuda") -> dict:
+    """Where a backbone's time goes at full width (see the module's
+    docstring).  Needs the card: the device times are the point."""
+    from repro_torch import resolve_device
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import Backbone
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("profile --arch measures device time: it needs the card")
+    cfg = get_config(arch)
+    ssm = cfg.family == "ssm"
+    bb = Backbone(cfg, use_ssd_kernel=ssm, use_flash=not ssm)
+    mark = "ssd_fwd" if ssm else "flash_fwd"
+    params = bb.init(torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq),
+                         generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def timed(fn, calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(calls):
+            fn(i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e3
+
+    def part(fn, calls):
+        fn(0)                                   # warm-up: cuBLAS picks its kernels
+        ms = timed(fn, calls)
+        with profile(activities=acts) as prof:
+            profiled = timed(fn, calls)
+        busy, split = _device_split(prof, calls, mark, top)
+        return {"ms": ms, "ms_profiled": profiled, "device_busy_share": busy / profiled,
+                **split}
+
+    out = {"arch": arch, "batch": batch, "seq": seq,
+           "device": torch.cuda.get_device_name(dev)}
+    if ssm:
+        out["forward"] = part(lambda i: bb.apply(params, toks), 1)
+        return out
+    out["prefill"] = part(lambda i: bb.prefill(params, toks, max_seq=seq + 3 * steps + 1), 1)
+    cache = bb.prefill(params, toks, max_seq=seq + 3 * steps + 1)["cache"]
+    tok = toks[:, -1:]
+    state = {"cache": cache, "pos": seq}
+
+    def step(i):
+        index = torch.full((batch,), state["pos"], device=dev)
+        _, state["cache"] = bb.decode(params, tok, state["cache"], index)
+        state["pos"] += 1
+
+    out["decode_step"] = part(step, steps)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.run.profile")
     ap.add_argument("--experiment", default="image_acgan", choices=["image_acgan"])
@@ -107,11 +195,16 @@ def main(argv=None):
     ap.add_argument("--composed", action="store_true",
                     help="the composed per-leaf coded sync (fused_sync=False)")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--arch", default="", choices=["", *list_archs()],
+                    help="profile this backbone at full width instead of an experiment")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    out = profile_rounds(args.experiment, codec=args.codec, topk=args.topk,
-                         composed=args.composed, rounds=args.rounds,
-                         device=args.device)
+    if args.arch:
+        out = profile_backbone(args.arch, device=args.device)
+    else:
+        out = profile_rounds(args.experiment, codec=args.codec, topk=args.topk,
+                             composed=args.composed, rounds=args.rounds,
+                             device=args.device)
     print(json.dumps(out))
     return out
 

@@ -1,0 +1,267 @@
+"""The port's backbone on the CPU against the JAX reference: configs and
+registry, the norms and embedding, the Backbone's logits through
+``backbone_params_from_jax`` (the reference's own weights), and port
+twins of the reference's behaviour tests (``tests/test_models.py``).
+
+The JAX side runs as its own tests run it: ``Backbone(...,
+use_flash=True)`` reaches the Pallas flash kernel in interpret mode,
+``use_ssd_kernel=True`` the Pallas SSD kernel.  On the CPU the port's
+kernel wrappers take their plain versions.
+
+Tolerances, with their reasons: logits within 2e-4 in float32, as the
+reference holds its flash and SSD routes to its plain model
+(``tests/test_models.py``): both packages compute in float32 and differ in
+summation order through every layer; decode against the full forward
+within 5e-4 and the mask and causality checks within 1e-5, as in the
+reference.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_models import CFGS as JCFGS, _dense as _jdense
+from torch_shared import one_torch_thread  # noqa: F401
+
+from repro import nn as jnn
+from repro.configs.registry import get_config as jget_config
+from repro.models.transformer import Backbone as JBackbone
+
+from repro_torch import nn as tnn
+from repro_torch.configs.registry import get_config, get_shape, list_archs
+from repro_torch.convert import backbone_params_from_jax
+from repro_torch.kernels.flash_attention import kernel as fkernel
+from repro_torch.kernels.ssd_scan import kernel as skernel
+from repro_torch.models import Backbone
+from repro_torch.models.config import ArchConfig
+
+_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+
+
+def port_config(jcfg) -> ArchConfig:
+    """The port's ArchConfig with every field of a reference config."""
+    fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
+    fields["dtype"] = _DTYPES[fields["dtype"]]
+    fields["param_dtype"] = _DTYPES[fields["param_dtype"]]
+    return ArchConfig(**fields)
+
+
+def _pair(jcfg, seed=0, **flags):
+    """The same Backbone in both packages, on the reference's weights."""
+    jb = JBackbone(jcfg, **flags)
+    jp = jb.init(jax.random.key(seed))
+    tb = Backbone(port_config(jcfg), **flags)
+    return jb, jp, tb, backbone_params_from_jax(jax.device_get(jp), device="cpu")
+
+
+def _tokens(vocab, shape, seed=1):
+    return np.random.default_rng(seed).integers(0, vocab, shape).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# configs, registry, layers
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "mamba2-2.7b"])
+def test_registry_configs_match_reference(arch):
+    assert port_config(jget_config(arch)) == get_config(arch)
+    assert port_config(jget_config(arch).smoke()) == get_config(arch).smoke()
+    tcfg, jcfg = get_config(arch), jget_config(arch)
+    for prop in ("padded_vocab", "resolved_head_dim", "d_inner", "resolved_ssm_heads"):
+        assert getattr(tcfg, prop) == getattr(jcfg, prop)
+    assert [tcfg.is_global_layer(i) for i in range(tcfg.num_layers)] == \
+        [jcfg.is_global_layer(i) for i in range(jcfg.num_layers)]
+
+
+def test_registry_refuses_unported_archs():
+    assert list_archs() == ["gemma3-4b", "mamba2-2.7b"]
+    assert get_shape("prefill_32k").seq_len == 32_768
+    with pytest.raises(KeyError, match="slice 5"):
+        get_config("mixtral-8x22b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_norms_and_embedding_match_jax(dtype):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 5, 48)).astype(np.float32)
+    x = torch.from_numpy(x).to(getattr(torch, dtype)).float().numpy()
+    scale = (1.0 + 0.1 * rng.standard_normal(48)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(48)).astype(np.float32)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    jx = jnp.asarray(x).astype(dtype)
+    for jmod, tmod, p in [(jnn.RMSNorm(48), tnn.RMSNorm(48), {"scale": scale}),
+                          (jnn.LayerNorm(48), tnn.LayerNorm(48), {"scale": scale, "bias": bias})]:
+        got = tmod.apply({k: torch.from_numpy(v) for k, v in p.items()}, tx)
+        want = jmod.apply({k: jnp.asarray(v) for k, v in p.items()}, jx)
+        assert got.dtype == getattr(torch, dtype)
+        tol = 1e-6 if dtype == "float32" else 2.0 ** -7   # bf16: one ulp of |y| <~ 4
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                                   atol=tol * 4, rtol=tol)
+    table = rng.standard_normal((11, 48)).astype(np.float32)
+    ids = rng.integers(0, 11, (2, 7))
+    got = tnn.Embedding(11, 48).apply({"table": torch.from_numpy(table)}, torch.from_numpy(ids))
+    want = jnn.Embedding(11, 48).apply({"table": jnp.asarray(table)}, jnp.asarray(ids))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# the Backbone against the reference
+# ---------------------------------------------------------------------------
+
+_LOGIT_CASES = {
+    "gemma3-4b.smoke": (jget_config("gemma3-4b").smoke(), "use_flash"),
+    "mamba2-2.7b.smoke": (jget_config("mamba2-2.7b").smoke(), "use_ssd_kernel"),
+    "dense": (JCFGS["dense"], "use_flash"),
+    "dense_window": (JCFGS["dense_window"], "use_flash"),
+    "grouped": (JCFGS["grouped"], "use_flash"),
+    "ssm": (JCFGS["ssm"], "use_ssd_kernel"),
+}
+
+
+@pytest.mark.parametrize("kernel", [True, False])
+@pytest.mark.parametrize("key", list(_LOGIT_CASES))
+def test_backbone_logits_match_jax(key, kernel):
+    """Logits of ``apply`` on the reference's weights, with the kernel flag
+    on (JAX: Pallas in interpret mode; port: the wrapper's plain version on
+    the CPU) and off (both: the plain model)."""
+    jcfg, flag = _LOGIT_CASES[key]
+    jb, jp, tb, tp = _pair(jcfg, **{flag: kernel})
+    T = 32
+    toks = _tokens(jcfg.vocab_size, (2, T))
+    before = (fkernel.flash_attention_bhsd.launches, skernel.ssd_bthd.launches)
+    got = tb.apply(tp, torch.from_numpy(toks))
+    assert (fkernel.flash_attention_bhsd.launches, skernel.ssd_bthd.launches) == before
+    want = jb.apply(jp, jnp.asarray(toks))
+    assert got["logits"].shape == (2, T, jcfg.padded_vocab)
+    assert got["logits"].dtype == torch.float32
+    np.testing.assert_allclose(got["logits"].numpy(), np.asarray(want["logits"]), atol=2e-4)
+    np.testing.assert_allclose(got["hidden"].numpy(), np.asarray(want["hidden"]), atol=2e-4)
+
+
+@pytest.mark.parametrize("key", ["gemma3-4b.smoke", "grouped"])
+def test_prefill_cache_matches_jax(key):
+    """``prefill``'s last-token logits and its padded KV caches, key by key,
+    against the reference's, with the flash route on both sides."""
+    jcfg, _ = _LOGIT_CASES[key]
+    jb, jp, tb, tp = _pair(jcfg, use_flash=True)
+    toks = _tokens(jcfg.vocab_size, (2, 24))
+    got = tb.prefill(tp, torch.from_numpy(toks), max_seq=30)
+    want = jax.device_get(jb.prefill(jp, jnp.asarray(toks), max_seq=30))
+    assert got["logits"].shape == (2, 1, jcfg.padded_vocab)
+    np.testing.assert_allclose(got["logits"].numpy(), np.asarray(want["logits"]), atol=2e-4)
+    jleaves, jdef = jax.tree_util.tree_flatten_with_path(want["cache"])
+    tcache = got["cache"]
+    assert sorted(tcache) == sorted(want["cache"])
+    for path, leaf in jleaves:
+        t = tcache
+        for k in path:
+            t = t[k.key]
+        assert tuple(t.shape) == leaf.shape
+        np.testing.assert_allclose(t.numpy(), leaf, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# port twins of tests/test_models.py
+# ---------------------------------------------------------------------------
+
+
+def _port(key, **flags):
+    cfg = port_config(JCFGS[key])
+    bb = Backbone(cfg, **flags)
+    return cfg, bb, bb.init(torch.Generator().manual_seed(0))
+
+
+def _decode_all(bb, params, toks, cache, per_row):
+    outs = []
+    for i in range(toks.shape[1]):
+        index = torch.full((toks.shape[0],), i) if per_row else i
+        lg, cache = bb.decode(params, toks[:, i:i + 1], cache, index)
+        outs.append(lg[:, 0])
+    return torch.stack(outs, dim=1)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("key", ["dense", "dense_window", "grouped"])
+def test_decode_matches_forward(key, per_row):
+    cfg, bb, params = _port(key, use_flash=True)
+    T, B = 12, 2
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, (B, T)))
+    full = bb.apply(params, toks)["logits"]
+    assert full.shape == (B, T, cfg.padded_vocab)
+    assert not torch.isnan(full).any()
+    cache = bb.init_cache(B, T, device="cpu")
+    dec = _decode_all(bb, params, toks, cache, per_row)
+    np.testing.assert_allclose(dec.numpy(), full.numpy(), atol=5e-4)
+
+
+def test_decode_rows_at_their_own_positions():
+    """A per-row index decodes each row at its own position: row 0 one
+    token ahead of row 1 gives row 0's next logits and row 1's current
+    ones, as the full forward does."""
+    cfg, bb, params = _port("grouped")
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, (2, 10)))
+    full = bb.apply(params, toks)["logits"]
+    pre = bb.prefill(params, toks[:, :6], max_seq=10)
+    cache = pre["cache"]
+    lg, cache = bb.decode(params, toks[:, 6:7], cache, torch.tensor([6, 6]))
+    step = torch.stack([toks[0, 7:8], toks[1, 6:7]])      # row 1 rewrites position 6
+    lg, _ = bb.decode(params, step, cache, torch.tensor([7, 6]))
+    np.testing.assert_allclose(lg[0, 0].numpy(), full[0, 7].numpy(), atol=5e-4)
+    np.testing.assert_allclose(lg[1, 0].numpy(), full[1, 6].numpy(), atol=5e-4)
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_prefill_then_decode_continues_correctly(use_flash):
+    cfg, bb, params = _port("dense", use_flash=use_flash)
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, (2, 12)))
+    full = bb.apply(params, toks)["logits"]
+    pre = bb.prefill(params, toks[:, :8], max_seq=12)
+    np.testing.assert_allclose(pre["logits"][:, 0].numpy(), full[:, 7].numpy(), atol=5e-4)
+    lg, _ = bb.decode(params, toks[:, 8:9], pre["cache"], 8)
+    np.testing.assert_allclose(lg[:, 0].numpy(), full[:, 8].numpy(), atol=5e-4)
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_sliding_window_actually_masks(use_flash):
+    """A token far outside the window must not influence the output."""
+    cfg = port_config(_jdense(name="wm", sliding_window=2, num_layers=1))
+    bb = Backbone(cfg, use_flash=use_flash)
+    params = bb.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, (1, 8)))
+    out1 = bb.apply(params, toks)["logits"][:, -1]
+    toks2 = toks.clone()
+    toks2[:, 0] = (toks[:, 0] + 7) % cfg.vocab_size
+    out2 = bb.apply(params, toks2)["logits"][:, -1]
+    np.testing.assert_allclose(out1.numpy(), out2.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("key,flag", [("dense", "use_flash"), ("grouped", "use_flash"),
+                                      ("ssm", "use_ssd_kernel")])
+def test_causality(key, flag):
+    """Future tokens must not affect past logits."""
+    cfg, bb, params = _port(key, **{flag: True})
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, (1, 12)))
+    out1 = bb.apply(params, toks)["logits"][:, :5]
+    toks2 = toks.clone()
+    toks2[:, 7] = (toks[:, 7] + 3) % cfg.vocab_size
+    out2 = bb.apply(params, toks2)["logits"][:, :5]
+    np.testing.assert_allclose(out1.numpy(), out2.numpy(), atol=1e-5)
+
+
+def test_unported_paths_raise():
+    for key in ("moe", "hybrid", "audio"):
+        with pytest.raises(NotImplementedError, match="slice 5"):
+            Backbone(port_config(JCFGS[key]))
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        Backbone(port_config(JCFGS["dense_window"]), ring_cache=True)
+    cfg, bb, params = _port("ssm")
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, (1, 8)))
+    for call in (lambda: bb.prefill(params, toks), lambda: bb.init_cache(1, 8, device="cpu"),
+                 lambda: bb.decode(params, toks[:, :1], {}, 0)):
+        with pytest.raises(NotImplementedError, match="slice 5"):
+            call()

@@ -14,7 +14,13 @@ qsync bit-identical in every output (kernel and plain version both sum
 the rounded products in agent order and round every step alike); the four
 qpack kernels bit-identical (elementwise, the block max-abs is exact in
 any order); the composed coded sync bit-identical to the fused one (both
-reduce in agent order with the same roundings).
+reduce in agent order with the same roundings).  Flash attention and the
+SSD scan compute in float32 with fused multiply-adds in another order than
+the plain versions' library products: float32 outputs within 1e-5 of the
+output's largest magnitude; bfloat16 outputs that much plus two bfloat16
+ulps of the element (both round a float32 result once, which may land on
+the neighbouring value).  The backbones on the card against the CPU
+within 2e-4, as the port is held to the reference.
 """
 import pytest
 import torch
@@ -28,8 +34,14 @@ from repro_torch.kernels.qpack import kernel as pkernel
 from repro_torch.kernels.qpack import ref as pref
 from repro_torch.kernels.qsync import kernel as qkernel
 from repro_torch.kernels.qsync.ref import qsync_flat_ref
+from repro_torch.configs.registry import get_config
+from repro_torch.kernels.flash_attention import kernel as fkernel
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.ssd_scan import kernel as skernel
+from repro_torch.kernels.ssd_scan.ref import ssd_ref
 from repro_torch.launch.train import experiment_spec
-from repro_torch.tree import tree_leaves
+from repro_torch.models import Backbone
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @pytest.fixture
@@ -203,3 +215,114 @@ def test_composed_round_on_card_runs_through_the_qpack_kernels(cuda):
     for x in leaves:
         assert bool(torch.isfinite(x).all())
         assert torch.equal(x, x[:1, :1].expand_as(x))
+
+
+def _close(got, want, dtype):
+    """float32: within 1e-5 of max |want|; bfloat16: that plus two bf16
+    ulps (2^-6 of the larger magnitude) of the element."""
+    g, w = got.float(), want.float()
+    bound = 1e-5 * float(w.abs().max()) + torch.zeros_like(w)
+    if dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -6 * torch.maximum(g.abs(), w.abs())
+    err = (g - w).abs()
+    assert bool((err <= bound).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("nh,nkv,hd", [(8, 4, 256), (4, 4, 64), (8, 2, 32)])
+def test_flash_kernel_matches_plain(cuda, dtype, window, nh, nkv, hd):
+    """T = 300 is a multiple of no tile; GQA 2:1 and 4:1 and none."""
+    g = torch.Generator(device=cuda).manual_seed(hd + window)
+    q = torch.randn((2, nh, 300, hd), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((2, nkv, 300, hd), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    before = fkernel.flash_attention_bhsd.launches
+    got = fkernel.flash_attention_bhsd(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fkernel.flash_attention_bhsd.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, attention_ref(q, k, v, causal=True, window=window), dtype)
+    if hd == 64:
+        got = fkernel.flash_attention_bhsd(q, k, v, causal=False)
+        _close(got, attention_ref(q, k, v, causal=False), dtype)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refusals(cuda):
+    q = torch.randn((1, 4, 70, 64), device=cuda)
+    k = torch.randn((1, 2, 70, 64), device=cuda)
+    with pytest.raises(RuntimeError, match="forward only"):
+        fkernel.flash_attention_bhsd(q.clone().requires_grad_(), k, k)
+    with pytest.raises(TypeError, match="float32 or all"):
+        fkernel.flash_attention_bhsd(q.half(), k.half(), k.half())
+    with pytest.raises(TypeError, match="float32 or all"):
+        fkernel.flash_attention_bhsd(q, k.bfloat16(), k)
+    with pytest.raises(ValueError, match="contiguous"):
+        fkernel.flash_attention_bhsd(q.transpose(2, 3).contiguous().transpose(2, 3), k, k)
+    with pytest.raises(ValueError, match="head_dim"):
+        fkernel.flash_attention_bhsd(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                                     k[..., :48].contiguous())
+
+
+def _ssd_inputs(g, dev, Bsz, T, nh, hd, ds, dtype):
+    x = (0.5 * torch.randn((Bsz, T, nh, hd), generator=g, device=dev)).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((Bsz, T, nh), generator=g, device=dev))
+    A = -torch.exp(torch.randn((nh,), generator=g, device=dev))
+    B, C = ((0.5 * torch.randn((Bsz, T, ds), generator=g, device=dev)).to(dtype)
+            for _ in range(2))
+    return x, dt, A, B, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,nh,hd,ds,chunk", [(512, 6, 64, 128, 128),   # mamba2's sizes
+                                              (96, 3, 32, 16, 32),
+                                              (40, 2, 128, 16, 8)])
+def test_ssd_kernel_matches_plain(cuda, dtype, T, nh, hd, ds, chunk):
+    g = torch.Generator(device=cuda).manual_seed(T + hd)
+    xs = _ssd_inputs(g, cuda, 2, T, nh, hd, ds, dtype)
+    before = skernel.ssd_bthd.launches
+    got = skernel.ssd_bthd(*xs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert skernel.ssd_bthd.launches == before + 1
+    assert got.dtype == dtype and got.shape == xs[0].shape
+    _close(got, ssd_ref(*xs, chunk=chunk), dtype)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refusals(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, dt, A, B, C = _ssd_inputs(g, cuda, 1, 64, 2, 16, 8, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="forward only"):
+        skernel.ssd_bthd(x.float().requires_grad_(), dt, A, B.float(), C.float(), chunk=16)
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        skernel.ssd_bthd(x, dt, A, B.float(), C, chunk=16)
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        skernel.ssd_bthd(x, dt.bfloat16(), A, B, C, chunk=16)
+    with pytest.raises(ValueError, match="up to 128"):
+        skernel.ssd_bthd(*_ssd_inputs(g, cuda, 1, 256, 2, 16, 8, torch.bfloat16), chunk=256)
+    with pytest.raises(ValueError, match="contiguous"):
+        skernel.ssd_bthd(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, B, C,
+                         chunk=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,flag", [("gemma3-4b", "use_flash"),
+                                       ("mamba2-2.7b", "use_ssd_kernel")])
+def test_backbone_on_card_runs_through_the_kernels(cuda, arch, flag):
+    """The smoke backbones on the card, from the same weights as on the
+    CPU: one kernel launch per layer, logits within 2e-4 of the CPU's."""
+    cfg = get_config(arch).smoke()
+    bb = Backbone(cfg, **{flag: True})
+    params = bb.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    counter = fkernel.flash_attention_bhsd if flag == "use_flash" else skernel.ssd_bthd
+    want = bb.apply(params, toks)["logits"]
+    before = counter.launches
+    got = bb.apply(tree_map(lambda x: x.to(cuda), params), toks.to(cuda))["logits"]
+    torch.cuda.synchronize()
+    assert counter.launches - before == cfg.num_layers
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-4)
