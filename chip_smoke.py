@@ -20,9 +20,14 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    the largest ACGAN leaf, (5, 2,097,152) float32, at 8 and 4 bits; pack4
    and unpack4 at that leaf's int4 codes after top-k 0.25, (5, 524,288);
    every row holds an all-zero block, an overflowing block and a block of
-   exact .5 ties.  Time each kernel, its plain version and (fedavg) the one
-   PyTorch call that computes the same function, with CUDA events, median
-   of 20 L2-cold launches.
+   exact .5 ties.  The fused Adam step with the uplink quantize
+   (``adam_sync_tree``, kernel 7) on the ACGAN generator and discriminator
+   trees after one round of training, one launch per tree, every output
+   bit-identical to its plain version and to ``Adam.update`` followed by
+   the qpack quantize.  Time each kernel, its plain version and (fedavg)
+   the one PyTorch call that computes the same function, with CUDA events,
+   median of 20 L2-cold launches; adam_sync also beside the composed form
+   it replaces (``Adam.update`` then ``quantize_blocks``).
 3. Composed vs fused: from the full-width state after one int8 round with
    error feedback, ``coded_sync`` of each subtree both ways, for
    IntQuant(8) and IntQuant(4) with the residuals and the experiment's
@@ -40,7 +45,18 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    pack4 and one unpack4).  Losses and parameters must be finite and every
    agent must hold the synced parameters after every round.
 
-5. Flash attention against its plain version on the card: at gemma3-4b's
+5. The paper's own experiments: ``python -m repro_torch.quickstart`` at
+   its defaults (B = 5, K = 20, 3,000 SGD steps), ending within 0.1 of
+   (theta, psi) = (1, 0); ``mixed_gaussian``, ``swiss_roll``,
+   ``celeba_acgan`` and ``timeseries_cgan`` through ``experiment_spec`` at
+   full width for a few rounds with the suite's eval at the end (finite
+   FD, mode coverage on mixed_gaussian, agents synced after every round);
+   the K-sweep ``run_sweep("toy_2d", Ks=(5, 20, 50), codec_names=("none",
+   "int8"))`` at 1,000 steps a cell with its summary table.  Exact launch
+   counts: one fedavg (or, int8, one qsync) per subtree per round, plus
+   one fedavg per parameter leaf for each ``averaged_params`` of an eval.
+   Every depth cut is printed on its own line.
+6. Flash attention against its plain version on the card: at gemma3-4b's
    shapes in bfloat16 (B = 2, q (2, 8, 2000, 256), k and v (2, 4, 2000,
    256), causal, window 1024 and 0) and in float32 with nh = nkv and with
    GQA 4:1, T a multiple of no tile.  float32 within 1e-5 of max |o|;
@@ -48,10 +64,10 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    its plain version and ``F.scaled_dot_product_attention`` with
    ``enable_gqa=True`` and the same boolean mask (named by the kernel the
    profiler sees; timed only, never on the path).
-6. The SSD scan against its plain version at mamba2-2.7b's shapes (x (2,
+7. The SSD scan against its plain version at mamba2-2.7b's shapes (x (2,
    2048, 80, 64) bfloat16, state 128, chunk 128), with the same tolerance;
    time both.
-7. gemma3-4b at full width (34 layers, d_model 2560, vocab 262,144): init
+8. gemma3-4b at full width (34 layers, d_model 2560, vocab 262,144): init
    on the card from a seeded generator; ``prefill`` of 2 prompts of 2,048
    tokens with ``max_seq`` 2,064 through ``use_flash=True`` (34 flash
    launches), 16 greedy ``decode`` steps with a per-row index (0 flash
@@ -59,7 +75,7 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    prefill with ``use_flash=False``: last-token logits within 2^-5 of the
    largest |logit| (the plain route rounds scores and probabilities to
    bfloat16, the kernel does not).  Every logit finite.
-8. mamba2-2.7b at full width (64 layers, d_inner 5120, vocab 50,280):
+9. mamba2-2.7b at full width (64 layers, d_inner 5120, vocab 50,280):
    ``apply`` on 2 x 2,048 tokens through ``use_ssd_kernel=True`` in
    bfloat16 (64 SSD launches, every logit finite), held to
    ``use_ssd_kernel=False`` layer by layer in bfloat16 (each layer's
@@ -294,7 +310,8 @@ def check_qpack(torch, dev, flush):
     from repro_torch.kernels.qpack import kernel as pk
     from repro_torch.kernels.qpack import ref as pr
     gen = torch.Generator(device=dev).manual_seed(5)
-    records = {}
+    records, errs = {}, dict.fromkeys(("quant", "dequant", "pack4", "unpack4"), 0.0)
+    diff = lambda a, b: (a.double() - b.double()).abs().max().item()  # noqa: E731
     R, N = QPACK_LEAF
     for bits in (8, 4):
         qmax = 2 ** (bits - 1) - 1
@@ -312,6 +329,8 @@ def check_qpack(torch, dev, flush):
         check(same_bits(torch, out, want),
               f"dequant int{bits} ({R}, {N}): not bit-identical "
               f"(max {float((out - want).abs().max())})")
+        errs["quant"] = max(errs["quant"], diff(q, wq), diff(s, ws))
+        errs["dequant"] = max(errs["dequant"], diff(out, want))
         log(f"quant + dequant ({R}, {N}) int{bits}: bit-identical")
         if bits == 8:
             nbytes_q = R * N * 4 + R * N + R * (N // 128) * 2
@@ -339,6 +358,8 @@ def check_qpack(torch, dev, flush):
                   f"unpack4 ({R}, {k // 2}): not bit-identical")
             check(bool((codes == -qmax).any() & (codes == qmax).any()),
                   "pack4: the codes do not reach both -7 and 7")
+            errs["pack4"] = diff(p, pr.pack4_ref(codes))
+            errs["unpack4"] = max(diff(back, codes), diff(back, pr.unpack4_ref(p)))
             log(f"pack4 + unpack4 ({R}, {k}) int4: bit-identical")
             nbytes_p = R * k + R * k // 2
             ms = time_ms(torch, lambda: pk.pack4_flat(codes), flush)
@@ -351,6 +372,7 @@ def check_qpack(torch, dev, flush):
             records["unpack4"] = _record("unpack4", 61, ms, plain,
                                          b_ms, b_by)
     for r in records.values():
+        r["max_abs_err"] = errs[r["name"]]
         log(f"{r['name']} timing: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     try:
@@ -365,8 +387,123 @@ def check_qpack(torch, dev, flush):
 def _record(name, line, ms, plain, b_ms, b_by):
     return {"name": name, "route": "cuda", "source": "src/repro_torch/csrc/qpack.cu",
             "replaces": f"src/repro/kernels/qpack/kernel.py:{line}",
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+            "max_abs_err": None, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None}
+
+
+def check_adam_sync(torch, dev, flush):
+    """Kernel 7, the fused Adam step with the uplink quantize, on the image
+    experiment's ACGAN trees at full width (B = 5): the state after one
+    round of training (moments and count of real steps) and one local
+    step's gradients of G and D.  The main path is ``adam_sync_tree`` on
+    each tree, one launch each, counted; then every output bit for bit
+    against the plain version and against ``Adam.update`` followed by the
+    qpack quantize of the bucketed new params, on the card.  Timed at the
+    generator bucket beside the plain version and that composed form."""
+    from torch.func import vmap
+    from repro_torch.core.fedgan import _flat
+    from repro_torch.kernels.qpack.kernel import quant_flat
+    from repro_torch.kernels.qpack.ops import quantize_blocks
+    from repro_torch.kernels.qsync import kernel as qk, ops as qops
+    from repro_torch.kernels.qsync.ref import adam_sync_flat_ref
+    from repro_torch.launch.train import experiment_spec
+    from repro_torch.optim import Adam
+    from repro_torch.tree import tree_leaves
+    spec, _ = experiment_spec("image_acgan", steps=20, log_every=0, device=dev)
+    result = spec.run_result()
+    fed, state = result.fed, result.state
+    batch = spec.build_data().sample_step(torch.Generator(device=dev).manual_seed(8))
+    params = _flat(state["params"], B)
+    gd, gg, _ = vmap(fed._agent_grads)(params, _flat(batch, B))
+    lr, adam = 1e-3, Adam(b1=0.5, b2=0.999)
+
+    def opt(key):   # one agent-stacked Adam state with the agents' shared count
+        flat = _flat(state[key], B)
+        return {"count": flat["count"][0], "mu": flat["mu"], "nu": flat["nu"]}
+
+    trees = {"gen": (params["gen"], gg, opt("opt_g")), "disc": (params["disc"], gd, opt("opt_d"))}
+    counters = launch_counters()
+    _reset(counters)
+    outs = {k: qops.adam_sync_tree(p, g, o, lr=lr) for k, (p, g, o) in trees.items()}
+    torch.cuda.synchronize()
+    counts = _read(counters)
+    want = {n: 2 if n == "adam_sync" else 0 for n in counters}
+    check(counts == want, f"adam_sync_tree on G and D: launches {counts}, expected {want}")
+    bucket = lambda t: qops._bucket(tree_leaves(t), B, 128)[0]
+    record, max_err = None, 0.0
+    for k, (p, g, o) in trees.items():
+        p2, o2, q, sc = outs[k]
+        c = (o["count"] + 1).to(torch.float32)
+        hyper = torch.stack([torch.tensor(lr, device=dev), 1.0 - 0.5 ** c,
+                             1.0 - 0.999 ** c]).reshape(1, 3)
+        args = (hyper, bucket(p), bucket(g), bucket(o["mu"]), bucket(o["nu"]))
+        kw = dict(b1=0.5, b2=0.999, eps=1e-8, qmax=127, block=128)
+        plain = adam_sync_flat_ref(*args, **kw)
+        got = (bucket(p2), bucket(o2["mu"]), bucket(o2["nu"]), q, sc)
+        for what, a, b in zip(("params", "mu", "nu", "codes", "scales"), got, plain):
+            check(same_bits(torch, a, b), f"adam_sync {k}: {what} differs from the plain "
+                                          f"version on {int((a != b).sum())} elements")
+            max_err = max(max_err, (a.double() - b.double()).abs().max().item())
+        ref_p, ref_o = adam.update(p, g, o, lr)
+        rq, rs = quant_flat(bucket(ref_p), qmax=127)
+        for what, a, b in (("params", p2, ref_p), ("mu", o2["mu"], ref_o["mu"]),
+                           ("nu", o2["nu"], ref_o["nu"])):
+            check(all(same_bits(torch, x, y) for x, y in zip(tree_leaves(a), tree_leaves(b))),
+                  f"adam_sync {k}: {what} differs from Adam.update")
+        check(same_bits(torch, q, rq) and same_bits(torch, sc, rs),
+              f"adam_sync {k}: codes or scales differ from quantize of Adam.update's params")
+        check(int(o2["count"]) == int(o["count"]) + 1, f"adam_sync {k}: count not stepped")
+        R, N = args[1].shape
+        log(f"adam_sync {k} bucket ({R}, {N}), count {int(o['count'])}: bit-identical to "
+            f"its plain version and to Adam.update + quantize")
+        if k == "gen":
+            run = lambda: qk.adam_sync_flat(*args, **kw)
+            ms = time_ms(torch, run, flush)
+            plain_ms = time_ms(torch, lambda: adam_sync_flat_ref(*args, **kw), flush)
+            # the composed form the kernel replaces, on this bucket, read
+            # twice around Adam.update alone and a control on random tensors
+            # of its shape (the same operations), each from a settled
+            # allocator; the host's dispatch of the composed form is read
+            # too, since the 2 ms spin hides only that much of it
+            flat_state = {"count": o["count"], "mu": args[3], "nu": args[4]}
+            composed = lambda st, p_, g_: quantize_blocks(adam.update(p_, g_, st, lr)[0], bits=8)
+            rnd = [torch.randn(args[1].shape, device=dev) for _ in range(4)]
+            rnd_state = {"count": o["count"], "mu": rnd[2], "nu": rnd[3].abs()}
+            readings = {}
+            for what, fn in (
+                    ("composed", lambda: composed(flat_state, args[1], args[2])),
+                    ("update", lambda: adam.update(args[1], args[2], flat_state, lr)),
+                    ("control", lambda: composed(rnd_state, rnd[0], rnd[1])),
+                    ("composed again", lambda: composed(flat_state, args[1], args[2]))):
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                readings[what] = time_ms(torch, fn, flush)
+            dispatch = []
+            for _ in range(REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                composed(flat_state, args[1], args[2])
+                dispatch.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            del rnd, rnd_state
+            # read p, g, mu, nu and the hyper row; write p', mu', nu', the codes, the scales
+            nbytes = R * N * (16 + 13) + R * (N // 128) * 2 + 12
+            b_ms, b_by = bound(nbytes, 15 * R * N)
+            record = {"name": "adam_sync", "route": "cuda",
+                      "source": "src/repro_torch/csrc/qsync.cu",
+                      "replaces": "src/repro/kernels/qsync/kernel.py:124",
+                      "launches": counts["adam_sync"], "max_abs_err": None, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": None}
+            log(f"adam_sync timing ({R}, {N}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"Adam.update + quantize_blocks {readings['composed']:.4f} ms, again "
+                f"{readings['composed again']:.4f} ms (Adam.update alone "
+                f"{readings['update']:.4f} ms; on random tensors of the shape "
+                f"{readings['control']:.4f} ms; host dispatch of the composed form "
+                f"{statistics.median(dispatch):.4f} ms), "
+                f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
+    record["max_abs_err"] = max_err
+    return record
 
 
 def check_composed_vs_fused(torch, dev):
@@ -378,8 +515,8 @@ def check_composed_vs_fused(torch, dev):
     from repro_torch.dist import collectives
     from repro_torch.launch.train import experiment_spec
     from repro_torch.tree import tree_leaves
-    spec = experiment_spec("image_acgan", steps=20, log_every=0, device=dev,
-                           strategy=FedAvgSync(codec=IntQuant(8)))
+    spec, _ = experiment_spec("image_acgan", steps=20, log_every=0, device=dev,
+                              strategy=FedAvgSync(codec=IntQuant(8)))
     result = spec.run_result()
     state, w = result.state, result.fed._w(dev)
     for bits in (8, 4):
@@ -755,11 +892,13 @@ def run_main_path(torch, dev, strategy, label, per_round):
     rounds, K = 3, 20
     # warm-up round: cuDNN's first calls pick algorithms; not counted
     experiment_spec("image_acgan", steps=K, strategy=strategy, log_every=0,
-                    device=dev).run_result()
-    spec = experiment_spec("image_acgan", steps=rounds * K, strategy=strategy,
-                           log_every=1, device=dev)
+                    device=dev)[0].run_result()
+    spec, _ = experiment_spec("image_acgan", steps=rounds * K, strategy=strategy,
+                              log_every=1, device=dev)
     check((spec.K, spec.batch_size, spec.agent_grid) == (K, 64, (1, B)),
           "image_acgan is not at the experiment's width")
+    log(f"depth cut: image_acgan under {label} runs {rounds} rounds x K={K} = "
+        f"{rounds * K} local steps of the paper's 30000")
     mismatched = []
 
     def synced(fed, state, r):
@@ -791,17 +930,137 @@ def run_main_path(torch, dev, strategy, label, per_round):
     return counts, t
 
 
+def run_quickstart(torch, dev):
+    """``python -m repro_torch.quickstart`` at its own defaults (B = 5,
+    K = 20, 3,000 SGD steps): it must end within 0.1 of (1, 0); the fedavg
+    kernel launches one per subtree per round (the gen and disc subtrees of
+    the 2D system hold one leaf each), plus one per leaf for each of the
+    ten points of the printed trajectory (``averaged_params``)."""
+    from repro_torch import quickstart
+    counters = launch_counters()
+    _reset(counters)
+    out = quickstart.run(device=dev)
+    torch.cuda.synchronize()
+    counts = _read(counters)
+    rounds, points = out["rounds"], len(out["trajectory"])
+    want = {n: 2 * rounds + 2 * points if n == "fedavg" else 0 for n in counters}
+    check(counts == want, f"quickstart: launches {counts}, expected {want}")
+    check(quickstart.converged(out), f"quickstart: ended at ({out['theta']}, {out['psi']}), "
+                                     f"not within 0.1 of (1, 0)")
+    t = out["timings"]
+    log(f"quickstart: (theta, psi) = ({out['theta']:+.4f}, {out['psi']:+.4f}) after "
+        f"{rounds} rounds x K=20, {t['steps_per_s']:.1f} steps/s, "
+        f"{t['total_s'] / rounds * 1e3:.2f} ms/round, launches {counts}")
+    return counts["fedavg"]
+
+
+PAPER_ROUNDS = {"mixed_gaussian": 4, "swiss_roll": 4, "celeba_acgan": 2, "timeseries_cgan": 3}
+
+
+def run_paper(torch, dev, name, rounds):
+    """One of the paper's experiments through ``experiment_spec`` at its
+    full width (the paper's nets, agents, batch and K) for ``rounds``
+    rounds after one warm-up round, with the suite's eval after the last:
+    finite losses and FD, every agent holding the synced parameters after
+    every round, fedavg launched one per subtree per round plus one per
+    parameter leaf for the eval's ``averaged_params``."""
+    from repro_torch.configs.paper_gans import ALL_EXPERIMENTS
+    from repro_torch.launch.train import experiment_spec
+    from repro_torch.run.evals import eval_hook
+    from repro_torch.tree import tree_leaves
+    spec, suite = experiment_spec(name, log_every=0, device=dev)
+    K, exp = spec.K, ALL_EXPERIMENTS[name]
+    log(f"depth cut: {name} runs {rounds} rounds x K={K} = {rounds * K} local steps of the "
+        f"paper's {exp.iterations}")
+    dataclasses.replace(spec, steps=K).run_result()   # warm-up: cuDNN picks algorithms
+    mismatched, eval_s = [], []
+    score = eval_hook(suite, seed=0)
+
+    def hook(fed, state, r):
+        mismatched.append(torch.stack([(x != x[:1, :1]).any()
+                                       for x in tree_leaves(state["params"])]).any())
+        if r < rounds - 1:
+            return {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = score(fed, state, r)
+        eval_s.append(time.perf_counter() - t0)
+        return out
+
+    spec = dataclasses.replace(spec, steps=rounds * K, eval_every=1, eval_hooks=(hook,))
+    counters = launch_counters()
+    _reset(counters)
+    result = spec.run_result()
+    torch.cuda.synchronize()
+    counts = _read(counters)
+    n_leaves = len(tree_leaves(result.state["params"]))
+    want = {n: 2 * rounds + n_leaves if n == "fedavg" else 0 for n in counters}
+    check(counts == want, f"{name}: launches {counts}, expected {want}")
+    check(len(mismatched) == rounds and not any(bool(m) for m in mismatched),
+          f"{name}: agents do not hold identical params after a sync")
+    check(all(math.isfinite(v) for m in result.history for v in m.values()),
+          f"{name}: non-finite losses")
+    scores = result.evals[-1]
+    check(math.isfinite(scores["fd"]), f"{name}: FD is not finite ({scores})")
+    if name == "mixed_gaussian":
+        check("modes_covered" in scores and "high_quality_frac" in scores,
+              f"{name}: mode_stats did not run")
+    ms = (result.timings["total_s"] - eval_s[0]) / rounds * 1e3
+    log(f"paper {name}: B={spec.agent_grid[1]}, K={K}, batch {spec.batch_size}: "
+        f"{ms:.1f} ms/round ({rounds * K / (ms * rounds / 1e3):.1f} steps/s), eval "
+        f"{eval_s[0] * 1e3:.0f} ms: {json.dumps({k: v for k, v in scores.items()})}; "
+        f"launches {counts}")
+    return counts["fedavg"]
+
+
+def run_ksweep(torch, dev):
+    """``run_sweep("toy_2d", Ks=(5, 20, 50), codec_names=("none", "int8"))``
+    at a reduced depth: the summary table, ms per round per cell, and the
+    sync kernels' launches exactly: per round one fedavg (none) or one
+    qsync (int8) per subtree, plus one fedavg per leaf for each cell's
+    final eval."""
+    import tempfile
+    from repro_torch.run.experiments import run_sweep, summary_table
+    Ks, steps = (5, 20, 50), 1000
+    log(f"depth cut: toy_2d K-sweep runs {steps} local steps per cell of the paper's 4000")
+    counters = launch_counters()
+    _reset(counters)
+    with tempfile.TemporaryDirectory() as out_dir:
+        cells = run_sweep("toy_2d", Ks, codec_names=("none", "int8"), steps=steps,
+                          out_dir=out_dir, device=dev, verbose=False)
+        rows = sum(1 for _ in open(os.path.join(out_dir, "sweep_toy_2d.jsonl")))
+    torch.cuda.synchronize()
+    counts = _read(counters)
+    rounds = sum(steps // K for K in Ks)
+    want = {n: 0 for n in counters}
+    want["qsync"] = 2 * rounds
+    want["fedavg"] = 2 * rounds + 2 * len(cells)
+    check(counts == want, f"K-sweep: launches {counts}, expected {want}")
+    check(rows == 2 * rounds + len(cells), f"K-sweep: {rows} JSONL rows")
+    for c in cells:
+        check(math.isfinite(c.final["fd"]), f"K-sweep {c.label} K={c.K}: FD not finite")
+        log(f"K-sweep {c.label} K={c.K}: {c.timings['total_s'] / (steps // c.K) * 1e3:.2f} "
+            f"ms/round, {c.timings['steps_per_s']:.1f} steps/s, final {c.final}, "
+            f"{c.bytes_per_round} B/round")
+    by = {(c.K, c.codec): c for c in cells}
+    check(all(by[K, "int8"].bytes_per_round < by[K, "none"].bytes_per_round for K in Ks),
+          "K-sweep: int8 does not bill fewer bytes than float32")
+    log("K-sweep summary:\n" + summary_table(cells))
+    log(f"K-sweep launches {counts}")
+    return counts["qsync"]
+
+
 def launch_counters():
     """Every kernel wrapper of the port, by kernel name."""
     from repro_torch.kernels.fedavg.kernel import fedavg_flat
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
     from repro_torch.kernels.qpack import kernel as pk
-    from repro_torch.kernels.qsync.kernel import qsync_flat
+    from repro_torch.kernels.qsync.kernel import adam_sync_flat, qsync_flat
     from repro_torch.kernels.ssd_scan.kernel import ssd_bthd
     return {"fedavg": fedavg_flat, "qsync": qsync_flat, "quant": pk.quant_flat,
             "dequant": pk.dequant_flat, "pack4": pk.pack4_flat,
-            "unpack4": pk.unpack4_flat, "flash_attention": flash_attention_bhsd,
-            "ssd_scan": ssd_bthd}
+            "unpack4": pk.unpack4_flat, "adam_sync": adam_sync_flat,
+            "flash_attention": flash_attention_bhsd, "ssd_scan": ssd_bthd}
 
 
 def main() -> int:
@@ -829,11 +1088,12 @@ def main() -> int:
 
     shapes = stream_shapes()
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
-    records = [check_fedavg(torch, shapes, dev, flush),
-               check_qsync(torch, shapes, dev, flush),
-               *check_qpack(torch, dev, flush),
-               check_flash(torch, dev, flush),
-               check_ssd(torch, dev, flush)]
+    records = {r["name"]: r for r in (check_fedavg(torch, shapes, dev, flush),
+                                      check_qsync(torch, shapes, dev, flush),
+                                      *check_qpack(torch, dev, flush),
+                                      check_adam_sync(torch, dev, flush),
+                                      check_flash(torch, dev, flush),
+                                      check_ssd(torch, dev, flush))}
     del flush
     check_composed_vs_fused(torch, dev)
     check_small_round(torch, dev)
@@ -853,17 +1113,22 @@ def main() -> int:
         torch, dev, FedAvgSync(codec=IntQuant(bits=8), fused_sync=False),
         "FedAvgSync(codec=IntQuant(8), fused_sync=False)",
         {"fedavg": L, "quant": 2 * L, "dequant": 2 * L})
-    records[0]["launches"] = plain_counts["fedavg"]
-    records[1]["launches"] = int8_counts["qsync"]
-    for r in records[2:6]:
-        r["launches"] = chain_counts[r["name"]]
-    records[6]["launches"] = run_gemma(torch, dev)
+    records["fedavg"]["launches"] = plain_counts["fedavg"]
+    records["qsync"]["launches"] = int8_counts["qsync"]
+    for name in ("quant", "dequant", "pack4", "unpack4"):
+        records[name]["launches"] = chain_counts[name]
+    run_quickstart(torch, dev)
+    for name, rounds in PAPER_ROUNDS.items():
+        run_paper(torch, dev, name, rounds)
+    run_ksweep(torch, dev)
+    records["flash_attention"]["launches"] = run_gemma(torch, dev)
     torch.cuda.empty_cache()
-    records[7]["launches"] = run_mamba(torch, dev)
+    records["ssd_scan"]["launches"] = run_mamba(torch, dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card_line(), flush=True)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}), flush=True)
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records.values()]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -1,13 +1,61 @@
-"""Synthetic class-conditional images, the MNIST/CIFAR stand-in of the
-image experiments (a port of ``repro.data.synthetic.sample_class_images``;
-the other generators are not ported yet).  Draws come from an explicit
-``torch.Generator`` on the labels' device: the same distributions as the
-reference, different bits."""
+"""Synthetic data standing in for the paper's gated datasets (a port of
+``repro.data.synthetic``): the exact toy distributions (2D segments, the
+8-mode ring of Gaussians, the Swiss roll), class-conditional images (the
+MNIST/CIFAR and CelebA stand-ins) and daily household-load profiles (the
+PG&E stand-in).  Draws come from an explicit ``torch.Generator`` on its
+own device (on the labels' device for the conditional ones): the same
+distributions as the reference, different bits."""
 from __future__ import annotations
 
 import math
 
 import torch
+
+
+# ---------------------------------------------------------------------------
+# Toy distributions (§4.1 / Appendix C)
+# ---------------------------------------------------------------------------
+
+
+def sample_2d_segment(gen: torch.Generator, n: int, agent: int, num_agents: int = 5):
+    """Agent i's real data: uniform on its 2/num_agents-wide slice of [-1,1]."""
+    width = 2.0 / num_agents
+    lo = -1.0 + width * agent
+    u = torch.rand((n,), generator=gen, device=gen.device)
+    return lo + width * u
+
+
+def mixed_gaussian_modes(num_modes: int = 8, radius: float = 2.0, device="cpu"):
+    ang = torch.arange(num_modes, device=device) * (2 * math.pi / num_modes)
+    return torch.stack([radius * torch.cos(ang), radius * torch.sin(ang)], dim=-1)
+
+
+def sample_mixed_gaussian(gen: torch.Generator, n: int, modes=None,
+                          std: float = 0.05, mode_subset=None):
+    """8 Gaussians on a circle (Metz et al.).  ``mode_subset`` restricts to
+    an agent's local modes (non-iid split: 2 modes per agent for B=4)."""
+    dev = gen.device
+    modes = mixed_gaussian_modes(device=dev) if modes is None else modes.to(dev)
+    if mode_subset is not None:
+        modes = modes[torch.as_tensor(mode_subset, device=dev)]
+    idx = torch.randint(0, modes.shape[0], (n,), generator=gen, device=dev)
+    return modes[idx] + std * torch.randn((n, 2), generator=gen, device=dev)
+
+
+def sample_swiss_roll(gen: torch.Generator, n: int, *, noise: float = 0.05,
+                      t_range=(0.25, 1.0)):
+    """2-D Swiss roll (Gulrajani et al.).  ``t_range`` in (0,1] selects the
+    arc segment: agents get disjoint, equal-sized parts of the roll."""
+    dev = gen.device
+    t0, t1 = t_range
+    t = 3 * math.pi * (t0 + (t1 - t0) * torch.rand((n,), generator=gen, device=dev))
+    pts = torch.stack([t * torch.cos(t), t * torch.sin(t)], dim=-1) / (3 * math.pi)
+    return pts + noise * torch.randn((n, 2), generator=gen, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Synthetic class-conditional images (MNIST/CIFAR and CelebA stand-ins)
+# ---------------------------------------------------------------------------
 
 
 def sample_class_images(gen: torch.Generator, n: int, labels: torch.Tensor, *,
@@ -33,3 +81,31 @@ def sample_class_images(gen: torch.Generator, n: int, labels: torch.Tensor, *,
     img = img + 0.15 * torch.randn(img.shape, generator=gen, device=dev)
     shift = 0.1 * torch.randn((n, 1, 1, channels), generator=gen, device=dev)
     return torch.clamp(img + shift, -1.0, 1.0)
+
+
+
+# ---------------------------------------------------------------------------
+# Synthetic time series (PG&E household load)
+# ---------------------------------------------------------------------------
+
+
+def sample_household_load(gen: torch.Generator, n: int, *, climate_zone: torch.Tensor,
+                          seq_len: int = 24):
+    """Daily household consumption profile, normalised to a peak of 1.
+
+    Morning and evening peaks whose relative magnitude and timing depend on
+    the climate zone (the non-iid split key of §4.3), plus weekday noise.
+    ``climate_zone``: (n,) int in [0, 5), on the generator's device."""
+    dev = gen.device
+    cz = climate_zone.to(torch.float32)[:, None]
+    t = torch.arange(seq_len, dtype=torch.float32, device=dev)[None, :]   # hours
+    morning_peak = 6.5 + 0.5 * cz + 0.5 * torch.randn((n, 1), generator=gen, device=dev)
+    evening_peak = 18.0 + 0.4 * cz + 0.5 * torch.randn((n, 1), generator=gen, device=dev)
+    morning_h = 0.4 + 0.1 * cz
+    evening_h = 1.0 - 0.08 * cz
+    base = 0.25 + 0.03 * cz
+    prof = (base
+            + morning_h * torch.exp(-0.5 * ((t - morning_peak) / 1.5) ** 2)
+            + evening_h * torch.exp(-0.5 * ((t - evening_peak) / 2.0) ** 2))
+    prof = prof + 0.05 * torch.randn((n, seq_len), generator=gen, device=dev)
+    return prof / prof.amax(dim=1, keepdim=True)

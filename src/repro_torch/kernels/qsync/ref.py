@@ -1,15 +1,19 @@
-"""Plain PyTorch version of the fused qsync kernel.
+"""Plain PyTorch versions of the two qsync kernels.
 
-The arithmetic of ``repro.kernels.qsync.ref.qsync_flat_ref`` written in
-torch: per-agent block quantize and dequantize of the uplink, the
-weighted reduce over the agent grid, the downlink re-quantize.  The
-quantizer's arithmetic is qpack's (``kernels/qpack/ref.py``), as in the
-reference.
+``qsync_flat_ref``: the arithmetic of ``repro.kernels.qsync.ref.qsync_flat_ref``
+written in torch: per-agent block quantize and dequantize of the uplink,
+the weighted reduce over the agent grid, the downlink re-quantize.
+``adam_sync_flat_ref``: ``optim.Adam.update``'s step followed by the block
+quantize of the new params (``repro.kernels.qsync.ref.adam_sync_flat_ref``).
+The quantizer's arithmetic is qpack's (``kernels/qpack/ref.py``), as in
+the reference.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels.qpack.ref import _wire_scale  # noqa: F401  (re-exported)
-from repro_torch.kernels.qpack.ref import roundtrip_blocks_ref
+from repro_torch.kernels.qpack.ref import quant_blocks_ref, roundtrip_blocks_ref
 
 
 def qsync_flat_ref(weights, stacked, ef=None, ef_down=None, *, qmax: int,
@@ -35,3 +39,27 @@ def qsync_flat_ref(weights, stacked, ef=None, ef_down=None, *, qmax: int,
     return (dqd[0],
             y - dq if ef is not None else None,
             yd[0] - dqd[0] if ef_down is not None else None)
+
+
+def adam_sync_flat_ref(hyper, params, grads, mu, nu, *, b1: float, b2: float,
+                       eps: float, qmax: int, block: int):
+    """``hyper`` the (1, 3) float32 row [lr, bc1, bc2] on the params'
+    device, ``params``, ``grads``, ``mu``, ``nu`` (B, N) float32 with N a
+    multiple of ``block``.  Returns ``(new_params, new_mu, new_nu, codes
+    int8 (B, N), scales f16 (B, N // block))``.
+
+    The operations and their order are ``optim.Adam.update``'s, each
+    rounded on its own as PyTorch runs them eagerly (no fused
+    multiply-add): ``b1 * mu + (1 - b1) * g``, ``b2 * nu + (1 - b2) * g^2``,
+    ``p - (lr * (mu' / bc1)) / (sqrt(nu' / bc2) + eps)``.  The bias
+    corrections are divided by as 0-d tensors on the params' device: on the
+    card PyTorch divides by a Python number as a multiply by its rounded
+    reciprocal.  The reference jits the same function on XLA:CPU, which
+    contracts the moment updates into fused multiply-adds, so it agrees
+    with this one to a few ulps, not bit for bit."""
+    lr, bc1, bc2 = hyper[0, 0], hyper[0, 1], hyper[0, 2]
+    new_mu = b1 * mu + (1 - b1) * grads
+    new_nu = b2 * nu + (1 - b2) * torch.square(grads)
+    new_params = params - lr * (new_mu / bc1) / (torch.sqrt(new_nu / bc2) + eps)
+    q, s = quant_blocks_ref(new_params, qmax=qmax, block=block)
+    return new_params, new_mu, new_nu, q, s

@@ -1,8 +1,13 @@
-"""FedGAN training launcher (a port of part of ``repro.launch.train``).
+"""FedGAN training launcher (a port of the ``--experiment`` half of
+``repro.launch.train``).
 
-Runs the paper's image experiment on its synthetic stand-in data, on the
-card unless told otherwise:
+Runs one of the paper's experiments (toy_2d, mixed_gaussian, swiss_roll,
+image_acgan, celeba_acgan, timeseries_cgan) on its synthetic stand-in
+data, on the card unless told otherwise:
 
+  PYTHONPATH=src python -m repro_torch.launch.train --experiment toy_2d
+  PYTHONPATH=src python -m repro_torch.launch.train --experiment mixed_gaussian \
+      --steps 2000 --eval-every 40     # FD and mode coverage every 40 rounds
   PYTHONPATH=src python -m repro_torch.launch.train --experiment image_acgan
   PYTHONPATH=src python -m repro_torch.launch.train --experiment image_acgan \
       --codec int8 --steps 60          # int8 sync wire + error feedback (fused)
@@ -22,14 +27,30 @@ import dataclasses
 import json
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.comm import codec_from_flags
-from repro_torch.core import ACGAN, FedAvgSync, FedGAN, FedGANConfig, GANTask, \
-    make_gan_task, strategies
+from repro_torch.configs.paper_gans import ALL_EXPERIMENTS, optimizer_for, scales_for
+from repro_torch.core import ACGAN, CONDITIONAL, FedAvgSync, FedGAN, FedGANConfig, \
+    GANTask, make_gan_task, strategies
 from repro_torch.data import DeviceFederatedData, synthetic
-from repro_torch.optim import Adam, constant, constant_ttur, equal_timescale
+from repro_torch.models.gan_nets import one_hot
+from repro_torch.optim import Adam, constant, equal_timescale
+
+
+def toy2d_task():
+    from repro_torch.models.gan_nets import Toy2DDiscriminator, Toy2DGenerator
+    G, D = Toy2DGenerator(theta0=0.5), Toy2DDiscriminator(psi0=0.5)
+    return make_gan_task(G, D), (G, D)
+
+
+def mlp_gan_task(data_dim=2, latent=2, hidden=128):
+    from repro_torch.models.gan_nets import MLPDiscriminator, MLPGenerator
+    G = MLPGenerator(latent_dim=latent, out_dim=data_dim, hidden=hidden)
+    D = MLPDiscriminator(in_dim=data_dim, hidden=hidden)
+    return make_gan_task(G, D), (G, D)
 
 
 def acgan_task(hw=16, channels=3, num_classes=10, latent=62):
@@ -38,6 +59,13 @@ def acgan_task(hw=16, channels=3, num_classes=10, latent=62):
                        channels=channels)
     D = ACGANDiscriminator(num_classes=num_classes, image_hw=hw, channels=channels)
     return make_gan_task(G, D, ACGAN), (G, D)
+
+
+def cgan1d_task(seq_len=24, label_dim=5):
+    from repro_torch.models.gan_nets import CGAN1DDiscriminator, CGAN1DGenerator
+    G = CGAN1DGenerator(seq_len=seq_len, label_dim=label_dim)
+    D = CGAN1DDiscriminator(seq_len=seq_len, label_dim=label_dim)
+    return make_gan_task(G, D, CONDITIONAL), (G, D)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,49 +121,138 @@ class RunSpec:
         return driver.run(self.seed + 1, state=state)
 
 
+def _pooled_real(agent_data, seed: int = 0):
+    """Cross-agent pooled real samples, shuffled so any prefix is an
+    unbiased draw from the GLOBAL distribution (what the paper's metrics
+    compare against, never one agent's slice).  Stays on the data's
+    device."""
+    xs = torch.cat([d["x"] for d in agent_data])
+    perm = torch.from_numpy(np.random.RandomState(seed).permutation(len(xs)))
+    return xs[perm.to(xs.device)]
+
+
+def _refuse_unported(*, ckpt_dir, a_total, dp, data_mode):
+    """Flags that reach a part of the reference not ported yet raise and
+    name where it comes; none is silently ignored."""
+    if ckpt_dir:
+        raise NotImplementedError("ckpt_dir: checkpoints (checkpoint/store.py, "
+                                  "the driver's ckpt_dir) are not ported yet")
+    if a_total:
+        raise NotImplementedError("a_total: the virtual-client fleet is not "
+                                  "ported yet (ROADMAP slice 7)")
+    if dp is not None:
+        raise NotImplementedError("dp: DP-SGD is not ported yet (ROADMAP slice 6)")
+    if data_mode != "device":
+        raise NotImplementedError(
+            f"data_mode={data_mode!r}: the port runs the device-resident "
+            "pipeline only; the host-streaming one is ROADMAP queue 1, item 5")
+
+
 def experiment_spec(name: str, *, K: int | None = None,
                     steps: int | None = None, seed: int = 0, strategy=None,
-                    batch_size: int | None = None, log_every: int | None = None,
-                    device="cuda") -> RunSpec:
-    """The RunSpec of one of the paper's experiments on its synthetic
-    stand-in data, built on ``device``.  Only ``image_acgan`` is ported:
-    ACGAN nets on 16x16x3 images of 10 classes, B = 5 agents with two
-    classes each, 2048 images per agent, K = 20, batch 64, Adam(0.5,
-    0.999) at lr 1e-3 for both players."""
-    from repro_torch.configs.paper_gans import ALL_EXPERIMENTS
+                    batch_size: int | None = None,
+                    log_every: int | None = None, eval_every: int = 0,
+                    device="cuda", ckpt_dir: str = "", a_total: int = 0,
+                    dp=None, data_mode: str = "device"):
+    """``(RunSpec, EvalSuite)`` for one of the paper's experiments on its
+    synthetic stand-in data, built on ``device`` from a ``torch.Generator``
+    seeded with ``seed``: the reference's recipe (nets, non-iid split,
+    shard sizes, optimizers, schedules), the same distributions, other
+    bits.  ``K``, ``steps``, ``batch_size`` and ``log_every`` override the
+    experiment's defaults; ``eval_every`` wires the suite into
+    the driver as an eval hook every that many rounds.
+
+    ``ckpt_dir``, ``a_total``, ``dp`` and ``data_mode="stream"`` reach
+    parts not ported yet and raise."""
+    from repro_torch.run.evals import EvalSuite, eval_hook
     if name not in ALL_EXPERIMENTS:
-        raise KeyError(f"experiment {name!r} is not ported; ported: "
-                       f"{sorted(ALL_EXPERIMENTS)}")
+        raise KeyError(f"unknown experiment {name!r}; known: {sorted(ALL_EXPERIMENTS)}")
+    _refuse_unported(ckpt_dir=ckpt_dir, a_total=a_total, dp=dp, data_mode=data_mode)
     dev = resolve_device(device)
     exp = ALL_EXPERIMENTS[name]
     K = K or exp.default_K
     steps = steps or exp.iterations
-    B, ncls, hw, latent, n = exp.num_agents, 10, 16, 62, 2048
-    task, _ = acgan_task(hw=hw, num_classes=ncls, latent=latent)
-    per = ncls // B
+    B = exp.num_agents
     gen = torch.Generator(device=dev).manual_seed(seed)
-    agent_data = []
-    for i in range(B):   # agent i holds classes [i * per, (i + 1) * per)
-        lab = torch.randint(i * per, (i + 1) * per, (n,), generator=gen, device=dev)
-        img = synthetic.sample_class_images(gen, n, lab, hw=hw, num_classes=ncls)
-        agent_data.append({"x": img, "y": lab})
 
-    def extra(g, shape):
-        return {"z": torch.randn(shape + (latent,), generator=g, device=g.device)}
+    def normal(*shape):
+        return lambda g, s: {"z": torch.randn(s + shape, generator=g, device=g.device)}
 
-    adam = Adam(b1=0.5, b2=0.999)
-    return RunSpec(
+    if name == "toy_2d":
+        task, (G, _) = toy2d_task()
+        agent_data = [{"x": synthetic.sample_2d_segment(gen, 4096, i, B)}
+                      for i in range(B)]
+
+        def uniform(g, shape):
+            return 2 * torch.rand(shape, generator=g, device=g.device) - 1
+
+        extra = lambda g, s: {"z": uniform(g, s)}
+        suite = EvalSuite(real=_pooled_real(agent_data, seed),
+                          sample_fake=lambda gp, g, n: G.apply(gp, uniform(g, (n,))))
+    elif name in ("mixed_gaussian", "swiss_roll"):
+        task, (G, _) = mlp_gan_task()
+        if name == "mixed_gaussian":   # 8 modes on the circle, two per agent
+            agent_data = [{"x": synthetic.sample_mixed_gaussian(
+                gen, 8192, mode_subset=[2 * i, 2 * i + 1])} for i in range(B)]
+            modes = synthetic.mixed_gaussian_modes(device=dev)
+        else:
+            agent_data = [{"x": synthetic.sample_swiss_roll(
+                gen, 8192, t_range=(0.25 + 0.75 * i / B, 0.25 + 0.75 * (i + 1) / B))}
+                for i in range(B)]
+            modes = None
+        extra = normal(2)
+        suite = EvalSuite(
+            real=_pooled_real(agent_data, seed), modes=modes,
+            sample_fake=lambda gp, g, n: G.apply(
+                gp, torch.randn((n, 2), generator=g, device=g.device)))
+    elif name in ("image_acgan", "celeba_acgan"):
+        ncls = 16 if name == "celeba_acgan" else 10
+        task, (G, _) = acgan_task(hw=16, num_classes=ncls)
+        per = ncls // B
+        agent_data = []
+        for i in range(B):   # agent i holds classes [i * per, (i + 1) * per)
+            lab = torch.randint(i * per, (i + 1) * per, (2048,), generator=gen,
+                                device=dev)
+            img = synthetic.sample_class_images(gen, 2048, lab, hw=16, num_classes=ncls)
+            agent_data.append({"x": img, "y": lab})
+        extra = normal(62)
+
+        def sample_images(gp, g, n):
+            lab = torch.randint(0, ncls, (n,), generator=g, device=g.device)
+            return G.apply(gp, torch.randn((n, 62), generator=g, device=g.device), lab)
+
+        suite = EvalSuite(real=_pooled_real(agent_data, seed), sample_fake=sample_images)
+    else:  # timeseries_cgan
+        task, (G, _) = cgan1d_task()
+        agent_data = []
+        for i in range(B):
+            cz = torch.full((4096,), i, dtype=torch.int64, device=dev)  # zone i of 5
+            x = synthetic.sample_household_load(gen, 4096, climate_zone=cz)
+            agent_data.append({"x": x, "y": one_hot(cz, 5)})
+        extra = normal(24)
+
+        def sample_profiles(gp, g, n):
+            y = one_hot(torch.randint(0, 5, (n,), generator=g, device=g.device), 5)
+            return G.apply(gp, torch.randn((n, 24), generator=g, device=g.device), y)
+
+        suite = EvalSuite(real=_pooled_real(agent_data, seed),
+                          sample_fake=sample_profiles, kind="timeseries")
+
+    opt_d, opt_g = optimizer_for(exp)
+    spec = RunSpec(
         task=task, agent_data=agent_data, agent_grid=(1, B), K=K, steps=steps,
-        batch_size=batch_size or exp.batch_size,
-        scales=constant_ttur(exp.lr_d, exp.lr_g), opt_d=adam, opt_g=adam,
-        strategy=strategy, sample_extra=extra, seed=seed,
+        batch_size=batch_size or exp.batch_size, scales=scales_for(exp),
+        opt_d=opt_d, opt_g=opt_g, strategy=strategy, sample_extra=extra, seed=seed,
         log_every=max((steps // K) // 10, 1) if log_every is None else log_every,
+        eval_every=eval_every,
+        eval_hooks=(eval_hook(suite, seed=seed),) if eval_every else (),
         device=str(dev))
+    return spec, suite
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
-    ap.add_argument("--experiment", required=True, choices=["image_acgan"])
+    ap.add_argument("--experiment", required=True, choices=sorted(ALL_EXPERIMENTS))
     ap.add_argument("--K", type=int, default=0,
                     help="local steps per round (0 = experiment default)")
     ap.add_argument("--steps", type=int, default=0,
@@ -156,6 +273,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="FedAvg the optimizer moments along with the params")
     ap.add_argument("--batch-size", type=int, default=0,
                     help="per-agent minibatch size (0 = experiment default)")
+    ap.add_argument("--eval-every", type=int, default=0,
+                    help="rounds between scorings of the intermediary's "
+                         "generator (repro_torch.evals; 0 = none)")
     ap.add_argument("--log-every", type=int, default=-1,
                     help="rounds between metric logs; 0 silences, "
                          "-1 = experiment default")
@@ -190,12 +310,14 @@ def strategy_from_args(args) -> strategies.SyncStrategy | None:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     strategy = strategy_from_args(args)
-    spec = experiment_spec(
+    spec, _ = experiment_spec(
         args.experiment, K=args.K or None, steps=args.steps or None,
         strategy=strategy, batch_size=args.batch_size or None,
         log_every=None if args.log_every < 0 else args.log_every,
-        device=args.device)
+        eval_every=args.eval_every, device=args.device)
     result = spec.run_result()
+    for e in result.evals:
+        print(json.dumps({"eval": True, **e}))
     print(json.dumps({"device": spec.device, "rounds": spec.n_rounds,
                       **result.timings}))
     return result

@@ -6,9 +6,9 @@ A module is a pair of plain functions
     out    = module.apply(params, *xs)   # pure function of (params, inputs)
 
 with the parameter keys and layouts of the JAX reference: Dense ``w`` is
-``(in, out)``, conv weights are HWIO, transpose-conv weights HWOI, and
-activations NHWC.  Inside, a layer permutes to PyTorch's NCHW/OIHW for the
-library call and back.  ``init`` draws on the CPU from an explicit
+``(in, out)``, conv weights are HWIO (WIO in 1-D), transpose-conv weights
+HWOI, and activations NHWC (NWC in 1-D).  Inside, a layer permutes to
+PyTorch's NCHW/OIHW (NCW/OIW) for the library call and back.  ``init`` draws on the CPU from an explicit
 ``torch.Generator`` on the generator's own device (same distributions as
 the reference, different bits): a CPU generator draws on the CPU, and the
 caller moves the parameters; a CUDA generator draws on the card.
@@ -214,6 +214,42 @@ class Conv2D(Module):
         elif self.padding != "VALID":
             raise ValueError(f"padding must be SAME or VALID, got {self.padding!r}")
         y = _nhwc(F.conv2d(h, params["w"].permute(3, 2, 0, 1), stride=self.stride))
+        if self.use_bias:
+            y = y + params["b"]
+        return y
+
+
+def _ncw(x):
+    return x.permute(0, 2, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Conv1D(Module):
+    """``jax.lax.conv_general_dilated`` with NWC/WIO/NWC numbers: x (B, T,
+    C), weights (kernel, in, out).  ``F.conv1d`` takes NCW and (out, in,
+    kernel), so the layer permutes around the call, and SAME pads the time
+    axis as XLA does (kernel 5 at stride 1: 2 and 2; kernel 1: none)."""
+
+    in_ch: int
+    out_ch: int
+    kernel: int = 5
+    stride: int = 1
+    padding: str = "SAME"
+    use_bias: bool = True
+
+    def init(self, gen):
+        p = {"w": fan_in_init(gen, (self.kernel, self.in_ch, self.out_ch))}
+        if self.use_bias:
+            p["b"] = torch.zeros(self.out_ch, device=gen.device)
+        return p
+
+    def apply(self, params, x):
+        h = _ncw(x)
+        if self.padding == "SAME":
+            h = F.pad(h, _same_pads(h.shape[2], self.kernel, self.stride))
+        elif self.padding != "VALID":
+            raise ValueError(f"padding must be SAME or VALID, got {self.padding!r}")
+        y = _ncw(F.conv1d(h, params["w"].permute(2, 1, 0), stride=self.stride))
         if self.use_bias:
             y = y + params["b"]
         return y

@@ -7,6 +7,7 @@
         --codec int4 --topk 0.25             # the composed coded sync
     PYTHONPATH=src python -m repro_torch.run.profile --experiment image_acgan \
         --codec int8 --composed              # int8, fused_sync=False
+    PYTHONPATH=src python -m repro_torch.run.profile --experiment mixed_gaussian  # any of the six
     PYTHONPATH=src python -m repro_torch.run.profile --arch gemma3-4b    # prefill + decode
     PYTHONPATH=src python -m repro_torch.run.profile --arch mamba2-2.7b  # forward
 
@@ -43,6 +44,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.comm import codec_from_flags
+from repro_torch.configs.paper_gans import ALL_EXPERIMENTS
 from repro_torch.configs.registry import list_archs
 from repro_torch.core import FedAvgSync
 from repro_torch.data.federated import round_key_schedule
@@ -68,8 +70,8 @@ def profile_rounds(name="image_acgan", *, codec="", topk=0.0, composed=False,
     c = codec_from_flags(codec, topk=topk)
     strategy = (FedAvgSync(codec=c, fused_sync=False if composed else None)
                 if c is not None else None)
-    spec = experiment_spec(name, strategy=strategy, log_every=0, device=device,
-                           **spec_kw)
+    spec, _ = experiment_spec(name, strategy=strategy, log_every=0, device=device,
+                              **spec_kw)
     dev = torch.device(spec.device)
     fed, data = spec.build(), spec.build_data()
     state = fed.init_state(torch.Generator().manual_seed(spec.seed), device=dev)
@@ -187,7 +189,7 @@ def profile_backbone(arch="gemma3-4b", *, batch=2, seq=2048, steps=4, top=8,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.run.profile")
-    ap.add_argument("--experiment", default="image_acgan", choices=["image_acgan"])
+    ap.add_argument("--experiment", default="image_acgan", choices=sorted(ALL_EXPERIMENTS))
     ap.add_argument("--codec", default="",
                     help="wire codec spec, as the training CLI's --codec")
     ap.add_argument("--topk", type=float, default=0.0,

@@ -11,7 +11,10 @@ Tolerances, with their reasons: fedavg float32 within 1e-6 of
 sum_b |w_b x_bn| (another summation order of B products), bfloat16 one
 bfloat16 ulp more (the f32 sum may round to the neighbouring bfloat16);
 qsync bit-identical in every output (kernel and plain version both sum
-the rounded products in agent order and round every step alike); the four
+the rounded products in agent order and round every step alike); the fused
+Adam + quantize kernel bit-identical to its plain version and to
+``Adam.update`` then the qpack quantize (the same operations, each rounded
+on its own, dividing by the same device-computed bias corrections); the four
 qpack kernels bit-identical (elementwise, the block max-abs is exact in
 any order); the composed coded sync bit-identical to the fused one (both
 reduce in agent order with the same roundings).  Flash attention and the
@@ -33,7 +36,8 @@ from repro_torch.kernels.fedavg.ref import fedavg_flat_ref
 from repro_torch.kernels.qpack import kernel as pkernel
 from repro_torch.kernels.qpack import ref as pref
 from repro_torch.kernels.qsync import kernel as qkernel
-from repro_torch.kernels.qsync.ref import qsync_flat_ref
+from repro_torch.kernels.qsync import ops as qops
+from repro_torch.kernels.qsync.ref import adam_sync_flat_ref, qsync_flat_ref
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels.flash_attention import kernel as fkernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -41,6 +45,7 @@ from repro_torch.kernels.ssd_scan import kernel as skernel
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
 from repro_torch.launch.train import experiment_spec
 from repro_torch.models import Backbone
+from repro_torch.optim import Adam
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -106,13 +111,67 @@ def test_qsync_kernel_matches_plain(cuda, bits, ef):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("count", [0, 7])
+def test_adam_sync_kernel_matches_plain_and_adam_update(cuda, bits, count):
+    """The fused Adam + quantize kernel against its plain version and
+    against ``Adam.update`` followed by ``quantize_blocks`` of the bucketed
+    new params, on the card, bit for bit (the same operations, each
+    rounded alike, dividing by the same device-computed bias corrections).
+    Leaves of several shapes, one 0-d per agent; an all-zero leaf."""
+    g = torch.Generator(device=cuda).manual_seed(bits + count)
+    B = 5
+    params = {"wa": torch.randn((B, 333), generator=g, device=cuda),
+              "wb": torch.randn((B, 64, 130), generator=g, device=cuda),
+              "theta": torch.randn((B,), generator=g, device=cuda),
+              "zero": torch.zeros((B, 256), device=cuda)}
+    grads = tree_map(lambda v: 0.1 * v + 0.03 * v.sign(), params)
+    state = {"count": torch.tensor(count, dtype=torch.int32, device=cuda),
+             "mu": tree_map(lambda v: 0.2 * v, params),
+             "nu": tree_map(lambda v: 0.1 * v.abs(), params)}
+    before = qkernel.adam_sync_flat.launches
+    p2, s2, q, s = qops.adam_sync_tree(params, grads, state, lr=2e-4, bits=bits)
+    torch.cuda.synchronize()
+    assert qkernel.adam_sync_flat.launches == before + 1
+    # the plain version on the same bucket, on the card
+    leaves = [params[k] for k in sorted(params)]
+    bucket = lambda t: qops._bucket([t[k] for k in sorted(t)], B, 128)[0]
+    c = (state["count"] + 1).to(torch.float32)
+    hyper = torch.stack([torch.tensor(2e-4, device=cuda), 1.0 - 0.5 ** c,
+                         1.0 - 0.999 ** c]).reshape(1, 3)
+    want = adam_sync_flat_ref(hyper, bucket(params), bucket(grads), bucket(state["mu"]),
+                              bucket(state["nu"]), b1=0.5, b2=0.999, eps=1e-8,
+                              qmax=2 ** (bits - 1) - 1, block=128)
+    got = (bucket(p2), bucket(s2["mu"]), bucket(s2["nu"]), q, s)
+    for a, b in zip(got, want):
+        assert _bits(a).equal(_bits(b))
+    # and Adam.update then the qpack quantize, as the unfused path runs them
+    p_ref, s_ref = Adam(b1=0.5, b2=0.999).update(params, grads, state, 2e-4)
+    for k in params:
+        assert _bits(p2[k]).equal(_bits(p_ref[k]))
+        assert _bits(s2["mu"][k]).equal(_bits(s_ref["mu"][k]))
+        assert _bits(s2["nu"][k]).equal(_bits(s_ref["nu"][k]))
+    assert int(s2["count"]) == count + 1
+    qq, qs = pkernel.quant_flat(bucket(p_ref), qmax=2 ** (bits - 1) - 1)
+    assert _bits(q).equal(_bits(qq)) and _bits(s).equal(_bits(qs))
+    assert not q[:, -256:].any() and not p2["zero"].any()
+    x = bucket(params)
+    with pytest.raises(ValueError, match="contiguous"):
+        qkernel.adam_sync_flat(hyper, x.t().contiguous().t(), x, x, x, b1=0.5, b2=0.999,
+                               eps=1e-8, qmax=127)
+    with pytest.raises(ValueError, match="CUDA device"):
+        qkernel.adam_sync_flat(hyper.cpu(), x, x, x, x, b1=0.5, b2=0.999, eps=1e-8,
+                               qmax=127)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("codec", [False, True], ids=["plain", "int8"])
 def test_round_on_card_runs_through_the_kernels(cuda, codec):
     """One ACGAN round at full width on the card: every sync of a subtree
     is one kernel launch, and every agent holds the synced values."""
     strategy = FedAvgSync(codec=IntQuant(8)) if codec else None
-    spec = experiment_spec("image_acgan", K=2, steps=2, strategy=strategy,
-                           log_every=0, device=cuda)
+    spec, _ = experiment_spec("image_acgan", K=2, steps=2, strategy=strategy,
+                              log_every=0, device=cuda)
     counter = qkernel.qsync_flat if codec else fedavg_flat
     before = counter.launches
     result = spec.run_result()
@@ -202,8 +261,8 @@ def test_composed_round_on_card_runs_through_the_qpack_kernels(cuda):
     and direction one quant, pack4, unpack4 and dequant, and one fedavg per
     leaf; no fused sync."""
     strategy = FedAvgSync(codec=get_codec("topk+int4", fraction=0.25))
-    spec = experiment_spec("image_acgan", K=2, steps=2, strategy=strategy,
-                           log_every=0, device=cuda)
+    spec, _ = experiment_spec("image_acgan", K=2, steps=2, strategy=strategy,
+                              log_every=0, device=cuda)
     counters = (pkernel.quant_flat, pkernel.pack4_flat, pkernel.unpack4_flat,
                 pkernel.dequant_flat, fedavg_flat, qkernel.qsync_flat)
     before = [f.launches for f in counters]

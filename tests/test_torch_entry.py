@@ -171,9 +171,13 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
+        "print(' '.join(n for n in sys.modules if n.startswith('repro_torch')))\n")
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25
+    loaded = set(out.stdout.split())
+    assert len(loaded) >= 25
+    assert {"repro_torch.evals.fd", "repro_torch.evals.modes", "repro_torch.evals.kmeans",
+            "repro_torch.run.evals", "repro_torch.run.experiments",
+            "repro_torch.quickstart"} <= loaded

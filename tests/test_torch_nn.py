@@ -17,7 +17,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_shared import one_torch_thread  # noqa: F401
+from torch_shared import (_assert_tree_close, _close, _parity,  # noqa: F401
+                          one_torch_thread)
 
 from repro import nn as jnn
 from repro.core import losses as jlosses
@@ -26,61 +27,11 @@ from repro import optim as joptim
 from repro.optim import SGD as JSGD, Adam as JAdam, AdamW as JAdamW
 
 from repro_torch import nn as tnn
-from repro_torch.convert import from_jax_params, to_jax_params
+from repro_torch.convert import from_jax_params
 from repro_torch.core import losses as tlosses
 from repro_torch.models import gan_nets as tnets
 from repro_torch import optim as toptim
 from repro_torch.optim import SGD as TSGD, Adam as TAdam, AdamW as TAdamW
-
-ATOL = 1e-5
-
-
-def _close(got, want, atol=ATOL, rtol=0.0):
-    want = np.asarray(want)
-    scale = max(1.0, float(np.abs(want).max())) if want.size else 1.0
-    np.testing.assert_allclose(got, want, atol=atol * scale, rtol=rtol)
-
-
-def _assert_tree_close(got, want, atol=ATOL, rtol=0.0):
-    got, want = to_jax_params(got), jax.device_get(want)
-    jl, jt = jax.tree_util.tree_flatten(want)
-    tl = jax.tree_util.tree_leaves(got)
-    assert len(jl) == len(tl)
-    for t, j in zip(tl, jl):
-        _close(t, j, atol=atol, rtol=rtol)
-
-
-def _parity(jmod, tmod, inputs, *, seed=0):
-    """Forward and gradient (of sum(out * r) wrt params and the float
-    inputs) of a JAX module and its port on the same weights."""
-    jparams = jmod.init(jax.random.key(seed))
-    tparams = from_jax_params(jax.device_get(jparams), device="cpu")
-    rng = np.random.default_rng(seed + 1)
-    jout = jax.jit(jmod.apply)(jparams, *[jnp.asarray(x) for x in inputs])
-    touts = tmod.apply(tparams, *[torch.from_numpy(x) for x in inputs])
-    jouts = jout if isinstance(jout, tuple) else (jout,)
-    touts = touts if isinstance(touts, tuple) else (touts,)
-    for t, j in zip(touts, jouts):
-        _close(t.numpy(), j)
-    rs = [rng.standard_normal(np.shape(j)).astype(np.float32) for j in jouts]
-
-    def jloss(p, x0):
-        o = jmod.apply(p, x0, *[jnp.asarray(x) for x in inputs[1:]])
-        o = o if isinstance(o, tuple) else (o,)
-        return sum(jnp.sum(a * r) for a, r in zip(o, rs))
-
-    def tloss(p, x0):
-        o = tmod.apply(p, x0, *[torch.from_numpy(x) for x in inputs[1:]])
-        o = o if isinstance(o, tuple) else (o,)
-        return sum(torch.sum(a * torch.from_numpy(r)) for a, r in zip(o, rs))
-
-    jg_p, jg_x = jax.jit(jax.grad(jloss, argnums=(0, 1)))(
-        jparams, jnp.asarray(inputs[0]))
-    tg_p, tg_x = torch.func.grad(tloss, argnums=(0, 1))(
-        tparams, torch.from_numpy(inputs[0]))
-    _assert_tree_close(tg_p, jg_p)
-    _close(tg_x.numpy(), jg_x)
-
 
 def test_dense_matches_jax():
     x = np.random.default_rng(0).standard_normal((6, 7)).astype(np.float32)
