@@ -58,12 +58,15 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    Every depth cut is printed on its own line.
 6. Flash attention against its plain version on the card: at gemma3-4b's
    shapes in bfloat16 (B = 2, q (2, 8, 2000, 256), k and v (2, 4, 2000,
-   256), causal, window 1024 and 0) and in float32 with nh = nkv and with
-   GQA 4:1, T a multiple of no tile.  float32 within 1e-5 of max |o|;
-   bfloat16 that plus two bfloat16 ulps of the element.  Time the kernel,
-   its plain version and ``F.scaled_dot_product_attention`` with
-   ``enable_gqa=True`` and the same boolean mask (named by the kernel the
-   profiler sees; timed only, never on the path).
+   256), causal, window 1024 and 0; the tensor-core kernel) and in float32
+   with nh = nkv and with GQA 4:1, T a multiple of no tile.  float32
+   within 1e-5 of max |o|; bfloat16 that plus two bfloat16 ulps of the
+   element.  The tensor-core kernel's registers, local (spill) bytes,
+   shared bytes and blocks per SM at every head_dim it is built for, with
+   no local bytes at hd 256.  Time the kernel, its plain version and
+   ``F.scaled_dot_product_attention`` with ``enable_gqa=True`` and the
+   same boolean mask (named by the kernel the profiler sees; timed only,
+   never on the path), and log the kernel's speed against it.
 7. The SSD scan against its plain version at mamba2-2.7b's shapes (x (2,
    2048, 80, 64) bfloat16, state 128, chunk 128), with the same tolerance;
    time both.
@@ -628,8 +631,16 @@ def check_flash(torch, dev, flush):
     Timing at the local layers' window 1024 (29 of the 34 launches of a
     prefill) and the global layers' 0."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
+    from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS, bf16_kernel_attrs,
+                                                            flash_attention_bhsd)
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    for hd in HEAD_DIMS:
+        a = bf16_kernel_attrs(hd)
+        log(f"flash_fwd_tc<{hd}>: {a['num_regs']} registers, {a['local_bytes']} local bytes "
+            f"a thread, {a['smem_bytes']} shared bytes a block, {a['blocks_per_sm']} "
+            f"blocks an SM")
+        check(hd != 256 or a["local_bytes"] == 0,
+              f"flash_fwd_tc<256> spills: {a['local_bytes']} local bytes a thread")
     gen = torch.Generator(device=dev).manual_seed(6)
     cases = [(2, 8, 4, 2000, 256, 1024, torch.bfloat16), (2, 8, 4, 2000, 256, 0, torch.bfloat16),
              (2, 4, 4, 333, 64, 0, torch.float32), (2, 8, 2, 333, 128, 100, torch.float32)]
@@ -672,6 +683,9 @@ def check_flash(torch, dev, flush):
             f"scaled_dot_product_attention {lib_ms:.4f} ms "
             f"({_sdpa_backend(torch, lib)}), bound {b_ms:.4f} ms ({b_by}, {pairs} unmasked "
             f"pairs per head, {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        log(f"flash window {window}: the kernel is {max(ms, lib_ms) / min(ms, lib_ms):.2f}x "
+            f"{'faster' if ms < lib_ms else 'slower'} than scaled_dot_product_attention "
+            f"({ms:.4f} against {lib_ms:.4f} ms)")
         if window:
             record = {"name": "flash_attention", "route": "cuda",
                       "source": "src/repro_torch/csrc/flash_attention.cu",

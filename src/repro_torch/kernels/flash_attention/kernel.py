@@ -4,8 +4,11 @@ On CPU tensors ``flash_attention_bhsd`` computes the plain version; on
 CUDA tensors it launches the kernel or raises.  The kernel is forward
 only, as the TPU kernel it replaces: a CUDA input that requires grad
 raises.  ``flash_attention_bhsd.launches`` counts kernel launches and
-nothing else.  The tile sizes (64 queries x 64 keys) are the kernel's
-own.
+nothing else.  bfloat16 inputs launch the tensor-core kernel
+(``flash_fwd_tc``: 64 queries x 64 keys, 32 keys at head_dim 256, p split
+into two bfloat16 halves for p.v), float32 inputs the float32 one (64 x
+64 on the CUDA cores); ``bf16_kernel_attrs`` reports the first's
+registers, spills and occupancy.
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
-_SIGNATURES = {"flash_attention_f32": _ARGS, "flash_attention_bf16": _ARGS}
+_SIGNATURES = {"flash_attention_f32": _ARGS, "flash_attention_bf16": _ARGS,
+               "flash_attention_bf16_attrs": [_I, ctypes.POINTER(_I)]}
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
@@ -46,6 +50,13 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0):
     nkv, S = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash attention takes head_dim in {HEAD_DIMS}, got {hd}")
+    if q.dtype == torch.bfloat16:
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("flash attention: the bfloat16 kernel copies 16-byte rows "
+                             "and takes tensors whose data starts on a 16-byte boundary")
+        if S * hd >= 2 ** 31:
+            raise ValueError(f"flash attention: the bfloat16 kernel addresses a head's "
+                             f"keys in 32 bits, S * head_dim < 2^31, got {S} * {hd}")
     out = torch.empty_like(q)
     lib = _build.load("flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
@@ -59,3 +70,17 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 flash_attention_bhsd.launches = 0
+
+
+def bf16_kernel_attrs(hd: int) -> dict:
+    """What the compiler and the card make of the bfloat16 kernel at
+    head_dim ``hd``: registers and local (spill) bytes a thread, dynamic
+    shared bytes a block, blocks resident on an SM.  Launches nothing."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash attention takes head_dim in {HEAD_DIMS}, got {hd}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("bf16_kernel_attrs reads the card's compiled kernel: needs CUDA")
+    out = (ctypes.c_int * 4)()
+    _build.check_launch(_build.load("flash_attention", _SIGNATURES)
+                        .flash_attention_bf16_attrs(hd, out), "flash attention attrs")
+    return dict(zip(("num_regs", "local_bytes", "smem_bytes", "blocks_per_sm"), out))

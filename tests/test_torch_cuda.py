@@ -325,6 +325,21 @@ def test_flash_kernel_refusals(cuda):
                                      k[..., :48].contiguous())
 
 
+@pytest.mark.cuda
+def test_flash_bf16_kernel_attrs_and_alignment(cuda):
+    """The tensor-core kernel builds for every head_dim within the card's
+    registers, spills nothing at hd 256, and the wrapper refuses data that
+    its 16-byte copies cannot read."""
+    for hd in fkernel.HEAD_DIMS:
+        a = fkernel.bf16_kernel_attrs(hd)
+        assert a["num_regs"] <= 255 and a["blocks_per_sm"] >= 1, (hd, a)
+    assert fkernel.bf16_kernel_attrs(256)["local_bytes"] == 0
+    k = torch.randn((1, 2, 65, 64), device=cuda).bfloat16()
+    flat = torch.randn(2 * k.numel() + 1, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fkernel.flash_attention_bhsd(flat[1:].view(1, 4, 65, 64), k, k)
+
+
 def _ssd_inputs(g, dev, Bsz, T, nh, hd, ds, dtype):
     x = (0.5 * torch.randn((Bsz, T, nh, hd), generator=g, device=dev)).to(dtype)
     dt = torch.nn.functional.softplus(torch.randn((Bsz, T, nh), generator=g, device=dev))
