@@ -69,7 +69,14 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    never on the path), and log the kernel's speed against it.
 7. The SSD scan against its plain version at mamba2-2.7b's shapes (x (2,
    2048, 80, 64) bfloat16, state 128, chunk 128), with the same tolerance;
-   time both.
+   time both, and each of the kernel's three phases (chunk states, state
+   pass, chunk outputs) alone, which run in turn must give the scan's
+   output bit for bit.  Print each phase's registers, local (spill) bytes,
+   shared bytes and blocks an SM (no local bytes allowed) and the
+   workspace's bytes.  With ``--ssd-parent DIR`` (a checkout of another
+   commit, e.g. ``git archive`` of the parent unpacked under ``build/``),
+   time that checkout's SSD kernel beside this one's through each one's own
+   ``check_ssd``, in turns (other, this, this, other), one process each.
 8. gemma3-4b at full width (34 layers, d_model 2560, vocab 262,144): init
    on the card from a seeded generator; ``prefill`` of 2 prompts of 2,048
    tokens with ``max_seq`` 2,064 through ``use_flash=True`` (34 flash
@@ -697,9 +704,11 @@ def check_flash(torch, dev, flush):
 
 
 def check_ssd(torch, dev, flush):
-    """The SSD kernel against its plain version at mamba2-2.7b's shapes."""
+    """The SSD kernel against its plain version at mamba2-2.7b's shapes;
+    each phase timed alone."""
     import torch.nn.functional as F
-    from repro_torch.kernels.ssd_scan.kernel import ssd_bthd
+    from repro_torch.kernels.ssd_scan.kernel import (kernel_attrs, ssd_bthd, ssd_phase,
+                                                     workspace)
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
     gen = torch.Generator(device=dev).manual_seed(7)
     Bsz, T, nh, hd, ds, Q = 2, 2048, 80, 64, 128, 128
@@ -714,8 +723,23 @@ def check_ssd(torch, dev, flush):
     what = f"ssd x {tuple(x.shape)} state {ds} chunk {Q} bfloat16"
     err = _kernel_close(torch, got, want, what)
     log(f"{what}: max_abs_err={err} (max |y| {float(want.float().abs().max())})")
+    for dtype in (torch.bfloat16, torch.float32):
+        for phase in (1, 2, 3):
+            a = kernel_attrs(phase, dtype)
+            log(f"ssd phase {phase} ({dtype}): {a['num_regs']} registers, {a['local_bytes']} "
+                f"local bytes a thread, {a['smem_bytes']} shared bytes a block, "
+                f"{a['blocks_per_sm']} blocks an SM")
+            check(a["local_bytes"] == 0,
+                  f"ssd phase {phase} ({dtype}) spills: {a['local_bytes']} local bytes")
     ms = time_ms(torch, lambda: ssd_bthd(x, dt, A, Bm, Cm, chunk=Q), flush)
     plain = time_ms(torch, lambda: ssd_ref(x, dt, A, Bm, Cm, chunk=Q), flush)
+    ws, y = workspace(x, Bm, chunk=Q), torch.empty_like(x)
+    phase_ms = [time_ms(torch, lambda p=p: ssd_phase(p, x, dt, A, Bm, Cm, y, ws, chunk=Q),
+                        flush) for p in (1, 2, 3)]
+    for p in (1, 2, 3):      # in turn, once: the scan's output bit for bit
+        ssd_phase(p, x, dt, A, Bm, Cm, y, ws, chunk=Q)
+    torch.cuda.synchronize()
+    check(torch.equal(y, got), "ssd: the three phases run alone differ from the scan")
     NC = T // Q
     # the chunked algorithm's products: C.B^T once per (batch, chunk); per
     # head the intra-chunk product, the inter-chunk product and the state
@@ -724,10 +748,37 @@ def check_ssd(torch, dev, flush):
     b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
     log(f"ssd timing: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}, {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    log(f"ssd phases alone: chunk states {phase_ms[0]:.4f} ms, state pass "
+        f"{phase_ms[1]:.4f} ms, chunk outputs {phase_ms[2]:.4f} ms (sum "
+        f"{sum(phase_ms):.4f}); workspace {ws.numel() * 4} bytes")
     return {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:26", "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
+
+
+def ssd_against(other):
+    """The SSD kernel of the checkout ``other`` timed beside this one's, on
+    this card, in turns (other, this, this, other): each run a process of
+    its own through its checkout's own ``chip_smoke.check_ssd``."""
+    other = os.path.abspath(other)
+    check(os.path.isfile(os.path.join(other, "chip_smoke.py")),
+          f"--ssd-parent {other}: no chip_smoke.py there")
+    code = ("import json, sys, torch; sys.path[:0] = [{root!r}, {src!r}]; "
+            "import chip_smoke as cs, repro_torch; dev = torch.device('cuda'); "
+            "flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev); "
+            "print('SSD_MS', json.dumps(cs.check_ssd(torch, dev, flush)['ms']))")
+    runs = []
+    for root in (other, ROOT, ROOT, other):
+        out = subprocess.run([sys.executable, "-c",
+                              code.format(root=root, src=os.path.join(root, "src"))],
+                             capture_output=True, text=True, timeout=900, cwd=root)
+        check(out.returncode == 0, f"ssd timing in {root} failed:\n{out.stdout}{out.stderr}")
+        ms = [float(line.split()[1]) for line in out.stdout.splitlines()
+              if line.startswith("SSD_MS")]
+        runs.append(("other" if root == other else "this", ms[0]))
+    log("ssd kernel, this checkout against " + other + ": " +
+        ", ".join(f"{who} {ms:.4f} ms" for who, ms in runs))
 
 
 def _reset(counters):
@@ -1078,6 +1129,11 @@ def launch_counters():
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ssd-parent", metavar="DIR",
+                    help="also time the SSD kernel of the checkout DIR beside this one's")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1109,6 +1165,8 @@ def main() -> int:
                                       check_flash(torch, dev, flush),
                                       check_ssd(torch, dev, flush))}
     del flush
+    if args.ssd_parent:
+        ssd_against(args.ssd_parent)
     check_composed_vs_fused(torch, dev)
     check_small_round(torch, dev)
 

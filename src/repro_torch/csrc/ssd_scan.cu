@@ -7,41 +7,79 @@
 // (one group shared by all heads).  T is a multiple of the chunk Q.  The
 // output y is (Bsz, T, nh, hd) in x's type.
 //
-// Per (batch, head) the chunks are walked in order and the float32 state
-// S (hd, ds) is carried in shared memory across them.  Per chunk, with
-// u = dt * x and L the inclusive cumsum of dt * A:
-//   y = exp(L) (C . S_prev^T) + tril(exp(min(L_q - L_p, 0)) (C . B^T)) . u
-//   S = exp(L_last) S_prev + sum_p (exp(L_last - L_p) u_p) B_p^T
-// all in float32.  The clamp min(., 0) keeps the masked (p > q) entries
-// from overflowing exp.
+// Per chunk c, head h, with u = dt * x and L the inclusive cumsum of dt * A
+// within the chunk (each product rounded, summed in order from the chunk's
+// first step, as the plain version on the card):
+//   S_loc[c]  = sum_p exp(L_last - L_p) u_p B_p^T                  (hd x ds)
+//   S_in[c+1] = exp(L_last[c]) S_in[c] + S_loc[c],  S_in[0] = 0
+//   y         = exp(L) (C . S_in[c]^T) + tril(exp(min(L_q - L_p, 0)) (C . B^T)) . u
+// all in float32, y rounded once to x's type.  The clamp min(., 0) keeps
+// the masked (p > q) entries from overflowing exp.
 //
-// Bound: operations.  At mamba2-2.7b width (hd 64, ds 128, Q 128) a chunk
-// of one head does about 5 M multiply-adds on 40 KB of inputs (bf16): C.B^T
-// 2 M, the intra-chunk product, the inter-chunk product and the state
-// update 1 M each.  This first version runs them on the CUDA cores in
-// float32, so its ceiling is the 67 TFLOP/s float32 rate and in practice the
-// shared-memory loads that feed the FMAs.  It recomputes C.B^T for every
-// head, where the reference computes it once per block of heads: 80 heads
-// share one B and C, so 40% of its operations repeat work.
+// A scan is three launches on the caller's stream (one when T is a single
+// chunk: phases 1 and 2 then have no state to make), each parallel:
 //
-// Design: one block of 256 threads per (head, batch row), a 16 x 16 thread
-// grid.  Each matrix product gives a thread a register tile of up to 8 x 8
-// outputs (rows ty + 16 i, columns tx + 16 j), fed from shared memory:
-// the chunk's B and C in x's type, u in float32, the state in float32, and
-// a Q x 32 tile of the decayed, masked scores at a time.  Rows read 16 at a
-// time at one column are padded to an odd word stride.  Q, hd and ds are at
-// most 128 each.  The main path's (Q, hd, ds) = (128, 64, 128) has its own
-// instantiation with the sizes as constants: register tiles of exactly its
-// size and no run-time guards.  The generic instantiation guards every
-// element of its 8 x 8 tiles at run time and is much slower.
+// 1. `ssd_chunk_states`: one block per (chunk c < NC - 1, block of HB = 4
+//    heads, batch row).  The chunk's B is staged once for the block, and L
+//    of every head of the block (one lane a head); per head, w_p =
+//    exp(L_last - L_p) and w u, then S_loc^T = B^T (w u), a (ds x hd)
+//    float32 product, written to the workspace with L_last.
+// 2. `ssd_state_pass`: one thread per (batch, head, state entry) walks the
+//    chunks and overwrites slot c in place with S_in[c+1], in the plain
+//    version's order (decay times state, rounded, plus S_loc, rounded),
+//    reading the L_last that phase 1 wrote.
+// 3. `ssd_chunk_outputs`: one block per (chunk, QR = 64 query rows, block of
+//    HB heads, batch row).  C . B^T of the block's rows against the keys up
+//    to its last row (causal: the first half of a 128-row chunk needs half
+//    the keys) is computed once and kept in shared memory for every head of
+//    the block; 80 heads share one B and C.  L again with phase 1's code
+//    (bit for bit); per head y = exp(L) (C . S_in^T) + M . u, M the
+//    decayed, masked C . B^T, built 64 keys at a time.
+//
+// L is summed in order, not by a parallel scan: at |L| near 1,000 (A =
+// -11.6 over a chunk of 128 steps) a lane-parallel scan rounds neighbouring
+// L's independently, and exp(L_q - L_p) of close steps then carries their
+// rounding, 3x the plain version's error against a float64 scan on the
+// card (8.1e-6 against 2.5e-6 of max |y| at T = 4,096).
+//
+// The workspace is float32: (Bsz, NC - 1, nh, ds, hd) states, each stored
+// transposed so that phase 3 reads it with 16-byte loads along hd, then
+// (Bsz, NC - 1, nh) L_last.  At mamba2-2.7b width (2 x 2048 tokens, 80
+// heads of 64, state 128, chunk 128) that is 78.6 MB; phases 1, 2 and 3
+// write it, read and write it, and read it: about 315 MB of traffic.
+//
+// Bound, as chip_smoke.py reckons it: bytes.  The products (C . B^T once
+// per chunk; per head the intra-chunk, inter-chunk and state products) at
+// the 989 TFLOP/s bfloat16 tensor-core rate take less time than reading x,
+// dt, B, C and writing y once at 3.35 TB/s (0.0261 ms at mamba2-2.7b
+// width).  This kernel is far from that bound: it runs its products in
+// float32 on the CUDA cores (the float32 gate allows no bf16 rounding of a
+// float32 operand; tensor cores with split-bf16 operands are the next
+// step), so its own ceiling is the 67 TFLOP/s float32 rate: about 8 G
+// multiply-adds at mamba2-2.7b width, 0.24 ms.
+//
+// Products: 256 threads, a 16 x 16 grid; each product gives a thread a
+// register tile of 4 or 8 rows by 4 or 8 columns (rows 4 ty + 64 i' + i,
+// columns 4 tx + 64 j' + j), fed from shared memory by 16-byte loads with
+// the reduced index k outermost: the operands are staged k-major (C and B
+// transposed), so a warp's loads of the row operand hit two addresses and
+// its loads of the column operand 256 contiguous bytes.  Every operand is
+// float32 in shared memory.  At the main path's (Q, hd, ds) = (128, 64,
+// 128), which has its own instantiation with the sizes as constants and
+// 16-byte global loads, phases 1 and 3 take 102,400 bytes of shared
+// memory each: two blocks (16 warps) an SM.  The generic instantiation
+// pads Q, hd and ds to 128 in shared memory, zero-filled, reads with
+// guarded scalar loads, and runs one block an SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int PT = 32;     // key columns of a score tile
-constexpr int MAXD = 128;  // largest Q, hd and ds: 8 register rows of 16
+constexpr int MAXD = 128;  // largest Q, hd and ds
+constexpr int QR = 64;     // query rows of a phase-3 block
+constexpr int PT = 64;     // keys of a phase-3 tile
+constexpr int HB = 4;      // heads of a phase-1 or phase-3 block
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -52,254 +90,507 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
-template <typename T> struct Pad { static constexpr int value = 1; };
-template <> struct Pad<__nv_bfloat16> { static constexpr int value = 2; };
+constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
 
-struct Layout {
-  int ldS, ldB;  // row strides of the state and of B, in elements
-  size_t off_B, off_C, off_u, off_M, off_vec, bytes;
+// The sizes in shared memory and the byte layout of each phase.  CQ, CHD,
+// CDS: the chunk, head_dim and state as compile-time constants (the main
+// path's shape), or all 0 for the generic instantiation, which pads each
+// to MAXD.
+template <int CQ, int CHD, int CDS>
+struct Dims {
+  static constexpr bool EX = CQ > 0;
+  static constexpr int Q = EX ? CQ : MAXD, HD = EX ? CHD : MAXD, DS = EX ? CDS : MAXD;
+  // phase 1: B (Q x DS), w u (Q x HD), then dt and L (HB x Q each)
+  static constexpr size_t P1_U = (size_t)Q * DS * 4;
+  static constexpr size_t P1_VEC = P1_U + (size_t)Q * HD * 4;
+  static constexpr size_t P1_BYTES = P1_VEC + 2 * (size_t)HB * Q * 4;
+  // phase 3: C^T (DS x QR), (C B^T)^T (Q x QR), a region that holds in
+  // turn a B^T tile (DS x PT), the state S_in^T (DS x HD), and an M^T tile
+  // (PT x QR) with its u (PT x HD); then dt and L (HB x Q each)
+  static constexpr size_t P3_CB = (size_t)DS * QR * 4;
+  static constexpr size_t P3_R = P3_CB + (size_t)Q * QR * 4;
+  static constexpr size_t P3_U = (size_t)PT * QR * 4;  // u's offset within the region
+  static constexpr size_t R_BYTES =
+      cmax(cmax((size_t)DS * PT, (size_t)DS * HD), (size_t)PT * (QR + HD)) * 4;
+  static constexpr size_t P3_VEC = P3_R + R_BYTES;
+  static constexpr size_t P3_BYTES = P3_VEC + 2 * (size_t)HB * Q * 4;
+  static constexpr size_t SMEM = cmax(P1_BYTES, P3_BYTES);
 };
 
-template <typename T>
-__host__ __device__ Layout layout(int Q, int hd, int ds) {
-  Layout l;
-  l.ldS = ds + 1;
-  l.ldB = ds + Pad<T>::value;
-  size_t off = (size_t)hd * l.ldS * sizeof(float);        // state, float32
-  l.off_B = off;
-  off += ((size_t)Q * l.ldB * sizeof(T) + 15) / 16 * 16;  // B, x's type
-  l.off_C = off;
-  off += ((size_t)Q * ds * sizeof(T) + 15) / 16 * 16;     // C, x's type
-  l.off_u = off;
-  off += (size_t)Q * hd * sizeof(float);                  // u = dt x
-  l.off_M = off;
-  off += (size_t)Q * PT * sizeof(float);                  // score tile
-  l.off_vec = off;
-  off += (size_t)4 * Q * sizeof(float);                   // dt, L, exp(L), w
-  l.bytes = off;
-  return l;
-}
-
-// acc[i][j] += sum_k a(ty + 16 i, k) * b(tx + 16 j, k) over the thread's
-// register tile.  EX: M and N are multiples of 16 known at compile time,
-// so every guard folds away; otherwise rows >= M and columns >= N are
-// guarded at run time.
-template <bool EX, int MI, int NJ, class FA, class FB>
-__device__ __forceinline__ void mma_acc(float (&acc)[MI][NJ], int M, int N, int K, int ty,
-                                        int tx, FA a, FB b) {
+// acc[i][j] += sum_{k < K} a[k lda + m_i] b[k ldb + n_j], with m_i = 4 ty +
+// 64 (i / 4) + i % 4 and n_j = 4 tx + 64 (j / 4) + j % 4: the rows of a
+// 16 x 16 thread grid, four at a time.  a, b and both strides are 16-byte
+// aligned.
+template <int TM, int TN>
+__device__ __forceinline__ void mm(float (&acc)[TM][TN], int K, const float* __restrict__ a,
+                                   int lda, const float* __restrict__ b, int ldb, int ty,
+                                   int tx) {
+  a += 4 * ty;
+  b += 4 * tx;
 #pragma unroll 4
-  for (int kk = 0; kk < K; ++kk) {
-    float av[MI], bv[NJ];
+  for (int k = 0; k < K; ++k) {
+    float av[TM], bv[TN];
 #pragma unroll
-    for (int i = 0; i < MI; ++i)
-      av[i] = (EX ? 16 * i < M : ty + 16 * i < M) ? a(ty + 16 * i, kk) : 0.f;
+    for (int i = 0; i < TM / 4; ++i) {
+      const float4 t = *reinterpret_cast<const float4*>(a + k * lda + 64 * i);
+      av[4 * i] = t.x, av[4 * i + 1] = t.y, av[4 * i + 2] = t.z, av[4 * i + 3] = t.w;
+    }
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      bv[j] = (EX ? 16 * j < N : tx + 16 * j < N) ? b(tx + 16 * j, kk) : 0.f;
+    for (int j = 0; j < TN / 4; ++j) {
+      const float4 t = *reinterpret_cast<const float4*>(b + k * ldb + 64 * j);
+      bv[4 * j] = t.x, bv[4 * j + 1] = t.y, bv[4 * j + 2] = t.z, bv[4 * j + 3] = t.w;
+    }
 #pragma unroll
-    for (int i = 0; i < MI; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        if (EX || (16 * i < M && 16 * j < N)) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
 }
 
-template <int MI, int NJ>
-__device__ __forceinline__ void zero(float (&acc)[MI][NJ]) {
+__device__ __forceinline__ int tile_row(int t, int i) { return 4 * t + 64 * (i / 4) + i % 4; }
+
+template <int TM, int TN>
+__device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 }
 
-// CQ, CHD, CDS: the chunk, head_dim and state as compile-time constants
-// (multiples of 16, the main path's shape), or all 0 for the generic
-// version that takes them at run time, each up to 128.
+// VEC elements of type T from 16 bytes of global memory, as float32.
+template <typename T>
+__device__ __forceinline__ void load16(const T* src, float* v) {
+  constexpr int VEC = 16 / sizeof(T);
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) v[k] = to_f32(e[k]);
+}
+
+// dst[s][r] = src[r][s] as float32, for r < NR rows of a (rows x ds) global
+// block and s < DS, zero past the real rows and ds.  Lanes run along r, so
+// the shared stores hit consecutive words.
+template <typename T, bool EX, int NR, int DS>
+__device__ __forceinline__ void stage_transposed(float* dst, const T* __restrict__ src, int rows,
+                                                 int ds, int tid) {
+  if constexpr (EX) {
+    constexpr int VEC = 16 / sizeof(T);
+    for (int i = tid; i < NR * (DS / VEC); i += THREADS) {
+      const int r = i % NR, s0 = i / NR * VEC;
+      float v[VEC];
+      if (r < rows) {
+        load16(src + (size_t)r * DS + s0, v);
+      } else {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) v[k] = 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) dst[(s0 + k) * NR + r] = v[k];
+    }
+  } else {
+    for (int i = tid; i < NR * DS; i += THREADS) {
+      const int r = i % NR, s = i / NR;
+      dst[s * NR + r] = r < rows && s < ds ? to_f32(src[(size_t)r * ds + s]) : 0.f;
+    }
+  }
+}
+
+// dts[hh][p] = dt of step p, head h0 + hh, for every head of the block (0
+// past the chunk and the heads); then L[hh][p] = the inclusive cumsum of
+// dt A over the chunk, one lane of warp 0 per head, in order from p = 0:
+// the plain version's order (torch.cumsum along a dimension that is not
+// the innermost runs sequentially on the card), so L is the plain
+// version's bit for bit, and phases 1 and 3 get the same L.  Ends with the
+// block synchronised.
+template <int NQ>
+__device__ __forceinline__ void chunk_cumsums(float* dts, float* Ls, const float* __restrict__ dt,
+                                              const float* __restrict__ A, size_t row0, int Q,
+                                              int nh, int h0, int nhb, int tid) {
+  for (int i = tid; i < HB * NQ; i += THREADS) {
+    const int hh = i / NQ, p = i % NQ;
+    dts[i] = hh < nhb && p < Q ? dt[(row0 + p) * nh + h0 + hh] : 0.f;
+  }
+  __syncthreads();
+  if (tid < nhb) {
+    const float Ah = A[h0 + tid];
+    const float* d = dts + tid * NQ;
+    float* L = Ls + tid * NQ;
+    float run = 0.f;
+    for (int p = 0; p < Q; ++p) {
+      run = __fadd_rn(run, __fmul_rn(d[p], Ah));  // dt A rounded, as the reference
+      L[p] = run;
+    }
+  }
+  __syncthreads();
+}
+
+// Phase 1: the chunk's local end state S_loc^T (ds x hd) of every head of
+// the block, and its L_last.
 template <typename T, int CQ, int CHD, int CDS>
-__global__ void __launch_bounds__(THREADS)
-ssd_fwd(const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
-        const T* __restrict__ Bm, const T* __restrict__ Cm, T* __restrict__ y, int T_, int nh,
-        int hd_rt, int ds_rt, int Q_rt) {
-  constexpr bool EX = CQ > 0;
-  constexpr int QI = EX ? CQ / 16 : MAXD / 16;   // register rows over the chunk
-  constexpr int HI = EX ? CHD / 16 : MAXD / 16;  // ... over head_dim
-  constexpr int SI = EX ? CDS / 16 : MAXD / 16;  // ... over the state
+__global__ void __launch_bounds__(THREADS, CQ > 0 ? 2 : 1)
+ssd_chunk_states(const T* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ A, const T* __restrict__ Bm, float* __restrict__ ws,
+                 int T_, int nh, int hd_rt, int ds_rt, int Q_rt) {
+  using D = Dims<CQ, CHD, CDS>;
+  constexpr bool EX = D::EX;
   const int Q = EX ? CQ : Q_rt, hd = EX ? CHD : hd_rt, ds = EX ? CDS : ds_rt;
-  const Layout lay = layout<T>(Q, hd, ds);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* St = reinterpret_cast<float*>(smem_raw);              // hd x ldS
-  T* Bs = reinterpret_cast<T*>(smem_raw + lay.off_B);          // Q x ldB
-  T* Cs = reinterpret_cast<T*>(smem_raw + lay.off_C);          // Q x ds
-  float* us = reinterpret_cast<float*>(smem_raw + lay.off_u);  // Q x hd
-  float* Ms = reinterpret_cast<float*>(smem_raw + lay.off_M);  // Q x PT
-  float* dts = reinterpret_cast<float*>(smem_raw + lay.off_vec);
-  float* Ls = dts + Q;
-  float* eL = Ls + Q;    // exp(L)
-  float* wl = eL + Q;    // exp(L_last - L)
-  const int ldS = lay.ldS, ldB = lay.ldB;
+  float* Bs = reinterpret_cast<float*>(smem_raw);              // Q x DS, B[p][s]
+  float* uw = reinterpret_cast<float*>(smem_raw + D::P1_U);    // Q x HD, w_p u[p][d]
+  float* dts = reinterpret_cast<float*>(smem_raw + D::P1_VEC);  // HB x Q
+  float* Ls = dts + HB * D::Q;                                     // HB x Q
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const float Ah = A[h];
+  const int c = blockIdx.x, h0 = blockIdx.y * HB, b = blockIdx.z;
+  const int NC1 = T_ / Q - 1, Bsz = gridDim.z;
+  const size_t row0 = (size_t)b * T_ + (size_t)c * Q;  // (b, t) row of the chunk's first step
+  const size_t E = (size_t)hd * ds;
 
-  for (int i = tid; i < hd * ldS; i += THREADS) St[i] = 0.f;
-
-  for (int c0 = 0; c0 < T_; c0 += Q) {
-    const long long row0 = (long long)b * T_ + c0;  // (b, t) row of the chunk's first step
-    __syncthreads();  // the previous chunk is done with every buffer
-    for (int i = tid; i < Q; i += THREADS) dts[i] = dt[(row0 + i) * nh + h];
-#pragma unroll 4
-    for (int i = tid; i < Q * ds; i += THREADS) {
-      const int p = i / ds, s = i % ds;
-      Bs[p * ldB + s] = Bm[(row0 + p) * ds + s];
-      Cs[i] = Cm[(row0 + p) * ds + s];
-    }
-#pragma unroll 4
-    for (int i = tid; i < Q * hd; i += THREADS) {
-      const int p = i / hd, d = i % hd;
-      us[i] = to_f32(x[((row0 + p) * nh + h) * hd + d]);
-    }
-    __syncthreads();
-
-    // L = inclusive cumsum of dt A: each lane of warp 0 sums a run of
-    // steps, a shuffle scan adds the runs of the lanes before it
-    if (tid < 32) {
-      const int per = (Q + 31) / 32, lo = min(tid * per, Q), hi = min(lo + per, Q);
-      float run = 0.f;
-      for (int p = lo; p < hi; ++p) {
-        run = __fadd_rn(run, __fmul_rn(dts[p], Ah));  // dt A rounded, as the reference
-        Ls[p] = run;
-      }
-      float scan = run;
+  if constexpr (EX) {
+    constexpr int VEC = 16 / sizeof(T);
+    for (int i = tid; i < D::Q * D::DS / VEC; i += THREADS) {
+      float v[VEC];
+      load16(Bm + row0 * D::DS + (size_t)i * VEC, v);
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, scan, off);
-        if (tid >= off) scan += o;
-      }
-      float before = __shfl_up_sync(0xffffffffu, scan, 1);
-      if (tid == 0) before = 0.f;
-      for (int p = lo; p < hi; ++p) Ls[p] += before;
+      for (int k = 0; k < VEC; ++k) Bs[i * VEC + k] = v[k];
     }
-    for (int i = tid; i < Q * hd; i += THREADS) us[i] *= dts[i / hd];
-    __syncthreads();
-    const float Llast = Ls[Q - 1];
-    for (int p = tid; p < Q; p += THREADS) {
-      eL[p] = expf(Ls[p]);
-      wl[p] = expf(Llast - Ls[p]);
+  } else {
+    for (int i = tid; i < D::Q * D::DS; i += THREADS) {
+      const int p = i / D::DS, s = i % D::DS;
+      Bs[i] = p < Q && s < ds ? to_f32(Bm[(row0 + p) * ds + s]) : 0.f;
+    }
+  }
+
+  const int nhb = min(HB, nh - h0);
+  chunk_cumsums<D::Q>(dts, Ls, dt, A, row0, Q, nh, h0, nhb, tid);
+  for (int hh = 0; hh < nhb; ++hh) {
+    const int h = h0 + hh;
+    const float* dh = dts + hh * D::Q;
+    const float* L = Ls + hh * D::Q;
+    const float Llast = L[Q - 1];
+    if (hh) __syncthreads();  // the previous head's product is done with uw
+    const T* xh = x + row0 * nh * hd + (size_t)h * hd;
+    if constexpr (EX) {
+      constexpr int VEC = 16 / sizeof(T), DV = D::HD / VEC;
+      for (int i = tid; i < D::Q * DV; i += THREADS) {
+        const int p = i / DV, d0 = i % DV * VEC;
+        float v[VEC];
+        load16(xh + (size_t)p * nh * D::HD + d0, v);
+        const float dp = dh[p], wp = expf(Llast - L[p]);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) uw[p * D::HD + d0 + k] = v[k] * dp * wp;
+      }
+    } else {
+      for (int i = tid; i < D::Q * D::HD; i += THREADS) {
+        const int p = i / D::HD, d = i % D::HD;
+        uw[i] = p < Q && d < hd
+                    ? to_f32(xh[(size_t)p * nh * hd + d]) * dh[p] * expf(Llast - L[p])
+                    : 0.f;
+      }
     }
     __syncthreads();
 
-    // inter-chunk: y[q][d] = exp(L_q) sum_s C[q][s] S_prev[d][s]
-    float acc[QI][HI];
+    // S_loc^T[s][d] = sum_p B[p][s] (w u)[p][d]
+    float acc[D::DS / 16][D::HD / 16];
     zero(acc);
-    mma_acc<EX>(acc, Q, hd, ds, ty, tx,
-                [&](int q, int s) { return to_f32(Cs[q * ds + s]); },
-                [&](int d, int s) { return St[d * ldS + s]; });
+    mm(acc, Q, Bs, D::DS, uw, D::HD, ty, tx);
+    const size_t slot = ((size_t)b * NC1 + c) * nh + h;
+    float* out = ws + slot * E;
 #pragma unroll
-    for (int i = 0; i < QI; ++i) {
-      const float e = ty + 16 * i < Q ? eL[ty + 16 * i] : 0.f;
+    for (int i = 0; i < D::DS / 16; ++i) {
+      const int s = tile_row(ty, i);
+      if constexpr (EX) {
 #pragma unroll
-      for (int j = 0; j < HI; ++j) acc[i][j] *= e;
+        for (int j = 0; j < D::HD / 16; j += 4)
+          *reinterpret_cast<float4*>(out + s * D::HD + tile_row(tx, j)) =
+              make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < D::HD / 16; ++j) {
+          const int d = tile_row(tx, j);
+          if (s < ds && d < hd) out[(size_t)s * hd + d] = acc[i][j];
+        }
+      }
     }
+    if (tid == 0) ws[(size_t)Bsz * NC1 * nh * E + slot] = Llast;
+  }
+}
 
-    // intra-chunk, one Q x PT tile of keys at a time:
-    // M[q][p] = (q >= p) exp(min(L_q - L_p, 0)) sum_s C[q][s] B[p][s]; y += M u
-    for (int p0 = 0; p0 < Q; p0 += PT) {
-      const int np = EX ? PT : min(PT, Q - p0);
-      float sc[QI][PT / 16];
-      zero(sc);
-      mma_acc<EX>(sc, Q, np, ds, ty, tx,
-                  [&](int q, int s) { return to_f32(Cs[q * ds + s]); },
-                  [&](int p, int s) { return to_f32(Bs[(p0 + p) * ldB + s]); });
+// Phase 2: slot c of (b, h) holds S_loc[c] and becomes S_in[c + 1].
+template <int V>
+__global__ void __launch_bounds__(THREADS)
+ssd_state_pass(float* ws, int Bsz, int NC1, int nh, int E) {
+  const int e = (blockIdx.x * THREADS + threadIdx.x) * V;
+  if (e >= E) return;
+  const int b = blockIdx.y / nh, h = blockIdx.y % nh;
+  const float* Llast = ws + (size_t)Bsz * NC1 * nh * E;
+  float run[V];
 #pragma unroll
-      for (int i = 0; i < QI; ++i) {
-        const int q = ty + 16 * i;
+  for (int k = 0; k < V; ++k) run[k] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < NC1; ++c) {
+    const size_t slot = ((size_t)b * NC1 + c) * nh + h;
+    const float decay = expf(Llast[slot]);
+    float* s = ws + slot * E + e;
+    float v[V];
+    if constexpr (V == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(s);
+      v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+    } else {
+      v[0] = *s;
+    }
 #pragma unroll
-        for (int j = 0; j < PT / 16; ++j) {
-          const int p = tx + 16 * j, pp = p0 + p;
-          if (q < Q && p < np) {
-            const float decay = expf(fminf(Ls[q] - Ls[pp], 0.f));
-            Ms[q * PT + p] = q >= pp ? sc[i][j] * decay : 0.f;
-          }
+    for (int k = 0; k < V; ++k) run[k] = __fadd_rn(__fmul_rn(decay, run[k]), v[k]);
+    if constexpr (V == 4) {
+      *reinterpret_cast<float4*>(s) = make_float4(run[0], run[1], run[2], run[3]);
+    } else {
+      *s = run[0];
+    }
+  }
+}
+
+// Phase 3: y of QR query rows of a chunk, for every head of the block.
+template <typename T, int CQ, int CHD, int CDS>
+__global__ void __launch_bounds__(THREADS, CQ > 0 ? 2 : 1)
+ssd_chunk_outputs(const T* __restrict__ x, const float* __restrict__ dt,
+                  const float* __restrict__ A, const T* __restrict__ Bm,
+                  const T* __restrict__ Cm, const float* __restrict__ ws, T* __restrict__ y,
+                  int T_, int nh, int hd_rt, int ds_rt, int Q_rt) {
+  using D = Dims<CQ, CHD, CDS>;
+  constexpr bool EX = D::EX;
+  constexpr int TH = D::HD / 16;  // register columns over head_dim
+  const int Q = EX ? CQ : Q_rt, hd = EX ? CHD : hd_rt, ds = EX ? CDS : ds_rt;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ct = reinterpret_cast<float*>(smem_raw);             // DS x QR, C[q][s] at [s][q]
+  float* CBt = reinterpret_cast<float*>(smem_raw + D::P3_CB);  // Q x QR, (C B^T)[q][p] at [p][q]
+  float* R = reinterpret_cast<float*>(smem_raw + D::P3_R);
+  float* Mt = R;                                                // PT x QR, M[q][p] at [p][q]
+  float* us = reinterpret_cast<float*>(smem_raw + D::P3_R + D::P3_U);  // PT x HD
+  float* dts = reinterpret_cast<float*>(smem_raw + D::P3_VEC);  // HB x Q
+  float* Ls = dts + HB * D::Q;                                     // HB x Q
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int NR = (Q + QR - 1) / QR;
+  const int c = blockIdx.x / NR, q0 = blockIdx.x % NR * QR;
+  const int h0 = blockIdx.y * HB, b = blockIdx.z;
+  const int NC1 = T_ / Q - 1;
+  const int nq = min(QR, Q - q0);  // real query rows of the block
+  const int P = min(Q, q0 + QR);   // keys they attend to
+  const size_t row0 = (size_t)b * T_ + (size_t)c * Q;
+  const size_t E = (size_t)hd * ds;
+
+  // C . B^T of the block's rows against keys [0, P), 64 keys at a time
+  const int nhb = min(HB, nh - h0);
+  stage_transposed<T, EX, QR, D::DS>(Ct, Cm + (row0 + q0) * ds, nq, ds, tid);
+  chunk_cumsums<D::Q>(dts, Ls, dt, A, row0, Q, nh, h0, nhb, tid);
+  for (int p0 = 0; p0 < P; p0 += PT) {
+    if (p0) __syncthreads();  // the previous B^T tile is read
+    stage_transposed<T, EX, PT, D::DS>(R, Bm + (row0 + p0) * ds, min(PT, P - p0), ds, tid);
+    __syncthreads();
+    float acc[QR / 16][PT / 16];
+    zero(acc);
+    mm(acc, ds, Ct, QR, R, PT, ty, tx);
+#pragma unroll
+    for (int j = 0; j < PT / 16; ++j)
+#pragma unroll
+      for (int i = 0; i < QR / 16; ++i) CBt[(p0 + tile_row(tx, j)) * QR + tile_row(ty, i)] = acc[i][j];
+  }
+
+  for (int hh = 0; hh < nhb; ++hh) {
+    const int h = h0 + hh;
+    const float* dh = dts + hh * D::Q;
+    const float* L = Ls + hh * D::Q;
+    __syncthreads();  // C B^T is written; the previous head is done with R
+    if (c > 0) {  // S_in^T of this chunk: slot c - 1, written by phase 2
+      const float* St = ws + (((size_t)b * NC1 + c - 1) * nh + h) * E;
+      if constexpr (EX) {
+        for (int i = tid; i < D::DS * D::HD / 4; i += THREADS)
+          reinterpret_cast<float4*>(R)[i] = reinterpret_cast<const float4*>(St)[i];
+      } else {
+        for (int i = tid; i < D::DS * D::HD; i += THREADS) {
+          const int s = i / D::HD, d = i % D::HD;
+          R[i] = s < ds && d < hd ? St[(size_t)s * hd + d] : 0.f;
         }
       }
       __syncthreads();
-      mma_acc<EX>(acc, Q, hd, np, ty, tx,
-                  [&](int q, int p) { return Ms[q * PT + p]; },
-                  [&](int d, int p) { return us[(p0 + p) * hd + d]; });
-      __syncthreads();  // Ms is rewritten by the next tile
     }
 
+    // inter-chunk: y[q][d] = exp(L_q) sum_s C[q][s] S_in[d][s]
+    float acc[QR / 16][TH];
+    zero(acc);
+    if (c > 0) {
+      mm(acc, ds, Ct, QR, R, D::HD, ty, tx);
 #pragma unroll
-    for (int i = 0; i < QI; ++i) {
-      const int q = ty + 16 * i;
+      for (int i = 0; i < QR / 16; ++i) {
+        const int q = q0 + tile_row(ty, i);
+        const float e = q < Q ? expf(L[q]) : 0.f;
 #pragma unroll
-      for (int j = 0; j < HI; ++j) {
-        const int d = tx + 16 * j;
-        if (q < Q && d < hd) y[((row0 + q) * nh + h) * hd + d] = from_f32<T>(acc[i][j]);
+        for (int j = 0; j < TH; ++j) acc[i][j] *= e;
       }
     }
 
-    // state: S[d][s] = exp(L_last) S_prev[d][s] + sum_p (w_p u[p][d]) B[p][s];
-    // a thread owns its (d, s) entries, read and written by it alone
-    float st[HI][SI];
-    zero(st);
-    mma_acc<EX>(st, hd, ds, Q, ty, tx,
-                [&](int d, int p) { return us[p * hd + d] * wl[p]; },
-                [&](int s, int p) { return to_f32(Bs[p * ldB + s]); });
-    const float eLast = expf(Llast);
+    // intra-chunk, 64 keys at a time:
+    // M[q][p] = (q >= p) exp(min(L_q - L_p, 0)) (C B^T)[q][p]; y += M u
+    for (int p0 = 0; p0 < P; p0 += PT) {
+      if (c > 0 || p0) __syncthreads();  // R is free: the state or the previous tile is read
+      for (int i = tid; i < PT * QR; i += THREADS) {
+        const int p = i / QR, q = i % QR, qq = q0 + q, pp = p0 + p;
+        Mt[i] = qq >= pp && qq < Q ? CBt[pp * QR + q] * expf(fminf(L[qq] - L[pp], 0.f)) : 0.f;
+      }
+      const T* xh = x + (row0 + p0) * nh * hd + (size_t)h * hd;
+      if constexpr (EX) {
+        constexpr int VEC = 16 / sizeof(T), DV = D::HD / VEC;
+        for (int i = tid; i < PT * DV; i += THREADS) {
+          const int p = i / DV, d0 = i % DV * VEC;
+          float v[VEC];
+          load16(xh + (size_t)p * nh * D::HD + d0, v);
+          const float dp = dh[p0 + p];
 #pragma unroll
-    for (int i = 0; i < HI; ++i) {
-      const int d = ty + 16 * i;
+          for (int k = 0; k < VEC; ++k) us[p * D::HD + d0 + k] = v[k] * dp;
+        }
+      } else {
+        for (int i = tid; i < PT * D::HD; i += THREADS) {
+          const int p = i / D::HD, d = i % D::HD;
+          us[i] = p0 + p < Q && d < hd ? to_f32(xh[(size_t)p * nh * hd + d]) * dh[p0 + p] : 0.f;
+        }
+      }
+      __syncthreads();
+      mm(acc, PT, Mt, QR, us, D::HD, ty, tx);
+    }
+
+    T* yh = y + (row0 + q0) * nh * hd + (size_t)h * hd;
 #pragma unroll
-      for (int j = 0; j < SI; ++j) {
-        const int s = tx + 16 * j;
-        if (d < hd && s < ds) St[d * ldS + s] = eLast * St[d * ldS + s] + st[i][j];
+    for (int i = 0; i < QR / 16; ++i) {
+      const int q = tile_row(ty, i);
+#pragma unroll
+      for (int j = 0; j < TH; ++j) {
+        const int d = tile_row(tx, j);
+        if (EX || (q < nq && d < hd)) yh[(size_t)q * nh * hd + d] = from_f32<T>(acc[i][j]);
       }
     }
   }
 }
 
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+// Launch the phases in `mask` (bit 0: chunk states, 1: state pass, 2: chunk
+// outputs).  Phases 1 and 2 run only when there is more than one chunk.
 template <typename T, int CQ, int CHD, int CDS>
-int launch(const void* x, const void* dt, const void* A, const void* B, const void* C, void* y,
-           int Bsz, int T_, int nh, int hd, int ds, int Q, void* stream) {
-  const size_t smem = layout<T>(Q, hd, ds).bytes;
-  cudaError_t err = cudaFuncSetAttribute(ssd_fwd<T, CQ, CHD, CDS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int launch(int mask, const void* x, const void* dt, const void* A, const void* B, const void* C,
+           void* y, void* ws, int Bsz, int T_, int nh, int hd, int ds, int Q, void* stream) {
+  using D = Dims<CQ, CHD, CDS>;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int NC = T_ / Q, NHB = (nh + HB - 1) / HB, NR = (Q + QR - 1) / QR, E = hd * ds;
+  cudaError_t err = cudaSuccess;
+  if ((mask & 1) && NC > 1) {
+    if ((err = allow_smem(ssd_chunk_states<T, CQ, CHD, CDS>, D::P1_BYTES)) != cudaSuccess)
+      return (int)err;
+    ssd_chunk_states<T, CQ, CHD, CDS><<<dim3(NC - 1, NHB, Bsz), THREADS, D::P1_BYTES, s>>>(
+        (const T*)x, (const float*)dt, (const float*)A, (const T*)B, (float*)ws, T_, nh, hd, ds,
+        Q);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if ((mask & 2) && NC > 1) {
+    const int V = E % 4 ? 1 : 4, per = THREADS * V;
+    const dim3 grid((E + per - 1) / per, Bsz * nh);
+    if (V == 4)
+      ssd_state_pass<4><<<grid, THREADS, 0, s>>>((float*)ws, Bsz, NC - 1, nh, E);
+    else
+      ssd_state_pass<1><<<grid, THREADS, 0, s>>>((float*)ws, Bsz, NC - 1, nh, E);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (mask & 4) {
+    if ((err = allow_smem(ssd_chunk_outputs<T, CQ, CHD, CDS>, D::P3_BYTES)) != cudaSuccess)
+      return (int)err;
+    ssd_chunk_outputs<T, CQ, CHD, CDS><<<dim3(NC * NR, NHB, Bsz), THREADS, D::P3_BYTES, s>>>(
+        (const T*)x, (const float*)dt, (const float*)A, (const T*)B, (const T*)C,
+        (const float*)ws, (T*)y, T_, nh, hd, ds, Q);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+bool main_shape(int Q, int hd, int ds) { return Q == 128 && hd == 64 && ds == 128; }
+
+template <typename T>
+int dispatch(int mask, const void* x, const void* dt, const void* A, const void* B,
+             const void* C, void* y, void* ws, int Bsz, int T_, int nh, int hd, int ds, int Q,
+             void* stream) {
+  if (Q < 1 || hd < 1 || ds < 1 || Q > MAXD || hd > MAXD || ds > MAXD || T_ % Q)
+    return (int)cudaErrorInvalidValue;
+  if (main_shape(Q, hd, ds))  // mamba2's chunk, head_dim and state
+    return launch<T, 128, 64, 128>(mask, x, dt, A, B, C, y, ws, Bsz, T_, nh, hd, ds, Q, stream);
+  return launch<T, 0, 0, 0>(mask, x, dt, A, B, C, y, ws, Bsz, T_, nh, hd, ds, Q, stream);
+}
+
+template <typename K>
+int attrs_of(K kernel, size_t smem, int* out) {
+  cudaError_t err = smem ? allow_smem(kernel, smem) : cudaSuccess;
+  cudaFuncAttributes a;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(nh, Bsz);
-  ssd_fwd<T, CQ, CHD, CDS><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const T*)x, (const float*)dt, (const float*)A, (const T*)B, (const T*)C, (T*)y, T_, nh,
-      hd, ds, Q);
-  return (int)cudaGetLastError();
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  return 0;
 }
 
 template <typename T>
-int dispatch(const void* x, const void* dt, const void* A, const void* B, const void* C, void* y,
-             int Bsz, int T_, int nh, int hd, int ds, int Q, void* stream) {
-  if (Q < 1 || hd < 1 || ds < 1 || Q > MAXD || hd > MAXD || ds > MAXD || T_ % Q)
-    return (int)cudaErrorInvalidValue;
-  if (Q == 128 && hd == 64 && ds == 128)  // mamba2's chunk, head_dim and state
-    return launch<T, 128, 64, 128>(x, dt, A, B, C, y, Bsz, T_, nh, hd, ds, Q, stream);
-  return launch<T, 0, 0, 0>(x, dt, A, B, C, y, Bsz, T_, nh, hd, ds, Q, stream);
+int attrs(int phase, int* out) {
+  using D = Dims<128, 64, 128>;
+  switch (phase) {
+    case 1: return attrs_of(ssd_chunk_states<T, 128, 64, 128>, D::P1_BYTES, out);
+    case 2: return attrs_of(ssd_state_pass<4>, 0, out);
+    case 3: return attrs_of(ssd_chunk_outputs<T, 128, 64, 128>, D::P3_BYTES, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" int ssd_scan_f32(const void* x, const void* dt, const void* A, const void* B,
-                            const void* C, void* y, int Bsz, int T, int nh, int hd, int ds,
-                            int Q, void* stream) {
-  return dispatch<float>(x, dt, A, B, C, y, Bsz, T, nh, hd, ds, Q, stream);
+                            const void* C, void* y, void* ws, int Bsz, int T, int nh, int hd,
+                            int ds, int Q, void* stream) {
+  return dispatch<float>(7, x, dt, A, B, C, y, ws, Bsz, T, nh, hd, ds, Q, stream);
 }
 
 extern "C" int ssd_scan_bf16(const void* x, const void* dt, const void* A, const void* B,
-                             const void* C, void* y, int Bsz, int T, int nh, int hd, int ds,
-                             int Q, void* stream) {
-  return dispatch<__nv_bfloat16>(x, dt, A, B, C, y, Bsz, T, nh, hd, ds, Q, stream);
+                             const void* C, void* y, void* ws, int Bsz, int T, int nh, int hd,
+                             int ds, int Q, void* stream) {
+  return dispatch<__nv_bfloat16>(7, x, dt, A, B, C, y, ws, Bsz, T, nh, hd, ds, Q, stream);
 }
 
-// The dynamic shared memory a launch needs, for the wrapper's check.
+// One phase (1, 2 or 3) alone, for timing each: the phases before it must
+// have run on the same workspace.
+extern "C" int ssd_scan_phase(int phase, int bf16, const void* x, const void* dt, const void* A,
+                              const void* B, const void* C, void* y, void* ws, int Bsz, int T,
+                              int nh, int hd, int ds, int Q, void* stream) {
+  if (phase < 1 || phase > 3) return (int)cudaErrorInvalidValue;
+  const int mask = 1 << (phase - 1);
+  return bf16 ? dispatch<__nv_bfloat16>(mask, x, dt, A, B, C, y, ws, Bsz, T, nh, hd, ds, Q, stream)
+              : dispatch<float>(mask, x, dt, A, B, C, y, ws, Bsz, T, nh, hd, ds, Q, stream);
+}
+
+// The dynamic shared memory of the largest phase, for the wrapper's check.
 extern "C" long long ssd_scan_smem_bytes(int Q, int hd, int ds, int bf16) {
-  return (long long)(bf16 ? layout<__nv_bfloat16>(Q, hd, ds).bytes
-                          : layout<float>(Q, hd, ds).bytes);
+  (void)bf16;  // every operand is float32 in shared memory
+  return (long long)(main_shape(Q, hd, ds) ? Dims<128, 64, 128>::SMEM : Dims<0, 0, 0>::SMEM);
+}
+
+// Registers, local (spill) bytes a thread, dynamic shared bytes and blocks
+// an SM of phase 1, 2 or 3 at the main path's instantiation.
+extern "C" int ssd_scan_attrs(int phase, int bf16, int* out) {
+  return bf16 ? attrs<__nv_bfloat16>(phase, out) : attrs<float>(phase, out);
 }

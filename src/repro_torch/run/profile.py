@@ -145,7 +145,7 @@ def profile_backbone(arch="gemma3-4b", *, batch=2, seq=2048, steps=4, top=8,
     cfg = get_config(arch)
     ssm = cfg.family == "ssm"
     bb = Backbone(cfg, use_ssd_kernel=ssm, use_flash=not ssm)
-    mark = "ssd_fwd" if ssm else "flash_fwd"
+    mark = "::ssd_" if ssm else "flash_fwd"   # the SSD scan's three phase kernels
     params = bb.init(torch.Generator(device=dev).manual_seed(0))
     toks = torch.randint(0, cfg.vocab_size, (batch, seq),
                          generator=torch.Generator(device=dev).manual_seed(1), device=dev)

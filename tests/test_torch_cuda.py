@@ -22,7 +22,9 @@ SSD scan compute in float32 with fused multiply-adds in another order than
 the plain versions' library products: float32 outputs within 1e-5 of the
 output's largest magnitude; bfloat16 outputs that much plus two bfloat16
 ulps of the element (both round a float32 result once, which may land on
-the neighbouring value).  The backbones on the card against the CPU
+the neighbouring value).  Against a float64 scan, the float32 SSD
+kernel's largest error is held within 1.5x the plain version's (both sum
+in float32, in other orders).  The backbones on the card against the CPU
 within 2e-4, as the port is held to the reference.
 """
 import pytest
@@ -353,8 +355,15 @@ def _ssd_inputs(g, dev, Bsz, T, nh, hd, ds, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,nh,hd,ds,chunk", [(512, 6, 64, 128, 128),   # mamba2's sizes
                                               (96, 3, 32, 16, 32),
-                                              (40, 2, 128, 16, 8)])
+                                              (40, 2, 128, 16, 8),
+                                              (4096, 4, 64, 128, 128),  # 32 chunks
+                                              (256, 80, 64, 128, 128),  # mamba2's heads
+                                              (128, 3, 64, 128, 128),   # one chunk
+                                              (48, 5, 32, 16, 48)])
 def test_ssd_kernel_matches_plain(cuda, dtype, T, nh, hd, ds, chunk):
+    """mamba2's (chunk, head_dim, state) take the kernel's own
+    instantiation, the rest the generic one; head counts that leave a
+    partial block of four heads; one chunk (no state to pass) and 32."""
     g = torch.Generator(device=cuda).manual_seed(T + hd)
     xs = _ssd_inputs(g, cuda, 2, T, nh, hd, ds, dtype)
     before = skernel.ssd_bthd.launches
@@ -380,6 +389,69 @@ def test_ssd_kernel_refusals(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         skernel.ssd_bthd(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, B, C,
                          chunk=16)
+
+
+def _ssd_float64(x, dt, A, B, C, chunk):
+    """The plain version's chunked scan in float64: an exact yardstick."""
+    Bsz, T, nh, hd = x.shape
+    ds, Q = B.shape[-1], min(chunk, T)
+    NC = T // Q
+    xf = x.double().reshape(Bsz, NC, Q, nh, hd)
+    dtf = dt.double().reshape(Bsz, NC, Q, nh)
+    Bf, Cf = (t.double().reshape(Bsz, NC, Q, ds) for t in (B, C))
+    L = torch.cumsum(A.double() * dtf, dim=2)
+    Llast = L[:, :, -1:, :]
+    decay = torch.exp(torch.clamp(L[:, :, :, None, :] - L[:, :, None, :, :], max=0.0))
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    M = torch.where(mask[None, None, :, :, None],
+                    torch.einsum("bnqs,bnps->bnqp", Cf, Bf)[..., None] * decay, 0.0)
+    y = torch.einsum("bnqph,bnphd->bnqhd", M, dtf[..., None] * xf)
+    S_loc = torch.einsum("bnqhd,bnqs->bnhds",
+                         (torch.exp(Llast - L) * dtf)[..., None] * xf, Bf)
+    S, prev = torch.zeros_like(S_loc[:, 0]), []
+    for c in range(NC):
+        prev.append(S)
+        S = torch.exp(Llast[:, c, 0, :, None, None]) * S + S_loc[:, c]
+    y = y + torch.einsum("bnqs,bnqh,bnhds->bnqhd", Cf, torch.exp(L), torch.stack(prev, 1))
+    return y.reshape(Bsz, T, nh, hd)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_as_accurate_as_plain(cuda):
+    """Against a float64 scan, the float32 kernel's largest error is within
+    1.5x the plain version's, over 32 chunks with a fast-decaying head (A =
+    -11.6, |L| near 1,000 at a chunk's end).  The cumsum L must be summed
+    in order: a lane-parallel scan rounds neighbouring L's apart, and
+    exp(L_q - L_p) of close steps carries that rounding."""
+    g = torch.Generator(device=cuda).manual_seed(4096 + 64)
+    xs = _ssd_inputs(g, cuda, 2, 4096, 4, 64, 128, torch.float32)
+    assert float(xs[2].min()) < -10
+    want = _ssd_float64(*xs, 128)
+    top = float(want.abs().max())
+    kern = float((skernel.ssd_bthd(*xs, chunk=128).double() - want).abs().max()) / top
+    plain = float((ssd_ref(*xs, chunk=128).double() - want).abs().max()) / top
+    assert kern <= 1.5 * plain, (kern, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_attrs(cuda, dtype):
+    """At mamba2's instantiation no phase spills, and the chunk-states and
+    chunk-outputs phases fit two blocks (16 warps) on an SM."""
+    for phase in (1, 2, 3):
+        a = skernel.kernel_attrs(phase, dtype)
+        assert a["num_regs"] <= 255 and a["local_bytes"] == 0, (phase, a)
+        assert a["blocks_per_sm"] >= (1 if phase == 2 else 2), (phase, a)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_unaligned(cuda):
+    """The kernel reads x, B and C 16 bytes at a time."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x, dt, A, B, C = _ssd_inputs(g, cuda, 1, 256, 2, 64, 128, torch.bfloat16)
+    flat = torch.empty(x.numel() + 1, device=cuda, dtype=x.dtype)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        skernel.ssd_bthd(flat[1:].view(x.shape), dt, A, B, C, chunk=128)
 
 
 @pytest.mark.cuda

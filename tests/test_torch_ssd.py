@@ -1,8 +1,9 @@
 """The port's SSD scan on the CPU: its plain version (what the wrapper
 computes for CPU tensors) against the reference's Pallas kernel in
 interpret mode and its jnp oracle, and the chunked scan against the
-one-step recurrence.  The CUDA kernel against the plain version on the
-card is in ``test_torch_cuda.py``.
+one-step recurrence; and a plain emulation of the CUDA kernel's three
+phases (chunk states, state pass, chunk outputs) against both.  The CUDA
+kernel against the plain version on the card is in ``test_torch_cuda.py``.
 
 Tolerances, with their reasons: the chunked scan sums exponentially
 decayed products in another order on each side, so the outputs are held
@@ -12,6 +13,8 @@ end and may take the neighbouring bfloat16, one ulp (2^-7 of the larger
 magnitude) on top; the recurrence against the chunked scan within 1e-5,
 as in the reference.
 """
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -117,3 +120,92 @@ def test_ssd_wrapper_refusals():
         ssd(x, dt, A, B, C, chunk=16)
     with pytest.raises(ValueError, match="ssd takes x"):
         skernel.ssd_bthd(x, dt[:, :, :1], A, B, C)
+
+
+HB, QR = 4, 64   # the CUDA kernel's heads per block and query rows per block
+
+
+def _three_phases(x, dt, A, B, C, *, chunk, late=False):
+    """The CUDA kernel's decomposition, in float32, as ``csrc/ssd_scan.cu``
+    orders it.  Phase 1: per (batch, chunk but the last, head) the local end
+    state S_loc^T = B^T (w u) into slot c of a workspace, with L_last.
+    Phase 2: slot c overwritten in place with the state entering chunk c + 1,
+    exp(L_last) run + S_loc.  Phase 3: per (batch, chunk, QR query rows,
+    block of HB heads, the last block partial) C.B^T of those rows against
+    the keys up to the last of them, once for the block; per head y =
+    exp(L) (C . S_in^T) + M u, M the decayed, masked C.B^T.  ``late``
+    plants a fault: chunk c reads the state entering chunk c - 1."""
+    Bsz, T, nh, hd = x.shape
+    Q = min(chunk, T)
+    NC = T // Q
+    xf, Bf, Cf = x.float(), B.float(), C.float()
+
+    def cumsum(b, c, h):
+        return torch.cumsum(A[h] * dt[b, c * Q:(c + 1) * Q, h], 0)
+
+    def u(b, c, h, n):
+        t = slice(c * Q, c * Q + n)
+        return dt[b, t, h, None] * xf[b, t, h]
+
+    ws = torch.empty((Bsz, NC - 1, nh, B.shape[-1], hd))
+    Llast = torch.empty((Bsz, NC - 1, nh))
+    for b, c, h in itertools.product(range(Bsz), range(NC - 1), range(nh)):
+        L = cumsum(b, c, h)
+        w = torch.exp(L[-1] - L)
+        ws[b, c, h] = Bf[b, c * Q:(c + 1) * Q].T @ (u(b, c, h, Q) * w[:, None])
+        Llast[b, c, h] = L[-1]
+    for b, h in itertools.product(range(Bsz), range(nh)):
+        run = torch.zeros_like(ws[b, 0, h])
+        for c in range(NC - 1):
+            run = torch.exp(Llast[b, c, h]) * run + ws[b, c, h]
+            ws[b, c, h] = run
+    y = torch.empty((Bsz, T, nh, hd))
+    for b, c, q0, h0 in itertools.product(range(Bsz), range(NC), range(0, Q, QR),
+                                          range(0, nh, HB)):
+        q1, P = min(q0 + QR, Q), min(Q, q0 + QR)
+        rows = slice(c * Q + q0, c * Q + q1)
+        CB = Cf[b, rows] @ Bf[b, c * Q:c * Q + P].T          # once per head block
+        qi = torch.arange(q0, q1)[:, None]
+        mask = qi >= torch.arange(P)[None, :]
+        for h in range(h0, min(h0 + HB, nh)):
+            L = cumsum(b, c, h)
+            k = c - 2 if late else c - 1
+            acc = torch.zeros((q1 - q0, hd))
+            if k >= 0:
+                acc = torch.exp(L[q0:q1])[:, None] * (Cf[b, rows] @ ws[b, k, h])
+            decay = torch.exp(torch.clamp(L[q0:q1, None] - L[None, :P], max=0.0))
+            M = torch.where(mask, CB * decay, 0.0)
+            y[b, rows, h] = acc + M @ u(b, c, h, P)
+    return y.to(x.dtype)
+
+
+def _scaled_err(got, want):
+    got, want = np.asarray(got, dtype=np.float32), np.asarray(want, dtype=np.float32)
+    return float(np.abs(got - want).max()) / (float(np.abs(want).max()) + 1e-6)
+
+
+@pytest.mark.parametrize("T,nh,hd,ds,chunk,head_block",
+                         SSD_CASES + [(256, 6, 32, 16, 64, 4)])   # a partial head block
+def test_three_phase_decomposition_matches_jax_kernel(T, nh, hd, ds, chunk, head_block):
+    """The CUDA kernel's three phases, emulated, against the reference's
+    Pallas kernel in interpret mode and the port's plain version, at the
+    reference's own 3e-6 of max |y|, on the inputs that hold the plain
+    version to the Pallas kernel above.  The emulation is within 1e-7 of
+    max |y| of the plain version; at chunk 128 both are 3.0e-6 from the
+    Pallas kernel, each summing 128 decayed products in its own order."""
+    xs = _inputs(T, nh, hd, ds)
+    got = _three_phases(*_torch(xs), chunk=chunk).numpy()
+    want = np.asarray(jssd(*(jnp.asarray(x) for x in xs), chunk=chunk,
+                           head_block=head_block, interpret=True))
+    assert _scaled_err(got, want) <= 3e-6
+    assert _scaled_err(got, ssd_ref(*_torch(xs), chunk=chunk).numpy()) <= 3e-6
+
+
+def test_three_phase_decomposition_rejects_a_late_state():
+    """Planted fault: each chunk reads the state one chunk late.  At chunk
+    128 (two blocks of query rows) and six heads (a partial head block),
+    the emulation holds to the plain version and the fault does not."""
+    xs = _torch(_inputs(512, 6, 32, 64, seed=7))
+    want = ssd_ref(*xs, chunk=128).numpy()
+    assert _scaled_err(_three_phases(*xs, chunk=128).numpy(), want) <= 3e-6
+    assert _scaled_err(_three_phases(*xs, chunk=128, late=True).numpy(), want) > 100 * 3e-6
