@@ -20,7 +20,13 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    the largest ACGAN leaf, (5, 2,097,152) float32, at 8 and 4 bits; pack4
    and unpack4 at that leaf's int4 codes after top-k 0.25, (5, 524,288);
    every row holds an all-zero block, an overflowing block and a block of
-   exact .5 ties.  The fused Adam step with the uplink quantize
+   exact .5 ties; dequant also at those int4 codes, (5, 524,288), the shape
+   of the main path's dequant launches.  Each qpack kernel's registers and
+   local (spill) bytes (no local bytes allowed), and one empty launch
+   through the same timing: the floor of a kernel this small.  With
+   ``--qpack-parent DIR`` (repeatable), time that checkout's dequant and
+   unpack4 beside this one's through each one's own ``check_qpack``, in
+   turns, one process each.  The fused Adam step with the uplink quantize
    (``adam_sync_tree``, kernel 7) on the ACGAN generator and discriminator
    trees after one round of training, one launch per tree, every output
    bit-identical to its plain version and to ``Adam.update`` followed by
@@ -353,15 +359,22 @@ def check_qpack(torch, dev, flush):
             b_ms, b_by = bound(nbytes_q, R * N)
             records["dequant"] = _record("dequant", 48, ms, plain,
                                          b_ms, b_by)
+            # a yardstick, not the same function: PyTorch's int8 -> float32
+            # cast moves the same bytes
+            cast = time_ms(torch, lambda: q.float(), flush)
+            log(f"dequant yardstick: q.float() alone, the same bytes, {cast:.4f} ms")
         else:
             # the int4 codes of the leaf's top-k 0.25 values, as the main
             # path's uplink packs them
             vals, _ = TopK(0.25).encode(x, batch_ndims=1)
             k = vals.shape[1]
-            codes, _ = pk.quant_flat(vals.contiguous(), qmax=qmax)
+            codes, cs = pk.quant_flat(vals.contiguous(), qmax=qmax)
             p = pk.pack4_flat(codes)
             back = pk.unpack4_flat(p)
+            dq = pk.dequant_flat(codes, cs)
             torch.cuda.synchronize()
+            check(same_bits(torch, dq, pr.dequant_blocks_ref(codes, cs, block=128)),
+                  f"dequant int4 ({R}, {k}): not bit-identical")
             check(same_bits(torch, p, pr.pack4_ref(codes)),
                   f"pack4 ({R}, {k}): not bit-identical")
             check(torch.equal(back, codes) and torch.equal(back, pr.unpack4_ref(p)),
@@ -381,10 +394,21 @@ def check_qpack(torch, dev, flush):
             b_ms, b_by = bound(nbytes_p, 6 * R * k // 2)
             records["unpack4"] = _record("unpack4", 61, ms, plain,
                                          b_ms, b_by)
+            # dequant at the chain's shape, where the main path's launches run
+            ms = time_ms(torch, lambda: pk.dequant_flat(codes, cs), flush)
+            b_ms, _ = bound(R * k * 5 + cs.numel() * 2, R * k)
+            log(f"dequant at the top-k + int4 chain's shape ({R}, {k}): kernel {ms:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({100 * b_ms / ms:.1f}% of it)")
     for r in records.values():
         r["max_abs_err"] = errs[r["name"]]
         log(f"{r['name']} timing: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    floor = time_ms(torch, lambda: torch.cuda._sleep(1), flush)
+    log(f"one empty launch (torch.cuda._sleep(1)) through the same timing: {floor:.4f} ms")
+    for name in pk.KERNELS:
+        a = pk.kernel_attrs(name)
+        log(f"qpack {name}: {a['num_regs']} registers, {a['local_bytes']} local bytes a thread")
+        check(a["local_bytes"] == 0, f"qpack {name} spills: {a['local_bytes']} local bytes")
     try:
         pk.quant_flat(x.t().contiguous().t(), qmax=127)
     except ValueError:
@@ -757,28 +781,38 @@ def check_ssd(torch, dev, flush):
             "library_ms": None}
 
 
-def ssd_against(other):
-    """The SSD kernel of the checkout ``other`` timed beside this one's, on
-    this card, in turns (other, this, this, other): each run a process of
-    its own through its checkout's own ``chip_smoke.check_ssd``."""
+# What a checkout's own chip_smoke times, by --<what>-parent: {kernel: ms}.
+AGAINST = {
+    "ssd": "{'ssd': cs.check_ssd(torch, dev, flush)['ms']}",
+    "qpack": "{r['name']: r['ms'] for r in cs.check_qpack(torch, dev, flush) "
+             "if r['name'] in ('dequant', 'unpack4')}",
+}
+
+
+def kernels_against(other, what):
+    """The ``what`` kernels (``AGAINST``) of the checkout ``other`` timed
+    beside this one's, on this card, in turns (other, this, this, other):
+    each run a process of its own through its checkout's own
+    ``chip_smoke``."""
     other = os.path.abspath(other)
     check(os.path.isfile(os.path.join(other, "chip_smoke.py")),
-          f"--ssd-parent {other}: no chip_smoke.py there")
-    code = ("import json, sys, torch; sys.path[:0] = [{root!r}, {src!r}]; "
-            "import chip_smoke as cs, repro_torch; dev = torch.device('cuda'); "
-            "flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev); "
-            "print('SSD_MS', json.dumps(cs.check_ssd(torch, dev, flush)['ms']))")
-    runs = []
+          f"--{what}-parent {other}: no chip_smoke.py there")
+    runs = {}
     for root in (other, ROOT, ROOT, other):
-        out = subprocess.run([sys.executable, "-c",
-                              code.format(root=root, src=os.path.join(root, "src"))],
-                             capture_output=True, text=True, timeout=900, cwd=root)
-        check(out.returncode == 0, f"ssd timing in {root} failed:\n{out.stdout}{out.stderr}")
-        ms = [float(line.split()[1]) for line in out.stdout.splitlines()
-              if line.startswith("SSD_MS")]
-        runs.append(("other" if root == other else "this", ms[0]))
-    log("ssd kernel, this checkout against " + other + ": " +
-        ", ".join(f"{who} {ms:.4f} ms" for who, ms in runs))
+        code = (f"import json, sys, torch; sys.path[:0] = [{root!r}, "
+                f"{os.path.join(root, 'src')!r}]; "
+                "import chip_smoke as cs, repro_torch; dev = torch.device('cuda'); "
+                "flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev); "
+                f"print('KERNEL_MS', json.dumps({AGAINST[what]}))")
+        out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                             timeout=900, cwd=root)
+        check(out.returncode == 0, f"{what} timing in {root} failed:\n{out.stdout}{out.stderr}")
+        line = [ln for ln in out.stdout.splitlines() if ln.startswith("KERNEL_MS ")][-1]
+        for name, ms in json.loads(line.split(" ", 1)[1]).items():
+            runs.setdefault(name, []).append(("other" if root == other else "this", ms))
+    for name, turns in runs.items():
+        log(f"{name} kernel, this checkout against {other}: " +
+            ", ".join(f"{who} {ms:.4f} ms" for who, ms in turns))
 
 
 def _reset(counters):
@@ -1133,6 +1167,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ssd-parent", metavar="DIR",
                     help="also time the SSD kernel of the checkout DIR beside this one's")
+    ap.add_argument("--qpack-parent", metavar="DIR", action="append", default=[],
+                    help="also time the dequant and unpack4 kernels of the checkout DIR "
+                         "beside this one's (may be given more than once)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1166,7 +1203,9 @@ def main() -> int:
                                       check_ssd(torch, dev, flush))}
     del flush
     if args.ssd_parent:
-        ssd_against(args.ssd_parent)
+        kernels_against(args.ssd_parent, "ssd")
+    for other in args.qpack_parent:
+        kernels_against(other, "qpack")
     check_composed_vs_fused(torch, dev)
     check_small_round(torch, dev)
 

@@ -18,7 +18,12 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {"qpack_quant": [_P, _P, _P, _LL, _LL, _I, _I, _P],
                "qpack_dequant": [_P, _P, _P, _LL, _LL, _I, _P],
                "qpack_pack4": [_P, _P, _LL, _P],
-               "qpack_unpack4": [_P, _P, _LL, _P]}
+               "qpack_unpack4": [_P, _P, _LL, _P],
+               "qpack_attrs": [_I, ctypes.POINTER(_I)]}
+# The compiled kernels, in the order of the C entry ``qpack_attrs``: the
+# vector and general routes of dequant and unpack4 are kernels of their own.
+KERNELS = ("quant", "dequant", "dequant_general", "pack4", "unpack4",
+           "unpack4_general")
 
 
 def _on_cpu(*tensors) -> bool:
@@ -117,6 +122,19 @@ def unpack4_flat(p: torch.Tensor) -> torch.Tensor:
             R * M)
     unpack4_flat.launches += 1
     return q
+
+
+def kernel_attrs(name: str) -> dict:
+    """Registers and local (spill) bytes a thread of the compiled kernel
+    ``name`` (one of ``KERNELS``).  Launches nothing."""
+    if name not in KERNELS:
+        raise ValueError(f"kernel_attrs takes one of {KERNELS}, got {name!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_attrs reads the card's compiled kernel: needs CUDA")
+    out = (ctypes.c_int * 2)()
+    _build.check_launch(_build.load("qpack", _SIGNATURES).qpack_attrs(
+        KERNELS.index(name), out), "qpack attrs")
+    return dict(zip(("num_regs", "local_bytes"), out))
 
 
 quant_flat.launches = 0

@@ -18,9 +18,10 @@ without the profiler, the device busy share (the summed time of the
 device kernels over the profiled wall time; one stream, so kernels do not
 overlap), that time split into convolutions and matrix products, the sync
 kernels and everything else, and the kernels that take the most device
-time.  The sync kernels are fedavg, qsync and the four qpack kernels; the
-top-k selection's sort and the composed path's small PyTorch operations
-count as everything else.  On the CPU the device numbers are null.
+time, and each sync kernel's calls and device ms per round.  The sync
+kernels are fedavg, qsync and the four qpack kernels; the top-k
+selection's sort and the composed path's small PyTorch operations count as
+everything else.  On the CPU the device numbers are null.
 
 ``--arch`` profiles a backbone at full width instead (random weights from
 a seed, bfloat16 compute, through its kernel: ``use_flash`` for the
@@ -108,6 +109,9 @@ def profile_rounds(name="image_acgan", *, codec="", topk=0.0, composed=False,
         "ms_per_round": plain_ms, "ms_per_round_profiled": profiled_ms,
         "device_busy_share": busy_us / 1e3 / (profiled_ms * rounds) if on_card else None,
         "device_ms_per_round": split if on_card else None,
+        "sync_kernels": {e.key[:120]: {"calls_per_round": e.count / rounds,
+                                       "ms_per_round": e.self_device_time_total / 1e3 / rounds}
+                         for e in kernels if _category(e.key) == "sync"} if on_card else None,
         "top_kernels": [{"name": e.key[:120], "calls_per_round": e.count / rounds,
                          "ms_per_round": e.self_device_time_total / 1e3 / rounds}
                         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]],

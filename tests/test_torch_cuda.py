@@ -232,6 +232,72 @@ def test_qpack_kernels_match_plain(cuda, bits, block):
         pkernel.dequant_flat(q, s.cpu(), block=block)
 
 
+def _at_offset(t, offset):
+    """A copy of ``t`` that starts ``offset`` bytes past a 16-byte boundary
+    of a larger buffer: contiguous, so the wrappers take it."""
+    n = t.numel() * t.element_size()
+    buf = torch.zeros(n + 32, dtype=torch.uint8, device=t.device)
+    start = (offset - buf.data_ptr()) % 16
+    v = buf[start:start + n].view(t.dtype).view(t.shape)
+    v.copy_(t)
+    assert v.data_ptr() % 16 == offset
+    return v
+
+
+QPACK_DEQUANT_CASES = (
+    [(3, 128 * 5, 128, off) for off in range(1, 16)]    # misaligned codes
+    + [(3, 42, 6, 0), (2, 10, 2, 0), (3, 130 * 3, 130, 5)]  # length % 16 != 0
+    + [(3, 60, 12, 0), (2, 100, 20, 4)]                 # tiles of 3 and 5 words
+    + [(1, 128, 128, 0), (1, 6, 6, 0), (1, 2, 2, 3)]    # one row, one block
+    + [(5, 2_097_152, 128, 0), (5, 524_288, 128, 0)])   # the main path's
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,block,offset", QPACK_DEQUANT_CASES)
+def test_qpack_dequant_routes_match_plain(cuda, rows, n, block, offset):
+    """Both routes of the dequant kernel bit for bit against the plain
+    version, one launch a call; scales include zeros and 65504."""
+    g = torch.Generator(device=cuda).manual_seed(rows * n + offset)
+    q = torch.randint(-127, 128, (rows, n), generator=g, device=cuda).to(torch.int8)
+    s = torch.rand((rows, n // block), generator=g, device=cuda) * 30
+    s[0, 0], s[-1, -1] = 0.0, 65504.0
+    s = s.half()
+    q = _at_offset(q, offset)
+    before = pkernel.dequant_flat.launches
+    out = pkernel.dequant_flat(q, s, block=block)
+    torch.cuda.synchronize()
+    assert pkernel.dequant_flat.launches - before == 1
+    assert torch.equal(_bits(out), _bits(pref.dequant_blocks_ref(q, s, block=block)))
+
+
+QPACK_UNPACK4_CASES = (
+    [(3, 1000, off) for off in range(1, 16)]            # misaligned packed bytes
+    + [(1, 1, 0), (1, 15, 0), (1, 17, 0), (3, 33, 0), (2, 31, 0), (2, 40, 7)]  # m % 16 != 0
+    + [(5, 262_144, 0)])                                # the main path's
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,m,offset", QPACK_UNPACK4_CASES)
+def test_qpack_unpack4_routes_match_plain(cuda, rows, m, offset):
+    """Both routes of the unpack4 kernel, and the byte-wise tail of the
+    vector route, bit for bit against the plain version, one launch a
+    call."""
+    g = torch.Generator(device=cuda).manual_seed(rows * m + offset)
+    p = torch.randint(0, 256, (rows, m), generator=g, device=cuda).to(torch.uint8)
+    p = _at_offset(p, offset)
+    before = pkernel.unpack4_flat.launches
+    back = pkernel.unpack4_flat(p)
+    torch.cuda.synchronize()
+    assert pkernel.unpack4_flat.launches - before == 1
+    assert torch.equal(back, pref.unpack4_ref(p))
+
+
+@pytest.mark.cuda
+def test_qpack_kernels_do_not_spill(cuda):
+    for name in pkernel.KERNELS:
+        assert pkernel.kernel_attrs(name)["local_bytes"] == 0, name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [4, 8])
 def test_composed_sync_matches_fused_bit_for_bit(cuda, bits):

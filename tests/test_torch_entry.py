@@ -137,6 +137,7 @@ def test_profile_runs_rounds_and_reports_no_device_numbers_on_the_cpu():
                                  K=1, steps=1, batch_size=2)
     assert out["codec"] == "topk+int4" and out["fused_sync"] is False
     assert out["device_busy_share"] is None and out["device_ms_per_round"] is None
+    assert out["sync_kernels"] is None
     assert out["top_kernels"] == [] and out["ms_per_round"] > 0
 
 

@@ -15,6 +15,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 from torch_shared import one_torch_thread  # noqa: F401
 
+from repro.kernels.qpack import kernel as jkernel
 from repro.kernels.qpack import ops as jops
 from repro.kernels.qpack import ref as jref
 
@@ -167,3 +168,130 @@ def test_qpack_wrappers_check_and_count():
         tkernel.unpack4_flat(q)
     with pytest.raises(ValueError, match="bits"):
         tops.quantize_blocks(x, bits=6)
+
+
+# Models of the CUDA kernels' arithmetic and thread tiling (csrc/qpack.cu),
+# held here against the reference since the kernels run only on the card.
+
+def _byte(w, k):
+    return (w >> np.uint32(8 * k)) & np.uint32(0xFF)
+
+
+def _word(bytes4):
+    return sum(b.astype(np.uint32) << np.uint32(8 * k) for k, b in enumerate(bytes4))
+
+
+def _vsub4(a, b):
+    """CUDA's __vsub4: bytewise a - b mod 256, no borrow across bytes."""
+    return _word([(_byte(a, k) - _byte(b, k)) & np.uint32(0xFF) for k in range(4)])
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm: byte n of the result is byte sel[4n+2:4n] of
+    the eight bytes y:x."""
+    pool = [_byte(x, k) for k in range(4)] + [_byte(y, k) for k in range(4)]
+    return _word([pool[(sel >> (4 * n)) & 7] for n in range(4)])
+
+
+def _unpack_words(w, fault=None):
+    """The kernel's ``unpack_word`` on uint32 words: two code words each."""
+    m, eight = np.uint32(0x0F0F0F0F), np.uint32(0x08080808)
+    sext = (lambda x: _vsub4(x, eight)) if fault == "no_xor" else \
+        (lambda x: _vsub4(x ^ eight, eight))
+    lo, hi = sext(w & m), sext((w >> np.uint32(4)) & m)
+    first, second = (0x7362, 0x5140) if fault == "swapped" else (0x5140, 0x7362)
+    return _byte_perm(lo, hi, first), _byte_perm(lo, hi, second)
+
+
+@pytest.mark.parametrize("fault", [None, "swapped", "no_xor"])
+@pytest.mark.parametrize("pos", [0, 1, 2, 3])
+def test_unpack4_word_arithmetic_matches_jax(pos, fault):
+    """unpack4's word arithmetic (masks, __vsub4 sign extension,
+    __byte_perm interleave) on all 256 byte values at byte ``pos`` of a
+    word, bit for bit against the JAX kernel in interpret mode and the
+    plain version; the two planted faults must not match."""
+    rng = np.random.default_rng(pos)
+    w = rng.integers(0, 2 ** 32, 256, dtype=np.uint64).astype(np.uint32)
+    w = (w & ~np.uint32(0xFF << (8 * pos))) | (np.arange(256, dtype=np.uint32) << np.uint32(8 * pos))
+    p = np.stack([_byte(w, k) for k in range(4)], -1).astype(np.uint8).reshape(1, -1)
+    a, b = _unpack_words(w, fault)
+    got = np.stack([_byte(x, k) for x in (a, b) for k in range(4)], -1)
+    got = got.astype(np.uint8).view(np.int8).reshape(1, -1)
+    want = np.asarray(jkernel.unpack4_flat(jnp.asarray(p)))
+    _assert_bits_equal(tref.unpack4_ref(torch.from_numpy(p)), want)
+    if fault is None:
+        _assert_bits_equal(got, want)
+    else:
+        assert not np.array_equal(got, want)
+
+
+def _dequant_model(buf, offset, scales, block, fault=None):
+    """qpack_dequant as the C entry and its kernels run it, thread by
+    thread.  The vector route where 4 divides the block and the codes
+    start 4-byte aligned: one word of 4 codes a thread, word w in tile
+    w // (block // 4).  Else the general route: 16 consecutive codes a
+    thread, the tile index stepped at each tile boundary; a length that is
+    not a multiple of 16 ends in a short group.  Returns (out, vector)."""
+    R, T = scales.shape
+    n = R * T * block
+    q, s = buf[offset:offset + n], scales.reshape(-1)
+    dec = lambda t: s[t].astype(np.float32) if s[t] > 0 else np.float32(1)  # noqa: E731
+    vector = block % 4 == 0 and offset % 4 == 0
+    out = np.empty(n, np.float32)
+    if vector:
+        wpt = block if fault == "codes_per_tile" else block // 4
+        for w in range(n // 4):
+            out[4 * w:4 * w + 4] = q[4 * w:4 * w + 4].astype(np.float32) * dec(w // wpt)
+        return out.reshape(R, T * block), vector
+    for i0 in range(0, n, 16):
+        t = i0 // block
+        nxt, sd = (t + 1) * block, dec(t)
+        for i in range(i0, min(i0 + 16, n)):
+            if i == nxt and fault != "no_step":
+                t, nxt = t + 1, nxt + block
+                sd = dec(t)
+            out[i] = np.float32(q[i]) * sd
+    return out.reshape(R, T * block), vector
+
+
+@pytest.mark.parametrize("offset", [0, 1, 8, 15])
+@pytest.mark.parametrize("block,tiles", [(2, 7), (6, 5), (12, 5), (16, 3), (128, 2),
+                                         (130, 3)])
+def test_dequant_thread_tiling_matches_jax(block, tiles, offset):
+    """The model of dequant's routes and tiling on codes that start
+    ``offset`` bytes into a buffer, bit for bit against the JAX kernel in
+    interpret mode; scales include zeros (decode with 1) and 65504."""
+    rng = np.random.default_rng(block * 16 + offset)
+    R = 3
+    codes = rng.integers(-127, 128, (R, tiles * block)).astype(np.int8)
+    scales = rng.uniform(1e-3, 30.0, (R, tiles)).astype(np.float16)
+    scales[0, 0], scales[-1, -1] = 0.0, 65504.0
+    buf = np.zeros(offset + codes.size + 16, np.int8)
+    buf[offset:offset + codes.size] = codes.reshape(-1)
+    got, vector = _dequant_model(buf, offset, scales, block)
+    assert vector == (offset in (0, 8) and block in (12, 16, 128))
+    want = np.asarray(jkernel.dequant_flat(jnp.asarray(codes), jnp.asarray(scales),
+                                           block=block))
+    _assert_bits_equal(got, want)
+    _assert_bits_equal(tref.dequant_blocks_ref(torch.from_numpy(codes),
+                                               torch.from_numpy(scales), block=block), want)
+
+
+@pytest.mark.parametrize("block,offset,fault", [
+    (2, 0, "no_step"), (6, 1, "no_step"), (130, 15, "no_step"), (10, 8, "no_step"),
+    (12, 0, "codes_per_tile"), (128, 8, "codes_per_tile")])
+def test_dequant_model_planted_tile_faults_fail(block, offset, fault):
+    """Planted faults in the model decode with the wrong scale: the general
+    route that never steps its tile index (wrong wherever a group of 16
+    crosses a tile boundary), and the vector route that counts a tile's
+    codes where it should count its words."""
+    rng = np.random.default_rng(block)
+    codes = rng.integers(1, 128, (2, 16 * block)).astype(np.int8)
+    scales = rng.uniform(1.0, 30.0, (2, 16)).astype(np.float16)
+    buf = np.zeros(offset + codes.size, np.int8)
+    buf[offset:] = codes.reshape(-1)
+    got, vector = _dequant_model(buf, offset, scales, block, fault=fault)
+    assert vector == (fault == "codes_per_tile")
+    want = np.asarray(jkernel.dequant_flat(jnp.asarray(codes), jnp.asarray(scales),
+                                           block=block))
+    assert not np.array_equal(got, want)
