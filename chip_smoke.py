@@ -18,27 +18,34 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    and without error feedback, bit-identical (both sum in agent order).
    The four qpack kernels bit-identical (elementwise): quant and dequant at
    the largest ACGAN leaf, (5, 2,097,152) float32, at 8 and 4 bits; pack4
-   and unpack4 at that leaf's int4 codes after top-k 0.25, (5, 524,288);
-   every row holds an all-zero block, an overflowing block and a block of
-   exact .5 ties; dequant also at those int4 codes, (5, 524,288), the shape
-   of the main path's dequant launches.  Each qpack kernel's registers and
-   local (spill) bytes (no local bytes allowed), and one empty launch
-   through the same timing: the floor of a kernel this small.  With
-   ``--qpack-parent DIR`` (repeatable), time that checkout's dequant and
-   unpack4 beside this one's through each one's own ``check_qpack``, in
-   turns, one process each.  The fused Adam step with the uplink quantize
-   (``adam_sync_tree``, kernel 7) on the ACGAN generator and discriminator
-   trees after one round of training, one launch per tree, every output
-   bit-identical to its plain version and to ``Adam.update`` followed by
-   the qpack quantize.  Time each kernel, its plain version and (fedavg)
-   the one PyTorch call that computes the same function, with CUDA events,
-   median of 20 L2-cold launches; adam_sync also beside the composed form
-   it replaces (``Adam.update`` then ``quantize_blocks``).
+   and unpack4 at that leaf's int4 codes after top-k 0.25, (5, 524,288),
+   on their vector routes and on their general routes (a view one byte
+   past alignment); every row holds an all-zero block, an overflowing
+   block and a block of exact .5 ties; dequant also at those int4 codes,
+   (5, 524,288), the shape of the main path's dequant launches.  Each
+   qpack kernel's registers and local (spill) bytes (no local bytes
+   allowed), and one empty launch through the same timing: the floor of a
+   kernel this small.  With ``--qpack-parent DIR`` (repeatable), time that
+   checkout's dequant, pack4 and unpack4 beside this one's through each
+   one's own ``check_qpack``, in turns, one process each.  The fused Adam
+   step with the uplink quantize (``adam_sync_tree``, kernel 7) on the
+   ACGAN generator and discriminator trees after one round of training,
+   one launch per tree, every output bit-identical to its plain version
+   and to ``Adam.update`` followed by the qpack quantize.  Time each
+   kernel, its plain version and (fedavg) the one PyTorch call that
+   computes the same function, with CUDA events, median of 20 L2-cold
+   launches; adam_sync also beside the composed form it replaces
+   (``Adam.update`` then ``quantize_blocks``).
 3. Composed vs fused: from the full-width state after one int8 round with
    error feedback, ``coded_sync`` of each subtree both ways, for
    IntQuant(8) and IntQuant(4) with the residuals and the experiment's
    weights: ``synced``, ``new_ef`` and ``new_ef_down`` bit-identical.  Then
-   one small round on the card against the same round on the CPU.
+   one small round on the card against the same round on the CPU, and one
+   round (K = 1) of each of the six paper experiments at test size (ACGAN
+   nets at 8x8) on the card against the CPU port, within the bounds the
+   CPU round is held to against the reference (``tests/torch_shared.py``,
+   which imports no JAX on this path); each prints its largest ratio of a
+   difference to its limit, and that ratio at K = 2, not held.
 4. Drive the main paths, ``experiment_spec("image_acgan")`` at full width
    (B = 5, K = 20, batch 64) for 3 rounds each: ``FedAvgSync()``,
    ``FedAvgSync(codec=IntQuant(8))`` (fused), ``FedAvgSync(codec=TopK(0.25)
@@ -381,9 +388,18 @@ def check_qpack(torch, dev, flush):
                   f"unpack4 ({R}, {k // 2}): not bit-identical")
             check(bool((codes == -qmax).any() & (codes == qmax).any()),
                   "pack4: the codes do not reach both -7 and 7")
+            # the general routes: the same codes and bytes one byte past
+            # 16-byte alignment
+            for t, fn, plain in ((codes, pk.pack4_flat, pr.pack4_ref),
+                                 (p, pk.unpack4_flat, pr.unpack4_ref)):
+                buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=dev)
+                shifted = buf[1:1 + t.numel()].view(t.shape)
+                shifted.copy_(t)
+                check(same_bits(torch, fn(shifted), plain(t)),
+                      f"{fn.__name__} at a misaligned view: not bit-identical")
             errs["pack4"] = diff(p, pr.pack4_ref(codes))
             errs["unpack4"] = max(diff(back, codes), diff(back, pr.unpack4_ref(p)))
-            log(f"pack4 + unpack4 ({R}, {k}) int4: bit-identical")
+            log(f"pack4 + unpack4 ({R}, {k}) int4, both routes: bit-identical")
             nbytes_p = R * k + R * k // 2
             ms = time_ms(torch, lambda: pk.pack4_flat(codes), flush)
             plain = time_ms(torch, lambda: pr.pack4_ref(codes), flush)
@@ -575,12 +591,14 @@ def check_small_round(torch, dev):
     versions): plain sync within 1e-4 of each leaf's magnitude (float32
     roundoff of cuDNN against the CPU library); int8 sync additionally
     within 1.5 quanta of the leaf's coarsest block on at most 2% of the
-    elements (values at a rounding tie may take the neighbouring code)."""
+    elements (values at a rounding tie may take the neighbouring code).
+    Prints the largest ratio of a difference to its limit, and its leaf."""
     from repro_torch.comm import IntQuant
     from repro_torch.core import FedAvgSync, FedGAN, FedGANConfig
     from repro_torch.launch.train import acgan_task
     from repro_torch.optim import SGD, constant, equal_timescale
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_map
+    from torch_shared import named_leaves
     K, grid, b = 2, (1, B), 8
     g = torch.Generator().manual_seed(3)
     batches = {"x": torch.rand((K,) + grid + (b, 8, 8, 3), generator=g) * 2 - 1,
@@ -596,23 +614,48 @@ def check_small_round(torch, dev):
             state = fed.init_state(torch.Generator().manual_seed(4), device=d)
             out[str(d)], _ = fed.round(state, tree_map(lambda x: x.to(d), batches))
         over = total = 0
-        for c, k in zip(tree_leaves(out["cpu"]["params"]),
-                        tree_leaves(out[str(dev)]["params"])):
+        worst = (-1.0, None)
+        for (path, c), (_, k) in zip(named_leaves(out["cpu"]["params"]),
+                                     named_leaves(out[str(dev)]["params"])):
             k = k.cpu()
             diff = (c - k).abs()
             tol = 1e-4 * max(1.0, float(c.abs().max()))
             if codec is not None:
                 # a downlink code flip moves one quantum; an uplink flip
                 # adds w_b = 1/B of an agent's quantum on top
-                check(bool((diff <= tol + 1.5 * float(c.abs().max()) / 127).all()),
+                lim = tol + 1.5 * float(c.abs().max()) / 127
+                check(bool((diff <= lim).all()),
                       "small int8 round: card and CPU differ by more than a quantum")
                 over += int((diff > tol).sum())
                 total += diff.numel()
             else:
+                lim = tol
                 check(bool((diff <= tol).all()),
-                      f"small plain round: card and CPU differ by {float(diff.max())}")
+                      f"small plain round: card and CPU differ by {float(diff.max())} "
+                      f"on {path} (limit {tol})")
+            worst = max(worst, (float(diff.max()) / lim, path), key=lambda r: r[0])
         check(over <= 0.02 * max(total, 1), f"small int8 round: {over} codes moved")
-        log(f"small round card vs CPU ({'int8' if codec else 'plain'}): agree")
+        log(f"small round card vs CPU ({'int8' if codec else 'plain'}): agree; largest "
+            f"|card - CPU| / limit {worst[0]:.4g} at {worst[1]}")
+
+
+def check_card_rounds(torch, dev):
+    """One round (K = 1) of each paper experiment at test size (ACGAN nets
+    at 8x8) on the card against the same round on the CPU port, from one
+    start state and the same numpy batches, held to the bounds the CPU
+    round is held to against the reference (``tests/torch_shared.py``).
+    Prints each experiment's largest ratio of a difference to its limit,
+    and, not held, the same at K = 2, where an activation input at rounding
+    distance from its kink that changes sign moves an agent's second step
+    (``torch_shared.CARD_K``)."""
+    from torch_shared import CARD_K, ROUND_TASKS, port_round_mismatches
+    for name in sorted(ROUND_TASKS):
+        bad, (ratio, path) = port_round_mismatches(name, dev, K=CARD_K)
+        check(bad == [], f"{name} round, card against CPU: {bad}")
+        bad2, (ratio2, path2) = port_round_mismatches(name, dev, K=2)
+        log(f"{name} round card vs CPU: agree at K = {CARD_K}; largest |card - CPU| / limit "
+            f"{ratio:.4g} at {path} (K = 2, not held: {ratio2:.4g} at {path2}, "
+            f"{len(bad2)} leaves over)")
 
 
 def _kernel_close(torch, got, want, what):
@@ -785,7 +828,7 @@ def check_ssd(torch, dev, flush):
 AGAINST = {
     "ssd": "{'ssd': cs.check_ssd(torch, dev, flush)['ms']}",
     "qpack": "{r['name']: r['ms'] for r in cs.check_qpack(torch, dev, flush) "
-             "if r['name'] in ('dequant', 'unpack4')}",
+             "if r['name'] in ('dequant', 'pack4', 'unpack4')}",
 }
 
 
@@ -1168,8 +1211,8 @@ def main() -> int:
     ap.add_argument("--ssd-parent", metavar="DIR",
                     help="also time the SSD kernel of the checkout DIR beside this one's")
     ap.add_argument("--qpack-parent", metavar="DIR", action="append", default=[],
-                    help="also time the dequant and unpack4 kernels of the checkout DIR "
-                         "beside this one's (may be given more than once)")
+                    help="also time the dequant, pack4 and unpack4 kernels of the "
+                         "checkout DIR beside this one's (may be given more than once)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1180,7 +1223,7 @@ def main() -> int:
         print(f"chip_smoke: {SRC}/repro_torch not found; run from a checkout",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, SRC)
+    sys.path[:0] = [SRC, os.path.join(ROOT, "tests")]
     import repro_torch  # noqa: F401  (turns TF32 off)
     from repro_torch.comm import IntQuant, get_codec
     from repro_torch.core import FedAvgSync
@@ -1208,6 +1251,7 @@ def main() -> int:
         kernels_against(other, "qpack")
     check_composed_vs_fused(torch, dev)
     check_small_round(torch, dev)
+    check_card_rounds(torch, dev)
 
     L = sum(len(v) for v in shapes.values())   # float32 leaves of gen + disc
     plain_counts, _ = run_main_path(torch, dev, None, "FedAvgSync()", {"fedavg": 2})
@@ -1237,6 +1281,7 @@ def main() -> int:
     records["ssd_scan"]["launches"] = run_mamba(torch, dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    check("jax" not in sys.modules, "the port or this script imported jax")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records.values()]}),
           flush=True)

@@ -7,6 +7,7 @@
 //                        <- `_dequant_kernel` (dequant_flat)
 //   qpack_pack4_kernel   <- `_pack4_kernel`   (pack4_flat)
 //   qpack_unpack4_kernel <- `_unpack4_kernel` (unpack4_flat)
+// (pack4 and unpack4 each a template of two routes, vector and general).
 // They run on the composed coded sync (IntQuant.encode / decode / roundtrip
 // on every leaf the fused sync does not take: TopK + IntQuant chains,
 // fused_sync=False, non-f32 leaves).  Every array is row-major and
@@ -23,23 +24,24 @@
 // Design: quant gives each (row, block) tile to one warp; the lanes stride
 // through the tile with coalesced loads, take the max-abs with shuffles,
 // and lane 0 writes the tile's scale.  The tile is read a second time for
-// the codes; that read hits the cache.  pack4 runs one thread per output
-// byte.  dequant and unpack4 take a vector route, one word a thread and
-// the lanes of a warp on consecutive words, so that every load and store
-// is contiguous across the warp: dequant decodes a 4-byte word of codes
-// into one float4 store, unpack4 an 8-byte word of nibbles into one
-// 16-byte store, sign-extending four nibbles at a time with __vsub4 and
-// interleaving them with __byte_perm.  (16 codes a thread into four
-// float4 stores 64 bytes apart ran dequant 1.5x slower at the largest
-// leaf; four words a lane, coalesced, as fast there but 1.5x slower on
-// the composed round's small leaves, with 16x fewer threads: PERF.md §6.)
-// A block that 4 does not divide, or a misaligned pointer, takes the
-// general route: dequant 16 consecutive codes a thread with scalar loads
-// and stores, the tile index stepped at each tile boundary; unpack4 one
-// byte a thread.  The C entry picks the route from the block and the
-// pointers; either is one launch.  The arithmetic is in blockquant.cuh,
-// shared with csrc/qsync.cu, so the composed and the fused sync agree bit
-// for bit on the card.
+// the codes; that read hits the cache.  dequant, pack4 and unpack4 take a
+// vector route, one word a thread and the lanes of a warp on consecutive
+// words, so that every load and store is contiguous across the warp:
+// dequant decodes a 4-byte word of codes into one float4 store; pack4
+// packs a 16-byte word of codes into one 8-byte store, masking four codes
+// at a time and gathering their nibble pairs with __byte_perm; unpack4 an
+// 8-byte word of nibbles into one 16-byte store, sign-extending four
+// nibbles at a time with __vsub4 and interleaving them with __byte_perm.
+// (16 codes a thread into four float4 stores 64 bytes apart ran dequant
+// 1.5x slower at the largest leaf; four words a lane, coalesced, as fast
+// there but 1.5x slower on the composed round's small leaves, with 16x
+// fewer threads: PERF.md §6.)  A block that 4 does not divide, or a
+// misaligned pointer, takes the general route: dequant 16 consecutive
+// codes a thread with scalar loads and stores, the tile index stepped at
+// each tile boundary; pack4 and unpack4 one byte a thread.  The C entry
+// picks the route from the block and the pointers; either is one launch.
+// The arithmetic is in blockquant.cuh, shared with csrc/qsync.cu, so the
+// composed and the fused sync agree bit for bit on the card.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -122,14 +124,40 @@ qpack_dequant_general(const int8_t* __restrict__ q, const __half* __restrict__ s
   }
 }
 
-// Two codes in [-7, 7] per byte, the first in the low nibble.
-__global__ void qpack_pack4_kernel(const int8_t* __restrict__ q, uint8_t* __restrict__ p,
-                                   long long n_bytes) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < n_bytes; j += step) {
-    const unsigned lo = (uint8_t)q[2 * j] & 0xFu, hi = (uint8_t)q[2 * j + 1] & 0xFu;
-    p[j] = (uint8_t)(lo | (hi << 4));
+// Two codes a byte, the first in the low nibble, four codes a word: each
+// code keeps its low 4 bits (x = w & 0x0F0F0F0F), y = x | (x >> 4) puts
+// c0 | c1 << 4 in byte 0 and c2 | c3 << 4 in byte 2, and __byte_perm
+// gathers bytes 0 and 2 of two such words into one word of 4 packed bytes.
+__device__ __forceinline__ unsigned pair_nibbles(unsigned w) {
+  const unsigned x = w & 0x0F0F0F0Fu;
+  return x | (x >> 4);
+}
+
+__device__ __forceinline__ unsigned pack_words(unsigned a, unsigned b) {
+  return __byte_perm(pair_nibbles(a), pair_nibbles(b), 0x6420);
+}
+
+// One packed byte, through the same word arithmetic.
+__device__ __forceinline__ void pack1(const int8_t* q, uint8_t* p, long long j) {
+  const unsigned w = (unsigned)(uint8_t)q[2 * j] | ((unsigned)(uint8_t)q[2 * j + 1] << 8);
+  p[j] = (uint8_t)(pack_words(w, 0u) & 0xFFu);
+}
+
+// ALIGNED (q 16-byte, p 8-byte aligned): 16 codes a thread from one 16-byte
+// load into one 8-byte store of their 8 packed bytes, contiguous across the
+// warp (a warp loads 512 bytes and stores 256); the bytes past the last
+// whole 8 (all of them when not ALIGNED) go one a thread.
+template <bool ALIGNED>
+__global__ void __launch_bounds__(kThreads)
+qpack_pack4_kernel(const int8_t* __restrict__ q, uint8_t* __restrict__ p, long long n_bytes) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long threads = (long long)gridDim.x * blockDim.x;
+  const long long units = ALIGNED ? n_bytes / 8 : 0;
+  for (long long u = tid; u < units; u += threads) {
+    const uint4 w = reinterpret_cast<const uint4*>(q)[u];
+    reinterpret_cast<uint2*>(p)[u] = make_uint2(pack_words(w.x, w.y), pack_words(w.z, w.w));
   }
+  for (long long j = units * 8 + tid; j < n_bytes; j += threads) pack1(q, p, j);
 }
 
 // Each nibble back to a sign-extended int8 code, four bytes a word: the
@@ -213,11 +241,18 @@ extern "C" int qpack_dequant(const void* q, const void* s, void* out, long long 
   return (int)cudaGetLastError();
 }
 
-// codes (2 * n_bytes,) int8 -> packed (n_bytes,) uint8.
+// codes (2 * n_bytes,) int8 -> packed (n_bytes,) uint8.  The vector route
+// where q is 16-byte and p 8-byte aligned, else one byte a thread.
 extern "C" int qpack_pack4(const void* q, void* p, long long n_bytes, void* stream) {
-  if (n_bytes > 0) {
-    qpack_pack4_kernel<<<grid_for(n_bytes, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
-        (const int8_t*)q, (uint8_t*)p, n_bytes);
+  if (n_bytes <= 0) return (int)cudaGetLastError();
+  if (aligned(q, 16) && aligned(p, 8)) {
+    qpack_pack4_kernel<true><<<grid_for(n_bytes / 8 + 1, kThreads), kThreads, 0,
+                               (cudaStream_t)stream>>>((const int8_t*)q, (uint8_t*)p,
+                                                       n_bytes);
+  } else {
+    qpack_pack4_kernel<false><<<grid_for(n_bytes, kThreads), kThreads, 0,
+                                (cudaStream_t)stream>>>((const int8_t*)q, (uint8_t*)p,
+                                                        n_bytes);
   }
   return (int)cudaGetLastError();
 }
@@ -239,16 +274,17 @@ extern "C" int qpack_unpack4(const void* p, void* q, long long n_bytes, void* st
 }
 
 // Registers and local (spill) bytes a thread of kernel `which`: 0 quant,
-// 1 dequant (vector), 2 dequant (general), 3 pack4, 4 unpack4 (vector),
-// 5 unpack4 (general).
+// 1 dequant (vector), 2 dequant (general), 3 pack4 (vector), 4 pack4
+// (general), 5 unpack4 (vector), 6 unpack4 (general).
 extern "C" int qpack_attrs(int which, int* out) {
   switch (which) {
     case 0: return attrs_of(qpack_quant_kernel, out);
     case 1: return attrs_of(qpack_dequant_vec, out);
     case 2: return attrs_of(qpack_dequant_general, out);
-    case 3: return attrs_of(qpack_pack4_kernel, out);
-    case 4: return attrs_of(qpack_unpack4_kernel<true>, out);
-    case 5: return attrs_of(qpack_unpack4_kernel<false>, out);
+    case 3: return attrs_of(qpack_pack4_kernel<true>, out);
+    case 4: return attrs_of(qpack_pack4_kernel<false>, out);
+    case 5: return attrs_of(qpack_unpack4_kernel<true>, out);
+    case 6: return attrs_of(qpack_unpack4_kernel<false>, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -21,9 +21,10 @@ _SIGNATURES = {"qpack_quant": [_P, _P, _P, _LL, _LL, _I, _I, _P],
                "qpack_unpack4": [_P, _P, _LL, _P],
                "qpack_attrs": [_I, ctypes.POINTER(_I)]}
 # The compiled kernels, in the order of the C entry ``qpack_attrs``: the
-# vector and general routes of dequant and unpack4 are kernels of their own.
-KERNELS = ("quant", "dequant", "dequant_general", "pack4", "unpack4",
-           "unpack4_general")
+# vector and general routes of dequant, pack4 and unpack4 are kernels of
+# their own.
+KERNELS = ("quant", "dequant", "dequant_general", "pack4", "pack4_general",
+           "unpack4", "unpack4_general")
 
 
 def _on_cpu(*tensors) -> bool:

@@ -15,8 +15,8 @@ the rounded products in agent order and round every step alike); the fused
 Adam + quantize kernel bit-identical to its plain version and to
 ``Adam.update`` then the qpack quantize (the same operations, each rounded
 on its own, dividing by the same device-computed bias corrections); the four
-qpack kernels bit-identical (elementwise, the block max-abs is exact in
-any order); the composed coded sync bit-identical to the fused one (both
+qpack kernels, every route, bit-identical (elementwise, the block max-abs
+is exact in any order); the composed coded sync bit-identical to the fused one (both
 reduce in agent order with the same roundings).  Flash attention and the
 SSD scan compute in float32 with fused multiply-adds in another order than
 the plain versions' library products: float32 outputs within 1e-5 of the
@@ -25,10 +25,14 @@ ulps of the element (both round a float32 result once, which may land on
 the neighbouring value).  Against a float64 scan, the float32 SSD
 kernel's largest error is held within 1.5x the plain version's (both sum
 in float32, in other orders).  The backbones on the card against the CPU
-within 2e-4, as the port is held to the reference.
+within 2e-4, as the port is held to the reference.  One round of each
+paper experiment on the card against the CPU port within the bounds the
+CPU round is held to against the reference (``torch_shared``): its
+module imports JAX only inside the helpers that run it.
 """
 import pytest
 import torch
+from torch_shared import CARD_K, ROUND_TASKS, port_round_mismatches
 
 from repro_torch.comm import IntQuant, get_codec
 from repro_torch.core import FedAvgSync
@@ -270,6 +274,30 @@ def test_qpack_dequant_routes_match_plain(cuda, rows, n, block, offset):
     assert torch.equal(_bits(out), _bits(pref.dequant_blocks_ref(q, s, block=block)))
 
 
+QPACK_PACK4_CASES = (
+    [(3, 2000, off) for off in range(1, 16)]            # misaligned codes
+    + [(1, 2, 0), (1, 14, 0), (1, 18, 0), (3, 66, 0), (2, 62, 0), (2, 82, 7)]  # odd bytes
+    + [(1, 128, 0), (5, 4096, 0), (5, 524_288, 0)])     # the main path's
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,offset", QPACK_PACK4_CASES)
+def test_qpack_pack4_routes_match_plain(cuda, rows, n, offset):
+    """Both routes of the pack4 kernel, and the byte-wise tail of the
+    vector route, bit for bit against the plain version on codes over all
+    256 int8 values (both mask with 0xF), one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(rows * n + offset)
+    q = torch.randint(-128, 128, (rows, n), generator=g, device=cuda).to(torch.int8)
+    if q.numel() >= 256:
+        q.view(-1)[:256] = torch.arange(-128, 128, device=cuda).to(torch.int8)
+    q = _at_offset(q, offset)
+    before = pkernel.pack4_flat.launches
+    p = pkernel.pack4_flat(q)
+    torch.cuda.synchronize()
+    assert pkernel.pack4_flat.launches - before == 1
+    assert torch.equal(_bits(p), _bits(pref.pack4_ref(q)))
+
+
 QPACK_UNPACK4_CASES = (
     [(3, 1000, off) for off in range(1, 16)]            # misaligned packed bytes
     + [(1, 1, 0), (1, 15, 0), (1, 17, 0), (3, 33, 0), (2, 31, 0), (2, 40, 7)]  # m % 16 != 0
@@ -294,6 +322,8 @@ def test_qpack_unpack4_routes_match_plain(cuda, rows, m, offset):
 
 @pytest.mark.cuda
 def test_qpack_kernels_do_not_spill(cuda):
+    """Every route of every qpack kernel, pack4_general included."""
+    assert "pack4_general" in pkernel.KERNELS
     for name in pkernel.KERNELS:
         assert pkernel.kernel_attrs(name)["local_bytes"] == 0, name
 
@@ -342,6 +372,19 @@ def test_composed_round_on_card_runs_through_the_qpack_kernels(cuda):
     for x in leaves:
         assert bool(torch.isfinite(x).all())
         assert torch.equal(x, x[:1, :1].expand_as(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ROUND_TASKS))
+def test_round_on_card_matches_cpu(cuda, name):
+    """One round (K = 1, ``torch_shared.CARD_K``) of each paper experiment
+    at test size (ACGAN nets at 8x8, celeba_acgan's 16 classes and two
+    rates) on the card against the same round on the CPU port, from one
+    start state and the same numpy batches, within the bounds the CPU round
+    is held to against the reference (``torch_shared.round_mismatches``)."""
+    bad, (ratio, path) = port_round_mismatches(name, cuda, K=CARD_K)
+    print(f"{name}: largest |card - CPU| / limit {ratio:.4g} at {path}")
+    assert bad == []
 
 
 def _close(got, want, dtype):

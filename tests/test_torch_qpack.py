@@ -295,3 +295,99 @@ def test_dequant_model_planted_tile_faults_fail(block, offset, fault):
     want = np.asarray(jkernel.dequant_flat(jnp.asarray(codes), jnp.asarray(scales),
                                            block=block))
     assert not np.array_equal(got, want)
+
+
+def _pack_words(a, b, fault=None):
+    """The kernel's ``pack_words`` on uint32 words of 4 codes each: one word
+    of 4 packed bytes, the first code of each pair in the low nibble."""
+    m = np.uint32(0xFFFFFFFF if fault == "no_mask" else 0x0F0F0F0F)
+    pair = lambda w: (w & m) | ((w & m) >> np.uint32(4))  # noqa: E731
+    return _byte_perm(pair(a), pair(b), 0x7531 if fault == "odd_bytes" else 0x6420)
+
+
+def _pack_unit(codes, fault=None):
+    """16 int8 codes a row -> their 8 packed bytes, as one thread of the
+    vector route makes them: one 16-byte load, two ``pack_words``."""
+    w = [_word([codes[:, 4 * i + k].view(np.uint8) for k in range(4)]) for i in range(4)]
+    out = [_pack_words(w[0], w[1], fault), _pack_words(w[2], w[3], fault)]
+    return np.stack([_byte(x, k) for x in out for k in range(4)], -1).astype(np.uint8)
+
+
+@pytest.mark.parametrize("fault", [None, "odd_bytes", "no_mask"])
+@pytest.mark.parametrize("pair", range(8))
+def test_pack4_word_arithmetic_matches_jax(pair, fault):
+    """pack4's word arithmetic (the 0x0F0F0F0F mask, the shift-or, the
+    0x6420 __byte_perm gather) on every (c_lo, c_hi) pair of int8 values,
+    values outside [-7, 7] included, at pair ``pair`` of a 16-code unit,
+    bit for bit against the JAX kernel in interpret mode and the plain
+    version; the planted faults (the 0x7531 selector, no mask) must not
+    match."""
+    rng = np.random.default_rng(pair)
+    codes = rng.integers(-128, 128, (65536, 16)).astype(np.int8)
+    lo, hi = np.meshgrid(np.arange(-128, 128), np.arange(-128, 128), indexing="ij")
+    codes[:, 2 * pair], codes[:, 2 * pair + 1] = lo.reshape(-1), hi.reshape(-1)
+    want = np.asarray(jkernel.pack4_flat(jnp.asarray(codes), block=16))
+    _assert_bits_equal(tref.pack4_ref(torch.from_numpy(codes)), want)
+    got = _pack_unit(codes, fault)
+    if fault is None:
+        _assert_bits_equal(got, want)
+    else:
+        assert not np.array_equal(got, want)
+
+
+def _pack4_model(buf, offset, n_bytes, threads=None, fault=None):
+    """qpack_pack4 as the C entry and its kernel run it, thread by thread,
+    on the codes that start ``offset`` bytes into a 16-byte aligned buffer
+    (the output is aligned: the wrapper allocates it).  The vector route
+    where the codes are 16-byte aligned: unit u (16 codes, 8 packed bytes)
+    at threads u, u + T, ...; then the bytes past the last whole 8 (all of
+    them on the general route) one a thread.  T is the C entry's grid of
+    256-thread blocks unless given.  Returns (bytes, writes a byte,
+    vector)."""
+    q = buf[offset:offset + 2 * n_bytes]
+    vector = offset % 16 == 0
+    work = n_bytes // 8 + 1 if vector else n_bytes
+    T = threads or min(-(-work // 256), 1 << 20) * 256
+    out, writes = np.zeros(n_bytes, np.uint8), np.zeros(n_bytes, np.int64)
+    units = n_bytes // 8 if vector else 0
+    for tid in range(min(T, max(units, n_bytes))):
+        for u in range(tid, units, T):
+            out[8 * u:8 * u + 8] = _pack_unit(q[16 * u:16 * u + 16].reshape(1, 16))[0]
+            writes[8 * u:8 * u + 8] += 1
+        tail = units * (16 if fault == "tail_from_codes" else 8)
+        for j in range(tail + tid, n_bytes, T):
+            pad = np.zeros((1, 16), np.int8)
+            pad[0, :2] = q[2 * j:2 * j + 2]
+            out[j] = _pack_unit(pad)[0, 0]
+            writes[j] += 1
+    return out.reshape(1, -1), writes, vector
+
+
+@pytest.mark.parametrize("threads", [None, 5])
+@pytest.mark.parametrize("offset", range(16))
+def test_pack4_thread_tiling_matches_jax(offset, threads):
+    """The model of pack4's routes and tiling, at every offset of the
+    codes from 16-byte alignment and at odd lengths, with the C entry's
+    grid and with 5 threads striding: every output byte written exactly
+    once, bit for bit against the JAX kernel in interpret mode and the
+    plain version."""
+    for n_bytes in (1, 7, 8, 9, 31, 33, 101):
+        rng = np.random.default_rng(offset * 1000 + n_bytes)
+        codes = rng.integers(-128, 128, (1, 2 * n_bytes)).astype(np.int8)
+        buf = np.zeros(offset + codes.size + 16, np.int8)
+        buf[offset:offset + codes.size] = codes[0]
+        got, writes, vector = _pack4_model(buf, offset, n_bytes, threads)
+        assert vector == (offset == 0)
+        assert (writes == 1).all(), n_bytes
+        want = np.asarray(jkernel.pack4_flat(jnp.asarray(codes), block=codes.shape[1]))
+        _assert_bits_equal(got, want)
+        _assert_bits_equal(tref.pack4_ref(torch.from_numpy(codes)), want)
+
+
+def test_pack4_model_planted_tail_fault_fails():
+    """A planted fault in the model's tiling, the tail starting at the
+    vector units' code count instead of their byte count, leaves bytes
+    unwritten."""
+    codes = np.random.default_rng(0).integers(-128, 128, 2 * 33).astype(np.int8)
+    _, writes, vector = _pack4_model(codes, 0, 33, fault="tail_from_codes")
+    assert vector and (writes == 0).any()

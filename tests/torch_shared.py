@@ -1,29 +1,29 @@
 """Shared set-up of the port's tests: the image experiment's nets at 8x8
 in both packages, the forward-and-gradient parity check of a module
-against its JAX twin, and one torch thread per test process (the tier-1
-run puts several pytest workers on the same cores, where torch's default
-of one thread per core oversubscribes them)."""
-import dataclasses
+against its JAX twin, one FedGAN round of each paper experiment at test
+size with the bounds a round is held to, and one torch thread per test
+process (the tier-1 run puts several pytest workers on the same cores,
+where torch's default of one thread per core oversubscribes them).
 
-import jax
-import jax.numpy as jnp
+The module imports JAX and the reference package only inside the helpers
+that run them: ``test_torch_cuda.py`` and ``chip_smoke.py`` read the round
+bounds on a machine without them.
+"""
+import dataclasses
+import functools
+
 import numpy as np
 import pytest
 import torch
 
-from repro.comm import IntQuant as JQuant
-from repro.core import FedGAN as JFedGAN, FedGANConfig as JConfig
-from repro.core.strategies import FedAvgSync as JSync
-from repro.launch.train import acgan_task as j_acgan_task
-from repro.optim import SGD as JSGD, Adam as JAdam, constant as jconst, \
-    equal_timescale as jequal
-
 from repro_torch.comm import IntQuant
+from repro_torch.configs import paper_gans as tpaper
 from repro_torch.convert import from_jax_params, to_jax_params
 from repro_torch.core import FedAvgSync, FedGAN, FedGANConfig, LocalOnly
+from repro_torch.core.fedgan import _flat
 from repro_torch.launch import train
 from repro_torch.optim import SGD, Adam, constant, equal_timescale
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -35,10 +35,12 @@ def one_torch_thread():
 
 
 K, GRID, BATCH, HW = 2, (1, 5), 8, 8
-OPTS = {"sgd": (JSGD, SGD, 0.05), "adam": (JAdam, Adam, 1e-3)}
+OPTS = {"sgd": (SGD, 0.05), "adam": (Adam, 1e-3)}
 
 
 def _pair(opt, codec):
+    from repro.comm import IntQuant as JQuant
+    from repro.core.strategies import FedAvgSync as JSync
     return _strategy_pair(opt, JSync(codec=JQuant(8)) if codec else None,
                           FedAvgSync(codec=IntQuant(8)) if codec else None)
 
@@ -46,7 +48,12 @@ def _pair(opt, codec):
 def _strategy_pair(opt, jstrategy, tstrategy, hw=HW, grid=GRID):
     """The same FedGAN in both packages, ACGAN nets at ``hw``, with the
     given sync strategies (None for the default)."""
-    jopt, topt, lr = OPTS[opt]
+    from repro.core import FedGAN as JFedGAN, FedGANConfig as JConfig
+    from repro.launch.train import acgan_task as j_acgan_task
+    from repro.optim import SGD as JSGD, Adam as JAdam, constant as jconst, \
+        equal_timescale as jequal
+    jopt = {"sgd": JSGD, "adam": JAdam}[opt]
+    topt, lr = OPTS[opt]
     jtask, _ = j_acgan_task(hw=hw)
     ttask, _ = train.acgan_task(hw=hw)
     jfed = JFedGAN(jtask, JConfig(agent_grid=grid, sync_interval=K,
@@ -88,6 +95,7 @@ def _close(got, want, atol=ATOL, rtol=0.0):
 
 
 def _assert_tree_close(got, want, atol=ATOL, rtol=0.0):
+    import jax
     got, want = to_jax_params(got), jax.device_get(want)
     jl, jt = jax.tree_util.tree_flatten(want)
     tl = jax.tree_util.tree_leaves(got)
@@ -99,6 +107,8 @@ def _assert_tree_close(got, want, atol=ATOL, rtol=0.0):
 def _parity(jmod, tmod, inputs, *, seed=0):
     """Forward and gradient (of sum(out * r) wrt params and the float
     inputs) of a JAX module and its port on the same weights."""
+    import jax
+    import jax.numpy as jnp
     jparams = jmod.init(jax.random.key(seed))
     tparams = from_jax_params(jax.device_get(jparams), device="cpu")
     rng = np.random.default_rng(seed + 1)
@@ -126,3 +136,202 @@ def _parity(jmod, tmod, inputs, *, seed=0):
         tparams, torch.from_numpy(inputs[0]))
     _assert_tree_close(tg_p, jg_p)
     _close(tg_x.numpy(), jg_x)
+
+
+# ---------------------------------------------------------------------------
+# One FedGAN round of a paper experiment at test size, and its bounds
+# ---------------------------------------------------------------------------
+
+ROUND_K, ROUND_BATCH = 2, 16
+# name: (the port's task, the float inputs' shapes beyond (K, P, A, b), the
+# labels): None, ("onehot", n) (drawn after the floats, replacing the float
+# "y" the layout lists) or ("index", n), integer classes.  ACGAN nets at 8x8.
+ROUND_TASKS = {
+    "toy_2d": (train.toy2d_task, {"x": (), "z": ()}, None),
+    "mixed_gaussian": (train.mlp_gan_task, {"x": (2,), "z": (2,)}, None),
+    "swiss_roll": (train.mlp_gan_task, {"x": (2,), "z": (2,)}, None),
+    "image_acgan": (functools.partial(train.acgan_task, hw=8),
+                    {"x": (8, 8, 3), "z": (62,)}, ("index", 10)),
+    "celeba_acgan": (functools.partial(train.acgan_task, hw=8, num_classes=16),
+                     {"x": (8, 8, 3), "z": (62,)}, ("index", 16)),
+    "timeseries_cgan": (train.cgan1d_task, {"x": (24,), "z": (24,), "y": (5,)},
+                        ("onehot", 5)),
+}
+
+
+def round_inputs(name, K=ROUND_K, b=ROUND_BATCH):
+    """(agent grid, numpy batches with leading (K, P, A, b)) of one round
+    of ``name``, from numpy's generator seeded 0."""
+    _, layout, labels = ROUND_TASKS[name]
+    grid = (1, tpaper.ALL_EXPERIMENTS[name].num_agents)
+    rng = np.random.default_rng(0)
+    lead = (K,) + grid + (b,)
+    batches = {k: rng.standard_normal(lead + s).astype(np.float32)
+               for k, s in layout.items()}
+    if labels is not None:
+        kind, n = labels
+        y = rng.integers(0, n, lead)
+        batches["y"] = (np.eye(n, dtype=np.float32)[y] if kind == "onehot"
+                        else y.astype(np.int32))
+    return grid, batches
+
+
+def round_fed(name, K=ROUND_K, *, opts=None, scales=None, strategy=None):
+    """The port's FedGAN of ``name`` at test size: its task from
+    ``ROUND_TASKS``, the experiment's optimizers and schedules unless
+    given."""
+    exp = tpaper.ALL_EXPERIMENTS[name]
+    opt_d, opt_g = opts or tpaper.optimizer_for(exp)
+    cfg = FedGANConfig(agent_grid=(1, exp.num_agents), sync_interval=K, strategy=strategy)
+    return FedGAN(ROUND_TASKS[name][0]()[0], cfg, opt_d=opt_d, opt_g=opt_g,
+                  scales=scales or tpaper.scales_for(exp))
+
+
+# The bounds one round is held to, elementwise, against the reference (the
+# JAX package) and on the card against the CPU port.  SGD: _SGD of the
+# leaf's largest magnitude above 1.  Adam: _ULPS float32 ulps of max(|p|,
+# K lr) plus _TIGHT K lr for the gradients' float32 rounding as Adam
+# carries it through the K steps, with the lr of the net the leaf belongs
+# to (TTUR gives D and G their own).  Where some agent's first-step
+# gradient in the reference is not 0 but within _ZERO_TO_ROUNDING of its
+# leaf's largest magnitude, the gradient is zero to rounding: Adam scales
+# it to a step of up to lr, so its rounding reaches the parameter.  There
+# the bound is _LOOSE K lr, and the set is held to _ZERO_SHARE of its leaf.
+# The first step's losses (the same weights and batch) within _LOSS_RTOL.
+#
+# Batch norm adds one case.  A bias that feeds a batch norm does not move
+# the loss (the norm subtracts it again), so its gradient is rounding noise
+# on every agent: the whole leaf is within _ZERO_TO_ROUNDING of its net's
+# largest first-step gradient.  Adam steps each element by about lr with
+# the noise's sign, which two correct implementations do not share: the
+# reference against itself, on the same batch in another order, departs
+# there by more than 0.1 K lr (test_torch_paper.py's
+# test_round_bounds_hold_the_reference_to_itself).  Such a leaf is held to
+# _REACH K lr, the reach of K steps of at most lr each way, and the bound
+# test_torch_round.py holds the whole image round to.  Those steps shift
+# the rounding of the net's later sums, so in a net that has such a leaf,
+# a second-step gradient elsewhere may be noise too: at most _STRAY_SHARE
+# of each other leaf may leave the Adam bound, and no further than _REACH
+# K lr (the reference against itself needs a few elements in a million).
+# A net without such a leaf (every net but the ACGAN's) keeps the Adam
+# bound on every element.
+_SGD = 1e-5
+_ULPS, _TIGHT = 4, 2e-4
+_ZERO_TO_ROUNDING, _LOOSE, _ZERO_SHARE = 1e-5, 1e-2, 0.2
+_REACH, _STRAY_SHARE = 2.0, 1e-3
+_LOSS_RTOL = 1e-5
+
+
+def named_leaves(tree, path=""):
+    """(path, leaf) pairs of a tree of dicts, lists and tuples, in
+    ``tree_leaves``' order (dict keys sorted, as the reference's)."""
+    join = (lambda k: f"{path}/{k}") if path else str  # noqa: E731
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree) for pl in named_leaves(tree[k], join(k))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, x in enumerate(tree) for pl in named_leaves(x, join(i))]
+    return [] if tree is None else [(path, tree)]
+
+
+def noise_leaves(grads, net):
+    """The leaves of ``net`` whose first-step gradient is rounding noise on
+    every agent: within _ZERO_TO_ROUNDING of the net's largest."""
+    leaves = named_leaves(grads[net], net)
+    top = max(float(np.abs(g).max()) for _, g in leaves if g.size)
+    return {p for p, g in leaves if float(np.abs(g).max()) <= _ZERO_TO_ROUNDING * top}
+
+
+def round_mismatches(exp, K, got, want, grads, losses):
+    """Every way the round ``got`` departs from ``want`` under the bounds
+    above, and the worst leaf.  ``got``, ``want``: the states after the
+    round as trees of numpy arrays (``params`` leaves (P, A, ...),
+    ``step``); ``grads``: ``{"disc", "gen"}`` trees of each agent's
+    first-step gradients on the ``want`` side, (B, ...) numpy; ``losses``:
+    ((d_loss, g_loss) of ``got``'s first step, the same of ``want``'s).
+    Returns (departures, (ratio, path)): an empty list when the round is
+    within its bounds, and the largest ratio of |got - want| to its limit
+    with the leaf where it sits."""
+    bad, worst = [], (-1.0, None)
+    for k, g, w in zip(("d_loss", "g_loss"), *losses):
+        if not np.isclose(g, w, rtol=_LOSS_RTOL, atol=0):
+            bad.append((k, g, w))
+    if int(got["step"]) != K:
+        bad.append(("step", int(got["step"])))
+    for net in ("disc", "gen"):
+        lr = exp.lr_d if net == "disc" else exp.lr_g
+        gl, wl, rl = (named_leaves(t[net], net) for t in (got["params"], want["params"], grads))
+        assert [p for p, _ in gl] == [p for p, _ in wl] == [p for p, _ in rl]
+        noise = noise_leaves(grads, net) if exp.opt == "adam" else set()
+        for (path, g), (_, w), (_, gr) in zip(gl, wl, rl):
+            if not (g == g[:1, :1]).all():
+                bad.append((path, "agents not synced"))
+            d = np.abs(g - w)
+            if exp.opt == "sgd":
+                lim = np.full(d.shape, _SGD * max(1.0, float(np.abs(w).max())))
+            else:
+                ulps = _ULPS * np.spacing(np.maximum(np.abs(w), np.float32(K * lr)))
+                reach = ulps + _REACH * K * lr
+                mag = np.abs(gr).reshape((-1,) + w.shape[2:])
+                zero = ((mag > 0) & (mag <= _ZERO_TO_ROUNDING * mag.max())).any(0)
+                lim = ulps + K * lr * np.where(zero, _LOOSE, _TIGHT)
+                if path in noise:
+                    lim = reach
+                elif zero.sum() > _ZERO_SHARE * zero.size:
+                    bad.append((path, "zero to rounding", int(zero.sum()), zero.size))
+                if noise and path not in noise:
+                    stray = d > lim
+                    if stray.sum() <= _STRAY_SHARE * d.size:
+                        lim = np.where(stray, reach, lim)
+            ratio = float((d / lim).max()) if d.size else 0.0
+            worst = max(worst, (ratio, path), key=lambda r: r[0])
+            if (d > lim).any():
+                bad.append((path, "off", int((d > lim).sum()), float((d - lim).max())))
+    return bad, worst
+
+
+def first_step_grads(fed, state, batches):
+    """Each agent's first-step (disc, gen) gradients at ``state``, (B, ...)
+    leaves, as the round's first local step takes them."""
+    B = fed.cfg.num_agents
+    gd, gg, _ = torch.func.vmap(fed._agent_grads)(
+        _flat(state["params"], B), _flat(tree_map(lambda x: x[0], batches), B))
+    return {"disc": gd, "gen": gg}
+
+
+# The card's round is held to the CPU port's at K = 1.  At K = 2 the second
+# step amplifies a discrete event: an activation whose input sits at
+# rounding distance from its kink changes sign on one agent, and that
+# agent's second Adam step moves by up to about lr.  The CPU port against
+# itself on a reordered batch departs so in image_acgan (over 100 times
+# its bounds, test_torch_paper.py's
+# test_second_step_amplifies_a_flip_so_the_card_round_takes_one; a
+# leaky-ReLU input of the discriminator changes sign on some agents).  One
+# step holds the forward and backward (cuDNN on the card), Adam and the
+# sync to the bounds with nothing to amplify.
+CARD_K = 1
+
+
+def port_round_mismatches(name, device, K=CARD_K, order=None):
+    """One round of ``name`` (``round_fed``) on ``device`` against the same
+    round on the CPU port, from one start state (drawn on the CPU from a
+    seeded generator, then copied) and the numpy batches of
+    ``round_inputs``: ``round_mismatches`` with the CPU round in the
+    reference's place.  With ``order`` (a seed), the ``device`` round takes
+    each agent's samples in another order.  The CPU runs with oneDNN off,
+    as the round is held to the reference: its convolution backward under
+    the agent vmap is not exact float32."""
+    fed = round_fed(name, K)
+    _, batches = round_inputs(name, K)
+    start = fed.init_state(torch.Generator().manual_seed(0), device="cpu")
+    to_dev = lambda t: tree_map(lambda x: torch.from_numpy(x).to(device), t)  # noqa: E731
+    with torch.backends.mkldnn.flags(enabled=False, allow_tf32=None):
+        want, wm = fed.round(start, tree_map(torch.from_numpy, batches))
+        grads = first_step_grads(fed, start, tree_map(torch.from_numpy, batches))
+        if order is not None:
+            perm = np.random.default_rng(order).permutation(ROUND_BATCH)
+            batches = {k: np.ascontiguousarray(v[:, :, :, perm]) for k, v in batches.items()}
+        got, gm = fed.round(tree_map(lambda x: x.to(device), start), to_dev(batches))
+    to_np = lambda t: tree_map(lambda x: x.detach().cpu().numpy(), t)  # noqa: E731
+    losses = tuple((m["d_loss"][0].item(), m["g_loss"][0].item()) for m in (gm, wm))
+    return round_mismatches(tpaper.ALL_EXPERIMENTS[name], K, to_np(got), to_np(want),
+                            to_np(grads), losses)
