@@ -14,7 +14,11 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    generator and discriminator streams of the image experiment's ACGAN
    nets, B = 5 agents: fedavg within 1e-6 of sum_b |w_b x_bn| in float32
    (the plain version's library sum groups the B products in another
-   order), one bfloat16 ulp more in bfloat16; qsync at 8 and 4 bits, with
+   order), one bfloat16 ulp more in bfloat16; fedavg's wire route (the
+   reference's weighted_mean in bfloat16 and float16, each product
+   rounded to the type) at the generator stream and its pod route (the
+   fused multiply-add chain of average_intra_pod) at that stream on a
+   (2, 4) grid, bit-identical; qsync at 8 and 4 bits, with
    and without error feedback, bit-identical (both sum in agent order).
    The four qpack kernels bit-identical (elementwise): quant and dequant at
    the largest ACGAN leaf, (5, 2,097,152) float32, at 8 and 4 bits; pack4
@@ -56,7 +60,20 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    fused run one qsync per subtree, the composed runs per float32 leaf one
    fedavg and, per direction, one quant and one dequant (and for int4 one
    pack4 and one unpack4).  Losses and parameters must be finite and every
-   agent must hold the synced parameters after every round.
+   agent must hold the synced parameters after every round.  Then the
+   other sync schedules, 3 rounds each the same way, with their launches
+   and their agents' agreement after every round: ``PerStepGradAvg()``
+   (2 fedavg a step, agents identical), ``PerStepGradAvg(sync_dtype=
+   bfloat16)`` (2 wire launches a step), ``FedAvgSync(sync_dtype=
+   bfloat16)`` (2 wire a round), ``Hierarchical(intra_interval=5)`` on
+   a (2, 4) grid of 8 agents (4 pod and 2 fedavg a round; each pod's
+   agents agree after every segment), ``SubsampledFedAvg(fraction=0.6)``
+   (2 fedavg a round; exactly the schedule's cohort agrees) and
+   ``AdaptiveK(warmup_rounds=1, sync_every=2)`` (fedavg on rounds 0 and
+   2 only).  Checkpoints: 4 rounds saved every 2, LATEST restored on the
+   card bit for bit, a run resumed from the first.  The twin of
+   ``examples/federated_images.py`` at 40 steps: FedGAN against the
+   per-step baseline, the checkpoint restored bit for bit.
 
 5. The paper's own experiments: ``python -m repro_torch.quickstart`` at
    its defaults (B = 5, K = 20, 3,000 SGD steps), ending within 0.1 of
@@ -240,6 +257,63 @@ def check_fedavg(torch, shapes, dev, flush):
     return record
 
 
+def check_fedavg_routes(torch, shapes, dev, flush):
+    """fedavg's wire route (the reference's weighted_mean in bfloat16 and
+    float16: products rounded to the type) at the generator bucket, and
+    its pod route (average_intra_pod: a fused multiply-add chain per pod)
+    at that bucket on a (2, 4) grid, each bit-identical to its plain
+    version and timed, beside one library call of the same function
+    (``torch.mv`` in bfloat16; ``torch.einsum`` on the row-normalised
+    weights), which the port never calls.  Returns the two records."""
+    from repro_torch.kernels.fedavg.kernel import fedavg_pod_flat, fedavg_wire_flat
+    from repro_torch.kernels.fedavg.ref import fedavg_pod_ref, fedavg_wire_ref
+    gen = torch.Generator(device=dev).manual_seed(2)
+    N = sum(math.prod(s) for s in shapes["gen"])
+    w = torch.rand((1, B), generator=gen, device=dev) + 0.1
+    w = w / w.sum()
+    records = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        x = torch.randn((B, N), generator=gen, device=dev).to(dtype)
+        got, want = fedavg_wire_flat(w, x), fedavg_wire_ref(w, x)
+        torch.cuda.synchronize()
+        check(same_bits(torch, got, want),
+              f"fedavg_wire {dtype}: kernel differs from plain on "
+              f"{int((got != want).sum())} elements")
+        log(f"fedavg_wire ({B}, {N}) {dtype}: bit-identical to plain")
+        if dtype == torch.bfloat16:
+            ms = time_ms(torch, lambda: fedavg_wire_flat(w, x), flush)
+            plain = time_ms(torch, lambda: fedavg_wire_ref(w, x), flush)
+            wb = w.reshape(-1).to(dtype)
+            lib = time_ms(torch, lambda: torch.mv(x.t(), wb), flush)
+            b_ms, b_by = bound(2 * (B + 1) * N + 4 * B, 2 * B * N)
+            records["fedavg_wire"] = {
+                "name": "fedavg_wire", "route": "cuda", "source": "src/repro_torch/csrc/fedavg.cu",
+                "replaces": "src/repro/dist/collectives.py:43", "max_abs_err": 0.0, "ms": ms,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+            log(f"fedavg_wire timing ({B}, {N}) bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"torch.mv {lib:.4f} ms, bound {b_ms:.4f} ms")
+    P, A = 2, 4
+    w = torch.rand((P, A), generator=gen, device=dev) + 0.1
+    w = w / w.sum()
+    x = torch.randn((P, A, N), generator=gen, device=dev)
+    got, want = fedavg_pod_flat(w, x), fedavg_pod_ref(w, x)
+    torch.cuda.synchronize()
+    check(same_bits(torch, got, want),
+          f"fedavg_pod: kernel differs from plain on {int((got != want).sum())} elements")
+    ms = time_ms(torch, lambda: fedavg_pod_flat(w, x), flush)
+    plain = time_ms(torch, lambda: fedavg_pod_ref(w, x), flush)
+    w_intra = w / w.sum(1, keepdim=True)
+    lib = time_ms(torch, lambda: torch.einsum("pa,pan->pn", w_intra, x), flush)
+    b_ms, b_by = bound(4 * (P * A + P) * N + 4 * P * A, 2 * P * A * N)
+    records["fedavg_pod"] = {
+        "name": "fedavg_pod", "route": "cuda", "source": "src/repro_torch/csrc/fedavg.cu",
+        "replaces": "src/repro/dist/collectives.py:205", "max_abs_err": 0.0, "ms": ms,
+        "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    log(f"fedavg_pod ({P}, {A}, {N}) f32: bit-identical to plain; kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, torch.einsum {lib:.4f} ms, bound {b_ms:.4f} ms")
+    return [records["fedavg_wire"], records["fedavg_pod"]]
+
+
 def _padded(leaves, block=128):
     return sum(-(-math.prod(s) // block) * block for s in leaves)
 
@@ -305,8 +379,8 @@ QPACK_LEAF = (B, 2_097_152)    # gen.fc2.w and disc.fc.w, the largest ACGAN leav
 
 def same_bits(torch, a, b):
     """Equal in every byte: a comparison that sees the sign of zero."""
-    return a.dtype == b.dtype and torch.equal(a.contiguous().view(torch.uint8),
-                                              b.contiguous().view(torch.uint8))
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8), b.contiguous().reshape(-1).view(torch.uint8))
 
 
 def _planted(torch, gen, dev, shape, qmax, block=128):
@@ -1072,6 +1146,195 @@ def run_main_path(torch, dev, strategy, label, per_round):
     return counts, t
 
 
+def _agents_equal(torch, state, key="params"):
+    """(B, B) bool on the device: whether agents i and j hold the same
+    ``state[key]`` bit for bit."""
+    from repro_torch.tree import tree_leaves
+    flat = [x.reshape(x.shape[0] * x.shape[1], -1) for x in tree_leaves(state[key])]
+    n = flat[0].shape[0]
+    return torch.stack([torch.stack([torch.stack([(x[i] == x[j]).all() for x in flat]).all()
+                                     for j in range(n)]) for i in range(n)])
+
+
+def run_strategy_path(torch, dev, strategy, label, want_total, *, agents=None, grid=None,
+                      after_round=None, rounds=3):
+    """``rounds`` full-width rounds of ``image_acgan`` under ``strategy``
+    (on ``grid``, with ``agents`` of the experiment's data, when given),
+    after one uncounted warm-up round, every launch counter set to 0 just
+    before and read just after: the counts must equal ``want_total``
+    (kernels absent from it: 0).  ``after_round(r, eq)`` checks the (B, B)
+    agent-equality matrix after round r.  Returns the counts."""
+    from repro_torch.launch.train import experiment_spec
+    from repro_torch.tree import tree_leaves
+    K = 20
+    spec, _ = experiment_spec("image_acgan", steps=K, strategy=strategy, log_every=0,
+                              device=dev, agents=agents)
+    if grid is not None:
+        spec = dataclasses.replace(spec, agent_grid=grid)
+    dataclasses.replace(spec, steps=K).run_result()   # warm-up: cuDNN picks algorithms
+    log(f"depth cut: image_acgan under {label} runs {rounds} rounds x K={K} = "
+        f"{rounds * K} local steps of the paper's 30000")
+    eqs = []
+    spec = dataclasses.replace(
+        spec, steps=rounds * K, log_every=1, eval_every=1,
+        eval_hooks=(lambda fed, state, r: eqs.append(_agents_equal(torch, state)) or {},))
+    counters = launch_counters()
+    _reset(counters)
+    result = spec.run_result()
+    torch.cuda.synchronize()
+    counts = _read(counters)
+    want = {name: want_total.get(name, 0) for name in counters}
+    check(counts == want, f"{label}: launches {counts} in {rounds} rounds, expected {want}")
+    check(all(math.isfinite(v) for m in result.history for v in m.values()),
+          f"{label}: non-finite losses")
+    check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(result.state)
+              if x.is_floating_point()), f"{label}: non-finite state")
+    for r, eq in enumerate(eqs):
+        after_round(r, eq.cpu())
+    t = result.timings
+    log(f"path {label}: {rounds} rounds x K={K}, grid {spec.agent_grid}, batch "
+        f"{spec.batch_size}: {t['total_s'] / rounds * 1e3:.1f} ms/round, launches {counts}")
+    return counts
+
+
+def run_strategy_paths(torch, dev):
+    """The sync schedules beyond the plain average, each through
+    ``run_strategy_path`` with its launches and its agents' agreement
+    checked.  Returns the wire and pod routes' launches."""
+    from repro_torch.core import (AdaptiveK, FedAvgSync, FedGANConfig, Hierarchical,
+                                  ParticipationSchedule, PerStepGradAvg, SubsampledFedAvg)
+    from repro_torch.tree import tree_leaves
+    bf16, K, rounds = torch.bfloat16, 20, 3
+
+    def all_synced(label):
+        def after(r, eq):
+            check(bool(eq.all()), f"{label}: agents differ after round {r}")
+        return after
+
+    run_strategy_path(torch, dev, PerStepGradAvg(), "PerStepGradAvg()",
+                      {"fedavg": 2 * K * rounds}, after_round=all_synced("PerStepGradAvg"))
+    wire = run_strategy_path(torch, dev, PerStepGradAvg(sync_dtype=bf16),
+                             "PerStepGradAvg(sync_dtype=bfloat16)",
+                             {"fedavg_wire": 2 * K * rounds},
+                             after_round=all_synced("PerStepGradAvg(bf16)"))["fedavg_wire"]
+    run_strategy_path(torch, dev, FedAvgSync(sync_dtype=bf16), "FedAvgSync(sync_dtype=bfloat16)",
+                      {"fedavg_wire": 2 * rounds}, after_round=all_synced("FedAvgSync(bf16)"))
+
+    pods = []
+
+    @dataclasses.dataclass(frozen=True)
+    class PodChecked(Hierarchical):
+        """Hierarchical that records, after each segment sync, whether
+        every pod's agents agree."""
+
+        def segment_sync(self, fed, state):
+            out = super().segment_sync(fed, state)
+            pods.append(torch.stack([(x == x[:, :1]).all()
+                                     for x in tree_leaves(out["params"])]).all())
+            return out
+
+    pod = run_strategy_path(torch, dev, PodChecked(intra_interval=5),
+                            "Hierarchical(intra_interval=5) on (2, 4)",
+                            {"fedavg_pod": (K // 5) * rounds, "fedavg": 2 * rounds},
+                            agents=8, grid=(2, 4), after_round=all_synced("Hierarchical"))
+    check(len(pods) == (K // 5) * (rounds + 1) and all(bool(p) for p in pods),
+          "Hierarchical: a pod's agents differ after a segment sync")
+
+    sub = SubsampledFedAvg(fraction=0.6)
+    m = sub.num_participants(FedGANConfig(agent_grid=(1, B)))
+
+    def cohort_only(r, eq):
+        cohort = set(ParticipationSchedule(0).cohort(r, B, m).tolist())
+        for i in range(B):
+            for j in range(B):
+                if i != j:
+                    want = i in cohort and j in cohort
+                    check(bool(eq[i, j]) == want,
+                          f"SubsampledFedAvg round {r}: agents {i}, {j} equal={bool(eq[i, j])}, "
+                          f"cohort {sorted(cohort)}")
+    run_strategy_path(torch, dev, sub, "SubsampledFedAvg(fraction=0.6)",
+                      {"fedavg": 2 * rounds}, after_round=cohort_only)
+
+    adaptive = AdaptiveK(warmup_rounds=1, sync_every=2)
+
+    def adaptive_after(r, eq):
+        check(bool(eq.all()) == adaptive.syncs_at(r),
+              f"AdaptiveK round {r}: agents synced={bool(eq.all())}")
+    run_strategy_path(torch, dev, adaptive, "AdaptiveK(warmup_rounds=1, sync_every=2)",
+                      {"fedavg": 2 * sum(adaptive.syncs_at(r) for r in range(rounds))},
+                      after_round=adaptive_after)
+    return wire, pod["fedavg_pod"]
+
+
+def run_checkpoint(torch, dev):
+    """image_acgan at full width for 4 rounds, checkpointed every 2
+    (``RoundDriver(ckpt_dir=, ckpt_every=2)``): LATEST restores to the
+    final state bit for bit on the card, and a run resumed from the first
+    checkpoint runs on to step 80 with finite values."""
+    import tempfile
+    from repro_torch.checkpoint import list_checkpoints, restore_checkpoint
+    from repro_torch.launch.train import experiment_spec
+    from repro_torch.run import RoundDriver
+    from repro_torch.tree import tree_leaves
+    K, rounds = 20, 4
+    spec, _ = experiment_spec("image_acgan", steps=rounds * K, log_every=0, device=dev)
+    fed, data = spec.build(), spec.build_data()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        t0 = time.perf_counter()
+        result = RoundDriver(fed, data, rounds, log_every=0, ckpt_dir=d, ckpt_every=2,
+                             verbose=False).run(1)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        check(list_checkpoints(d) == [2 * K, 4 * K], f"checkpoints {list_checkpoints(d)}")
+        last, manifest = restore_checkpoint(d, device=dev)
+        check(manifest["metadata"] == {"round": 3, "K": K}, f"metadata {manifest['metadata']}")
+        for a, b in zip(tree_leaves(last), tree_leaves(result.state)):
+            check(a.device == b.device and same_bits(torch, a, b.contiguous()),
+                  "checkpoint: LATEST does not restore the final state bit for bit")
+        first, _ = restore_checkpoint(d, step=2 * K, device=dev)
+        resumed = RoundDriver(fed, data, 2, log_every=0, verbose=False).run(1, state=first)
+        torch.cuda.synchronize()
+        check(int(resumed.state["step"]) == 4 * K, "resumed run did not reach step 80")
+        check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(resumed.state)
+                  if x.is_floating_point()), "resumed run: non-finite state")
+        nbytes = sum(os.path.getsize(os.path.join(d, "step_00000080", f))
+                     for f in os.listdir(os.path.join(d, "step_00000080")))
+    log(f"checkpoint: 4 rounds with 2 saves {run_s:.2f} s, LATEST bit-identical on the card, "
+        f"resumed from step {2 * K} to {4 * K}; {nbytes / 2**20:.1f} MiB a checkpoint")
+
+
+def run_federated_images(torch, dev):
+    """``python -m repro_torch.federated_images`` at a short depth (K = 20,
+    40 steps: 2 FedGAN rounds, 40 distributed steps): finite scores, the
+    checkpoint restored bit for bit with its score within 1e-6, and fedavg
+    launched 2 a round, 2 a distributed step and one a parameter leaf for
+    each of the three evals' ``averaged_params``."""
+    from repro_torch import federated_images
+    from repro_torch.launch.train import acgan_task
+    from repro_torch.tree import tree_leaves
+    K, steps = 20, 40
+    L = len(tree_leaves(acgan_task(hw=16)[0].init(torch.Generator().manual_seed(0))))
+    log(f"depth cut: federated_images runs {steps} steps of its default 400")
+    counters = launch_counters()
+    _reset(counters)
+    out = federated_images.run(K=K, steps=steps, device=dev, verbose=False)
+    torch.cuda.synchronize()
+    counts = _read(counters)
+    want = {n: 0 for n in counters}
+    want["fedavg"] = 2 * (steps // K) + 2 * steps + 3 * L
+    check(counts == want, f"federated_images: launches {counts}, expected {want}")
+    # the state must come back bit for bit; its score within the
+    # reference's 1e-6 (cuDNN's transposed convolution, a backward-data
+    # algorithm, may sum in another order from one call to the next)
+    check(out["restored_equal"] and abs(out["fd_restored"] - out["fd"]) < 1e-6,
+          f"federated_images: the checkpoint did not restore ({out})")
+    check(math.isfinite(out["fd"]) and math.isfinite(out["fd_distributed"]),
+          f"federated_images: non-finite FD ({out})")
+    log(f"federated_images: FD FedGAN {out['fd']:.4f}, distributed {out['fd_distributed']:.4f}, "
+        f"restored {out['fd_restored']:.4f}; launches {counts}")
+
+
 def run_quickstart(torch, dev):
     """``python -m repro_torch.quickstart`` at its own defaults (B = 5,
     K = 20, 3,000 SGD steps): it must end within 0.1 of (1, 0); the fedavg
@@ -1194,12 +1457,13 @@ def run_ksweep(torch, dev):
 
 def launch_counters():
     """Every kernel wrapper of the port, by kernel name."""
-    from repro_torch.kernels.fedavg.kernel import fedavg_flat
+    from repro_torch.kernels.fedavg.kernel import fedavg_flat, fedavg_pod_flat, fedavg_wire_flat
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
     from repro_torch.kernels.qpack import kernel as pk
     from repro_torch.kernels.qsync.kernel import adam_sync_flat, qsync_flat
     from repro_torch.kernels.ssd_scan.kernel import ssd_bthd
-    return {"fedavg": fedavg_flat, "qsync": qsync_flat, "quant": pk.quant_flat,
+    return {"fedavg": fedavg_flat, "fedavg_wire": fedavg_wire_flat,
+            "fedavg_pod": fedavg_pod_flat, "qsync": qsync_flat, "quant": pk.quant_flat,
             "dequant": pk.dequant_flat, "pack4": pk.pack4_flat,
             "unpack4": pk.unpack4_flat, "adam_sync": adam_sync_flat,
             "flash_attention": flash_attention_bhsd, "ssd_scan": ssd_bthd}
@@ -1214,6 +1478,7 @@ def main() -> int:
                     help="also time the dequant, pack4 and unpack4 kernels of the "
                          "checkout DIR beside this one's (may be given more than once)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1239,6 +1504,7 @@ def main() -> int:
     shapes = stream_shapes()
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
     records = {r["name"]: r for r in (check_fedavg(torch, shapes, dev, flush),
+                                      *check_fedavg_routes(torch, shapes, dev, flush),
                                       check_qsync(torch, shapes, dev, flush),
                                       *check_qpack(torch, dev, flush),
                                       check_adam_sync(torch, dev, flush),
@@ -1272,6 +1538,10 @@ def main() -> int:
     records["qsync"]["launches"] = int8_counts["qsync"]
     for name in ("quant", "dequant", "pack4", "unpack4"):
         records[name]["launches"] = chain_counts[name]
+    records["fedavg_wire"]["launches"], records["fedavg_pod"]["launches"] = \
+        run_strategy_paths(torch, dev)
+    run_checkpoint(torch, dev)
+    run_federated_images(torch, dev)
     run_quickstart(torch, dev)
     for name, rounds in PAPER_ROUNDS.items():
         run_paper(torch, dev, name, rounds)
@@ -1282,6 +1552,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     check("jax" not in sys.modules, "the port or this script imported jax")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records.values()]}),
           flush=True)

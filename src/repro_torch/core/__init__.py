@@ -1,10 +1,14 @@
-from repro_torch.core.fedgan import FedGAN, FedGANConfig, GANTask, uniform_weights
-from repro_torch.core.strategies import (STRATEGIES, FedAvgSync, LocalOnly,
-                                         PartialSharing, SyncStrategy,
-                                         get_strategy)
+from repro_torch.core.fedgan import (FedGAN, FedGANConfig, GANTask, dataset_weights,
+                                     uniform_weights)
+from repro_torch.core.participation import ParticipationSchedule
+from repro_torch.core.strategies import (STRATEGIES, AdaptiveK, FedAvgSync, Hierarchical,
+                                         LocalOnly, PartialSharing, PerStepGradAvg,
+                                         SubsampledFedAvg, SyncStrategy, get_strategy,
+                                         strategy_from_mode)
 from repro_torch.core.tasks import ACGAN, CONDITIONAL, NS, LossSpec, make_gan_task
 
-__all__ = ["FedGAN", "FedGANConfig", "GANTask", "uniform_weights",
-           "SyncStrategy", "LocalOnly", "FedAvgSync", "PartialSharing",
-           "STRATEGIES", "get_strategy", "LossSpec", "NS",
-           "CONDITIONAL", "ACGAN", "make_gan_task"]
+__all__ = ["FedGAN", "FedGANConfig", "GANTask", "dataset_weights", "uniform_weights",
+           "ParticipationSchedule", "SyncStrategy", "LocalOnly", "FedAvgSync",
+           "PartialSharing", "PerStepGradAvg", "Hierarchical", "AdaptiveK",
+           "SubsampledFedAvg", "STRATEGIES", "get_strategy", "strategy_from_mode",
+           "LossSpec", "NS", "CONDITIONAL", "ACGAN", "make_gan_task"]

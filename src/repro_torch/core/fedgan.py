@@ -4,6 +4,9 @@ State is agent-stacked: every parameter and optimizer leaf has a leading
 (P, A) grid, B = P*A agents.  One round is K simultaneous local G/D steps
 on every agent, then the strategy's sync, by default ``FedAvgSync()``: the
 dataset-size-weighted parameter average of eq. (2), broadcast back (3).
+The strategy may also transform each step's gradients (``grad_hook``: the
+per-step average of the distributed-GAN baseline) and sync after every
+segment of ``intra_interval`` steps (``segment_sync``: hierarchical).
 
 The per-agent steps run as ``torch.func.vmap`` over the agent axis of
 ``torch.func.grad_and_value`` of the losses, and the optimizer update as
@@ -13,6 +16,7 @@ in the reference.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable
 
 import torch
@@ -46,14 +50,46 @@ class FedGANConfig:
     sync_interval: int = 20      # K
     strategy: Any = None         # SyncStrategy; None -> FedAvgSync()
     dp: Any = None               # DP-SGD is not ported; must stay None
+    # -- deprecated closed-world fields, kept as a shim --------------------
+    mode: str = ""               # fedgan|distributed|local_only|hierarchical
+    intra_interval: int = 0      # K1 of the hierarchical shim
+    sync_dtype: Any = None       # a torch dtype: compressed sync
+    average_opt_state: bool = False
 
     @property
     def num_agents(self) -> int:
         return self.agent_grid[0] * self.agent_grid[1]
 
     def resolve_strategy(self) -> sync_strategies.SyncStrategy:
-        return (sync_strategies.FedAvgSync() if self.strategy is None
-                else self.strategy)
+        """The strategy this config denotes.  An explicit ``strategy``
+        wins; a legacy ``mode`` string resolves through the deprecation
+        shim.  Mixing the two is an error: the legacy knobs would be
+        silently ignored otherwise."""
+        if self.strategy is not None:
+            legacy = {k: v for k, v in
+                      (("mode", self.mode),
+                       ("intra_interval", self.intra_interval),
+                       ("sync_dtype", self.sync_dtype),
+                       ("average_opt_state", self.average_opt_state)) if v}
+            if legacy:
+                raise ValueError(
+                    f"strategy={self.strategy!r} conflicts with the "
+                    f"deprecated config field(s) {sorted(legacy)}; move "
+                    "them onto the strategy (e.g. "
+                    "FedAvgSync(sync_dtype=...))")
+            return self.strategy
+        if self.mode:
+            warnings.warn(
+                f"FedGANConfig(mode={self.mode!r}) is deprecated; pass "
+                "strategy= a repro_torch.core.strategies.SyncStrategy instead "
+                f"(e.g. strategies.strategy_from_mode({self.mode!r}))",
+                DeprecationWarning, stacklevel=2)
+            return sync_strategies.strategy_from_mode(
+                self.mode, intra_interval=self.intra_interval,
+                sync_dtype=self.sync_dtype,
+                average_opt_state=self.average_opt_state)
+        return sync_strategies.FedAvgSync(sync_dtype=self.sync_dtype,
+                                          average_opt_state=self.average_opt_state)
 
     def validate(self):
         self.resolve_strategy().validate(self)
@@ -64,6 +100,13 @@ class FedGANConfig:
 def uniform_weights(cfg: FedGANConfig, device="cpu") -> torch.Tensor:
     P, A = cfg.agent_grid
     return torch.full((P, A), 1.0 / (P * A), dtype=torch.float32, device=device)
+
+
+def dataset_weights(sizes) -> torch.Tensor:
+    """p_i = |R_i| / sum_j |R_j| (paper §3.1), float32, shaped like
+    ``sizes`` (e.g. (P, A))."""
+    s = torch.as_tensor(sizes, dtype=torch.float32)
+    return s / torch.sum(s)
 
 
 def _flat(tree, B):
@@ -120,16 +163,19 @@ class FedGAN:
             lambda g: self.task.gen_loss({**params, "gen": g}, batch))(params["gen"])
         return gd, gg, {"d_loss": ld, "g_loss": lg}
 
-    def _step(self, state, batch):
+    def _step(self, state, batch, strat):
         """One simultaneous local step on every agent; ``batch`` leaves
-        have leading (P, A) dims.  Returns (state, per-step metrics: the
-        agent means of the losses)."""
+        have leading (P, A) dims.  The strategy's ``grad_hook`` sees the
+        (P, A)-stacked gradients before either optimizer update.  Returns
+        (state, per-step metrics: the agent means of the losses)."""
         P, A = self.cfg.agent_grid
         B = P * A
         n = state["step"].to(torch.float32)
         lr_a, lr_b = self.scales.a(n), self.scales.b(n)
         params = _flat(state["params"], B)
         gd, gg, metrics = vmap(self._agent_grads)(params, _flat(batch, B))
+        gd, gg = strat.grad_hook(self, _grid(gd, P, A), _grid(gg, P, A), state)
+        gd, gg = _flat(gd, B), _flat(gg, B)
         new_disc, new_opt_d = vmap(
             lambda p, g, s: self.opt_d.update(p, g, s, lr_a))(
                 params["disc"], gd, _flat(state["opt_d"], B))
@@ -146,15 +192,20 @@ class FedGAN:
 
     def _run_round(self, state, batch_of):
         """K local steps (``batch_of(k)`` gives step k's (P, A, ...) batch),
-        then the strategy's sync.  Metrics are stacked to (K,) tensors."""
+        with the strategy's ``segment_sync`` after every ``intra_interval``
+        of them when it has one, then its ``round_sync``.  Metrics are
+        stacked to (K,) tensors."""
         self.cfg.validate()
+        strat = self.cfg.resolve_strategy()
         history = []
         for k in range(self.cfg.sync_interval):
-            state, m = self._step(state, batch_of(k))
+            state, m = self._step(state, batch_of(k), strat)
             history.append(m)
+            if strat.intra_interval and (k + 1) % strat.intra_interval == 0:
+                state = strat.segment_sync(self, state)
         metrics = {key: torch.stack([m[key] for m in history])
                    for key in history[0]}
-        return self.cfg.resolve_strategy().round_sync(self, state), metrics
+        return strat.round_sync(self, state), metrics
 
     def round(self, state, batches):
         """``batches``: dict of tensors with leading (K, P, A, ...).  Runs

@@ -1,4 +1,4 @@
-"""Sync strategies, first cut (a port of part of ``repro.core.strategies``).
+"""Sync strategies (a port of ``repro.core.strategies``).
 
 A :class:`SyncStrategy` owns when, what and how agents sync, and its own
 §3.2 wire-byte accounting.  Hooks called by ``FedGAN``:
@@ -8,17 +8,29 @@ A :class:`SyncStrategy` owns when, what and how agents sync, and its own
                                  error-feedback residuals of a coded sync)
   ``state_axes()``               "client" (agent-stacked) or "shared" per
                                  carried entry
+  ``intra_interval``             nonzero splits the K local steps into
+                                 segments of this length (must divide K)
+  ``grad_hook(fed, gd, gg, st)`` per-step transform of the (P, A)-stacked
+                                 gradients, before the optimizer updates
+  ``segment_sync(fed, st)``      after every ``intra_interval`` segment
   ``round_sync(fed, st)``        after the K local steps
   ``bytes_per_round(cfg, params, opt=None)``
                                  per-agent send+receive wire bytes per round
 
-Ported: ``LocalOnly``, ``FedAvgSync`` (plain average, fused and composed
-coded sync) and ``PartialSharing``.  Secure aggregation, robust reduces,
-participation subsampling and the other schedules are not ported yet.
+Ported: ``LocalOnly``, ``FedAvgSync`` (plain average, ``sync_dtype``
+cast, fused and composed coded sync), ``PartialSharing``,
+``SubsampledFedAvg``, ``AdaptiveK``, ``PerStepGradAvg`` (the paper's
+distributed-GAN baseline) and ``Hierarchical``.  Secure aggregation, the
+robust reduces and ``check_async_mergeable`` are not ported yet.
+
+``AdaptiveK`` and ``SubsampledFedAvg`` decide on the host from the round
+index, which they read from the device once per round (a host wait);
+every other strategy syncs without one.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any
 
 import torch
@@ -29,30 +41,52 @@ from repro_torch.tree import tree_map
 _OPT_KEY = {"gen": "opt_g", "disc": "opt_d"}
 
 
-def _fedavg(fed, state, *, subtrees, average_opt_state, codec=None,
-            error_feedback=True, fused=None):
+def _select(mask, new, old):
+    """Per-agent select: ``mask`` (P, A) bool -> ``new`` where set, else
+    ``old``, leaf by leaf."""
+    return tree_map(
+        lambda a, x: torch.where(mask.reshape(mask.shape + (1,) * (x.dim() - 2)), a, x),
+        new, old)
+
+
+def _fedavg(fed, state, *, subtrees, average_opt_state, sync_dtype=None, mask=None,
+            codec=None, error_feedback=True, fused=None):
     """The eq. (2)+(3) aggregation of ``subtrees``: weighted average over
-    (P, A), broadcast back.  With ``codec`` the sync runs through
+    (P, A), broadcast back.  With a participation ``mask`` ((P, A) bool on
+    the state's device) the weights are masked and renormalised, and the
+    agents outside it keep their local values, their uplink residuals
+    included (they never hit the wire this round); the downlink residual
+    updates regardless.  With ``codec`` the sync runs through
     ``collectives.coded_sync`` and, with ``error_feedback``, updates the
     per-agent uplink residuals (``state["ef"]``) and the shared downlink
     residual (``state["ef_down"]``)."""
     w = fed._w(state["step"].device)
+    if mask is not None:
+        w = w * mask
+        w = w / torch.sum(w)
+
+    def keep(new, old):
+        return new if mask is None else _select(mask, new, old)
+
     new = dict(state)
     params = dict(state["params"])
     if codec is None:
         for k in subtrees:
-            params[k] = collectives.average_agents(state["params"][k], w)
+            params[k] = keep(collectives.average_agents(state["params"][k], w,
+                                                        sync_dtype=sync_dtype),
+                             state["params"][k])
     else:
         use_ef = error_feedback and "ef" in state
         ef = dict(state["ef"]) if use_ef else None
         ef_down = dict(state["ef_down"]) if use_ef else None
         for k in subtrees:
-            params[k], e2, ed2 = collectives.coded_sync(
+            synced, e2, ed2 = collectives.coded_sync(
                 state["params"][k], w, codec,
                 ef=ef[k] if use_ef else None,
                 ef_down=ef_down[k] if use_ef else None, fused=fused)
+            params[k] = keep(synced, state["params"][k])
             if use_ef:
-                ef[k], ef_down[k] = e2, ed2
+                ef[k], ef_down[k] = keep(e2, ef[k]), ed2
         if use_ef:
             new["ef"], new["ef_down"] = ef, ef_down
     new["params"] = params
@@ -60,19 +94,28 @@ def _fedavg(fed, state, *, subtrees, average_opt_state, codec=None,
         for k in subtrees:
             opt = state[_OPT_KEY[k]]
             if codec is None:
-                new[_OPT_KEY[k]] = collectives.average_agents(opt, w)
+                synced = collectives.average_agents(opt, w, sync_dtype=sync_dtype)
             else:
                 # the moments ride the coded wire too, without residuals:
                 # they are re-estimated every step anyway
-                new[_OPT_KEY[k]] = collectives.coded_sync(opt, w, codec,
-                                                          fused=fused)[0]
+                synced = collectives.coded_sync(opt, w, codec, fused=fused)[0]
+            new[_OPT_KEY[k]] = keep(synced, opt)
     return new
+
+
+def _round_index(fed, state) -> int:
+    """The index of the round that just ended, ``step // K - 1``.  Reading
+    the device's step counter is a host wait: only the strategies whose
+    sync depends on the round (AdaptiveK, SubsampledFedAvg) call this, once
+    per round."""
+    return int(state["step"]) // fed.cfg.sync_interval - 1
 
 
 class SyncStrategy:
     """Base protocol; the defaults are the never-sync ablation."""
 
     name = "local_only"
+    intra_interval = 0
 
     def validate(self, cfg):
         pass
@@ -82,6 +125,12 @@ class SyncStrategy:
 
     def state_axes(self) -> dict:
         return {}
+
+    def grad_hook(self, fed, grad_disc, grad_gen, state):
+        return grad_disc, grad_gen
+
+    def segment_sync(self, fed, state):
+        return state
 
     def round_sync(self, fed, state):
         return state
@@ -100,19 +149,22 @@ class FedAvgSync(SyncStrategy):
     """The paper's Algorithm 1 intermediary: K local steps, then a
     dataset-size-weighted parameter average of ``subtrees``.
 
-    ``codec`` (a ``repro_torch.comm.Codec``: ``IntQuant``, ``TopK`` or a
-    ``Sequential`` chain) ships both directions of the sync encoded; with
+    ``sync_dtype`` (a torch dtype) casts the leaves to a wire type for the
+    average (compressed sync); ``average_opt_state`` averages the
+    optimizer moments of the synced subtrees too.  ``codec`` (a
+    ``repro_torch.comm.Codec``: ``IntQuant``, ``TopK`` or a ``Sequential``
+    chain) ships both directions of the sync encoded instead; with
     ``error_feedback`` each agent carries an uplink residual and the
-    intermediary a downlink residual.  ``fused_sync`` picks the path of the
-    coded sync (the values are the same): None lets
-    ``collectives.coded_sync`` fuse the float32 leaves through the qsync
-    kernel when the codec has a ``fused_sync_spec``; False forces the
-    composed per-leaf pipeline (the qpack kernels around the fedavg
-    reduce); True requires the fused path and fails validation when the
-    codec cannot ride it.  ``average_opt_state`` averages the optimizer
-    moments of the synced subtrees too.  ``secure_agg`` is not ported and
-    raises."""
+    intermediary a downlink residual.  ``codec`` and ``sync_dtype`` are
+    exclusive.  ``fused_sync`` picks the path of the coded sync (the
+    values are the same): None lets ``collectives.coded_sync`` fuse the
+    float32 leaves through the qsync kernel when the codec has a
+    ``fused_sync_spec``; False forces the composed per-leaf pipeline (the
+    qpack kernels around the fedavg reduce); True requires the fused path
+    and fails validation when the codec cannot ride it.  ``secure_agg`` is
+    not ported and raises."""
 
+    sync_dtype: Any = None
     average_opt_state: bool = False
     subtrees: tuple = ("gen", "disc")
     codec: Any = None
@@ -128,6 +180,11 @@ class FedAvgSync(SyncStrategy):
                              f"{tuple(_OPT_KEY)}, got {self.subtrees}")
         if self.codec is not None:
             self.codec.validate()
+            if self.sync_dtype is not None:
+                raise ValueError(
+                    "codec= and sync_dtype= are both wire compressions; "
+                    "pick one (chain codecs with repro_torch.comm.Sequential "
+                    "instead of stacking a dtype cast on top)")
         if self.fused_sync:
             if self.codec is None:
                 raise ValueError(
@@ -139,8 +196,20 @@ class FedAvgSync(SyncStrategy):
                     f"{self.codec.name!r} reshapes the payload and can only "
                     "run the composed per-leaf pipeline")
         if self.secure_agg is not None:
+            if self.codec is not None:
+                raise ValueError(
+                    "secure_agg= cannot ride a codec= wire: decoding a "
+                    "lossy payload happens per agent at the server, which "
+                    "reveals exactly the individual updates the masking "
+                    "hides; pick one")
+            if self.sync_dtype is not None:
+                raise ValueError(
+                    "secure_agg= pads the 32-bit wire image; sync_dtype= "
+                    "re-encodes it per agent and breaks the pad "
+                    "cancellation; pick one")
             raise NotImplementedError(
-                "secure_agg= (pairwise-masked sync) is not ported yet")
+                "secure_agg= (pairwise-masked sync) is not ported yet "
+                "(ROADMAP slice 6)")
 
     def init_round_state(self, fed, state) -> dict:
         if self.codec is None or not self.error_feedback:
@@ -159,17 +228,32 @@ class FedAvgSync(SyncStrategy):
             return {}
         return {"ef": "client", "ef_down": "shared"}
 
+    def participation_mask(self, fed, state):
+        """(P, A) bool mask of the agents taking part in this round's
+        sync, on the state's device, or None for all."""
+        return None
+
+    def sync_reduce(self):
+        """The pluggable per-leaf aggregate, or None for the weighted mean.
+        The robust strategies that override it are not ported yet."""
+        return None
+
     def round_sync(self, fed, state):
         return _fedavg(fed, state, subtrees=self.subtrees,
                        average_opt_state=self.average_opt_state,
-                       codec=self.codec, error_feedback=self.error_feedback,
+                       sync_dtype=self.sync_dtype, codec=self.codec,
+                       error_feedback=self.error_feedback,
+                       mask=self.participation_mask(fed, state),
                        fused=self.fused_sync)
 
     def bytes_per_round(self, cfg, params, opt=None) -> int:
-        wire = sum(collectives.sync_bytes(params[k], codec=self.codec)
+        wire = sum(collectives.sync_bytes(params[k], sync_dtype=self.sync_dtype,
+                                          codec=self.codec)
                    for k in self.subtrees)
         if self.average_opt_state and opt is not None:
-            wire += sum(collectives.sync_bytes(opt[_OPT_KEY[k]], codec=self.codec)
+            wire += sum(collectives.sync_bytes(opt[_OPT_KEY[k]],
+                                               sync_dtype=self.sync_dtype,
+                                               codec=self.codec)
                         for k in self.subtrees if _OPT_KEY[k] in opt)
         return 2 * wire  # send + receive, once per round
 
@@ -184,12 +268,166 @@ class PartialSharing(FedAvgSync):
     name = "partial_sharing"
 
 
-# the strategies the port has; the reference's others are not ported yet
+# warn-once latch of the mask_seed deprecation (reset by tests)
+_MASK_SEED_WARNED = False
+
+
+@dataclasses.dataclass(frozen=True)
+class SubsampledFedAvg(FedAvgSync):
+    """Partial participation: each round ``round(fraction * B)`` agents
+    (at least one) are drawn from the round index and the participation
+    mask is folded into the weights: the participants average among
+    themselves and receive the result, the others keep their local state.
+
+    The draw comes from a ``ParticipationSchedule`` (``schedule=``), the
+    reference's own bits (``repro_torch.core.participation``).  The old
+    ``mask_seed=`` is a deprecated alias of
+    ``schedule=ParticipationSchedule(seed=...)``."""
+
+    fraction: float = 0.5
+    mask_seed: Any = None       # deprecated: use schedule=
+    schedule: Any = None        # ParticipationSchedule; None -> seed 0
+    name = "subsampled"
+
+    def __post_init__(self):
+        global _MASK_SEED_WARNED
+        if self.mask_seed is not None and not _MASK_SEED_WARNED:
+            # once per process: sweeps build many strategy instances
+            _MASK_SEED_WARNED = True
+            warnings.warn(
+                "SubsampledFedAvg(mask_seed=...) is deprecated: the "
+                "participation draw is owned by repro_torch.core.participation."
+                "ParticipationSchedule so the sync's mask and the "
+                "virtual-client scheduler cannot diverge — pass "
+                "schedule=ParticipationSchedule(seed=...) instead",
+                DeprecationWarning, stacklevel=3)
+
+    def validate(self, cfg):
+        super().validate(cfg)
+        if not 0.0 < self.fraction <= 1.0:
+            raise ValueError(f"fraction must be in (0, 1], got {self.fraction}")
+        if self.mask_seed is not None and self.schedule is not None:
+            raise ValueError(
+                "mask_seed= is the deprecated spelling of schedule="
+                "ParticipationSchedule(seed=...); passing both would leave "
+                "two competing seed streams — drop mask_seed")
+        self.resolve_schedule().validate(cfg.num_agents)
+
+    def resolve_schedule(self):
+        """The single sampling source of this strategy's cohort draws."""
+        from repro_torch.core.participation import ParticipationSchedule
+        if self.schedule is not None:
+            return self.schedule
+        return ParticipationSchedule(
+            seed=0 if self.mask_seed is None else int(self.mask_seed))
+
+    def num_participants(self, cfg) -> int:
+        return max(1, int(round(self.fraction * cfg.num_agents)))
+
+    def participation_mask(self, fed, state):
+        P, A = fed.cfg.agent_grid
+        m = self.num_participants(fed.cfg)
+        if m == P * A:
+            return None
+        mask = self.resolve_schedule().mask(_round_index(fed, state), (P, A), m)
+        return torch.from_numpy(mask).to(state["step"].device)
+
+    def bytes_per_round(self, cfg, params, opt=None) -> int:
+        # fleet average per agent: only m of B agents hit the wire a round
+        full = super().bytes_per_round(cfg, params, opt)
+        return full * self.num_participants(cfg) // cfg.num_agents
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveK(FedAvgSync):
+    """Warmup-K: sync every round for the first ``warmup_rounds`` rounds
+    (agents drift fastest early), then only every ``sync_every`` rounds,
+    an effective interval of K·sync_every at steady state.  A skipped
+    round launches nothing."""
+
+    warmup_rounds: int = 4
+    sync_every: int = 2
+    name = "adaptive_k"
+
+    def validate(self, cfg):
+        super().validate(cfg)
+        if self.warmup_rounds < 0 or self.sync_every < 1:
+            raise ValueError("need warmup_rounds >= 0 and sync_every >= 1")
+
+    def syncs_at(self, r: int) -> bool:
+        """Whether round ``r`` ends in a sync."""
+        return r < self.warmup_rounds or (r - self.warmup_rounds + 1) % self.sync_every == 0
+
+    def round_sync(self, fed, state):
+        if not self.syncs_at(_round_index(fed, state)):
+            return state
+        return FedAvgSync.round_sync(self, fed, state)
+
+    def bytes_per_round(self, cfg, params, opt=None) -> int:
+        # steady-state amortised (post-warmup) cost
+        return super().bytes_per_round(cfg, params, opt) // self.sync_every
+
+
+@dataclasses.dataclass(frozen=True)
+class PerStepGradAvg(SyncStrategy):
+    """The paper's distributed-GAN baseline (§3.2): the gradients are
+    averaged over every agent at every step, so the agents stay identical
+    and move as one."""
+
+    sync_dtype: Any = None
+    name = "distributed"
+
+    def grad_hook(self, fed, grad_disc, grad_gen, state):
+        w = fed._w(state["step"].device)
+        return (collectives.average_agents(grad_disc, w, sync_dtype=self.sync_dtype),
+                collectives.average_agents(grad_gen, w, sync_dtype=self.sync_dtype))
+
+    def bytes_per_round(self, cfg, params, opt=None) -> int:
+        wire = collectives.sync_bytes(params, sync_dtype=self.sync_dtype)
+        return 2 * wire * cfg.sync_interval
+
+
+@dataclasses.dataclass(frozen=True)
+class Hierarchical(FedAvgSync):
+    """Two-tier sync for a (P, A) grid of pods: the weighted average within
+    each pod every ``intra_interval`` steps, the full average every K."""
+
+    intra_interval: int = 0
+    name = "hierarchical"
+
+    def validate(self, cfg):
+        super().validate(cfg)
+        if not self.intra_interval or cfg.sync_interval % self.intra_interval:
+            raise ValueError("hierarchical sync needs intra_interval | "
+                             "sync_interval (got "
+                             f"{self.intra_interval} vs {cfg.sync_interval})")
+
+    def segment_sync(self, fed, state):
+        new = dict(state)
+        new["params"] = collectives.average_intra_pod(
+            state["params"], fed._w(state["step"].device))
+        return new
+
+    def bytes_per_round(self, cfg, params, opt=None) -> int:
+        full = FedAvgSync.bytes_per_round(self, cfg, params, opt)
+        n_segs = cfg.sync_interval // self.intra_interval
+        # the segment sync moves the whole params tree at its storage type
+        # (no sync_dtype cast, no optimizer state) inside a pod
+        intra = 2 * collectives.sync_bytes(params)
+        return full + n_segs * intra
+
+
+# the strategies the port has; the robust reduces (trimmed_mean, median)
+# are not ported yet
 STRATEGIES = {
     "fedgan": FedAvgSync,
+    "distributed": PerStepGradAvg,
     "local_only": LocalOnly,
+    "hierarchical": Hierarchical,
     "partial_sharing": PartialSharing,
     "ps_fedgan": PartialSharing,
+    "subsampled": SubsampledFedAvg,
+    "adaptive_k": AdaptiveK,
 }
 
 
@@ -198,6 +436,23 @@ def get_strategy(name: str, **kwargs) -> SyncStrategy:
     try:
         cls = STRATEGIES[name]
     except KeyError:
-        raise ValueError(f"unknown or unported strategy {name!r}; "
+        raise ValueError(f"unknown or unported strategy {name!r} (the robust "
+                         f"reduces trimmed_mean and median are ROADMAP slice 6); "
                          f"ported: {sorted(STRATEGIES)}") from None
     return cls(**kwargs)
+
+
+def strategy_from_mode(mode: str, *, intra_interval: int = 0, sync_dtype=None,
+                       average_opt_state: bool = False) -> SyncStrategy:
+    """Resolve a legacy ``FedGANConfig.mode`` string (and its companion
+    config fields) to the equivalent strategy."""
+    if mode == "fedgan":
+        return FedAvgSync(sync_dtype=sync_dtype, average_opt_state=average_opt_state)
+    if mode == "distributed":
+        return PerStepGradAvg(sync_dtype=sync_dtype)
+    if mode == "local_only":
+        return LocalOnly()
+    if mode == "hierarchical":
+        return Hierarchical(intra_interval=intra_interval, sync_dtype=sync_dtype,
+                            average_opt_state=average_opt_state)
+    raise ValueError(f"unknown mode {mode!r}")

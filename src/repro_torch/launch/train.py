@@ -15,10 +15,19 @@ data, on the card unless told otherwise:
       --codec int4 --topk 0.25         # top-k then int4: the composed sync
   PYTHONPATH=src python -m repro_torch.launch.train --experiment image_acgan \
       --strategy partial_sharing --codec int8   # generator-only sync
+  PYTHONPATH=src python -m repro_torch.launch.train --experiment toy_2d \
+      --strategy distributed           # the paper's per-step baseline
+  PYTHONPATH=src python -m repro_torch.launch.train --experiment image_acgan \
+      --agents 8 --strategy hierarchical --intra-interval 5
+  PYTHONPATH=src python -m repro_torch.launch.train --experiment swiss_roll \
+      --strategy subsampled --participation 0.5 --sync-dtype bf16
+  PYTHONPATH=src python -m repro_torch.launch.train --experiment image_acgan \
+      --ckpt-dir /tmp/ckpt             # checkpoints every n_rounds // 4 rounds
   PYTHONPATH=src python -m repro_torch.launch.train --experiment image_acgan \
       --device cpu --steps 20
 
-``--device cuda`` (the default) raises when no GPU is present.
+``--device cuda`` (the default) raises when no GPU is present.  The
+legacy ``--mode`` still resolves through the deprecation shim.
 """
 from __future__ import annotations
 
@@ -86,8 +95,10 @@ class RunSpec:
     opt_d: Any = dataclasses.field(default_factory=Adam)
     strategy: Any = None            # SyncStrategy; None -> FedAvgSync
     sample_extra: Any = None
+    weights: Any = None             # (P, A) §3.1 agent weights; None -> uniform
     seed: int = 0
     log_every: int = 1
+    ckpt_dir: str = ""              # checkpoints every n_rounds // 4 rounds
     eval_every: int = 0             # rounds between eval-hook points
     eval_hooks: Any = ()
     device: str = "cuda"
@@ -101,7 +112,8 @@ class RunSpec:
                       FedGANConfig(agent_grid=self.agent_grid,
                                    sync_interval=self.K, strategy=self.strategy),
                       opt_g=self.opt_g, opt_d=self.opt_d,
-                      scales=self.scales or equal_timescale(constant(1e-3)))
+                      scales=self.scales or equal_timescale(constant(1e-3)),
+                      weights=self.weights)
 
     def build_data(self) -> DeviceFederatedData:
         return DeviceFederatedData.from_agent_data(
@@ -116,7 +128,8 @@ class RunSpec:
                                device=self.device)
         driver = RoundDriver(fed, self.build_data(), self.n_rounds,
                              log_every=self.log_every, eval_every=self.eval_every,
-                             eval_hooks=self.eval_hooks,
+                             eval_hooks=self.eval_hooks, ckpt_dir=self.ckpt_dir,
+                             ckpt_every=max(self.n_rounds // 4, 1) if self.ckpt_dir else 0,
                              verbose=bool(self.log_every))
         return driver.run(self.seed + 1, state=state)
 
@@ -131,12 +144,9 @@ def _pooled_real(agent_data, seed: int = 0):
     return xs[perm.to(xs.device)]
 
 
-def _refuse_unported(*, ckpt_dir, a_total, dp, data_mode):
+def _refuse_unported(*, a_total, dp, data_mode):
     """Flags that reach a part of the reference not ported yet raise and
     name where it comes; none is silently ignored."""
-    if ckpt_dir:
-        raise NotImplementedError("ckpt_dir: checkpoints (checkpoint/store.py, "
-                                  "the driver's ckpt_dir) are not ported yet")
     if a_total:
         raise NotImplementedError("a_total: the virtual-client fleet is not "
                                   "ported yet (ROADMAP slice 7)")
@@ -151,28 +161,33 @@ def _refuse_unported(*, ckpt_dir, a_total, dp, data_mode):
 def experiment_spec(name: str, *, K: int | None = None,
                     steps: int | None = None, seed: int = 0, strategy=None,
                     batch_size: int | None = None,
-                    log_every: int | None = None, eval_every: int = 0,
-                    device="cuda", ckpt_dir: str = "", a_total: int = 0,
+                    agents: int | None = None, log_every: int | None = None,
+                    eval_every: int = 0, device="cuda", ckpt_dir: str = "",
+                    samples_per_agent: int | None = None, a_total: int = 0,
                     dp=None, data_mode: str = "device"):
     """``(RunSpec, EvalSuite)`` for one of the paper's experiments on its
     synthetic stand-in data, built on ``device`` from a ``torch.Generator``
     seeded with ``seed``: the reference's recipe (nets, non-iid split,
     shard sizes, optimizers, schedules), the same distributions, other
-    bits.  ``K``, ``steps``, ``batch_size`` and ``log_every`` override the
-    experiment's defaults; ``eval_every`` wires the suite into
-    the driver as an eval hook every that many rounds.
+    bits.  ``K``, ``steps``, ``batch_size``, ``agents`` (B; the modes,
+    class slices and climate zones wrap past the experiment's own B, as in
+    the reference), ``samples_per_agent`` and ``log_every`` override the
+    experiment's defaults; ``eval_every`` wires the suite into the driver
+    as an eval hook every that many rounds; ``ckpt_dir`` checkpoints the
+    run every ``n_rounds // 4`` rounds.
 
-    ``ckpt_dir``, ``a_total``, ``dp`` and ``data_mode="stream"`` reach
-    parts not ported yet and raise."""
+    ``a_total``, ``dp`` and ``data_mode="stream"`` reach parts not ported
+    yet and raise."""
     from repro_torch.run.evals import EvalSuite, eval_hook
     if name not in ALL_EXPERIMENTS:
         raise KeyError(f"unknown experiment {name!r}; known: {sorted(ALL_EXPERIMENTS)}")
-    _refuse_unported(ckpt_dir=ckpt_dir, a_total=a_total, dp=dp, data_mode=data_mode)
+    _refuse_unported(a_total=a_total, dp=dp, data_mode=data_mode)
     dev = resolve_device(device)
     exp = ALL_EXPERIMENTS[name]
     K = K or exp.default_K
     steps = steps or exp.iterations
-    B = exp.num_agents
+    B = agents or exp.num_agents
+    n_of = lambda default: samples_per_agent or default  # noqa: E731
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def normal(*shape):
@@ -180,7 +195,7 @@ def experiment_spec(name: str, *, K: int | None = None,
 
     if name == "toy_2d":
         task, (G, _) = toy2d_task()
-        agent_data = [{"x": synthetic.sample_2d_segment(gen, 4096, i, B)}
+        agent_data = [{"x": synthetic.sample_2d_segment(gen, n_of(4096), i, B)}
                       for i in range(B)]
 
         def uniform(g, shape):
@@ -193,11 +208,12 @@ def experiment_spec(name: str, *, K: int | None = None,
         task, (G, _) = mlp_gan_task()
         if name == "mixed_gaussian":   # 8 modes on the circle, two per agent
             agent_data = [{"x": synthetic.sample_mixed_gaussian(
-                gen, 8192, mode_subset=[2 * i, 2 * i + 1])} for i in range(B)]
+                gen, n_of(8192), mode_subset=[(2 * i) % 8, (2 * i + 1) % 8])}
+                for i in range(B)]
             modes = synthetic.mixed_gaussian_modes(device=dev)
         else:
             agent_data = [{"x": synthetic.sample_swiss_roll(
-                gen, 8192, t_range=(0.25 + 0.75 * i / B, 0.25 + 0.75 * (i + 1) / B))}
+                gen, n_of(8192), t_range=(0.25 + 0.75 * i / B, 0.25 + 0.75 * (i + 1) / B))}
                 for i in range(B)]
             modes = None
         extra = normal(2)
@@ -208,12 +224,14 @@ def experiment_spec(name: str, *, K: int | None = None,
     elif name in ("image_acgan", "celeba_acgan"):
         ncls = 16 if name == "celeba_acgan" else 10
         task, (G, _) = acgan_task(hw=16, num_classes=ncls)
-        per = ncls // B
+        per = max(ncls // B, 1)
         agent_data = []
-        for i in range(B):   # agent i holds classes [i * per, (i + 1) * per)
-            lab = torch.randint(i * per, (i + 1) * per, (2048,), generator=gen,
+        for i in range(B):   # agent i holds classes [lo, lo + per), wrapping
+            lo = (i * per) % ncls
+            lab = torch.randint(lo, min(lo + per, ncls), (n_of(2048),), generator=gen,
                                 device=dev)
-            img = synthetic.sample_class_images(gen, 2048, lab, hw=16, num_classes=ncls)
+            img = synthetic.sample_class_images(gen, n_of(2048), lab, hw=16,
+                                                num_classes=ncls)
             agent_data.append({"x": img, "y": lab})
         extra = normal(62)
 
@@ -226,8 +244,8 @@ def experiment_spec(name: str, *, K: int | None = None,
         task, (G, _) = cgan1d_task()
         agent_data = []
         for i in range(B):
-            cz = torch.full((4096,), i, dtype=torch.int64, device=dev)  # zone i of 5
-            x = synthetic.sample_household_load(gen, 4096, climate_zone=cz)
+            cz = torch.full((n_of(4096),), i % 5, dtype=torch.int64, device=dev)  # 5 zones
+            x = synthetic.sample_household_load(gen, n_of(4096), climate_zone=cz)
             agent_data.append({"x": x, "y": one_hot(cz, 5)})
         extra = normal(24)
 
@@ -244,10 +262,14 @@ def experiment_spec(name: str, *, K: int | None = None,
         batch_size=batch_size or exp.batch_size, scales=scales_for(exp),
         opt_d=opt_d, opt_g=opt_g, strategy=strategy, sample_extra=extra, seed=seed,
         log_every=max((steps // K) // 10, 1) if log_every is None else log_every,
-        eval_every=eval_every,
+        ckpt_dir=ckpt_dir, eval_every=eval_every,
         eval_hooks=(eval_hook(suite, seed=seed),) if eval_every else (),
         device=str(dev))
     return spec, suite
+
+
+_SYNC_DTYPES = {"": None, "f32": torch.float32, "bf16": torch.bfloat16,
+                "bfloat16": torch.bfloat16, "f16": torch.float16}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -259,6 +281,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="total local steps (0 = experiment default)")
     ap.add_argument("--strategy", default="",
                     choices=[""] + sorted(strategies.STRATEGIES))
+    ap.add_argument("--mode", default="",
+                    help="DEPRECATED: legacy mode string (use --strategy)")
+    ap.add_argument("--intra-interval", type=int, default=0,
+                    help="hierarchical: steps between intra-pod averages")
+    ap.add_argument("--sync-dtype", default="", choices=sorted(_SYNC_DTYPES),
+                    help="wire dtype for compressed sync (e.g. bf16)")
     ap.add_argument("--codec", default="",
                     help="wire codec spec for the compressed sync "
                          "(repro_torch.comm): int8 | int4 | topk | chains "
@@ -271,8 +299,21 @@ def build_parser() -> argparse.ArgumentParser:
                          "prepends) the codec's sparsifier stage")
     ap.add_argument("--average-opt-state", action="store_true",
                     help="FedAvg the optimizer moments along with the params")
+    ap.add_argument("--participation", type=float, default=0.0,
+                    help="subsampled: per-round participating fraction")
+    ap.add_argument("--warmup-rounds", type=int, default=0,
+                    help="adaptive_k: rounds that sync every round")
+    ap.add_argument("--sync-every", type=int, default=0,
+                    help="adaptive_k: post-warmup rounds between syncs")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="",
+                    help="checkpoint the state here every n_rounds // 4 rounds")
     ap.add_argument("--batch-size", type=int, default=0,
                     help="per-agent minibatch size (0 = experiment default)")
+    ap.add_argument("--agents", type=int, default=0,
+                    help="number of agents B (0 = experiment default)")
+    ap.add_argument("--samples-per-agent", type=int, default=0,
+                    help="per-agent dataset size (0 = experiment default)")
     ap.add_argument("--eval-every", type=int, default=0,
                     help="rounds between scorings of the intermediary's "
                          "generator (repro_torch.evals; 0 = none)")
@@ -287,34 +328,60 @@ def build_parser() -> argparse.ArgumentParser:
 def strategy_from_args(args) -> strategies.SyncStrategy | None:
     """CLI flags -> SyncStrategy (None keeps the default ``FedAvgSync()``).
     A knob the chosen strategy does not declare is an error, not a silent
-    no-op.  A bare ``--codec`` or ``--average-opt-state`` implies the
-    ``fedgan`` strategy."""
+    no-op.  Without ``--strategy`` and ``--mode``, any strategy knob
+    (``--codec``, ``--sync-dtype``, ``--average-opt-state``,
+    ``--intra-interval``, ``--participation``, ``--warmup-rounds``,
+    ``--sync-every``) implies the ``fedgan`` strategy; the reference does
+    so for ``--codec`` alone and drops the others unread."""
+    sync_dtype = _SYNC_DTYPES[args.sync_dtype]
     codec = codec_from_flags(args.codec, bits=args.codec_bits, topk=args.topk)
-    if not (args.strategy or codec is not None or args.average_opt_state):
-        return None
-    cls = strategies.STRATEGIES[args.strategy] if args.strategy else FedAvgSync
-    fields = {f.name for f in dataclasses.fields(cls)}
+    if codec is not None and args.sync_dtype:
+        raise ValueError(
+            "--codec and --sync-dtype are both wire compressions; pick one "
+            "(chain codecs via --codec a+b instead)")
     requested = {}
+    if args.sync_dtype:
+        requested["sync_dtype"] = sync_dtype
     if codec is not None:
         requested["codec"] = codec
     if args.average_opt_state:
         requested["average_opt_state"] = True
-    stray = sorted(set(requested) - fields)
-    if stray:
-        name = args.strategy or "fedgan (implied by --codec)"
-        raise ValueError(f"--strategy {name} does not accept {stray} "
-                         f"(its knobs: {sorted(fields)})")
-    return cls(**requested)
+    if args.intra_interval:
+        requested["intra_interval"] = args.intra_interval
+    if args.participation:
+        requested["fraction"] = args.participation
+    if args.warmup_rounds:
+        requested["warmup_rounds"] = args.warmup_rounds
+    if args.sync_every:
+        requested["sync_every"] = args.sync_every
+    if args.strategy or (requested and not args.mode):
+        cls = strategies.STRATEGIES[args.strategy] if args.strategy else FedAvgSync
+        fields = {f.name for f in dataclasses.fields(cls)}
+        stray = sorted(set(requested) - fields)
+        if stray:
+            name = args.strategy or "fedgan (implied by the strategy flags)"
+            raise ValueError(f"--strategy {name} does not accept {stray} "
+                             f"(its knobs: {sorted(fields)})")
+        return cls(**requested)
+    if args.mode:
+        if codec is not None:
+            raise ValueError("--codec requires --strategy (the legacy "
+                             "--mode strings predate the codec axis)")
+        return strategies.strategy_from_mode(
+            args.mode, intra_interval=args.intra_interval,
+            sync_dtype=sync_dtype, average_opt_state=args.average_opt_state)
+    return None
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     strategy = strategy_from_args(args)
     spec, _ = experiment_spec(
-        args.experiment, K=args.K or None, steps=args.steps or None,
+        args.experiment, K=args.K or None, steps=args.steps or None, seed=args.seed,
         strategy=strategy, batch_size=args.batch_size or None,
-        log_every=None if args.log_every < 0 else args.log_every,
-        eval_every=args.eval_every, device=args.device)
+        agents=args.agents or None, log_every=None if args.log_every < 0 else args.log_every,
+        eval_every=args.eval_every, device=args.device, ckpt_dir=args.ckpt_dir,
+        samples_per_agent=args.samples_per_agent or None)
     result = spec.run_result()
     for e in result.evals:
         print(json.dumps({"eval": True, **e}))

@@ -1,3 +1,3 @@
-from repro_torch.run.driver import RoundDriver, RunResult
+from repro_torch.run.driver import RoundDriver, RunResult, train
 
-__all__ = ["RoundDriver", "RunResult"]
+__all__ = ["RoundDriver", "RunResult", "train"]

@@ -14,6 +14,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.data.federated import round_key_schedule
 from repro_torch.tree import tree_map
 
@@ -42,7 +43,9 @@ class RoundDriver:
     """Drives ``n_rounds`` FedGAN rounds over a ``DeviceFederatedData``.
     ``eval_hooks`` entries are callables ``(fed, state, round_idx) ->
     dict``, run every ``eval_every`` rounds on the state right after the
-    round's sync."""
+    round's sync.  With ``ckpt_dir`` and ``ckpt_every`` the state after
+    round r is saved at step (r + 1)·K whenever ``(r + 1) % ckpt_every ==
+    0``, with metadata ``{"round": r, "K": K}``."""
 
     fed: Any
     data: Any
@@ -50,6 +53,8 @@ class RoundDriver:
     log_every: int = 1
     eval_every: int = 0
     eval_hooks: Sequence[Callable] = ()
+    ckpt_every: int = 0
+    ckpt_dir: str = ""
     verbose: bool = True
 
     def __post_init__(self):
@@ -96,8 +101,8 @@ class RoundDriver:
         return RunResult(self.fed, state, history, evals, timings)
 
     def _boundaries(self, state, r, metrics, evals):
-        """Per-round host work: logging (the only mid-run metric fetch) and
-        the periodic eval hooks."""
+        """Per-round host work: logging (the only mid-run metric fetch),
+        the periodic eval hooks and the periodic checkpoints."""
         K = self.fed.cfg.sync_interval
         last = r == self.n_rounds - 1
         if self.log_every and (r % self.log_every == 0 or last):
@@ -111,3 +116,11 @@ class RoundDriver:
             for hook in self.eval_hooks:
                 scores.update(hook(self.fed, state, r))
             evals.append({"round": r, "step": (r + 1) * K, **scores})
+        if self.ckpt_dir and self.ckpt_every and (r + 1) % self.ckpt_every == 0:
+            save_checkpoint(self.ckpt_dir, state, step=(r + 1) * K,
+                            metadata={"round": r, "K": K})
+
+
+def train(fed, data, n_rounds: int, seed: int, **kwargs) -> RunResult:
+    """One-call convenience over :class:`RoundDriver`."""
+    return RoundDriver(fed, data, n_rounds, **kwargs).run(seed)

@@ -7,6 +7,8 @@
         --codec int4 --topk 0.25             # the composed coded sync
     PYTHONPATH=src python -m repro_torch.run.profile --experiment image_acgan \
         --codec int8 --composed              # int8, fused_sync=False
+    PYTHONPATH=src python -m repro_torch.run.profile --experiment image_acgan \
+        --strategy distributed [--sync-dtype bf16]   # the per-step baseline
     PYTHONPATH=src python -m repro_torch.run.profile --experiment mixed_gaussian  # any of the six
     PYTHONPATH=src python -m repro_torch.run.profile --arch gemma3-4b    # prefill + decode
     PYTHONPATH=src python -m repro_torch.run.profile --arch mamba2-2.7b  # forward
@@ -19,7 +21,7 @@ device kernels over the profiled wall time; one stream, so kernels do not
 overlap), that time split into convolutions and matrix products, the sync
 kernels and everything else, and the kernels that take the most device
 time, and each sync kernel's calls and device ms per round.  The sync
-kernels are fedavg, qsync and the four qpack kernels; the top-k
+kernels are fedavg (all three routes), qsync and the four qpack kernels; the top-k
 selection's sort and the composed path's small PyTorch operations count as
 everything else.  On the CPU the device numbers are null.
 
@@ -47,11 +49,11 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.comm import codec_from_flags
 from repro_torch.configs.paper_gans import ALL_EXPERIMENTS
 from repro_torch.configs.registry import list_archs
-from repro_torch.core import FedAvgSync
+from repro_torch.core import STRATEGIES, FedAvgSync, get_strategy
 from repro_torch.data.federated import round_key_schedule
-from repro_torch.launch.train import experiment_spec
+from repro_torch.launch.train import _SYNC_DTYPES, experiment_spec
 
-SYNC_KERNELS = ("fedavg_kernel", "qsync_kernel", "qpack_")
+SYNC_KERNELS = ("fedavg_", "qsync_kernel", "qpack_")
 MATMUL_MARKS = ("conv", "gemm", "xmma", "cudnn", "cutlass", "wgrad", "dgrad")
 
 
@@ -65,12 +67,17 @@ def _category(name: str) -> str:
 
 
 def profile_rounds(name="image_acgan", *, codec="", topk=0.0, composed=False,
-                   rounds=2, top=12, device="cuda", **spec_kw) -> dict:
+                   strategy=None, rounds=2, top=12, device="cuda", **spec_kw) -> dict:
     """``codec`` and ``topk`` as the training CLI's flags (error feedback
-    on); ``composed`` forces the per-leaf pipeline (``fused_sync=False``)."""
+    on); ``composed`` forces the per-leaf pipeline (``fused_sync=False``).
+    ``strategy`` (a ``SyncStrategy``) profiles that sync instead, and
+    does not combine with the coded sync's knobs."""
+    if strategy is not None and (codec or topk or composed):
+        raise ValueError("codec, topk and composed build the coded FedAvgSync; "
+                         f"they do not combine with strategy={strategy.name!r}")
     c = codec_from_flags(codec, topk=topk)
-    strategy = (FedAvgSync(codec=c, fused_sync=False if composed else None)
-                if c is not None else None)
+    if strategy is None and c is not None:
+        strategy = FedAvgSync(codec=c, fused_sync=False if composed else None)
     spec, _ = experiment_spec(name, strategy=strategy, log_every=0, device=device,
                               **spec_kw)
     dev = torch.device(spec.device)
@@ -102,6 +109,7 @@ def profile_rounds(name="image_acgan", *, codec="", topk=0.0, composed=False,
     on_card = dev.type == "cuda"
     return {
         "experiment": name, "codec": c.name if c is not None else None,
+        "strategy": fed.cfg.resolve_strategy().name,
         "fused_sync": None if c is None else not composed and c.fused_sync_spec() is not None,
         "rounds": rounds,
         "K": spec.K, "agents": fed.cfg.num_agents, "batch": spec.batch_size,
@@ -200,6 +208,10 @@ def main(argv=None):
                     help="top-k fraction, as the training CLI's --topk")
     ap.add_argument("--composed", action="store_true",
                     help="the composed per-leaf coded sync (fused_sync=False)")
+    ap.add_argument("--strategy", default="", choices=["", *sorted(STRATEGIES)],
+                    help="profile this sync strategy (its defaults) instead")
+    ap.add_argument("--sync-dtype", default="", choices=sorted(_SYNC_DTYPES),
+                    help="the strategy's sync_dtype, as the training CLI's")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--arch", default="", choices=["", *list_archs()],
                     help="profile this backbone at full width instead of an experiment")
@@ -208,9 +220,13 @@ def main(argv=None):
     if args.arch:
         out = profile_backbone(args.arch, device=args.device)
     else:
+        if args.sync_dtype and not args.strategy:
+            raise ValueError("--sync-dtype is a knob of --strategy; name the strategy")
+        kw = {"sync_dtype": _SYNC_DTYPES[args.sync_dtype]} if args.sync_dtype else {}
+        strategy = get_strategy(args.strategy, **kw) if args.strategy else None
         out = profile_rounds(args.experiment, codec=args.codec, topk=args.topk,
-                             composed=args.composed, rounds=args.rounds,
-                             device=args.device)
+                             composed=args.composed, strategy=strategy,
+                             rounds=args.rounds, device=args.device)
     print(json.dumps(out))
     return out
 

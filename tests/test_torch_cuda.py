@@ -10,6 +10,9 @@ that has only PyTorch:
 Tolerances, with their reasons: fedavg float32 within 1e-6 of
 sum_b |w_b x_bn| (another summation order of B products), bfloat16 one
 bfloat16 ulp more (the f32 sum may round to the neighbouring bfloat16);
+fedavg's wire and pod routes bit-identical (both sum in agent order with
+the same roundings: the products rounded to the wire type, or one fused
+multiply-add each, which the plain version emulates exactly in float64);
 qsync bit-identical in every output (kernel and plain version both sum
 the rounded products in agent order and round every step alike); the fused
 Adam + quantize kernel bit-identical to its plain version and to
@@ -37,8 +40,8 @@ from torch_shared import CARD_K, ROUND_TASKS, port_round_mismatches
 from repro_torch.comm import IntQuant, get_codec
 from repro_torch.core import FedAvgSync
 from repro_torch.dist import collectives
-from repro_torch.kernels.fedavg.kernel import fedavg_flat
-from repro_torch.kernels.fedavg.ref import fedavg_flat_ref
+from repro_torch.kernels.fedavg.kernel import fedavg_flat, fedavg_pod_flat, fedavg_wire_flat
+from repro_torch.kernels.fedavg.ref import fedavg_flat_ref, fedavg_pod_ref, fedavg_wire_ref
 from repro_torch.kernels.qpack import kernel as pkernel
 from repro_torch.kernels.qpack import ref as pref
 from repro_torch.kernels.qsync import kernel as qkernel
@@ -86,6 +89,78 @@ def test_fedavg_kernel_matches_plain(cuda, dtype):
         fedavg_flat(w, x.t().contiguous().t())
     with pytest.raises(ValueError, match="CUDA device"):
         fedavg_flat(w.cpu(), x)
+
+
+def _same_bits(a, b):
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16}[a.dtype]
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 1027, 100_003])
+@pytest.mark.parametrize("B", [5, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_fedavg_wire_kernel_matches_plain(cuda, dtype, B, N):
+    g = torch.Generator(device=cuda).manual_seed(B + N)
+    w = torch.rand((1, B), generator=g, device=cuda) + 0.1
+    w = w / w.sum()
+    scale = torch.tensor([1e-3, 1.0, 30.0], device=cuda)[
+        torch.randint(0, 3, (B, N), generator=g, device=cuda)]
+    x = (torch.randn((B, N), generator=g, device=cuda) * scale).to(dtype)
+    before = fedavg_wire_flat.launches
+    got = fedavg_wire_flat(w, x)
+    torch.cuda.synchronize()
+    assert fedavg_wire_flat.launches == before + 1
+    assert _same_bits(got, fedavg_wire_ref(w, x))
+    with pytest.raises(TypeError, match="bfloat16 or"):
+        fedavg_wire_flat(w, x.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        fedavg_wire_flat(w, torch.cat([x, x], dim=1)[:, ::2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 513, 100_003])
+@pytest.mark.parametrize("grid", [(1, 5), (2, 4), (4, 4), (3, 5)])
+def test_fedavg_pod_kernel_matches_plain(cuda, grid, N):
+    g = torch.Generator(device=cuda).manual_seed(sum(grid) + N)
+    w = torch.rand(grid, generator=g, device=cuda) + 0.1
+    w = w / w.sum()
+    scale = torch.tensor([1e-3, 1.0, 30.0], device=cuda)[
+        torch.randint(0, 3, grid + (N,), generator=g, device=cuda)]
+    x = torch.randn(grid + (N,), generator=g, device=cuda) * scale
+    before = fedavg_pod_flat.launches
+    got = fedavg_pod_flat(w, x)
+    torch.cuda.synchronize()
+    assert fedavg_pod_flat.launches == before + 1
+    assert _same_bits(got, fedavg_pod_ref(w, x))
+    with pytest.raises(TypeError, match="float32"):
+        fedavg_pod_flat(w, x.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_collectives_on_card_run_through_the_routes(cuda):
+    """``average_agents(sync_dtype=bfloat16)`` launches the wire route once
+    for a tree, ``average_intra_pod`` the pod route once, each result the
+    CPU's bit for bit."""
+    g = torch.Generator().manual_seed(0)
+    w = torch.rand((2, 4), generator=g) + 0.1
+    w = w / w.sum()
+    tree = {"a": torch.randn((2, 4, 3, 5), generator=g), "b": torch.randn((2, 4, 1001), generator=g),
+            "n": torch.ones((2, 4), dtype=torch.int32)}
+    on = lambda t: tree_map(lambda x: x.to(cuda), t)  # noqa: E731
+    for fn, counter in ((lambda t, w: collectives.average_agents(t, w, sync_dtype=torch.bfloat16),
+                         fedavg_wire_flat),
+                        (collectives.average_intra_pod, fedavg_pod_flat)):
+        before = counter.launches
+        got = fn(on(tree), w.to(cuda))
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        want = fn(tree, w)
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            assert torch.equal(a.cpu(), b) and a.dtype == b.dtype
 
 
 @pytest.mark.cuda

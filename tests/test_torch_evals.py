@@ -191,7 +191,8 @@ def test_sweep_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="slice 6"):
         texperiments._strategy_for("fedgan", privacy="dp")
     with pytest.raises(ValueError, match="unported"):
-        texperiments._strategy_for("hierarchical")
+        texperiments._strategy_for("median")
+    assert texperiments._strategy_for("distributed").name == "distributed"
     assert texperiments._strategy_for("fedgan") is None
     assert texperiments._strategy_for("fedgan", "int8").codec.bits == 8
     if not torch.cuda.is_available():

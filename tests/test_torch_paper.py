@@ -452,8 +452,8 @@ def test_experiment_spec_runs_two_rounds(name):
 def test_experiment_spec_refuses_what_is_not_ported():
     """Flags that reach a part not ported yet raise and name where it
     comes; an unknown experiment is a KeyError."""
-    for kw, match in (({"ckpt_dir": "x"}, "checkpoint"), ({"a_total": 16}, "slice 7"),
-                      ({"dp": object()}, "slice 6"), ({"data_mode": "stream"}, "item 5")):
+    for kw, match in (({"a_total": 16}, "slice 7"), ({"dp": object()}, "slice 6"),
+                      ({"data_mode": "stream"}, "item 5")):
         with pytest.raises(NotImplementedError, match=match):
             ttrain.experiment_spec("toy_2d", device="cpu", **kw)
     with pytest.raises(KeyError):

@@ -45,7 +45,7 @@ def _pair(opt, codec):
                           FedAvgSync(codec=IntQuant(8)) if codec else None)
 
 
-def _strategy_pair(opt, jstrategy, tstrategy, hw=HW, grid=GRID):
+def _strategy_pair(opt, jstrategy, tstrategy, hw=HW, grid=GRID, k=K):
     """The same FedGAN in both packages, ACGAN nets at ``hw``, with the
     given sync strategies (None for the default)."""
     from repro.core import FedGAN as JFedGAN, FedGANConfig as JConfig
@@ -56,10 +56,10 @@ def _strategy_pair(opt, jstrategy, tstrategy, hw=HW, grid=GRID):
     topt, lr = OPTS[opt]
     jtask, _ = j_acgan_task(hw=hw)
     ttask, _ = train.acgan_task(hw=hw)
-    jfed = JFedGAN(jtask, JConfig(agent_grid=grid, sync_interval=K,
+    jfed = JFedGAN(jtask, JConfig(agent_grid=grid, sync_interval=k,
                                   strategy=jstrategy),
                    opt_g=jopt(), opt_d=jopt(), scales=jequal(jconst(lr)))
-    tfed = FedGAN(ttask, FedGANConfig(agent_grid=grid, sync_interval=K,
+    tfed = FedGAN(ttask, FedGANConfig(agent_grid=grid, sync_interval=k,
                                       strategy=tstrategy),
                   opt_g=topt(), opt_d=topt(), scales=equal_timescale(constant(lr)))
     return jfed, tfed, lr
@@ -70,19 +70,99 @@ def coarsest_quanta(tfed, state, batches, qmax=127):
     either wire: max|v| / qmax over the agents' uplink values y = pre-sync
     params + EF residual (the same K steps without the sync, run by the
     port), with 1% for the float16 rounding of the scale."""
-    local = dataclasses.replace(
-        tfed, cfg=dataclasses.replace(tfed.cfg, strategy=LocalOnly()))
-    pre, _ = local.round(state, batches)
+    pre = presync_params(tfed, state, batches)
     return {k: [1.01 * float((p + e).abs().max()) / qmax
-                for p, e in zip(tree_leaves(pre["params"][k]), tree_leaves(e_tree))]
+                for p, e in zip(tree_leaves(pre[k]), tree_leaves(e_tree))]
             for k, e_tree in state["ef"].items()}
 
 
-def _batches(rng):
-    lead = (K,) + GRID + (BATCH,)
+def presync_params(tfed, state, batches):
+    """The agents' params after the round's K local steps, before its sync
+    (the same steps under ``LocalOnly``, run by the port)."""
+    local = dataclasses.replace(
+        tfed, cfg=dataclasses.replace(tfed.cfg, strategy=LocalOnly()))
+    return local.round(state, batches)[0]["params"]
+
+
+def _batches(rng, grid=GRID, k=K):
+    lead = (k,) + tuple(grid) + (BATCH,)
     return {"x": rng.uniform(-1, 1, lead + (HW, HW, 3)).astype(np.float32),
             "y": rng.integers(0, 10, lead).astype(np.int32),
             "z": rng.standard_normal(lead + (62,)).astype(np.float32)}
+
+
+# a wire dtype's largest ulp relative to the value it rounds
+_WIRE_REL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+
+
+def assert_round_close(tfed, start, batches, got, want, opt, lr, codec, synced=True,
+                       wire=None):
+    """One round of the port (``got``, from ``start`` on ``batches``, trees
+    of tensors) against the reference's (``want``, numpy) at ACGAN width:
+    SGD within 1e-5 of each leaf's magnitude, Adam within 2·K·lr.  On at
+    most 2% of the elements, two lossy wires may add to that:
+    * an int8 ``codec``: one quantum of the leaf's coarsest block on the
+      params and EF residuals (a value within roundoff of a rounding tie
+      may take the neighbouring code);
+    * a ``wire`` dtype (a ``sync_dtype``; SGD only): one wire ulp of the
+      synced value, for the same reason.  Under ``FedAvgSync``: two wire
+      ulps of the largest pre-sync agent value at the element (each agent's
+      cast, its product and the mean's rounding may each take the
+      neighbouring value).  Under ``PerStepGradAvg``
+      it is each step's averaged gradient's, K·lr·``_WIRE_REL`` of the
+      leaf's largest first-step gradient, on any share of the elements:
+      the reference's per-step average runs compiled, where XLA's CPU
+      backend keeps each product w_T·x in float32 instead of rounding it
+      to the wire type as ``weighted_mean`` does op by op (and the port
+      does), so the averaged gradients differ by one wire ulp on about a
+      third of the elements (``test_torch_collectives.py``).  Both
+      averages still land on the wire grid, so the params must agree bit
+      for bit on at least half the elements (about 60% do; an average
+      that skips the cast to the wire type leaves about 0.1%).
+    With ``synced`` every agent must hold the same params."""
+    import jax
+    got = to_jax_params(got)
+    K_ = tfed.cfg.sync_interval
+    assert sorted(got) == sorted(want)
+    assert int(got["step"]) == int(want["step"])
+    quanta = coarsest_quanta(tfed, start, batches) if codec else None
+    quanta = quanta["disc"] + quanta["gen"] if codec else None
+    if wire is not None and tfed.cfg.strategy.name == "distributed":
+        grads = first_step_grads(tfed, start, batches)
+        gmax = [float(g.abs().max()) for g in tree_leaves(grads["disc"])
+                + tree_leaves(grads["gen"])]
+    elif wire is not None:
+        pre = presync_params(tfed, start, batches)
+        xmax = [x.abs().amax((0, 1), keepdim=True).numpy()
+                for x in tree_leaves(pre["disc"]) + tree_leaves(pre["gen"])]
+    leaves = lambda t: [np.asarray(x) for x in jax.tree_util.tree_leaves(t)]  # noqa: E731
+    if synced:
+        for g in leaves(got["params"]):
+            assert (g == g[:1, :1]).all()   # every agent holds the synced value
+    over, differ, total = 0, 0, 0
+    for key in ("params", "ef") if codec else ("params",):
+        for i, (g, w) in enumerate(zip(leaves(got[key]), leaves(want[key]))):
+            tol = (1e-5 * max(1.0, float(np.abs(w).max())) if opt == "sgd"
+                   else 2 * K_ * lr)
+            diff = np.abs(g - w)
+            if codec:
+                extra = max(quanta[i], 1.01 * float(np.abs(w).max()) / 127
+                            if key == "params" else 0.0)
+            elif wire is not None:
+                extra = (K_ * lr * _WIRE_REL[wire] * gmax[i]
+                         if tfed.cfg.strategy.name == "distributed"
+                         else 2 * _WIRE_REL[wire] * xmax[i])
+            else:
+                extra = 0.0
+            assert np.all(diff <= tol + extra), (key, i, float(diff.max()), tol)
+            if wire is None or tfed.cfg.strategy.name != "distributed":
+                over += int((diff > tol).sum())
+            differ += int((diff > 0).sum())
+            total += diff.size
+    if wire is not None and tfed.cfg.strategy.name == "distributed":
+        assert differ <= 0.5 * total, (differ, total)
+    else:
+        assert over <= 0.02 * max(total, 1), (over, total)
 
 
 ATOL = 1e-5
