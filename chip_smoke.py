@@ -74,6 +74,27 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    card bit for bit, a run resumed from the first.  The twin of
    ``examples/federated_images.py`` at 40 steps: FedGAN against the
    per-step baseline, the checkpoint restored bit for bit.
+   A. The host-streaming pipeline (``data_mode="stream"``): image_acgan at
+   full width, 3 rounds streamed beside 3 on the device path under
+   ``FedAvgSync()`` and fused int8 + EF, launches exact and equal, ms a
+   round, steps/s and the round gap of both; every uploaded round
+   (pinned, side stream) bit-identical to the blocking
+   ``FederatedRounds.round_batches`` at prefetch 1, 2 and 4; mixed_gaussian
+   streamed at prefetch 2 bit-identical to the blocking loop.
+   B. Rounds in chunks through the captured CUDA graph
+   (``rounds_per_chunk``): toy_2d, mixed_gaussian and swiss_roll, 12
+   rounds at K = 5, bit-identical at 1, 4 and 12 rounds a chunk with
+   exact launches; image_acgan at full width, 3 rounds captured against
+   3 eager under ``FedAvgSync()`` and fused int8 + EF with
+   ``cudnn.deterministic`` set for the two runs and restored, states
+   bit-identical, launches exact; mixed_gaussian (K = 10, 8 rounds) under
+   ``PerStepGradAvg``, ``PartialSharing``, ``FedAvgSync(sync_dtype=
+   bfloat16)``, top-k + int4, composed int8 and ``Hierarchical`` on a (2,
+   4) grid captured in one chunk, bit-identical to its eager rounds with
+   the same launches; ``AdaptiveK`` and ``SubsampledFedAvg``
+   at 4 rounds a chunk run eagerly and report ``captured: False``; ms a
+   round and the profiler's busy share of the eager and the captured
+   round of toy_2d, mixed_gaussian and image_acgan.
 
 5. The paper's own experiments: ``python -m repro_torch.quickstart`` at
    its defaults (B = 5, K = 20, 3,000 SGD steps), ending within 0.1 of
@@ -82,7 +103,8 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    full width for a few rounds with the suite's eval at the end (finite
    FD, mode coverage on mixed_gaussian, agents synced after every round);
    the K-sweep ``run_sweep("toy_2d", Ks=(5, 20, 50), codec_names=("none",
-   "int8"))`` at 1,000 steps a cell with its summary table.  Exact launch
+   "int8"))`` at 1,000 steps a cell with its summary table, at the
+   sweep's default of 8 rounds a captured chunk.  Exact launch
    counts: one fedavg (or, int8, one qsync) per subtree per round, plus
    one fedavg per parameter leaf for each ``averaged_params`` of an eval.
    Every depth cut is printed on its own line.
@@ -1420,10 +1442,10 @@ def run_paper(torch, dev, name, rounds):
 
 def run_ksweep(torch, dev):
     """``run_sweep("toy_2d", Ks=(5, 20, 50), codec_names=("none", "int8"))``
-    at a reduced depth: the summary table, ms per round per cell, and the
-    sync kernels' launches exactly: per round one fedavg (none) or one
-    qsync (int8) per subtree, plus one fedavg per leaf for each cell's
-    final eval."""
+    at a reduced depth, at the sweep's default of 8 rounds a captured
+    chunk: the summary table, ms per round per cell, and the sync kernels'
+    launches exactly: per round one fedavg (none) or one qsync (int8) per
+    subtree, plus one fedavg per leaf for each cell's final eval."""
     import tempfile
     from repro_torch.run.experiments import run_sweep, summary_table
     Ks, steps = (5, 20, 50), 1000
@@ -1444,6 +1466,7 @@ def run_ksweep(torch, dev):
     check(rows == 2 * rounds + len(cells), f"K-sweep: {rows} JSONL rows")
     for c in cells:
         check(math.isfinite(c.final["fd"]), f"K-sweep {c.label} K={c.K}: FD not finite")
+        check(c.timings["captured"], f"K-sweep {c.label} K={c.K}: not captured")
         log(f"K-sweep {c.label} K={c.K}: {c.timings['total_s'] / (steps // c.K) * 1e3:.2f} "
             f"ms/round, {c.timings['steps_per_s']:.1f} steps/s, final {c.final}, "
             f"{c.bytes_per_round} B/round")
@@ -1455,18 +1478,238 @@ def run_ksweep(torch, dev):
     return counts["qsync"]
 
 
+def _states_same(torch, a, b):
+    """Two states (trees of tensors) equal in every byte, leaf by leaf."""
+    from repro_torch.tree import tree_flatten
+    la, da = tree_flatten(a)
+    lb, db = tree_flatten(b)
+    return da == db and all(same_bits(torch, x, y) for x, y in zip(la, lb))
+
+
+def _counted_run(torch, spec, label, want_per_round, rounds):
+    """``spec.run_result()`` with every launch counter set to 0 just
+    before and read just after; the counts must be ``rounds`` times
+    ``want_per_round`` (other kernels: 0).  Returns the result."""
+    counters = launch_counters()
+    _reset(counters)
+    result = spec.run_result()
+    torch.cuda.synchronize()
+    counts = _read(counters)
+    want = {n: rounds * want_per_round.get(n, 0) for n in counters}
+    check(counts == want, f"{label}: launches {counts} in {rounds} rounds, expected {want}")
+    return result
+
+
+def _finite_run(torch, result, label):
+    from repro_torch.tree import tree_leaves
+    check(all(math.isfinite(v) for m in result.history for v in m.values()),
+          f"{label}: non-finite losses")
+    check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(result.state)
+              if x.is_floating_point()), f"{label}: non-finite state")
+
+
+def run_stream(torch, dev):
+    """Phase A, the host-streaming pipeline.  ``image_acgan`` at full width
+    (B = 5, K = 20, batch 64), 3 rounds with ``data_mode="stream"`` beside
+    3 on the device path, under ``FedAvgSync()`` and fused int8 + EF:
+    launches exact and equal to the device path's, finite histories, ms a
+    round, steps/s and round gap for both.  Every uploaded round tensor
+    bit-identical to the blocking ``FederatedRounds.round_batches`` at
+    prefetch 1, 2 and 4; ``mixed_gaussian`` streamed at prefetch 2
+    bit-identical to the blocking loop over the same rounds."""
+    from repro_torch import prng
+    from repro_torch.comm import IntQuant
+    from repro_torch.core import FedAvgSync
+    from repro_torch.data import stream_key_schedule
+    from repro_torch.launch.train import experiment_spec
+    from repro_torch.run.graph import metric_row
+    from repro_torch.tree import tree_leaves, tree_map
+    rounds, K = 3, 20
+    log(f"depth cut: the stream phase runs image_acgan {rounds} rounds x K={K} a run of "
+        "the paper's 30000 steps")
+    for label, strategy, per_round in (
+            ("FedAvgSync()", None, {"fedavg": 2}),
+            ("FedAvgSync(codec=IntQuant(8))", FedAvgSync(codec=IntQuant(bits=8),
+                                                         error_feedback=True), {"qsync": 2})):
+        line = []
+        for mode in ("device", "stream"):
+            spec, _ = experiment_spec("image_acgan", steps=K, strategy=strategy, log_every=0,
+                                      device=dev, data_mode=mode)
+            spec.run_result()                      # warm-up: cuDNN picks algorithms
+            spec = dataclasses.replace(spec, steps=rounds * K)
+            result = _counted_run(torch, spec, f"{mode} {label}", per_round, rounds)
+            _finite_run(torch, result, f"{mode} {label}")
+            check(result.timings["data_kind"] == mode, f"{mode}: ran {result.timings}")
+            t = result.timings
+            line.append(f"{mode} {t['total_s'] / rounds * 1e3:.1f} ms/round, "
+                        f"{t['steps_per_s']:.2f} steps/s, round gap "
+                        f"{t['round_gap_s'] * 1e3:.3f} ms")
+        log(f"stream phase image_acgan {label}: " + "; ".join(line))
+
+    spec, _ = experiment_spec("image_acgan", steps=rounds * K, log_every=0, device=dev,
+                              data_mode="stream")
+    data = spec.build_data()
+    key = prng.key(spec.seed + 1)
+    want = [data.rounds.round_batches(rb) for rb in stream_key_schedule(key, 4)]
+    for prefetch in (1, 2, 4):
+        got = list(dataclasses.replace(data, prefetch=prefetch).iter_rounds(key, 4))
+        torch.cuda.synchronize()
+        check(len(got) == 4, f"stream prefetch {prefetch}: {len(got)} rounds")
+        for r, ((gb, gs), (wb, ws)) in enumerate(zip(got, want)):
+            check(all(x.device.type == "cuda" for x in tree_leaves(gb) + [gs]),
+                  f"stream prefetch {prefetch}: round {r} not on the card")
+            check(sorted(gb) == sorted(wb) and all(
+                same_bits(torch, gb[k].cpu(), wb[k]) for k in wb) and same_bits(
+                    torch, gs.cpu(), ws),
+                f"stream prefetch {prefetch}: round {r} differs from the blocking assembler")
+    log("stream phase: uploads at prefetch 1, 2, 4 bit-identical to the blocking "
+        "assembler (4 rounds of image_acgan, x, y, z and seeds)")
+
+    mg, _ = experiment_spec("mixed_gaussian", steps=4 * 5, log_every=0, device=dev,
+                            data_mode="stream")
+    fed, data = mg.build(), mg.build_data()
+    init = fed.init_state(torch.Generator().manual_seed(mg.seed), device=dev)
+    from repro_torch.run import RoundDriver
+    streamed = RoundDriver(fed, data, mg.n_rounds, log_every=0, verbose=False).run(
+        mg.seed + 1, state=tree_map(torch.clone, init))
+    state, rows = init, []
+    for rb in stream_key_schedule(prng.key(mg.seed + 1), mg.n_rounds):
+        batches, _ = data.rounds.round_batches(rb)
+        state, m = fed.round(state, tree_map(lambda x: x.to(dev), batches))
+        rows.append(metric_row(m, sorted(m)).tolist())
+    check(_states_same(torch, streamed.state, state)
+          and [list(h.values()) for h in streamed.history] == rows,
+          "stream phase: mixed_gaussian streamed at prefetch 2 differs from the blocking loop")
+    log(f"stream phase: mixed_gaussian {mg.n_rounds} rounds streamed at prefetch 2 "
+        "bit-identical to the blocking loop")
+
+
+def _profile_line(name, **kw):
+    from repro_torch.run.profile import profile_rounds
+    out = profile_rounds(name, rounds=3, **kw)
+    return (f"{out['ms_per_round']:.2f} ms/round, busy {out['device_busy_share']:.1%} "
+            f"({sum(out['device_ms_per_round'].values()):.2f} kernel ms a round on "
+            f"{out['device_streams']} streams)")
+
+
+def run_captured(torch, dev):
+    """Phase B, rounds in chunks through the captured CUDA graph.
+    ``toy_2d``, ``mixed_gaussian`` and ``swiss_roll`` (12 rounds at K = 5)
+    at ``rounds_per_chunk`` 1, 4 and 12: histories and states
+    bit-identical, launches exact.  ``image_acgan`` at full width: 3
+    rounds captured against 3 eager under ``FedAvgSync()`` and fused int8 +
+    EF, with ``cudnn.deterministic`` set for both runs (cuDNN's weight
+    gradient is not deterministic otherwise) and restored: states and
+    histories bit-identical, launches exact.  ``AdaptiveK`` and
+    ``SubsampledFedAvg`` at ``rounds_per_chunk=4`` run and report
+    ``captured: False``.  ms a round and the profiler's busy share of each
+    path."""
+    from repro_torch.comm import IntQuant
+    from repro_torch.core import AdaptiveK, FedAvgSync, SubsampledFedAvg
+    from repro_torch.launch.train import experiment_spec
+    for name in ("toy_2d", "mixed_gaussian", "swiss_roll"):
+        spec, _ = experiment_spec(name, K=5, steps=60, log_every=0, device=dev)
+        spec.run_result()                         # warm-up: libraries, algorithms
+        runs, line = {}, []
+        for c in (1, 4, 12):
+            res = _counted_run(torch, dataclasses.replace(spec, rounds_per_chunk=c),
+                               f"{name} rounds_per_chunk={c}", {"fedavg": 2}, 12)
+            check(res.timings["captured"] == (c > 1), f"{name} c={c}: {res.timings}")
+            runs[c] = res
+            line.append(f"c={c} {res.timings['total_s'] / 12 * 1e3:.2f} ms/round")
+        for c in (4, 12):
+            check(runs[c].history == runs[1].history
+                  and _states_same(torch, runs[c].state, runs[1].state),
+                  f"{name}: rounds_per_chunk={c} differs from 1")
+        log(f"captured phase {name}, 12 rounds x K=5, bit-identical at c = 1, 4, 12: "
+            + ", ".join(line))
+
+    # the other sync schedules and wires captured: a per-round host copy
+    # or read in any of them fails the capture
+    from repro_torch.comm import get_codec
+    from repro_torch.core import Hierarchical, PartialSharing, PerStepGradAvg
+    schedules = (
+        ("PerStepGradAvg()", PerStepGradAvg(), {}),
+        ("PartialSharing()", PartialSharing(), {}),
+        ("FedAvgSync(sync_dtype=bfloat16)", FedAvgSync(sync_dtype=torch.bfloat16), {}),
+        ("FedAvgSync(codec=TopK(0.25)+IntQuant(4))",
+         FedAvgSync(codec=get_codec("topk+int4", fraction=0.25)), {}),
+        ("FedAvgSync(codec=IntQuant(8), fused_sync=False)",
+         FedAvgSync(codec=IntQuant(bits=8), fused_sync=False), {}),
+        ("Hierarchical(intra_interval=5) on (2, 4)", Hierarchical(intra_interval=5),
+         {"agents": 8}))
+    for label, strategy, kw in schedules:
+        spec, _ = experiment_spec("mixed_gaussian", K=10, steps=80, strategy=strategy,
+                                  log_every=0, device=dev, **kw)
+        if "agents" in kw:
+            spec = dataclasses.replace(spec, agent_grid=(2, 4))
+        counters = launch_counters()
+        runs = {}
+        for c in (1, 8):
+            _reset(counters)
+            runs[c] = dataclasses.replace(spec, rounds_per_chunk=c).run_result()
+            torch.cuda.synchronize()
+            runs[c].timings["launches"] = _read(counters)
+        check(runs[8].timings["captured"] and runs[8].history == runs[1].history
+              and _states_same(torch, runs[8].state, runs[1].state),
+              f"captured mixed_gaussian under {label} differs from the eager rounds")
+        check(runs[8].timings["launches"] == runs[1].timings["launches"]
+              and any(runs[1].timings["launches"].values()),
+              f"{label}: captured launches {runs[8].timings['launches']}, eager "
+              f"{runs[1].timings['launches']}")
+        log(f"captured phase mixed_gaussian K=10 under {label}: 8 rounds bit-identical "
+            f"to eager, launches {runs[8].timings['launches']}; eager "
+            f"{runs[1].timings['total_s'] / 8 * 1e3:.2f}, captured "
+            f"{runs[8].timings['total_s'] / 8 * 1e3:.2f} ms/round")
+
+    K, rounds = 20, 3
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, strategy, per_round in (
+                ("FedAvgSync()", None, {"fedavg": 2}),
+                ("FedAvgSync(codec=IntQuant(8))", FedAvgSync(codec=IntQuant(bits=8),
+                                                             error_feedback=True),
+                 {"qsync": 2})):
+            spec, _ = experiment_spec("image_acgan", steps=rounds * K, strategy=strategy,
+                                      log_every=0, device=dev)
+            dataclasses.replace(spec, steps=K).run_result()   # warm-up
+            eager = _counted_run(torch, spec, f"eager image_acgan {label}", per_round, rounds)
+            capt = _counted_run(torch, dataclasses.replace(spec, rounds_per_chunk=rounds),
+                                f"captured image_acgan {label}", per_round, rounds)
+            _finite_run(torch, capt, f"captured image_acgan {label}")
+            check(capt.timings["captured"] and not eager.timings["captured"],
+                  f"image_acgan {label}: captured flags {capt.timings}, {eager.timings}")
+            check(capt.history == eager.history and _states_same(torch, capt.state, eager.state),
+                  f"image_acgan {label}: the captured rounds differ from the eager ones")
+            log(f"captured phase image_acgan {label}, {rounds} rounds x K={K}, "
+                f"cudnn.deterministic: bit-identical; eager "
+                f"{eager.timings['total_s'] / rounds * 1e3:.1f} ms/round, captured "
+                f"{capt.timings['total_s'] / rounds * 1e3:.1f} ms/round")
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+    for strategy in (AdaptiveK(warmup_rounds=1, sync_every=2), SubsampledFedAvg(fraction=0.6)):
+        spec, _ = experiment_spec("toy_2d", K=5, steps=40, strategy=strategy, log_every=0,
+                                  device=dev, rounds_per_chunk=4)
+        res = spec.run_result()
+        _finite_run(torch, res, strategy.name)
+        check(res.timings["captured"] is False and len(res.history) == 8,
+              f"{strategy.name} at rounds_per_chunk=4: {res.timings}")
+        log(f"captured phase {strategy.name} at rounds_per_chunk=4: eager rounds, "
+            f"captured false, {res.timings['total_s'] / 8 * 1e3:.2f} ms/round")
+
+    for name in ("toy_2d", "mixed_gaussian"):
+        log(f"profile {name} K=5: eager " + _profile_line(name, K=5, device=dev)
+            + "; captured " + _profile_line(name, K=5, device=dev, captured=True))
+    log("profile image_acgan: eager " + _profile_line("image_acgan", device=dev)
+        + "; captured " + _profile_line("image_acgan", device=dev, captured=True))
+
+
 def launch_counters():
     """Every kernel wrapper of the port, by kernel name."""
-    from repro_torch.kernels.fedavg.kernel import fedavg_flat, fedavg_pod_flat, fedavg_wire_flat
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_bhsd
-    from repro_torch.kernels.qpack import kernel as pk
-    from repro_torch.kernels.qsync.kernel import adam_sync_flat, qsync_flat
-    from repro_torch.kernels.ssd_scan.kernel import ssd_bthd
-    return {"fedavg": fedavg_flat, "fedavg_wire": fedavg_wire_flat,
-            "fedavg_pod": fedavg_pod_flat, "qsync": qsync_flat, "quant": pk.quant_flat,
-            "dequant": pk.dequant_flat, "pack4": pk.pack4_flat,
-            "unpack4": pk.unpack4_flat, "adam_sync": adam_sync_flat,
-            "flash_attention": flash_attention_bhsd, "ssd_scan": ssd_bthd}
+    from repro_torch.kernels import launch_counters as counters
+    return counters()
 
 
 def main() -> int:
@@ -1540,6 +1783,8 @@ def main() -> int:
         records[name]["launches"] = chain_counts[name]
     records["fedavg_wire"]["launches"], records["fedavg_pod"]["launches"] = \
         run_strategy_paths(torch, dev)
+    run_stream(torch, dev)
+    run_captured(torch, dev)
     run_checkpoint(torch, dev)
     run_federated_images(torch, dev)
     run_quickstart(torch, dev)

@@ -129,14 +129,23 @@ class FedGAN:
         default_factory=lambda: equal_timescale(constant(1e-3)))
     weights: Any = None  # (P, A) p_i; None -> uniform
 
+    def __post_init__(self):
+        # the normalised weights, made once per device (see ``_w``)
+        object.__setattr__(self, "_w_on", {})
+
     # ------------------------------------------------------------------
     def _w(self, device):
-        """The normalised (P, A) float32 agent weights on ``device``.  The
-        uniform default is filled there; given ``weights`` are copied
-        there unless they already live on it."""
-        w = (uniform_weights(self.cfg, device) if self.weights is None
-             else torch.as_tensor(self.weights, dtype=torch.float32, device=device))
-        return w / torch.sum(w)
+        """The normalised (P, A) float32 agent weights on ``device``, made
+        there on the first call and kept: the uniform default is filled
+        there, given ``weights`` are copied there once, so no round copies
+        them from the host (a captured round could not)."""
+        dev = torch.device(device)
+        w = self._w_on.get(dev)
+        if w is None:
+            w = (uniform_weights(self.cfg, dev) if self.weights is None
+                 else torch.as_tensor(self.weights, dtype=torch.float32).to(dev))
+            w = self._w_on[dev] = w / torch.sum(w)
+        return w
 
     def init_state(self, gen: torch.Generator, *, device="cuda") -> dict:
         """All agents start from the same (w_hat, theta_hat), Algorithm 1.
@@ -217,6 +226,14 @@ class FedGAN:
         from ``data`` (anything with ``sample_step(generator) -> (P, A,
         batch, ...)``, e.g. ``DeviceFederatedData``) with ``gen``."""
         return self._run_round(state, lambda k: data.sample_step(gen))
+
+    def round_from_draws(self, state, data, draws):
+        """The round of ``round_from_data`` from its K steps' random draws
+        made beforehand (``data.draw_step(gen)`` K times, the order in
+        which ``round_from_data`` makes them): step k trains on
+        ``data.gather_step(draws[k])``.  A captured round
+        (``repro_torch.run.graph``) takes its draws outside the graph so."""
+        return self._run_round(state, lambda k: data.gather_step(draws[k]))
 
     # ------------------------------------------------------------------
     def agent_params(self, state, p: int = 0, a: int = 0):

@@ -25,7 +25,10 @@ robust reduces and ``check_async_mergeable`` are not ported yet.
 
 ``AdaptiveK`` and ``SubsampledFedAvg`` decide on the host from the round
 index, which they read from the device once per round (a host wait);
-every other strategy syncs without one.
+every other strategy syncs without one.  They say so with
+``reads_round_on_host``: the driver runs their rounds eagerly even inside
+a chunk of ``rounds_per_chunk``, since a captured round cannot read the
+device.
 """
 from __future__ import annotations
 
@@ -116,6 +119,7 @@ class SyncStrategy:
 
     name = "local_only"
     intra_interval = 0
+    reads_round_on_host = False   # True: the sync reads the round index on the host
 
     def validate(self, cfg):
         pass
@@ -282,12 +286,17 @@ class SubsampledFedAvg(FedAvgSync):
     The draw comes from a ``ParticipationSchedule`` (``schedule=``), the
     reference's own bits (``repro_torch.core.participation``).  The old
     ``mask_seed=`` is a deprecated alias of
-    ``schedule=ParticipationSchedule(seed=...)``."""
+    ``schedule=ParticipationSchedule(seed=...)``.
+
+    The draw reads the round index from the device on the host, so the
+    round cannot be captured: the driver runs it eagerly inside a chunk
+    of ``rounds_per_chunk`` and reports ``captured: False``."""
 
     fraction: float = 0.5
     mask_seed: Any = None       # deprecated: use schedule=
     schedule: Any = None        # ParticipationSchedule; None -> seed 0
     name = "subsampled"
+    reads_round_on_host = True
 
     def __post_init__(self):
         global _MASK_SEED_WARNED
@@ -343,11 +352,17 @@ class AdaptiveK(FedAvgSync):
     """Warmup-K: sync every round for the first ``warmup_rounds`` rounds
     (agents drift fastest early), then only every ``sync_every`` rounds,
     an effective interval of K·sync_every at steady state.  A skipped
-    round launches nothing."""
+    round launches nothing.
+
+    Whether a round syncs is decided on the host from the round index,
+    read from the device, so the round cannot be captured: the driver runs
+    it eagerly inside a chunk of ``rounds_per_chunk`` and reports
+    ``captured: False``."""
 
     warmup_rounds: int = 4
     sync_every: int = 2
     name = "adaptive_k"
+    reads_round_on_host = True
 
     def validate(self, cfg):
         super().validate(cfg)

@@ -1,4 +1,18 @@
 from repro_torch.data import synthetic
-from repro_torch.data.federated import DeviceFederatedData, round_key_schedule
+from repro_torch.data.federated import (
+    DeviceFederatedData,
+    FederatedData,
+    FederatedRounds,
+    StreamingFederatedData,
+    dirichlet_partition,
+    label_shard_partition,
+    partition_sizes,
+    round_key_schedule,
+    stream_key_schedule,
+)
 
-__all__ = ["synthetic", "DeviceFederatedData", "round_key_schedule"]
+__all__ = [
+    "DeviceFederatedData", "FederatedData", "FederatedRounds",
+    "StreamingFederatedData", "dirichlet_partition", "label_shard_partition",
+    "partition_sizes", "round_key_schedule", "stream_key_schedule", "synthetic",
+]

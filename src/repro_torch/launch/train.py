@@ -25,9 +25,17 @@ data, on the card unless told otherwise:
       --ckpt-dir /tmp/ckpt             # checkpoints every n_rounds // 4 rounds
   PYTHONPATH=src python -m repro_torch.launch.train --experiment image_acgan \
       --device cpu --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --experiment image_acgan \
+      --data-mode stream               # host-assembled rounds, pinned uploads
 
 ``--device cuda`` (the default) raises when no GPU is present.  The
 legacy ``--mode`` still resolves through the deprecation shim.
+
+``--data-mode`` defaults to ``device`` (every shard on the card, each step
+sampled there), where the reference defaults to ``stream``: the
+reference keeps ``stream`` for bit parity with its own blocking loop from
+before its runtime, a loop the port never had.  ``stream`` runs the
+reference's host pipeline, with its minibatch indices bit for bit.
 """
 from __future__ import annotations
 
@@ -44,7 +52,7 @@ from repro_torch.comm import codec_from_flags
 from repro_torch.configs.paper_gans import ALL_EXPERIMENTS, optimizer_for, scales_for
 from repro_torch.core import ACGAN, CONDITIONAL, FedAvgSync, FedGAN, FedGANConfig, \
     GANTask, make_gan_task, strategies
-from repro_torch.data import DeviceFederatedData, synthetic
+from repro_torch.data import DeviceFederatedData, StreamingFederatedData, synthetic
 from repro_torch.models.gan_nets import one_hot
 from repro_torch.optim import Adam, constant, equal_timescale
 
@@ -81,8 +89,11 @@ def cgan1d_task(seq_len=24, label_dim=5):
 class RunSpec:
     """Everything one simulated federated GAN run needs (agents stacked on
     one device).  ``build()`` gives the FedGAN, ``build_data()`` the
-    device-resident pipeline, ``run_result()`` executes the round loop
-    through :class:`repro_torch.run.RoundDriver`."""
+    pipeline ``data_mode`` names (``"device"``: every shard on the device;
+    ``"stream"``: rounds assembled on the host and uploaded),
+    ``run_result()`` executes the round loop through
+    :class:`repro_torch.run.RoundDriver`, ``rounds_per_chunk`` rounds a
+    chunk on the device path."""
 
     task: GANTask
     agent_data: list
@@ -102,6 +113,8 @@ class RunSpec:
     eval_every: int = 0             # rounds between eval-hook points
     eval_hooks: Any = ()
     device: str = "cuda"
+    data_mode: str = "device"       # "device" | "stream"
+    rounds_per_chunk: int = 1       # device mode: rounds per captured chunk
 
     @property
     def n_rounds(self) -> int:
@@ -115,10 +128,18 @@ class RunSpec:
                       scales=self.scales or equal_timescale(constant(1e-3)),
                       weights=self.weights)
 
-    def build_data(self) -> DeviceFederatedData:
-        return DeviceFederatedData.from_agent_data(
-            self.agent_data, self.agent_grid, self.batch_size,
-            sample_extra=self.sample_extra, device=self.device)
+    def build_data(self):
+        """The ``FederatedData`` pipeline ``data_mode`` names."""
+        if self.data_mode == "device":
+            return DeviceFederatedData.from_agent_data(
+                self.agent_data, self.agent_grid, self.batch_size,
+                sample_extra=self.sample_extra, device=self.device)
+        if self.data_mode == "stream":
+            return StreamingFederatedData.from_agent_data(
+                self.agent_data, self.agent_grid, self.batch_size, self.K,
+                sample_extra=self.sample_extra, device=self.device)
+        raise ValueError(f"unknown data_mode {self.data_mode!r} "
+                         "(expected 'stream' or 'device')")
 
     def run_result(self):
         """Execute through the round driver; returns its ``RunResult``."""
@@ -130,6 +151,7 @@ class RunSpec:
                              log_every=self.log_every, eval_every=self.eval_every,
                              eval_hooks=self.eval_hooks, ckpt_dir=self.ckpt_dir,
                              ckpt_every=max(self.n_rounds // 4, 1) if self.ckpt_dir else 0,
+                             rounds_per_chunk=self.rounds_per_chunk,
                              verbose=bool(self.log_every))
         return driver.run(self.seed + 1, state=state)
 
@@ -144,7 +166,7 @@ def _pooled_real(agent_data, seed: int = 0):
     return xs[perm.to(xs.device)]
 
 
-def _refuse_unported(*, a_total, dp, data_mode):
+def _refuse_unported(*, a_total, dp):
     """Flags that reach a part of the reference not ported yet raise and
     name where it comes; none is silently ignored."""
     if a_total:
@@ -152,10 +174,6 @@ def _refuse_unported(*, a_total, dp, data_mode):
                                   "ported yet (ROADMAP slice 7)")
     if dp is not None:
         raise NotImplementedError("dp: DP-SGD is not ported yet (ROADMAP slice 6)")
-    if data_mode != "device":
-        raise NotImplementedError(
-            f"data_mode={data_mode!r}: the port runs the device-resident "
-            "pipeline only; the host-streaming one is ROADMAP queue 1, item 5")
 
 
 def experiment_spec(name: str, *, K: int | None = None,
@@ -164,7 +182,7 @@ def experiment_spec(name: str, *, K: int | None = None,
                     agents: int | None = None, log_every: int | None = None,
                     eval_every: int = 0, device="cuda", ckpt_dir: str = "",
                     samples_per_agent: int | None = None, a_total: int = 0,
-                    dp=None, data_mode: str = "device"):
+                    dp=None, data_mode: str = "device", rounds_per_chunk: int = 1):
     """``(RunSpec, EvalSuite)`` for one of the paper's experiments on its
     synthetic stand-in data, built on ``device`` from a ``torch.Generator``
     seeded with ``seed``: the reference's recipe (nets, non-iid split,
@@ -174,14 +192,17 @@ def experiment_spec(name: str, *, K: int | None = None,
     the reference), ``samples_per_agent`` and ``log_every`` override the
     experiment's defaults; ``eval_every`` wires the suite into the driver
     as an eval hook every that many rounds; ``ckpt_dir`` checkpoints the
-    run every ``n_rounds // 4`` rounds.
+    run every ``n_rounds // 4`` rounds.  ``data_mode`` picks the round
+    pipeline: ``"stream"`` makes the agent data on ``device`` as
+    ``"device"`` does, then moves it to the host, so both modes see the
+    same data bits.  ``rounds_per_chunk`` runs the device path in chunks of
+    that many rounds, captured on the card.
 
-    ``a_total``, ``dp`` and ``data_mode="stream"`` reach parts not ported
-    yet and raise."""
+    ``a_total`` and ``dp`` reach parts not ported yet and raise."""
     from repro_torch.run.evals import EvalSuite, eval_hook
     if name not in ALL_EXPERIMENTS:
         raise KeyError(f"unknown experiment {name!r}; known: {sorted(ALL_EXPERIMENTS)}")
-    _refuse_unported(a_total=a_total, dp=dp, data_mode=data_mode)
+    _refuse_unported(a_total=a_total, dp=dp)
     dev = resolve_device(device)
     exp = ALL_EXPERIMENTS[name]
     K = K or exp.default_K
@@ -264,7 +285,7 @@ def experiment_spec(name: str, *, K: int | None = None,
         log_every=max((steps // K) // 10, 1) if log_every is None else log_every,
         ckpt_dir=ckpt_dir, eval_every=eval_every,
         eval_hooks=(eval_hook(suite, seed=seed),) if eval_every else (),
-        device=str(dev))
+        device=str(dev), data_mode=data_mode, rounds_per_chunk=rounds_per_chunk)
     return spec, suite
 
 
@@ -320,6 +341,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=-1,
                     help="rounds between metric logs; 0 silences, "
                          "-1 = experiment default")
+    ap.add_argument("--data-mode", default="device", choices=["device", "stream"],
+                    help="round data pipeline: device-resident sampling (the "
+                         "port's default) or host-streaming rounds (the "
+                         "reference's default)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; cuda (the default) needs a GPU")
     return ap
@@ -381,7 +406,7 @@ def main(argv=None):
         strategy=strategy, batch_size=args.batch_size or None,
         agents=args.agents or None, log_every=None if args.log_every < 0 else args.log_every,
         eval_every=args.eval_every, device=args.device, ckpt_dir=args.ckpt_dir,
-        samples_per_agent=args.samples_per_agent or None)
+        samples_per_agent=args.samples_per_agent or None, data_mode=args.data_mode)
     result = spec.run_result()
     for e in result.evals:
         print(json.dumps({"eval": True, **e}))

@@ -3,10 +3,14 @@
 The participation schedule (``core/participation.py``) draws each round's
 cohort from ``jax.random.uniform(fold_in(key(seed), round_idx), (n,))`` in
 the reference.  The port has no JAX, so it computes the same bits on the
-host: ``key``, ``fold_in``, 32-bit ``random_bits`` and ``uniform``, with
-the counter layout of ``jax_threefry_partitionable=True`` (JAX's default
-since 0.5): element i of a draw hashes the 64-bit counter i as the word
-pair (hi, lo) and keeps ``out0 ^ out1``.
+host: ``key``, ``fold_in``, ``split``, 32-bit ``random_bits``, ``uniform``
+and ``randint``, with the counter layout of
+``jax_threefry_partitionable=True`` (JAX's default since 0.5): element i
+of a draw hashes the 64-bit counter i (row-major over the draw's shape) as
+the word pair (hi, lo) and keeps ``out0 ^ out1``; key i of a split keeps
+both words.  The host-streaming round pipeline
+(``repro_torch.data.federated``) draws its minibatch indices and seeds
+from these.
 
 A key is a (2,) uint32 array, as ``jax.random.key_data`` gives it.
 """
@@ -51,12 +55,26 @@ def fold_in(k, data: int) -> np.ndarray:
     return np.array([y0[0], y1[0]], np.uint32)
 
 
-def random_bits(k, n: int) -> np.ndarray:
-    """``jax.random.bits(k, (n,), uint32)`` under the partitionable
-    layout: counter i is the pair (i >> 32, i & 0xFFFFFFFF)."""
-    i = np.arange(n, dtype=np.uint64)
-    y0, y1 = threefry2x32(k, (i >> np.uint64(32)).astype(np.uint32),
-                          (i & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+def _counters(shape):
+    """The partitionable layout's counters of a draw of ``shape``: the
+    row-major index i as the word pair (i >> 32, i & 0xFFFFFFFF)."""
+    i = np.arange(int(np.prod(shape)), dtype=np.uint64).reshape(shape)
+    return ((i >> np.uint64(32)).astype(np.uint32),
+            (i & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+def split(k, n: int = 2) -> np.ndarray:
+    """``jax.random.split(k, n)``'s key data, (n, 2) uint32: key i is both
+    output words of the hash of counter i."""
+    y0, y1 = threefry2x32(k, *_counters((n,)))
+    return np.stack([y0, y1], axis=1)
+
+
+def random_bits(k, shape) -> np.ndarray:
+    """``jax.random.bits(k, shape, uint32)`` under the partitionable
+    layout (``shape`` an int or a tuple)."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    y0, y1 = threefry2x32(k, *_counters(shape))
     return y0 ^ y1
 
 
@@ -65,3 +83,27 @@ def uniform(k, n: int) -> np.ndarray:
     as a mantissa under the exponent of 1.0, minus 1."""
     bits = (random_bits(k, n) >> np.uint32(9)) | np.uint32(0x3F800000)
     return np.maximum(bits.view(np.float32) - np.float32(1.0), np.float32(0.0))
+
+
+_INT32_MIN, _INT32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def randint(k, shape, minval: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(k, shape, minval, maxval)`` (int32, bounds in
+    the int32 range, as JAX takes them without 64-bit mode): two bit
+    streams from ``split(k)``, each reduced modulo the span and combined
+    as ``((hi % span) * mult + lo % span) % span`` with ``mult = (2^16 %
+    span)^2 % span``, every product wrapping in uint32 as in JAX.  An
+    empty range returns ``minval``."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    minval, maxval = int(minval), int(maxval)
+    if not (_INT32_MIN <= minval <= _INT32_MAX and _INT32_MIN <= maxval <= _INT32_MAX):
+        raise ValueError(f"randint bounds must be int32, got [{minval}, {maxval})")
+    span = maxval - minval if maxval > minval else 1
+    k1, k2 = split(k)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    mask, s = np.uint64(0xFFFFFFFF), np.uint64(span)
+    mult = np.uint64((((1 << 16) % span) ** 2 & 0xFFFFFFFF) % span)
+    off = ((hi.astype(np.uint64) % s) * mult) & mask
+    off = ((off + lo.astype(np.uint64) % s) & mask) % s
+    return (off.astype(np.int64) + minval).astype(np.int32)

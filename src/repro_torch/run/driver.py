@@ -1,10 +1,24 @@
-"""The round driver on the device-resident path (a port of
-``repro.run.driver.RoundDriver``).
+"""The round driver (a port of ``repro.run.driver.RoundDriver``).
 
-A Python loop over rounds: each round draws its K minibatches on the
-device (``FedGAN.round_from_data``) from its own seeded generator.  No
-round waits on the device for its metrics: they stay on the device and are
-fetched at ``log_every`` boundaries, and once, all together, at the end.
+Two data paths, as in the reference:
+
+* **device-resident** (``DeviceFederatedData``): each round draws its K
+  minibatches on the device (``FedGAN.round_from_data``) from its own
+  seeded generator.  With ``rounds_per_chunk`` > 1 on the card, the
+  rounds run in chunks through one captured CUDA graph of the round
+  (``repro_torch.run.graph``): the chunk's first round eager, every later
+  round a replay with no host read in between.  Chunks never cross an
+  eval or checkpoint boundary.  The two strategies whose sync reads the
+  round index on the host (``reads_round_on_host``) run every round
+  eagerly, and the run reports ``captured: False``.
+* **host-streaming** (``StreamingFederatedData``, or a bare
+  ``FederatedRounds``, which is wrapped into one): each round's
+  host-assembled batches arrive through the prefetching upload, and the
+  round is ``FedGAN.round``.
+
+No round waits on the device for its metrics: each round's row lands in a
+(n_rounds, n_metrics) tensor on the device, read at ``log_every``
+boundaries and once, all together, at the end.
 """
 from __future__ import annotations
 
@@ -14,8 +28,11 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from repro_torch import prng
 from repro_torch.checkpoint import save_checkpoint
-from repro_torch.data.federated import round_key_schedule
+from repro_torch.data.federated import (FederatedRounds, StreamingFederatedData,
+                                        round_key_schedule)
+from repro_torch.run.graph import CapturedRound, metric_row
 from repro_torch.tree import tree_map
 
 
@@ -23,8 +40,10 @@ from repro_torch.tree import tree_map
 class RunResult:
     """``history`` is one dict of float metrics per round, ``evals`` one
     dict per eval point, ``timings`` the wall-clock accounting: total
-    seconds, steps per second, and the round gap, the host work between
-    round dispatches per round (an upper bound on device idle time)."""
+    seconds, steps per second, the round gap (the host work between round
+    dispatches per round: on the stream path the time blocked waiting for
+    the next round's data; an upper bound on device idle time), the data
+    path's kind and whether the rounds ran captured."""
 
     fed: Any
     state: Any
@@ -38,14 +57,55 @@ def _synchronize(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+def _chunk_sizes(n_rounds: int, per_chunk: int, *cadences: int) -> list:
+    """Split ``n_rounds`` into chunks of at most ``per_chunk`` that never
+    cross a nonzero cadence boundary (evals and checkpoints must observe
+    the state at exactly their round)."""
+    per_chunk = max(per_chunk, 1)
+    sizes, r = [], 0
+    while r < n_rounds:
+        c = min(per_chunk, n_rounds - r)
+        for cad in cadences:
+            if cad:
+                c = min(c, cad - r % cad)
+        sizes.append(c)
+        r += c
+    return sizes
+
+
+class _Table:
+    """The run's metrics, one (n_metrics,) row per round, on the device
+    until the end of the run."""
+
+    def __init__(self, n_rounds: int):
+        self.n_rounds, self.keys, self.rows = n_rounds, None, None
+
+    def put(self, r: int, keys, row: torch.Tensor):
+        if self.rows is None:
+            self.keys = list(keys)
+            self.rows = torch.empty((self.n_rounds, len(self.keys)),
+                                    dtype=row.dtype, device=row.device)
+        self.rows[r].copy_(row)
+
+    def round(self, r: int) -> dict:
+        return dict(zip(self.keys, self.rows[r].tolist()))
+
+    def history(self) -> list:
+        if self.rows is None:
+            return []
+        return [dict(zip(self.keys, row)) for row in self.rows.tolist()]
+
+
 @dataclasses.dataclass
 class RoundDriver:
-    """Drives ``n_rounds`` FedGAN rounds over a ``DeviceFederatedData``.
+    """Drives ``n_rounds`` FedGAN rounds over a ``DeviceFederatedData``, a
+    ``StreamingFederatedData`` or a bare ``FederatedRounds``.
     ``eval_hooks`` entries are callables ``(fed, state, round_idx) ->
     dict``, run every ``eval_every`` rounds on the state right after the
     round's sync.  With ``ckpt_dir`` and ``ckpt_every`` the state after
     round r is saved at step (r + 1)·K whenever ``(r + 1) % ckpt_every ==
-    0``, with metadata ``{"round": r, "K": K}``."""
+    0``, with metadata ``{"round": r, "K": K}``.  ``rounds_per_chunk``
+    (device data) runs that many rounds per chunk, captured on the card."""
 
     fed: Any
     data: Any
@@ -55,67 +115,118 @@ class RoundDriver:
     eval_hooks: Sequence[Callable] = ()
     ckpt_every: int = 0
     ckpt_dir: str = ""
+    rounds_per_chunk: int = 1
     verbose: bool = True
 
     def __post_init__(self):
-        if getattr(self.data, "kind", "") != "device":
-            raise ValueError("the port drives device-resident data only "
-                             "(DeviceFederatedData)")
+        if isinstance(self.data, FederatedRounds):
+            self.data = StreamingFederatedData(self.data)
+        if getattr(self.data, "kind", "") not in ("device", "stream"):
+            raise ValueError("data must be a DeviceFederatedData, a "
+                             "StreamingFederatedData or a FederatedRounds")
         if self.eval_every and not self.eval_hooks:
             raise ValueError("eval_every is set but eval_hooks is empty")
+        if self.rounds_per_chunk < 1:
+            raise ValueError(f"rounds_per_chunk must be >= 1, got {self.rounds_per_chunk}")
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device(self.data.device)
 
     def run(self, seed: int, state=None) -> RunResult:
-        """Execute the round loop.  ``seed`` seeds the per-round generators
-        (``round_key_schedule``); ``state`` defaults to a fresh init from a
-        ``torch.Generator`` seeded with ``seed``."""
-        dev = self.data.device
+        """Execute the round loop.  ``seed`` seeds the rounds' draws: the
+        device path's per-round generators (``round_key_schedule``), the
+        stream path's keys (``stream_key_schedule(prng.key(seed))``, the
+        reference's schedule from ``jax.random.key(seed)``).  ``state``
+        defaults to a fresh init from a ``torch.Generator`` seeded with
+        ``seed``."""
+        dev = self.device
         if state is None:
             state = self.fed.init_state(torch.Generator().manual_seed(seed),
                                         device=dev)
-        evals, raw = [], []
-        gap = 0.0
+        self._evals, table = [], _Table(self.n_rounds)
         t0 = time.perf_counter()
-        t_host = t0
-        gens = round_key_schedule(seed, self.n_rounds, dev)
-        for r, gen in enumerate(gens):
-            gap += time.perf_counter() - t_host
-            state, metrics = self.fed.round_from_data(state, self.data, gen)
-            t_host = time.perf_counter()
-            raw.append(tree_map(torch.mean, metrics))   # stays on the device
-            self._boundaries(state, r, raw[r], evals)
-        gap += time.perf_counter() - t_host
+        run = self._run_device if self.data.kind == "device" else self._run_stream
+        state, gap, captured = run(seed, state, table)
         _synchronize(dev)
         total = time.perf_counter() - t0
-        keys = sorted(raw[0]) if raw else []
-        # one fetch for the whole run, after every round was dispatched
-        table = torch.stack([torch.stack([m[k] for k in keys]) for m in raw]).tolist() \
-            if raw else []
-        history = [dict(zip(keys, row)) for row in table]
         K = self.fed.cfg.sync_interval
         timings = {
             "total_s": total,
             "steps_per_s": self.n_rounds * K / max(total, 1e-9),
             "round_gap_s": gap / max(self.n_rounds, 1),
             "data_kind": self.data.kind,
+            "captured": captured,
         }
-        return RunResult(self.fed, state, history, evals, timings)
+        # one fetch for the whole run, after every round was dispatched
+        return RunResult(self.fed, state, table.history(), self._evals, timings)
 
-    def _boundaries(self, state, r, metrics, evals):
+    def _run_stream(self, seed, state, table):
+        """One eager ``FedGAN.round`` per streamed round; the gap is the
+        time blocked on the next round's data."""
+        gap = 0.0
+        it = self.data.iter_rounds(prng.key(seed), self.n_rounds)
+        for r in range(self.n_rounds):
+            t = time.perf_counter()
+            batches, _seeds = next(it)   # seeds: read by DP-SGD, not ported
+            gap += time.perf_counter() - t
+            state, m = self.fed.round(state, batches)
+            table.put(r, sorted(m), metric_row(m, sorted(m)))
+            self._boundaries(state, r, table)
+        return state, gap, False
+
+    def _run_device(self, seed, state, table):
+        """The rounds in chunks (``_chunk_sizes``), captured on the card
+        unless a chunk is one round or the strategy reads the round on the
+        host; the gap is all host work between round dispatches (generator
+        set-up, boundary hooks)."""
+        captured = (self.device.type == "cuda" and self.rounds_per_chunk > 1
+                    and not self.fed.cfg.resolve_strategy().reads_round_on_host)
+        runner = None
+        gap, r = 0.0, 0
+        t_host = time.perf_counter()
+        gens = round_key_schedule(seed, self.n_rounds, self.device)
+        for c in _chunk_sizes(self.n_rounds, self.rounds_per_chunk,
+                              self.eval_every, self.ckpt_every):
+            for rr in range(r, r + c):
+                gap += time.perf_counter() - t_host
+                if not captured:
+                    state, m = self.fed.round_from_data(state, self.data, gens[rr])
+                    row, keys = metric_row(m, sorted(m)), sorted(m)
+                elif runner is None:
+                    runner = CapturedRound(self.fed, self.data, state, gens[rr])
+                    row, keys = runner.metrics, runner.keys
+                else:
+                    row, keys = runner.replay(gens[rr]), runner.keys
+                table.put(rr, keys, row)
+                t_host = time.perf_counter()
+            if runner is not None:
+                state = runner.state
+            for rr in range(r, r + c):
+                self._boundaries(state, rr, table, snapshot=runner is not None)
+            r += c
+        gap += time.perf_counter() - t_host
+        return state, gap, captured   # static buffers outlive the graph
+
+    def _boundaries(self, state, r, table, snapshot=False):
         """Per-round host work: logging (the only mid-run metric fetch),
-        the periodic eval hooks and the periodic checkpoints."""
+        the periodic eval hooks and the periodic checkpoints.  With
+        ``snapshot`` the hooks get a copy of the state: the captured
+        graph's static buffers change under the next replay."""
         K = self.fed.cfg.sync_interval
         last = r == self.n_rounds - 1
         if self.log_every and (r % self.log_every == 0 or last):
-            m = {k: float(v) for k, v in metrics.items()}
+            m = table.round(r)
             if self.verbose:
                 print(f"round {r:5d}/{self.n_rounds} step {(r + 1) * K:6d} "
                       f"d_loss={m['d_loss']:.4f} g_loss={m['g_loss']:.4f}",
                       flush=True)
         if self.eval_every and ((r + 1) % self.eval_every == 0 or last):
+            seen = tree_map(torch.clone, state) if snapshot else state
             scores = {}
             for hook in self.eval_hooks:
-                scores.update(hook(self.fed, state, r))
-            evals.append({"round": r, "step": (r + 1) * K, **scores})
+                scores.update(hook(self.fed, seen, r))
+            self._evals.append({"round": r, "step": (r + 1) * K, **scores})
         if self.ckpt_dir and self.ckpt_every and (r + 1) % self.ckpt_every == 0:
             save_checkpoint(self.ckpt_dir, state, step=(r + 1) * K,
                             metadata={"round": r, "K": K})

@@ -6,6 +6,9 @@ round driver, on the card unless told otherwise:
     PYTHONPATH=src python -m repro_torch.run.experiments \\
         --experiment toy_2d --sweep K=5,20,50 --codecs none,int8
 
+Each cell runs ``--rounds-per-chunk`` rounds a chunk (8 by default, as in
+the reference), captured in a CUDA graph on the card.
+
 Every cell streams a structured JSONL history (one line per round, one per
 mid-run eval, and one ``"final"`` line with the ``repro_torch.evals``
 scores, the billed wire bytes per round and the steps per second) into
@@ -95,10 +98,11 @@ def run_sweep(experiment: str, Ks: Sequence[int], *,
               codec_names: Sequence[str] = ("none",),
               privacy_names: Sequence[str] = ("none",),
               steps: int | None = None, seed: int = 0, out_dir: str = ".",
-              eval_every: int = 0, eval_n: int = 2048, verbose: bool = True,
-              device="cuda") -> list:
-    """Run the (K x strategy x codec x privacy) grid on ``device`` and
-    persist the JSONL histories.  Codecs and privacy axes apply to the
+              eval_every: int = 0, eval_n: int = 2048, rounds_per_chunk: int = 8,
+              verbose: bool = True, device="cuda") -> list:
+    """Run the (K x strategy x codec x privacy) grid on ``device``, each
+    cell ``rounds_per_chunk`` rounds a chunk, and persist the JSONL
+    histories.  Codecs and privacy axes apply to the
     ``fedgan`` base strategy only (the comparison strategies run
     uncompressed).  Returns the grid's ``SweepCell``s."""
     from repro_torch.launch.train import experiment_spec
@@ -116,7 +120,7 @@ def run_sweep(experiment: str, Ks: Sequence[int], *,
                         spec, suite = experiment_spec(
                             experiment, K=K, steps=steps, seed=seed,
                             strategy=strat, log_every=0, eval_every=eval_every,
-                            device=device)
+                            device=device, rounds_per_chunk=rounds_per_chunk)
                         if verbose:
                             print(f"[sweep] {experiment} K={K} strategy={sname} "
                                   f"codec={cname} privacy={pname} "
@@ -198,6 +202,8 @@ def main(argv: Any = None):
     ap.add_argument("--eval-n", type=int, default=2048)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out-dir", default=".")
+    ap.add_argument("--rounds-per-chunk", type=int, default=8,
+                    help="rounds per captured chunk (1 = one eager round at a time)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; cuda (the default) needs a GPU")
     args = ap.parse_args(argv)
@@ -223,7 +229,8 @@ def main(argv: Any = None):
                      codec_names=codecs, privacy_names=privacy,
                      steps=args.steps or None, seed=args.seed,
                      out_dir=args.out_dir, eval_every=args.eval_every,
-                     eval_n=args.eval_n, device=args.device)
+                     eval_n=args.eval_n, rounds_per_chunk=args.rounds_per_chunk,
+                     device=args.device)
 
 
 if __name__ == "__main__":

@@ -15,12 +15,17 @@
 
 One warm-up round, then ``--rounds`` rounds timed on the host clock
 without the profiler, then the same number under it (CPU and CUDA
-activities).  Prints one JSON object: milliseconds per round with and
-without the profiler, the device busy share (the summed time of the
-device kernels over the profiled wall time; one stream, so kernels do not
-overlap), that time split into convolutions and matrix products, the sync
-kernels and everything else, and the kernels that take the most device
-time, and each sync kernel's calls and device ms per round.  The sync
+activities).  With ``--captured`` (the card only) the warm-up round also
+captures the round in a CUDA graph (``repro_torch.run.graph``) and the
+timed rounds are replays, as the driver runs a chunk of
+``rounds_per_chunk``.  Prints one JSON object: milliseconds per round with and
+without the profiler, the device busy share (the time in which some
+device kernel ran, the union of the kernels' intervals, over the profiled
+wall time), the number of device streams the kernels ran on, the summed
+kernel time split into convolutions and matrix products, the sync kernels
+and everything else (kernels that overlap count in each), and the kernels
+that take the most device time, and each sync kernel's calls and device
+ms per round.  The sync
 kernels are fedavg (all three routes), qsync and the four qpack kernels; the top-k
 selection's sort and the composed path's small PyTorch operations count as
 everything else.  On the CPU the device numbers are null.
@@ -52,6 +57,7 @@ from repro_torch.configs.registry import list_archs
 from repro_torch.core import STRATEGIES, FedAvgSync, get_strategy
 from repro_torch.data.federated import round_key_schedule
 from repro_torch.launch.train import _SYNC_DTYPES, experiment_spec
+from repro_torch.run.graph import CapturedRound
 
 SYNC_KERNELS = ("fedavg_", "qsync_kernel", "qpack_")
 MATMUL_MARKS = ("conv", "gemm", "xmma", "cudnn", "cutlass", "wgrad", "dgrad")
@@ -67,11 +73,13 @@ def _category(name: str) -> str:
 
 
 def profile_rounds(name="image_acgan", *, codec="", topk=0.0, composed=False,
-                   strategy=None, rounds=2, top=12, device="cuda", **spec_kw) -> dict:
+                   strategy=None, rounds=2, top=12, device="cuda", captured=False,
+                   **spec_kw) -> dict:
     """``codec`` and ``topk`` as the training CLI's flags (error feedback
     on); ``composed`` forces the per-leaf pipeline (``fused_sync=False``).
     ``strategy`` (a ``SyncStrategy``) profiles that sync instead, and
-    does not combine with the coded sync's knobs."""
+    does not combine with the coded sync's knobs.  ``captured`` replays
+    a captured graph of the round (the card only)."""
     if strategy is not None and (codec or topk or composed):
         raise ValueError("codec, topk and composed build the coded FedAvgSync; "
                          f"they do not combine with strategy={strategy.name!r}")
@@ -85,37 +93,49 @@ def profile_rounds(name="image_acgan", *, codec="", topk=0.0, composed=False,
     state = fed.init_state(torch.Generator().manual_seed(spec.seed), device=dev)
     gens = iter(round_key_schedule(spec.seed + 1, 2 * rounds + 1, dev))
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    if captured and dev.type != "cuda":
+        raise ValueError("captured rounds need the card")
+    runner = None
 
     def run(n):
         """Milliseconds per round over ``n`` rounds."""
         nonlocal state
         t0 = time.perf_counter()
         for _ in range(n):
-            state, _ = fed.round_from_data(state, data, next(gens))
+            if runner is not None:
+                runner.replay(next(gens))
+            else:
+                state, _ = fed.round_from_data(state, data, next(gens))
         sync()
         return (time.perf_counter() - t0) / n * 1e3
 
-    run(1)                                  # warm-up: cuDNN picks algorithms
+    if captured:                            # warm-up round, then the capture
+        runner = CapturedRound(fed, data, state, next(gens))
+    else:
+        run(1)                              # warm-up: cuDNN picks algorithms
     plain_ms = run(rounds)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
     with profile(activities=acts) as prof:
         profiled_ms = run(rounds)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    busy_us = _busy_us(prof)
     split = {"conv_matmul": 0.0, "sync": 0.0, "other": 0.0}
     for e in kernels:
         split[_category(e.key)] += e.self_device_time_total / 1e3 / rounds
     on_card = dev.type == "cuda"
     return {
         "experiment": name, "codec": c.name if c is not None else None,
-        "strategy": fed.cfg.resolve_strategy().name,
+        "strategy": fed.cfg.resolve_strategy().name, "captured": captured,
         "fused_sync": None if c is None else not composed and c.fused_sync_spec() is not None,
         "rounds": rounds,
         "K": spec.K, "agents": fed.cfg.num_agents, "batch": spec.batch_size,
         "device": torch.cuda.get_device_name(dev) if on_card else "cpu",
         "ms_per_round": plain_ms, "ms_per_round_profiled": profiled_ms,
         "device_busy_share": busy_us / 1e3 / (profiled_ms * rounds) if on_card else None,
+        "device_streams": len({e.device_resource_id for e in prof.events()
+                               if e.device_type == torch.autograd.DeviceType.CUDA})
+        if on_card else None,
         "device_ms_per_round": split if on_card else None,
         "sync_kernels": {e.key[:120]: {"calls_per_round": e.count / rounds,
                                        "ms_per_round": e.self_device_time_total / 1e3 / rounds}
@@ -124,6 +144,20 @@ def profile_rounds(name="image_acgan", *, codec="", topk=0.0, composed=False,
                          "ms_per_round": e.self_device_time_total / 1e3 / rounds}
                         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]],
     }
+
+
+def _busy_us(prof) -> float:
+    """Microseconds in which some device kernel ran: the union of the
+    kernels' intervals, so kernels that overlap (a graph's parallel
+    branches, several streams) count once."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy
 
 
 BF16_COPY_MARK = "bfloat16_copy_kernel"
@@ -213,6 +247,8 @@ def main(argv=None):
     ap.add_argument("--sync-dtype", default="", choices=sorted(_SYNC_DTYPES),
                     help="the strategy's sync_dtype, as the training CLI's")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--captured", action="store_true",
+                    help="replay the round as a captured CUDA graph (the card only)")
     ap.add_argument("--arch", default="", choices=["", *list_archs()],
                     help="profile this backbone at full width instead of an experiment")
     ap.add_argument("--device", default="cuda")
@@ -226,7 +262,8 @@ def main(argv=None):
         strategy = get_strategy(args.strategy, **kw) if args.strategy else None
         out = profile_rounds(args.experiment, codec=args.codec, topk=args.topk,
                              composed=args.composed, strategy=strategy,
-                             rounds=args.rounds, device=args.device)
+                             rounds=args.rounds, device=args.device,
+                             captured=args.captured)
     print(json.dumps(out))
     return out
 

@@ -33,6 +33,8 @@ paper experiment on the card against the CPU port within the bounds the
 CPU round is held to against the reference (``torch_shared``): its
 module imports JAX only inside the helpers that run it.
 """
+import dataclasses
+
 import pytest
 import torch
 from torch_shared import CARD_K, ROUND_TASKS, port_round_mismatches
@@ -656,3 +658,111 @@ def test_backbone_on_card_runs_through_the_kernels(cuda, arch, flag):
     assert counter.launches - before == cfg.num_layers
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# captured rounds and the pinned stream
+# ---------------------------------------------------------------------------
+
+
+def _same_state(a, b):
+    """Two states equal leaf by leaf in every byte."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(_bits(x.reshape(-1)), _bits(y.reshape(-1))) for x, y in zip(la, lb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["toy_2d", "mixed_gaussian"])
+def test_captured_rounds_match_eager(cuda, name):
+    """Rounds in chunks of 4 and 8 through the captured graph give the
+    eager rounds' histories and states bit for bit, and every fedavg
+    launch is counted once per round (2 a round: gen and disc)."""
+    from repro_torch.kernels import launch_counters
+    spec, _ = experiment_spec(name, K=5, steps=40, log_every=0, device=cuda,
+                              samples_per_agent=512)
+    counters = launch_counters()
+    runs = {}
+    for c in (1, 4, 8):
+        before = {n: f.launches for n, f in counters.items()}
+        runs[c] = dataclasses.replace(spec, rounds_per_chunk=c).run_result()
+        torch.cuda.synchronize()
+        got = {n: f.launches - before[n] for n, f in counters.items()}
+        assert got == {n: 16 if n == "fedavg" else 0 for n in counters}, (c, got)
+        assert runs[c].timings["captured"] == (c > 1)
+    for c in (4, 8):
+        assert runs[c].history == runs[1].history
+        assert _same_state(runs[c].state, runs[1].state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["distributed", "partial_sharing", "bf16", "int8",
+                                      "topk+int4", "int8-composed", "hierarchical"])
+def test_captured_sync_schedules_match_eager(cuda, strategy):
+    """Every sync schedule that captures runs its rounds through the
+    graph bit for bit as eagerly, with the same launches: none copies to
+    or reads from the host inside the round."""
+    from repro_torch.core import Hierarchical, PartialSharing, PerStepGradAvg
+    from repro_torch.kernels import launch_counters
+    strat = {"distributed": PerStepGradAvg(), "partial_sharing": PartialSharing(),
+             "bf16": FedAvgSync(sync_dtype=torch.bfloat16),
+             "int8": FedAvgSync(codec=IntQuant(8)),
+             "topk+int4": FedAvgSync(codec=get_codec("topk+int4", fraction=0.25)),
+             "int8-composed": FedAvgSync(codec=IntQuant(8), fused_sync=False),
+             "hierarchical": Hierarchical(intra_interval=2)}[strategy]
+    spec, _ = experiment_spec("mixed_gaussian", K=4, steps=24, strategy=strat, log_every=0,
+                              device=cuda, samples_per_agent=256,
+                              agents=8 if strategy == "hierarchical" else None)
+    if strategy == "hierarchical":
+        spec = dataclasses.replace(spec, agent_grid=(2, 4))
+    counters = launch_counters()
+    runs, counts = {}, {}
+    for c in (1, 6):
+        before = {n: f.launches for n, f in counters.items()}
+        runs[c] = dataclasses.replace(spec, rounds_per_chunk=c).run_result()
+        torch.cuda.synchronize()
+        counts[c] = {n: f.launches - before[n] for n, f in counters.items()}
+    assert runs[6].timings["captured"] and any(counts[1].values())
+    assert counts[6] == counts[1]
+    assert runs[6].history == runs[1].history and _same_state(runs[6].state, runs[1].state)
+
+
+@pytest.mark.cuda
+def test_pinned_prefetch_matches_blocking_batches(cuda):
+    """The pinned, side-stream upload yields on the card exactly the
+    rounds the blocking assembler gives, at every prefetch depth."""
+    from repro_torch import prng
+    from repro_torch.data import (FederatedRounds, StreamingFederatedData,
+                                  stream_key_schedule)
+    agent_data = [{"x": torch.arange(40.0) + 100 * i,
+                   "y": torch.arange(40) % 7 + i} for i in range(4)]
+    extra = lambda g, s: {"z": torch.randn(s + (3,), generator=g)}  # noqa: E731
+    fr = FederatedRounds(agent_data, (2, 2), batch_size=8, sync_interval=3,
+                         sample_extra=extra)
+    key = prng.key(9)
+    want = [fr.round_batches(rb) for rb in stream_key_schedule(key, 6)]
+    for prefetch in (1, 2, 4, 8):
+        got = list(StreamingFederatedData(fr, prefetch=prefetch, device=cuda)
+                   .iter_rounds(key, 6))
+        torch.cuda.synchronize()
+        assert len(got) == 6
+        for (gb, gs), (wb, ws) in zip(got, want):
+            assert sorted(gb) == sorted(wb)
+            assert all(gb[k].is_cuda and torch.equal(gb[k].cpu(), wb[k]) for k in wb)
+            assert gs.dtype == torch.uint32 and torch.equal(gs.cpu(), ws)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["adaptive_k", "subsampled"])
+def test_host_reading_strategies_run_eager_in_chunks(cuda, strategy):
+    """AdaptiveK and SubsampledFedAvg read the round on the host: in
+    chunks they run eagerly, report ``captured: False`` and give the
+    rounds of ``rounds_per_chunk=1`` bit for bit."""
+    from repro_torch.core import get_strategy
+    spec, _ = experiment_spec("toy_2d", K=5, steps=40, strategy=get_strategy(strategy),
+                              log_every=0, device=cuda, samples_per_agent=512)
+    one = spec.run_result()
+    chunked = dataclasses.replace(spec, rounds_per_chunk=4).run_result()
+    assert chunked.timings["captured"] is False and one.timings["captured"] is False
+    assert chunked.history == one.history and _same_state(chunked.state, one.state)

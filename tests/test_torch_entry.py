@@ -68,8 +68,8 @@ def test_driver_runs_device_data_and_keeps_agents_synced():
     assert len(result.history) == 2
     assert all(np.isfinite(v) for m in result.history for v in m.values())
     assert set(result.timings) == {"total_s", "steps_per_s", "round_gap_s",
-                                   "data_kind"}
-    assert result.timings["data_kind"] == "device"
+                                   "data_kind", "captured"}
+    assert result.timings["data_kind"] == "device" and result.timings["captured"] is False
     # the intermediary's average of synced agents is what each agent holds
     for m, x in zip(tree_leaves(tfed.averaged_params(result.state)),
                     tree_leaves(result.state["params"])):

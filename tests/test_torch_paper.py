@@ -451,13 +451,18 @@ def test_experiment_spec_runs_two_rounds(name):
 
 def test_experiment_spec_refuses_what_is_not_ported():
     """Flags that reach a part not ported yet raise and name where it
-    comes; an unknown experiment is a KeyError."""
-    for kw, match in (({"a_total": 16}, "slice 7"), ({"dp": object()}, "slice 6"),
-                      ({"data_mode": "stream"}, "item 5")):
+    comes; an unknown experiment is a KeyError.  ``data_mode="stream"``,
+    refused until the host-streaming pipeline was ported, now runs."""
+    for kw, match in (({"a_total": 16}, "slice 7"), ({"dp": object()}, "slice 6")):
         with pytest.raises(NotImplementedError, match=match):
             ttrain.experiment_spec("toy_2d", device="cpu", **kw)
     with pytest.raises(KeyError):
         ttrain.experiment_spec("cifar", device="cpu")
+    spec, _ = ttrain.experiment_spec("toy_2d", K=2, steps=4, batch_size=4, log_every=0,
+                                     samples_per_agent=64, device="cpu", data_mode="stream")
+    result = spec.run_result()
+    assert result.timings["data_kind"] == "stream" and len(result.history) == 2
+    assert all(np.isfinite(v) for m in result.history for v in m.values())
 
 
 def test_train_cli_runs_every_experiment_name_with_evals(capsys):
