@@ -146,6 +146,35 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    logits in float32 compute on the same weights (within 2^-6 of the
    largest |logit|): at bfloat16 the random-init model amplifies the two
    scans' last-bit differences over 64 layers.
+10. Serving at full width (``repro_torch.serve``; no kernel of the port is
+   on this path: the reference's engine builds its Backbone without kernel
+   flags and its SSM prefill state scans through the plain ``ssd_ref``).
+   gemma3-4b on phase 8's params: ``ServeEngine`` with max_batch 4,
+   max_seq 4,096, min_bucket 16, six greedy requests of 1,500, 300,
+   2,100, 40, 700 and 1,100 prompt tokens, 24 new tokens each (two
+   admitted mid-stream, three prompts over the 1,024 window), in the full
+   and the ring layout, each run eagerly and with the captured decode
+   tick: the captured run equal to the eager one bit for bit (every
+   sampled logits row, the tokens, the tick count, the final cache), every
+   launch counter 0 over each run; each request's logits held
+   teacher-forced (a batch-1 ``prefill`` of the prompt, then ``decode``
+   with a scalar index over the engine's own tokens) within 2^-5 of the
+   largest |logit|; the ring engine's held so to the full engine's on the
+   steps whose earlier tokens agree.  mamba2-2.7b on phase 9's params:
+   max_batch 4, max_seq 1,536, five requests of 1,000, 77 (under one
+   chunk: a fresh slot, the whole prompt through decode), 300, 640 and 129
+   prompt tokens, 16 new each (exact-prefix prefill, the rest of the
+   prompt through the shared decode tick), the same checks.  Printed with
+   the card's name and power limit: prefill ms per request and bucket,
+   tick ms p50/p99 eager and captured, kernels and device ms a tick
+   (profiler), the captured tick's longest kernels, the device ms of the
+   alternative the engine does not take (the functional decode with its
+   new cache copied into the static one), decode tokens/s, mean
+   occupancy, peak memory and wall time.  Hot reload at gemma3-4b's ``.smoke()`` config:
+   a captured engine polling a checkpoint directory picks up a step
+   written mid-stream by ``save_checkpoint``, into the same param and
+   cache tensors, and then serves what a fresh engine on the new weights
+   serves.
 
 In every main-path run each kernel's launch counter is set to 0 just
 before it and read just after it, and the kernels the path does not run
@@ -164,6 +193,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -1038,7 +1069,7 @@ def run_gemma(torch, dev):
         f"{decode_counts['flash_attention']} in the decode; last-token logits vs "
         f"use_flash=False: max |diff| {err} of max |logit| {top}, same argmax on "
         f"{same:.2f} of rows; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    return prefill_counts["flash_attention"]
+    return prefill_counts["flash_attention"], params
 
 
 def run_mamba(torch, dev):
@@ -1117,7 +1148,299 @@ def run_mamba(torch, dev):
         f"max |logit| {top}; (not held) bf16 logits max |diff| {drift:.3f} of max |logit|, argmax "
         f"agreeing on {agree:.3f} of positions; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    return counts["ssd_scan"]
+    return counts["ssd_scan"], params
+
+
+# ---------------------------------------------------------------------------
+# serving: the continuous-batching engine at full width
+# ---------------------------------------------------------------------------
+
+# (prompt length, new tokens): four slots, so two requests are admitted
+# mid-stream; gemma3-4b's prompts hit five buckets and three overrun its
+# 1,024 window; mamba2-2.7b's 77 is below one 128 chunk (a Tb = 0 prefill)
+GEMMA_WORK = [(1500, 24), (300, 24), (2100, 24), (40, 24), (700, 24), (1100, 24)]
+MAMBA_WORK = [(1000, 16), (77, 16), (300, 16), (640, 16), (129, 16)]
+
+
+def _recording_engine(torch, cfg, params, dev, **kw):
+    """A ServeEngine that keeps, per request, the logits row each generated
+    token was sampled from (host numpy, as the engine fetched it)."""
+    from repro_torch.serve import ServeEngine
+
+    class Recording(ServeEngine):
+        def _sample(self, row, req):
+            self.rows.setdefault(req.rid, []).append(np.array(row[:self.cfg.vocab_size]))
+            return super()._sample(row, req)
+
+    eng = Recording(cfg, params=params, device=dev, **kw)
+    eng.rows = {}
+    return eng
+
+
+def _serve_run(torch, cfg, params, dev, work, prompts, label, **kw):
+    """One engine over ``work``, every launch counter 0 just before and read
+    just after (the serve path runs no kernel of the port).  Returns
+    (engine, {rid: request}, wall s, peak bytes)."""
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = _recording_engine(torch, cfg, params, dev, **kw)
+    rids = [eng.submit(p, max_new_tokens=g) for p, (_, g) in zip(prompts, work)]
+    _reset(counters)
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read(counters)
+    check(all(v == 0 for v in counts.values()), f"{label}: launches {counts}, expected none")
+    check(sorted(done) == rids and all(len(done[r].generated) == g
+                                       for r, (_, g) in zip(rids, work)),
+          f"{label}: not every request finished with its tokens")
+    check(all(np.isfinite(row).all() for rows in eng.rows.values() for row in rows),
+          f"{label}: non-finite logits")
+    return eng, done, wall, torch.cuda.max_memory_allocated()
+
+
+def _same_run(torch, a, b, label):
+    """Two engines' runs equal bit for bit: every sampled logits row, every
+    token, the tick count and the final cache."""
+    from repro_torch.tree import tree_leaves
+    ea, da = a
+    eb, db = b
+    check(ea.stats.decode_ticks == eb.stats.decode_ticks, f"{label}: tick counts differ")
+    check(all(da[r].generated == db[r].generated for r in da), f"{label}: tokens differ")
+    check(all(len(ea.rows[r]) == len(eb.rows[r]) and
+              all(np.array_equal(x.view(np.uint32), y.view(np.uint32))
+                  for x, y in zip(ea.rows[r], eb.rows[r])) for r in ea.rows),
+          f"{label}: logits differ")
+    check(all(same_bits(torch, x, y) for x, y in zip(tree_leaves(ea.cache),
+                                                    tree_leaves(eb.cache))),
+          f"{label}: final caches differ")
+
+
+def _teacher_rows(torch, bb, params, prompt, generated, dev):
+    """Batch-1 logits for each generated step, teacher-forced on the
+    engine's own tokens: ``Backbone.prefill`` of the longest prefix the
+    family prefills in one shot (the whole prompt for attention), then
+    ``decode`` with a scalar index over the rest of the prompt and the
+    generated tokens."""
+    from repro_torch.serve.cache import prefill_prefix
+    T, g = len(prompt), len(generated)
+    seq = list(prompt) + list(generated[:-1])
+    prefix = prefill_prefix(bb.cfg, T)
+    rows = []
+    if prefix:
+        pre = bb.prefill(params, torch.tensor([seq[:prefix]], device=dev), max_seq=T + g)
+        cache = pre["cache"]
+        if prefix == T:
+            rows.append(pre["logits"][0, 0])
+    else:
+        cache = bb.init_cache(1, T + g, device=dev)
+    for i in range(prefix, T + g - 1):
+        lg, cache = bb.decode(params, torch.tensor([[seq[i]]], device=dev), cache, i)
+        if i >= T - 1:
+            rows.append(lg[0, 0])
+    V = bb.cfg.vocab_size
+    return np.stack([r[:V].float().cpu().numpy() for r in rows])
+
+
+def _hold(got, want, rel, what):
+    """|got - want| within ``rel`` of the largest |want| (rows x vocab);
+    returns (err, top, same-argmax share)."""
+    err, top = float(np.abs(got - want).max()), float(np.abs(want).max())
+    check(err <= rel * top, f"{what}: logits differ by {err}, over {rel} x {top}")
+    return err, top, float((got.argmax(-1) == want.argmax(-1)).mean())
+
+
+def _launches_per_tick(torch, eng):
+    """Device kernels and device ms of one eager tick, of one replay of the
+    captured tick (and the replay's four longest kernels), and of the
+    alternative the engine does not take: the functional decode, its new
+    cache copied into the static one (the profiler; the engine is drained,
+    so its cache is garbage by now)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.tree import tree_leaves
+
+    def functional():
+        _, new = eng.bb.decode(eng.params, eng._tok, eng.cache, eng._idx)
+        for dst, src in zip(tree_leaves(eng.cache), tree_leaves(new)):
+            dst.copy_(src)
+
+    out = []
+    for fn in (eng._decode, eng._graph.replay, functional):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ks = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        top = sorted(ks, key=lambda e: -e.self_device_time_total)[:4]
+        out.append((sum(e.count for e in ks), sum(e.self_device_time_total for e in ks) / 1e3,
+                    "; ".join(f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                              for e in top)))
+    return out
+
+
+def _serve_report(torch, label, eng, eager, wall, peak, work, card):
+    """The engine's printed lines: prefill ms per bucket, tick ms p50/p99
+    eager and captured (and the captured run's first tick, which runs the
+    tick eagerly and captures it), launches per tick, tokens/s, occupancy,
+    peak memory, wall."""
+    from repro_torch.serve.cache import prefill_bucket
+    s, se = eng.stats, eager.stats
+    buckets = [prefill_bucket(eng.cfg, T, eng.buckets) for T, _ in work]
+    pre = ", ".join(f"{T}->{b} {ms * 1e3:.2f}" for (T, _), b, ms in
+                    zip(work, buckets, s.prefill_seconds))
+    later = sorted(list(s.tick_seconds)[1:])
+    p99 = later[min(int(round(0.99 * (len(later) - 1))), len(later) - 1)] * 1e3
+    (ne, me, _), (nc, mc, top), (nf, mf, _) = _launches_per_tick(torch, eng)
+    log(f"{label}: prefill ms by prompt->bucket (captured run): {pre}; {card}")
+    log(f"{label}: tick ms p50/p99 eager {se.tick_ms(50):.3f}/{se.tick_ms(99):.3f}, "
+        f"captured {s.tick_ms(50):.3f}/{s.tick_ms(99):.3f} over {s.decode_ticks} ticks "
+        f"(first tick, eager + capture, {s.tick_seconds[0] * 1e3:.3f}; p99 of the replays "
+        f"{p99:.3f}); launches per tick eager {ne} kernels ({me:.3f} device ms), captured "
+        f"one graph of {nc} kernels ({mc:.3f} device ms); {card}")
+    log(f"{label}: captured tick's longest kernels: {top}; {card}")
+    log(f"{label}: the tick undonated (functional decode, then its new cache copied into "
+        f"the static one) {nf} kernels, {mf:.3f} device ms, against the donated tick's "
+        f"{me:.3f}; {card}")
+    log(f"{label}: decode tokens/s eager {se.tokens_per_sec():.1f}, captured "
+        f"{s.tokens_per_sec():.1f}; mean occupancy {s.mean_occupancy(eng.max_batch):.3f}; "
+        f"peak memory {peak / 2**30:.2f} GiB; captured run {wall:.2f} s wall; {card}")
+
+
+def run_serve_gemma(torch, dev, params):
+    """gemma3-4b (full width, run_gemma's params) served by ServeEngine,
+    max_batch 4, max_seq 4096: the full and the ring layout, each eager and
+    captured (bit-identical), each request's logits held teacher-forced to
+    a batch-1 prefill + decode within 2^-5 of max |logit|, the ring
+    engine's held to the full engine's on the steps whose tokens agree."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import Backbone
+    t_phase = time.perf_counter()
+    card = card_line()
+    cfg = get_config("gemma3-4b")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, T).tolist() for T, _ in GEMMA_WORK]
+    kw = dict(max_batch=4, max_seq=4096, min_bucket=16)
+    runs = {}
+    for ring in (False, True):
+        label = f"gemma3-4b serve ({'ring' if ring else 'full'})"
+        eager = _serve_run(torch, cfg, params, dev, GEMMA_WORK, prompts, label + " eager",
+                           ring=ring, capture=False, **kw)
+        capt = _serve_run(torch, cfg, params, dev, GEMMA_WORK, prompts, label + " captured",
+                          ring=ring, capture=True, **kw)
+        _same_run(torch, eager[:2], capt[:2], f"{label}: captured vs eager")
+        _serve_report(torch, label, capt[0], eager[0], capt[2], capt[3], GEMMA_WORK, card)
+        runs[ring] = capt[:2]
+        del eager
+    full, fdone = runs[False]
+    ring, rdone = runs[True]
+    bb = Backbone(cfg)
+    errs, shares, tops, ring_steps = [], [], [], 0
+    for rid, p in zip(sorted(fdone), prompts):
+        want = _teacher_rows(torch, bb, params, p, fdone[rid].generated, dev)
+        err, top, same = _hold(np.stack(full.rows[rid]), want, 2.0 ** -5,
+                               f"gemma3-4b serve request {rid} vs teacher-forced")
+        errs.append(err), tops.append(top), shares.append(same)
+        # the ring engine on the steps whose earlier tokens agree with the full one's
+        a, b = fdone[rid].generated, rdone[rid].generated
+        n = next((j + 1 for j in range(len(a)) if a[j] != b[j]), len(a))
+        _hold(np.stack(ring.rows[rid][:n]), np.stack(full.rows[rid][:n]), 2.0 ** -5,
+              f"gemma3-4b serve request {rid}: ring vs full engine")
+        ring_steps += n
+    log(f"gemma3-4b serve: teacher-forced hold max |diff| {max(errs)} of max |logit| "
+        f"{max(tops)} (2^-5 allowed), same argmax on {np.mean(shares):.3f} of steps; ring "
+        f"engine held to the full engine on {ring_steps} of "
+        f"{sum(g for _, g in GEMMA_WORK)} steps; phase {time.perf_counter() - t_phase:.1f} s "
+        f"wall; {card}")
+
+
+def run_serve_mamba(torch, dev, params):
+    """mamba2-2.7b (full width, run_mamba's params) served by ServeEngine,
+    max_batch 4, max_seq 1536: exact-prefix prefill (one prompt below a
+    chunk, Tb = 0) and chunked prefill through the decode tick, eager and
+    captured (bit-identical), each request held teacher-forced within 2^-5
+    of max |logit|."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import Backbone
+    t_phase = time.perf_counter()
+    card = card_line()
+    cfg = get_config("mamba2-2.7b")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, T).tolist() for T, _ in MAMBA_WORK]
+    kw = dict(max_batch=4, max_seq=1536)
+    label = "mamba2-2.7b serve"
+    eager = _serve_run(torch, cfg, params, dev, MAMBA_WORK, prompts, label + " eager",
+                       capture=False, **kw)
+    capt = _serve_run(torch, cfg, params, dev, MAMBA_WORK, prompts, label + " captured",
+                      capture=True, **kw)
+    _same_run(torch, eager[:2], capt[:2], f"{label}: captured vs eager")
+    _serve_report(torch, label, capt[0], eager[0], capt[2], capt[3], MAMBA_WORK, card)
+    del eager
+    eng, done = capt[:2]
+    bb = Backbone(cfg)
+    errs, shares, tops = [], [], []
+    for rid, p in zip(sorted(done), prompts):
+        want = _teacher_rows(torch, bb, params, p, done[rid].generated, dev)
+        err, top, same = _hold(np.stack(eng.rows[rid]), want, 2.0 ** -5,
+                               f"{label} request {rid} vs teacher-forced")
+        errs.append(err), tops.append(top), shares.append(same)
+    log(f"{label}: teacher-forced hold max |diff| {max(errs)} of max |logit| {max(tops)} "
+        f"(2^-5 allowed), same argmax on {np.mean(shares):.3f} of steps; phase "
+        f"{time.perf_counter() - t_phase:.1f} s wall; {card}")
+
+
+def run_serve_reload(torch, dev):
+    """Hot reload at gemma3-4b's .smoke() config on the card: a captured
+    engine polling a checkpoint directory picks up a step written
+    mid-stream by ``save_checkpoint`` between ticks, into the same param
+    and cache tensors (no new allocation), and afterwards serves what a
+    fresh eager engine on the new params serves."""
+    import tempfile
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import Backbone
+    from repro_torch.serve import ServeEngine
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config("gemma3-4b").smoke()
+    bb = Backbone(cfg)
+    p0 = bb.init(torch.Generator(device=dev).manual_seed(10))
+    p1 = bb.init(torch.Generator(device=dev).manual_seed(11))
+
+    def state(p):
+        return {"params": {"gen": tree_map(lambda x: x[None, None], p),
+                           "disc": {"w": torch.zeros((1, 1, 3))}}}
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        save_checkpoint(d, state(p0), step=1)
+        eng = ServeEngine(cfg, max_batch=2, max_seq=64, min_bucket=8, ckpt_dir=d, device=dev)
+        check(eng.loaded_step == 1 and eng.captured, "reload: step 1 not loaded at start")
+        ptrs = [x.data_ptr() for x in tree_leaves(eng.params) + tree_leaves(eng.cache)]
+        rid = eng.submit(list(range(1, 9)), max_new_tokens=12)
+        for _ in range(4):
+            eng.tick()
+        save_checkpoint(d, state(p1), step=2)
+        done = eng.run()
+        check(eng.loaded_step == 2 and eng.stats.reloads == 1 and
+              len(done[rid].generated) == 12, "reload: step 2 not picked up mid-stream")
+        check(ptrs == [x.data_ptr() for x in tree_leaves(eng.params) + tree_leaves(eng.cache)],
+              "reload: the engine allocated new params or cache")
+        check(all(same_bits(torch, a, b) for a, b in zip(tree_leaves(eng.params),
+                                                         tree_leaves(p1))),
+              "reload: served params are not step 2's")
+        fresh = ServeEngine(cfg, max_batch=2, max_seq=64, min_bucket=8, params=p1,
+                            device=dev, capture=False)
+        got = []
+        for e in (eng, fresh):
+            r = e.submit(list(range(3, 14)), max_new_tokens=10)
+            got.append(e.run()[r].generated)
+        check(got[0] == got[1], f"reload: after the swap the captured engine serves "
+                                f"{got[0]}, a fresh engine on step 2 {got[1]}")
+    log(f"serve hot reload (gemma3-4b .smoke()): step 2 picked up after 4 ticks into the "
+        f"same tensors, the captured tick then serves as a fresh engine on step 2 does")
 
 
 def run_main_path(torch, dev, strategy, label, per_round):
@@ -1791,9 +2114,15 @@ def main() -> int:
     for name, rounds in PAPER_ROUNDS.items():
         run_paper(torch, dev, name, rounds)
     run_ksweep(torch, dev)
-    records["flash_attention"]["launches"] = run_gemma(torch, dev)
+    records["flash_attention"]["launches"], params = run_gemma(torch, dev)
+    run_serve_gemma(torch, dev, params)
+    del params
     torch.cuda.empty_cache()
-    records["ssd_scan"]["launches"] = run_mamba(torch, dev)
+    records["ssd_scan"]["launches"], params = run_mamba(torch, dev)
+    run_serve_mamba(torch, dev, params)
+    del params
+    torch.cuda.empty_cache()
+    run_serve_reload(torch, dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     check("jax" not in sys.modules, "the port or this script imported jax")

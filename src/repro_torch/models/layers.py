@@ -3,8 +3,13 @@ cache decode), SwiGLU, norms (a port of ``repro.models.layers``).
 
 Parameters keep the reference's keys and layouts (Dense ``w`` is
 ``(in, out)``).  The reference's sharding constraints have no counterpart
-on one card and are dropped.  The ring-buffer decode, cross-attention and
-the encoder memory caches belong to later slices and raise.
+on one card and are dropped.  Cross-attention and the encoder memory
+caches belong to a later slice and raise.
+
+Both decodes take ``donate``: the port's counterpart of the reference
+engine donating its cache to the compiled decode.  With ``donate=True``
+the new token's k/v (and ring position) are written into the given cache
+in place and that cache is returned, so a serving tick copies no cache.
 """
 from __future__ import annotations
 
@@ -65,7 +70,7 @@ def make_norm(cfg: ArchConfig, dim: int) -> nn.Module:
 
 def _later(what: str):
     raise NotImplementedError(f"{what} is not ported yet: ROADMAP queue 1, slice 5 "
-                              f"(serving, audio and vlm)")
+                              f"(audio and vlm)")
 
 
 # ---------------------------------------------------------------------------
@@ -80,7 +85,9 @@ class Attention(nn.Module):
     Modes:
       full-sequence  apply(params, x, *, window, positions) -> y
       decode         decode(params, x1, cache, index, *, window) -> y1, cache'
-    KV cache layout: (B, S, n_kv, head_dim) per layer (stacked outside).
+      ring decode    decode_ring(params, x1, cache, index) -> y1, cache'
+    KV cache layout: (B, S, n_kv, head_dim) per layer (stacked outside);
+    a ring cache (``init_cache(ring=True)``) adds ``pos`` (B, W) int32.
     ``use_flash`` routes the full-sequence path through the flash-attention
     kernel.
     """
@@ -170,11 +177,12 @@ class Attention(nn.Module):
         return y.reshape(B, T, nh, hd)
 
     # -- single-token decode against a KV cache -----------------------------------
-    def decode(self, params, x, cache, index, *, window=None, memory=None):
+    def decode(self, params, x, cache, index, *, window=None, memory=None,
+               donate: bool = False):
         """x: (B, 1, d); cache: dict(k=(B,S,nkv,hd), v=...); index: the
         position being written — a scalar int (lockstep batch) or a (B,)
         vector of per-row positions (continuous batching).  Returns
-        (y, new_cache); the cache given is not modified."""
+        (y, new_cache); the cache given is not modified unless ``donate``."""
         c = self.cfg
         nh, nkv, hd = self.dims
         B = x.shape[0]
@@ -182,11 +190,13 @@ class Attention(nn.Module):
             _later("cross-attention decode")
         idx = decode_positions(index, B, x.device)
         q, k1, v1 = self._qkv(params, x, idx[:, None])
-        kpos = torch.arange(cache["k"].shape[1], device=x.device)
+        if not donate:
+            cache = {key: t.clone() for key, t in cache.items()}
+        k, v = cache["k"], cache["v"]
+        kpos = torch.arange(k.shape[1], device=x.device)
         if torch.as_tensor(index).dim() == 0:
             # lockstep: one slice written, shared (S,) mask
             i = int(index)
-            k, v = cache["k"].clone(), cache["v"].clone()
             k[:, i:i + 1] = k1.to(k.dtype)
             v[:, i:i + 1] = v1.to(v.dtype)
             valid = kpos <= i
@@ -194,18 +204,33 @@ class Attention(nn.Module):
                 valid &= kpos > i - window
         else:
             # per-row scatter: row b writes its own position idx[b]
-            hit = kpos[None, :] == idx[:, None]                    # (B, S)
-            k = torch.where(hit[..., None, None], k1.to(cache["k"].dtype), cache["k"])
-            v = torch.where(hit[..., None, None], v1.to(cache["v"].dtype), cache["v"])
+            _write_rows(cache, idx, k1, v1, idx)
             valid = kpos[None, :] <= idx[:, None]
             if window is not None:
                 valid &= kpos[None, :] > idx[:, None] - window
         y = self._decode_attend(q, k, v, valid)
         y = y.reshape(B, 1, nh * hd) @ params["wo"]["w"].to(c.dtype)
-        return y, {"k": k, "v": v}
+        return y, cache
 
-    def decode_ring(self, params, x, cache, index):
-        _later("the ring-buffer decode (Attention.decode_ring)")
+    def decode_ring(self, params, x, cache, index, *, donate: bool = False):
+        """Sliding-window decode on a ring-buffer cache of width W: the
+        cache read is O(W), not O(S).  cache: {k,v: (B,W,nkv,hd), pos:
+        (B,W) int32, -1 = empty}; ring slot ``s`` holds position ``p ≡ s
+        (mod W)``.  ``index`` may be scalar (lockstep) or (B,) per-row
+        positions (continuous batching)."""
+        c = self.cfg
+        nh, nkv, hd = self.dims
+        B = x.shape[0]
+        W = cache["k"].shape[1]
+        idx = decode_positions(index, B, x.device)
+        q, k1, v1 = self._qkv(params, x, idx[:, None])
+        if not donate:
+            cache = {key: t.clone() for key, t in cache.items()}
+        _write_rows(cache, torch.remainder(idx, W), k1, v1, idx)
+        valid = (cache["pos"] >= 0) & (cache["pos"] <= idx[:, None])      # (B, W)
+        y = self._decode_attend(q, cache["k"], cache["v"], valid)
+        y = y.reshape(B, 1, nh * hd) @ params["wo"]["w"].to(c.dtype)
+        return y, cache
 
     def build_memory_cache(self, params, memory):
         _later("cross-attention memory caches")
@@ -229,13 +254,25 @@ class Attention(nn.Module):
 
     def init_cache(self, batch: int, seq: int, dtype=None, *, ring: bool = False,
                    device=None):
-        if ring:
-            _later("the ring-buffer cache")
         c = self.cfg
         _, nkv, hd = self.dims
         dt = dtype or c.dtype
-        return {"k": torch.zeros((batch, seq, nkv, hd), dtype=dt, device=device),
-                "v": torch.zeros((batch, seq, nkv, hd), dtype=dt, device=device)}
+        cache = {"k": torch.zeros((batch, seq, nkv, hd), dtype=dt, device=device),
+                 "v": torch.zeros((batch, seq, nkv, hd), dtype=dt, device=device)}
+        if ring:
+            cache["pos"] = torch.full((batch, seq), -1, dtype=torch.int32, device=device)
+        return cache
+
+
+def _write_rows(cache, slot, k1, v1, idx):
+    """Row b's new k/v into sequence slot ``slot[b]`` of the cache, in place
+    (and, in a ring cache, position ``idx[b]`` into its ``pos``)."""
+    rows = torch.arange(k1.shape[0], device=k1.device)
+    k, v = cache["k"], cache["v"]
+    k.index_put_((rows, slot), k1[:, 0].to(k.dtype))
+    v.index_put_((rows, slot), v1[:, 0].to(v.dtype))
+    if "pos" in cache:
+        cache["pos"].index_put_((rows, slot), idx.to(cache["pos"].dtype))
 
 
 # ---------------------------------------------------------------------------

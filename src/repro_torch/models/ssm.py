@@ -4,8 +4,10 @@
 The chunked SSD scan runs through the ``ssd_scan`` kernel when
 ``use_kernel`` is set, else through the reference's chunked algorithm.
 The causal depthwise conv is k shift-and-accumulate steps, as in the
-reference.  The decode path and the prefill state (``return_state``) belong
-to the serving slice and raise.
+reference.  ``apply(return_state=True)`` (the prefill that builds the
+decode cache) scans through the plain ``ssd_ref``, as the reference does;
+with ``use_kernel`` set it raises, since the kernel does not return the
+final state.  ``decode`` is the O(1) recurrent step on that cache.
 """
 from __future__ import annotations
 
@@ -73,10 +75,14 @@ class Mamba2Block(nn.Module):
                      for k in ("z_proj", "x_proj", "b_proj", "c_proj", "dt_proj"))
 
     def apply(self, params, u, *, return_state: bool = False):
-        """Full-sequence forward.  u: (B, T, d_model) -> (B, T, d_model)."""
-        if return_state:
-            raise NotImplementedError("the SSM prefill state is not ported yet: "
-                                      "ROADMAP queue 1, slice 5 (serving)")
+        """Full-sequence forward.  u: (B, T, d_model) -> (B, T, d_model).
+        ``return_state=True`` additionally returns the decode cache."""
+        if return_state and self.use_kernel:
+            raise NotImplementedError(
+                "the decode-cache prefill through the SSD kernel is not ported yet: the "
+                "kernel does not return its final state (ROADMAP queue 1, slice 5, "
+                "follow-up: a prefill through the SSD kernel); build the Backbone "
+                "without use_ssd_kernel to prefill")
         c = self.cfg
         d_in, nh, hd, ds = self.dims
         Bsz, T, _ = u.shape
@@ -89,14 +95,77 @@ class Mamba2Block(nn.Module):
         A = -torch.exp(params["ssd"]["A_log"].float())                      # (nh,)
         dt = F.softplus(dt.float() + params["ssd"]["dt_bias"].float())      # (B,T,nh)
 
-        if self.use_kernel:
+        from repro_torch.kernels.ssd_scan.ref import ssd_ref
+        state = None
+        if return_state:
+            y, state = ssd_ref(x, dt, A, Bm, Cm, chunk=c.ssm_chunk,
+                               return_final_state=True)
+        elif self.use_kernel:
             from repro_torch.kernels.ssd_scan import ops as ssd_ops
             y = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=c.ssm_chunk)
         else:
-            from repro_torch.kernels.ssd_scan.ref import ssd_ref
             y = ssd_ref(x, dt, A, Bm, Cm, chunk=c.ssm_chunk)
 
         y = y + x * params["ssd"]["D"].to(c.dtype)[None, None, :, None]
         y = y.reshape(Bsz, T, d_in)
         y = nn.RMSNorm(d_in).apply(params["norm"], y) * F.silu(z)
-        return y @ params["out_proj"]["w"].to(c.dtype)
+        out = y @ params["out_proj"]["w"].to(c.dtype)
+        if return_state:
+            k = c.conv_kernel - 1
+            return out, {"ssm": state, "conv_x": _tail_window(x_raw, k),
+                         "conv_b": _tail_window(B_raw, k),
+                         "conv_c": _tail_window(C_raw, k)}
+        return out
+
+    def init_cache(self, batch: int, *, device=None):
+        """Zeroed decode cache: the SSM state in float32, the conv windows
+        (the last conv_kernel - 1 raw inputs) in ``cfg.dtype``."""
+        c = self.cfg
+        d_in, nh, hd, ds = self.dims
+        k = c.conv_kernel - 1
+        return {"ssm": torch.zeros((batch, nh, hd, ds), dtype=torch.float32, device=device),
+                "conv_x": torch.zeros((batch, k, d_in), dtype=c.dtype, device=device),
+                "conv_b": torch.zeros((batch, k, ds), dtype=c.dtype, device=device),
+                "conv_c": torch.zeros((batch, k, ds), dtype=c.dtype, device=device)}
+
+    def decode(self, params, u, cache, *, donate: bool = False):
+        """Single-token recurrent step.  u: (B, 1, d_model).  Returns (out,
+        new_cache); with ``donate`` the state and windows are written into
+        ``cache`` in place and it is returned."""
+        c = self.cfg
+        d_in, nh, hd, ds = self.dims
+        Bsz = u.shape[0]
+        z, x_raw, B_raw, C_raw, dt = self._project(params, u)
+
+        def conv_step(raw, window, w):
+            win = torch.cat([window, raw], dim=1)                # (B, k, C)
+            y = F.silu(torch.einsum("bkc,kc->bc", win, w.to(c.dtype)))
+            return y[:, None, :], win[:, 1:, :]
+
+        x1, new_cx = conv_step(x_raw, cache["conv_x"], params["conv"]["x"])
+        B1, new_cb = conv_step(B_raw, cache["conv_b"], params["conv"]["b"])
+        C1, new_cc = conv_step(C_raw, cache["conv_c"], params["conv"]["c"])
+
+        x = x1.reshape(Bsz, nh, hd)
+        A = -torch.exp(params["ssd"]["A_log"].float())
+        dtv = F.softplus(dt[:, 0].float() + params["ssd"]["dt_bias"].float())   # (B,nh)
+        from repro_torch.kernels.ssd_scan.ref import ssd_decode_ref
+        y, state = ssd_decode_ref(cache["ssm"], x, dtv, A, B1[:, 0, :], C1[:, 0, :])
+        y = y + x * params["ssd"]["D"].to(c.dtype)[None, :, None]
+        y = y.reshape(Bsz, 1, d_in)
+        y = nn.RMSNorm(d_in).apply(params["norm"], y) * F.silu(z)
+        out = y @ params["out_proj"]["w"].to(c.dtype)
+        new = {"ssm": state, "conv_x": new_cx, "conv_b": new_cb, "conv_c": new_cc}
+        if donate:
+            for key, leaf in new.items():
+                cache[key].copy_(leaf)
+            return out, cache
+        return out, new
+
+
+def _tail_window(x, k: int):
+    """Last k steps of (B, T, C), zero-padded on the left if T < k."""
+    T = x.shape[1]
+    if T >= k:
+        return x[:, T - k:, :].clone()      # not a view that keeps x alive
+    return F.pad(x, (0, 0, k - T, 0))

@@ -5,16 +5,16 @@ family.
 Entry points:
   init(gen) -> params                   # drawn on the generator's device
   apply(params, tokens, ...)            # full-sequence forward
-  prefill(params, tokens, ...)          # forward + decode-cache build (attention)
-  init_cache(batch, seq)                # zeroed decode cache (attention)
-  decode(params, token, cache, index)   # ONE-token step (attention)
+  prefill(params, tokens, ...)          # forward + decode-cache build
+  init_cache(batch, seq)                # zeroed decode cache
+  decode(params, token, cache, index)   # ONE-token serve step
 
 Parameters keep the reference's pytree: stacked layer params with their
 leading ``(L,)`` or ``(G, r)`` dims, so the conversion from the reference
 is leaf by leaf.  The reference's ``lax.scan`` over a stack is a Python
-loop over its leading dim here.  The families moe, hybrid, audio and vlm,
-ring-buffer caches and the SSM prefill and decode belong to the serving
-slice (ROADMAP queue 1, slice 5) and raise.
+loop over its leading dim here.  ``ring_cache=True`` gives the
+sliding-window layers O(W) ring-buffer caches.  The families moe, hybrid,
+audio and vlm belong to ROADMAP queue 1, slice 5 and raise.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ from repro_torch.models.layers import Attention, SwiGLU, make_norm
 from repro_torch.models.ssm import Mamba2Block
 from repro_torch.tree import tree_map
 
-_LATER = "ROADMAP queue 1, slice 5 (serving)"
+_LATER = "ROADMAP queue 1, slice 5 (MoE, hybrid, audio and vlm)"
 
 
 def _pad_attn_cache(cache, extra: int):
@@ -127,10 +127,15 @@ class DecoderBlock(nn.Module):
             return h, kv
         return h
 
-    def decode(self, params, h, cache, index, *, window=None):
+    def decode(self, params, h, cache, index, *, window=None, ring=False, donate=False):
         norm = self._norm()
-        a, new_cache = self.attn.decode(params["attn"], norm.apply(params["ln1"], h),
-                                        cache, index, window=window)
+        x = norm.apply(params["ln1"], h)
+        if ring:
+            a, new_cache = self.attn.decode_ring(params["attn"], x, cache, index,
+                                                 donate=donate)
+        else:
+            a, new_cache = self.attn.decode(params["attn"], x, cache, index,
+                                            window=window, donate=donate)
         h = h + a
         return h + self.mlp.apply(params["mlp"], norm.apply(params["ln2"], h)), new_cache
 
@@ -150,9 +155,20 @@ class MambaLayer(nn.Module):
         return {"ln": make_norm(self.cfg, self.cfg.d_model).init(gen),
                 "mixer": self.inner.init(gen)}
 
-    def apply(self, params, h):
+    def apply(self, params, h, *, return_state=False):
         norm = make_norm(self.cfg, self.cfg.d_model)
-        return h + self.inner.apply(params["mixer"], norm.apply(params["ln"], h))
+        y = self.inner.apply(params["mixer"], norm.apply(params["ln"], h),
+                             return_state=return_state)
+        if return_state:
+            y, state = y
+            return h + y, state
+        return h + y
+
+    def decode(self, params, h, cache, *, donate=False):
+        norm = make_norm(self.cfg, self.cfg.d_model)
+        y, new_cache = self.inner.decode(params["mixer"], norm.apply(params["ln"], h),
+                                         cache, donate=donate)
+        return h + y, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -165,14 +181,12 @@ class Backbone(nn.Module):
     cfg: ArchConfig
     use_flash: bool = False
     use_ssd_kernel: bool = False
-    ring_cache: bool = False
+    ring_cache: bool = False  # sliding-window layers use O(W) ring buffers
 
     def __post_init__(self):
         if self.cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(f"the {self.cfg.family!r} family is not ported "
                                       f"yet: {_LATER}")
-        if self.ring_cache:
-            raise NotImplementedError(f"ring-buffer caches are not ported yet: {_LATER}")
 
     # ---- structure helpers ----
     @property
@@ -255,11 +269,16 @@ class Backbone(nn.Module):
         h = self._embed(params, tokens)
         caches: dict[str, Any] = {}
         if c.family == "ssm":
-            if collect_cache:
-                raise NotImplementedError(f"the SSM prefill is not ported yet: {_LATER}")
             layer = self._mamba()
+            states = []
             for i in range(c.num_layers):
-                h = layer.apply(_layer(params["blocks"], i), h)
+                if collect_cache:
+                    h, st = layer.apply(_layer(params["blocks"], i), h, return_state=True)
+                    states.append(st)
+                else:
+                    h = layer.apply(_layer(params["blocks"], i), h)
+            if collect_cache:
+                caches["blocks"] = _stack(states)
         elif self.grouped:
             h, caches = self._grouped_forward(params, h, collect_cache)
         else:
@@ -325,67 +344,95 @@ class Backbone(nn.Module):
         return out
 
     # ---- decode cache ----
+    @property
+    def _ring(self) -> bool:
+        return self.ring_cache and self.cfg.sliding_window > 0
+
     def init_cache(self, batch: int, seq: int, *, device="cuda"):
         """Zeroed decode cache on ``device`` (the card unless the caller asks
-        for the CPU)."""
+        for the CPU).  Under ``ring_cache`` the windowed layers (local and
+        tail, and global ones when ``global_uses_window``) hold ring buffers
+        of width ``min(sliding_window, seq)``."""
         c = self.cfg
-        if c.family == "ssm":
-            raise NotImplementedError(f"the SSM decode cache is not ported yet: {_LATER}")
         dev = resolve_device(device)
-        base = Attention(c).init_cache(batch, seq, device=dev)
 
-        def kv(lead):
+        def stacked(base, lead):
             return tree_map(lambda x: x.expand(lead + tuple(x.shape)).contiguous(), base)
 
+        if c.family == "ssm":
+            return {"blocks": stacked(Mamba2Block(c).init_cache(batch, device=dev),
+                                      (c.num_layers,))}
+        W = min(c.sliding_window, seq) if c.sliding_window > 0 else seq
+        ring = self._ring
+
+        def kv(lead, windowed):
+            r = ring and windowed
+            return stacked(Attention(c).init_cache(batch, W if r else seq, ring=r,
+                                                   device=dev), lead)
+
         if self.grouped:
-            cache = {"local": kv((self.n_groups, c.local_global_ratio)),
-                     "global": kv((self.n_groups,))}
+            cache = {"local": kv((self.n_groups, c.local_global_ratio), True),
+                     "global": kv((self.n_groups,), c.global_uses_window)}
             if self.n_tail:
-                cache["tail"] = kv((self.n_tail,))
+                cache["tail"] = kv((self.n_tail,), True)
             return cache
-        return {"blocks": kv((c.num_layers,))}
+        return {"blocks": kv((c.num_layers,), True)}
 
     # ---- one-token decode ----
-    def decode(self, params, token, cache, index):
+    def decode(self, params, token, cache, index, *, donate: bool = False):
         """token: (B, 1) int; index: the position being generated — a scalar
         (lockstep batch) or a (B,) vector of per-row positions (continuous
-        batching).  Returns (logits (B, 1, V), new_cache)."""
+        batching).  Returns (logits (B, 1, V), new_cache).  ``donate=True``
+        writes every layer's cache in place and returns ``cache`` itself:
+        the port's counterpart of the reference engine donating the cache
+        to its compiled decode (no cache copy in a tick)."""
         c = self.cfg
-        if c.family == "ssm":
-            raise NotImplementedError(f"the SSM decode is not ported yet: {_LATER}")
         h = self._embed(params, token)
-        if self.grouped:
-            h, new_cache = self._grouped_decode(params, h, cache, index)
+        if c.family == "ssm":
+            mamba = self._mamba()
+            new = []
+            for i in range(c.num_layers):
+                h, nc = mamba.decode(_layer(params["blocks"], i), h,
+                                     _layer(cache["blocks"], i), donate=donate)
+                new.append(nc)
+            new_cache = cache if donate else {"blocks": _stack(new)}
+        elif self.grouped:
+            h, new_cache = self._grouped_decode(params, h, cache, index, donate)
         else:
             block = self._block()
             window = c.sliding_window if c.sliding_window > 0 else None
             new = []
             for i in range(c.num_layers):
                 h, nc = block.decode(_layer(params["blocks"], i), h,
-                                     _layer(cache["blocks"], i), index, window=window)
+                                     _layer(cache["blocks"], i), index, window=window,
+                                     ring=self._ring, donate=donate)
                 new.append(nc)
-            new_cache = {"blocks": _stack(new)}
+            new_cache = cache if donate else {"blocks": _stack(new)}
         _, logits = self._head(params, h)
         return logits, new_cache
 
-    def _grouped_decode(self, params, h, cache, index):
+    def _grouped_decode(self, params, h, cache, index, donate):
         c = self.cfg
         block = self._block()
         gw = c.sliding_window if c.global_uses_window else None
+        ring, g_ring = self._ring, self._ring and c.global_uses_window
         local, glob, tail = [], [], []
         for g in range(self.n_groups):
             for r in range(c.local_global_ratio):
                 h, nc = block.decode(_layer(params["local"], g, r), h,
                                      _layer(cache["local"], g, r), index,
-                                     window=c.sliding_window)
+                                     window=c.sliding_window, ring=ring, donate=donate)
                 local.append(nc)
             h, nc = block.decode(_layer(params["global"], g), h,
-                                 _layer(cache["global"], g), index, window=gw)
+                                 _layer(cache["global"], g), index, window=gw,
+                                 ring=g_ring, donate=donate)
             glob.append(nc)
         for t in range(self.n_tail):
             h, nc = block.decode(_layer(params["tail"], t), h, _layer(cache["tail"], t),
-                                 index, window=c.sliding_window)
+                                 index, window=c.sliding_window, ring=ring, donate=donate)
             tail.append(nc)
+        if donate:
+            return h, cache
         new_cache = {"local": self._stack_local(local), "global": _stack(glob)}
         if self.n_tail:
             new_cache["tail"] = _stack(tail)

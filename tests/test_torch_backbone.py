@@ -36,6 +36,7 @@ from repro_torch.kernels.flash_attention import kernel as fkernel
 from repro_torch.kernels.ssd_scan import kernel as skernel
 from repro_torch.models import Backbone
 from repro_torch.models.config import ArchConfig
+from repro_torch.tree import tree_leaves, tree_map
 
 _DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
@@ -257,11 +258,186 @@ def test_unported_paths_raise():
     for key in ("moe", "hybrid", "audio"):
         with pytest.raises(NotImplementedError, match="slice 5"):
             Backbone(port_config(JCFGS[key]))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        Backbone(port_config(JCFGS["dense_window"]), ring_cache=True)
+
+
+# ---------------------------------------------------------------------------
+# serving paths: ring caches, the SSM prefill state and decode
+# ---------------------------------------------------------------------------
+
+RING_CFGS = {"dense_window": JCFGS["dense_window"],
+             "grouped_window": _jdense(name="gw", local_global_ratio=1, sliding_window=4,
+                                       global_uses_window=True, num_layers=3),
+             "grouped": JCFGS["grouped"]}
+
+
+def _leaves_close(got, want, atol):
+    """Port cache tree against the reference's (numpy), key by key; ``pos``
+    leaves exactly."""
+    jleaves, _ = jax.tree_util.tree_flatten_with_path(jax.device_get(want))
+    for path, leaf in jleaves:
+        t = got
+        for k in path:
+            t = t[k.key]
+        assert tuple(t.shape) == leaf.shape and str(t.dtype).endswith(str(leaf.dtype))
+        if path[-1].key == "pos":
+            np.testing.assert_array_equal(t.numpy(), leaf)
+        else:
+            np.testing.assert_allclose(t.float().numpy(), np.asarray(leaf, np.float32),
+                                       atol=atol)
+
+
+def _rows(B, i, per_row):
+    """Decode index of step i: scalar, or per-row positions offset by 3."""
+    return (np.arange(B, dtype=np.int32) * 3 + i) if per_row else np.int32(i)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_attention_decode_ring_matches_jax(per_row):
+    """``Attention.init_cache(ring=True)`` and ``decode_ring`` against the
+    reference's, step by step across three wraps of a width-4 ring."""
+    from repro.models.layers import Attention as JAttention
+    from repro_torch.models.layers import Attention
+    jcfg = JCFGS["dense_window"]
+    ja, ta = JAttention(jcfg), Attention(port_config(jcfg))
+    jp = jax.device_get(ja.init(jax.random.key(2)))
+    tp = backbone_params_from_jax(jp, device="cpu")
+    B, W = 2, 4
+    jc, tc = ja.init_cache(B, W, ring=True), ta.init_cache(B, W, ring=True, device="cpu")
+    _leaves_close(tc, jc, 0)
+    x = np.random.default_rng(4).standard_normal((14, B, 1, jcfg.d_model)).astype(np.float32)
+    jdecode = jax.jit(ja.decode_ring)
+    for i in range(14):
+        idx = _rows(B, i, per_row)
+        jy, jc = jdecode(jp, jnp.asarray(x[i]), jc, jnp.asarray(idx))
+        ty, tc = ta.decode_ring(tp, torch.from_numpy(x[i]), tc, torch.as_tensor(idx))
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-5)
+    _leaves_close(tc, jc, 1e-5)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("key", list(RING_CFGS))
+def test_ring_backbone_decode_matches_jax(key, per_row):
+    """``Backbone(ring_cache=True)``: ``init_cache`` layouts (which layers
+    go ring) and ``decode`` logits and caches against the reference's,
+    across several wraps, with scalar and per-row indices."""
+    jb, jp, tb, tp = _pair(RING_CFGS[key], ring_cache=True)
+    B, steps = 2, 11
+    jc, tc = jb.init_cache(B, 16), tb.init_cache(B, 16, device="cpu")
+    _leaves_close(tc, jc, 0)
+    toks = _tokens(RING_CFGS[key].vocab_size, (B, steps))
+    jdecode = jax.jit(jb.decode)
+    for i in range(steps):
+        idx = _rows(B, i, per_row)
+        jl, jc = jdecode(jp, jnp.asarray(toks[:, i:i + 1]), jc, jnp.asarray(idx))
+        tl, tc = tb.decode(tp, torch.from_numpy(toks[:, i:i + 1]), tc, torch.as_tensor(idx))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5)
+    _leaves_close(tc, jc, 1e-5)
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_vector_index_and_donated_decode_match_lockstep(ring):
+    """``decode`` with a (B,) index of equal entries equals the scalar
+    lockstep path bit for bit, in the full and the ring layout; so does the
+    donated decode (written in place, the cache returned), in both forms."""
+    cfg = port_config(_jdense(sliding_window=4))
+    bb = Backbone(cfg, ring_cache=ring)
+    params = bb.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, (2, 9)))
+    cache = bb.init_cache(2, 12, device="cpu")
+    for i in range(8):
+        _, cache = bb.decode(params, toks[:, i:i + 1], cache, i)
+    before = tree_map(torch.clone, cache)
+    ref_lg, ref_cache = bb.decode(params, toks[:, 8:], cache, 8)
+    for index in (8, torch.full((2,), 8)):
+        for donate in (False, True):
+            mine = tree_map(torch.clone, cache)
+            lg, new = bb.decode(params, toks[:, 8:], mine, index, donate=donate)
+            assert (new is mine) == donate
+            assert torch.equal(lg, ref_lg)
+            assert all(torch.equal(a, b) for a, b in zip(tree_leaves(new),
+                                                         tree_leaves(ref_cache)))
+    # the functional calls left the cache they were given as it was
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(cache), tree_leaves(before)))
+
+
+def _ssm_pair(seed=0):
+    from repro.models.ssm import Mamba2Block as JMamba
+    from repro_torch.models.ssm import Mamba2Block
+    jcfg = JCFGS["ssm"]
+    jm, tm = JMamba(jcfg), Mamba2Block(port_config(jcfg))
+    jp = jax.device_get(jm.init(jax.random.key(seed)))
+    return jcfg, jm, jp, tm, backbone_params_from_jax(jp, device="cpu")
+
+
+@pytest.mark.parametrize("T", [2, 3, 8, 12])
+def test_mamba_block_state_and_decode_match_jax(T):
+    """``Mamba2Block.apply(return_state=True)`` (the chunked scan's final
+    state and the conv tails, zero-padded on the left when T < k - 1),
+    ``init_cache`` and ``decode`` against the reference's."""
+    jcfg, jm, jp, tm, tp = _ssm_pair()
+    u = np.random.default_rng(5).standard_normal((2, T + 3, jcfg.d_model)).astype(np.float32)
+    jy, jst = jax.jit(lambda p, x: jm.apply(p, x, return_state=True))(jp, jnp.asarray(u[:, :T]))
+    ty, tst = tm.apply(tp, torch.from_numpy(u[:, :T]), return_state=True)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-5)
+    _leaves_close(tst, jst, 1e-5)
+    _leaves_close(tm.init_cache(2), jm.init_cache(2), 0)
+    jdecode = jax.jit(jm.decode)
+    for i in range(T, T + 3):
+        jy, jst = jdecode(jp, jnp.asarray(u[:, i:i + 1]), jst)
+        ty, tst = tm.decode(tp, torch.from_numpy(u[:, i:i + 1]), tst)
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-5)
+    _leaves_close(tst, jst, 1e-5)
+
+
+@pytest.mark.parametrize("T", [3, 8])
+def test_ssm_backbone_prefill_and_decode_match_jax(T):
+    """The SSM ``Backbone``: ``prefill`` (logits and cache), ``init_cache``
+    and ``decode`` against the reference's."""
+    jb, jp, tb, tp = _pair(JCFGS["ssm"])
+    toks = _tokens(JCFGS["ssm"].vocab_size, (2, T + 4))
+    jo = jb.prefill(jp, jnp.asarray(toks[:, :T]), max_seq=T + 4)
+    to = tb.prefill(tp, torch.from_numpy(toks[:, :T]), max_seq=T + 4)
+    np.testing.assert_allclose(to["logits"].numpy(), np.asarray(jo["logits"]), atol=1e-5)
+    _leaves_close(to["cache"], jo["cache"], 1e-5)
+    _leaves_close(tb.init_cache(2, 6, device="cpu"), jb.init_cache(2, 6), 0)
+    jc, tc = jo["cache"], to["cache"]
+    jdecode = jax.jit(jb.decode)
+    for i in range(T, T + 4):
+        jl, jc = jdecode(jp, jnp.asarray(toks[:, i:i + 1]), jc, jnp.int32(i))
+        tl, tc = tb.decode(tp, torch.from_numpy(toks[:, i:i + 1]), tc, i)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5)
+    _leaves_close(tc, jc, 1e-5)
+
+
+@pytest.mark.parametrize("T", [2, 4, 8])
+def test_ssm_prefill_state_then_decode_equals_decode_from_scratch(T):
+    """The prefill's state (scan state and conv tails) followed by decode
+    gives the logits of decoding every token from a zeroed cache."""
     cfg, bb, params = _port("ssm")
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, (2, T + 4)))
+    pre = bb.prefill(params, toks[:, :T])
+    cache = bb.init_cache(2, T + 4, device="cpu")
+    for i in range(T + 4):
+        lg, cache = bb.decode(params, toks[:, i:i + 1], cache, i)
+        if i == T - 1:
+            np.testing.assert_allclose(pre["logits"].numpy(), lg.numpy(), atol=1e-5)
+            mine = pre["cache"]
+        if i >= T:
+            lg2, mine = bb.decode(params, toks[:, i:i + 1], mine, i)
+            np.testing.assert_allclose(lg2.numpy(), lg.numpy(), atol=1e-5)
+
+
+def test_ssd_kernel_prefill_refuses():
+    """The decode-cache prefill with the SSD kernel flag set refuses: the
+    kernel does not return its final state, and a silent scan through the
+    plain ``ssd_ref`` would bypass the kernel the caller asked for.  The
+    forward without a state still takes the flag, and the same prefill
+    without it works."""
+    cfg, bb, params = _port("ssm", use_ssd_kernel=True)
     toks = torch.from_numpy(_tokens(cfg.vocab_size, (1, 8)))
-    for call in (lambda: bb.prefill(params, toks), lambda: bb.init_cache(1, 8, device="cpu"),
-                 lambda: bb.decode(params, toks[:, :1], {}, 0)):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            call()
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        bb.prefill(params, toks)
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        bb.apply(params, toks, collect_cache=True)
+    assert bb.apply(params, toks)["logits"].shape[:2] == (1, 8)
+    assert Backbone(cfg).prefill(params, toks)["cache"] is not None

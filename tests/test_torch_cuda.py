@@ -31,10 +31,14 @@ in float32, in other orders).  The backbones on the card against the CPU
 within 2e-4, as the port is held to the reference.  One round of each
 paper experiment on the card against the CPU port within the bounds the
 CPU round is held to against the reference (``torch_shared``): its
-module imports JAX only inside the helpers that run it.
+module imports JAX only inside the helpers that run it.  The serving
+engine's captured decode tick bit-identical to its eager tick (the same
+kernels on the same static buffers); its ring layout within 2e-4 of the
+full layout in float32, as the backbones are held to the CPU.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 from torch_shared import CARD_K, ROUND_TASKS, port_round_mismatches
@@ -766,3 +770,73 @@ def test_host_reading_strategies_run_eager_in_chunks(cuda, strategy):
     chunked = dataclasses.replace(spec, rounds_per_chunk=4).run_result()
     assert chunked.timings["captured"] is False and one.timings["captured"] is False
     assert chunked.history == one.history and _same_state(chunked.state, one.state)
+
+
+# ---------------------------------------------------------------------------
+# serving: the captured decode tick
+# ---------------------------------------------------------------------------
+
+SERVE_WORK = [(20, 6), (5, 6), (33, 5), (9, 7), (12, 4)]   # (prompt, new tokens)
+
+
+def _serve(cfg, params, cuda, **kw):
+    """Serve SERVE_WORK (prompts from a fixed seed) through a 2-slot
+    engine with ``max_seq`` 48; returns the engine, each request's tokens
+    and the logits rows they were sampled from, and the launch counts."""
+    from repro_torch.kernels import launch_counters
+    from repro_torch.serve import ServeEngine
+
+    class Recording(ServeEngine):
+        def _sample(self, row, req):
+            self.rows.setdefault(req.rid, []).append(row.copy())
+            return super()._sample(row, req)
+
+    eng = Recording(cfg, max_batch=2, max_seq=48, min_bucket=8, params=params, device=cuda,
+                    **kw)
+    eng.rows = {}
+    g = torch.Generator().manual_seed(4)
+    rids = [eng.submit(torch.randint(0, cfg.vocab_size, (T,), generator=g).tolist(),
+                       max_new_tokens=n, temperature=0.7) for T, n in SERVE_WORK]
+    counters = launch_counters()
+    before = {n: f.launches for n, f in counters.items()}
+    done = eng.run()
+    torch.cuda.synchronize()
+    launches = {n: f.launches - before[n] for n, f in counters.items()}
+    return eng, [done[r].generated for r in rids], [eng.rows[r] for r in rids], launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,ring", [("gemma3-4b", False), ("gemma3-4b", True),
+                                       ("mamba2-2.7b", False)])
+def test_serve_captured_tick_matches_eager(cuda, arch, ring):
+    """The engine's decode tick replayed from its captured graph gives the
+    eager tick's logits, tokens (sampled at temperature 0.7 from the same
+    host stream) and final cache bit for bit, and neither runs a kernel of
+    the port (all launch counters stay)."""
+    cfg = get_config(arch).smoke()
+    params = Backbone(cfg).init(torch.Generator(device=cuda).manual_seed(0))
+    eager = _serve(cfg, params, cuda, ring=ring, capture=False)
+    capt = _serve(cfg, params, cuda, ring=ring, capture=True)
+    assert capt[0].captured and not eager[0].captured
+    assert capt[1] == eager[1]
+    assert all(len(a) == len(b) and all((x.view("u4") == y.view("u4")).all()
+                                        for x, y in zip(a, b))
+               for a, b in zip(capt[2], eager[2]))
+    assert _same_state(capt[0].cache, eager[0].cache)
+    assert all(v == 0 for v in capt[3].values()) and capt[3] == eager[3]
+    assert capt[0].stats.decode_ticks == eager[0].stats.decode_ticks
+
+
+@pytest.mark.cuda
+def test_serve_ring_engine_matches_full_engine(cuda):
+    """gemma3-4b's smoke config served with ring caches against the full
+    layout: the same tokens, logits within 2e-4 (float32; the ring reads
+    the window in another order)."""
+    cfg = get_config("gemma3-4b").smoke()
+    params = Backbone(cfg).init(torch.Generator(device=cuda).manual_seed(0))
+    full = _serve(cfg, params, cuda, ring=False)
+    ring = _serve(cfg, params, cuda, ring=True)
+    assert ring[1] == full[1]
+    for a, b in zip(ring[2], full[2]):
+        torch.testing.assert_close(torch.from_numpy(np.stack(a)), torch.from_numpy(np.stack(b)),
+                                   rtol=0, atol=2e-4)
