@@ -44,12 +44,13 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    error feedback, ``coded_sync`` of each subtree both ways, for
    IntQuant(8) and IntQuant(4) with the residuals and the experiment's
    weights: ``synced``, ``new_ef`` and ``new_ef_down`` bit-identical.  Then
-   one small round on the card against the same round on the CPU, and one
-   round (K = 1) of each of the six paper experiments at test size (ACGAN
-   nets at 8x8) on the card against the CPU port, within the bounds the
-   CPU round is held to against the reference (``tests/torch_shared.py``,
-   which imports no JAX on this path); each prints its largest ratio of a
-   difference to its limit, and that ratio at K = 2, not held.
+   one small round (K = 1) on the card against the same round on the CPU,
+   and one round (K = 1) of each of the six paper experiments at test
+   size (ACGAN nets at 8x8) on the card against the CPU port, within the
+   bounds the CPU round is held to against the reference
+   (``tests/torch_shared.py``, which imports no JAX on this path); each
+   prints its largest ratio of a difference to its limit, and that ratio
+   at K = 2, not held.
 4. Drive the main paths, ``experiment_spec("image_acgan")`` at full width
    (B = 5, K = 20, batch 64) for 3 rounds each: ``FedAvgSync()``,
    ``FedAvgSync(codec=IntQuant(8))`` (fused), ``FedAvgSync(codec=TopK(0.25)
@@ -175,6 +176,40 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    written mid-stream by ``save_checkpoint``, into the same param and
    cache tensors, and then serves what a fresh engine on the new weights
    serves.
+
+11. The LM GAN (FedGAN's Algorithm 1 with a backbone as the generator,
+   ``repro_torch.launch.steps.make_lm_gan_task``) at granite-moe-3b-a800m's
+   full width (d_model 1,536, 40 experts top-8, vocab 49,408 padded; the
+   discriminator at its config), 4 agents on a (1, 4) grid, batch 8 of
+   T = 256 tokens from ``sample_agent_tokens``, K = 5, Adam at 1e-3,
+   through ``RunSpec.run_result``: 2 rounds at 2 of its 32 layers under
+   ``FedAvgSync()`` (2 fedavg launches a round: the sync buckets each of
+   G and D into one launch), and at 1 layer (the error-feedback residuals
+   add half a state) 1 round under top-k 0.25 + int4 composed (per
+   float32 leaf one fedavg and, per direction, one quant, pack4, unpack4
+   and dequant) and 2 rounds under fused int8 + error feedback (2 qsync a
+   round).  Deeper rounds pass 72 GB of the card's 80 (NVIDIA H100 80GB
+   HBM3, 700 W): a round holds its input state beside the steps' (the
+   functional API, as the reference's undonated jit), and Adam's update
+   the old and the new state.  The five new archs' ``.smoke()`` rounds
+   and one step of each sync at smoke width run first: a process's first
+   local step leaves its input state in a garbage cycle once (torch's
+   first-call set-up keeps a list of frames), a full state at full width.
+   Every sync kernel launch of those rounds is held in place against its
+   plain version on its own
+   inputs (``torch_shared.held_sync_kernels``: fedavg within 1e-6 of
+   sum_b |w_b x_bn|, qsync and the qpack kernels bit for bit), embed's
+   (4, 75,890,688) among them; launches exact, agents equal after every
+   sync, every loss finite; printed: lm per round, ms a round, steps/s,
+   peak memory per round and, for the plain run, ``run.profile``'s ms a
+   round and device busy share.  The smoke rounds: one LM GAN round (K =
+   1, SGD) of each of the five archs the registry gained at ``.smoke()``
+   on the card against the CPU port, within the CPU-vs-JAX bounds of
+   ``tests/torch_shared.py``.  Last, granite-moe-3b-a800m at full size (32
+   layers) served by ``ServeEngine`` (max_batch 4, four requests of 400,
+   40, 150 and 250 prompt tokens, 16 new each), the captured tick
+   bit-identical to the eager one, with tokens/s, tick ms p50/p99 and
+   peak memory.
 
 In every main-path run each kernel's launch counter is set to 0 just
 before it and read just after it, and the kernels the path does not run
@@ -712,58 +747,73 @@ def check_composed_vs_fused(torch, dev):
             f"bit-identical")
 
 
-def check_small_round(torch, dev):
-    """One K = 2 round of the image experiment's nets at 8x8, SGD, from the
-    same weights and batches on the card and on the CPU (the plain
-    versions): plain sync within 1e-4 of each leaf's magnitude (float32
-    roundoff of cuDNN against the CPU library); int8 sync additionally
-    within 1.5 quanta of the leaf's coarsest block on at most 2% of the
-    elements (values at a rounding tie may take the neighbouring code).
-    Prints the largest ratio of a difference to its limit, and its leaf."""
-    from repro_torch.comm import IntQuant
+def _small_round(torch, dev, codec, K):
+    """One K-step round of the image experiment's nets at 8x8, SGD, from
+    the same weights and batches on the card and on the CPU (the plain
+    versions).  Returns the leaves over their limit, the largest ratio of
+    a difference to its limit with its leaf, and (int8) the elements over
+    the plain limit and the elements compared."""
     from repro_torch.core import FedAvgSync, FedGAN, FedGANConfig
     from repro_torch.launch.train import acgan_task
     from repro_torch.optim import SGD, constant, equal_timescale
     from repro_torch.tree import tree_map
     from torch_shared import named_leaves
-    K, grid, b = 2, (1, B), 8
+    grid, b = (1, B), 8
     g = torch.Generator().manual_seed(3)
     batches = {"x": torch.rand((K,) + grid + (b, 8, 8, 3), generator=g) * 2 - 1,
                "y": torch.randint(0, 10, (K,) + grid + (b,), generator=g),
                "z": torch.randn((K,) + grid + (b, 62), generator=g)}
+    task, _ = acgan_task(hw=8)
+    fed = FedGAN(task, FedGANConfig(agent_grid=grid, sync_interval=K,
+                                    strategy=FedAvgSync(codec=codec)),
+                 opt_g=SGD(), opt_d=SGD(), scales=equal_timescale(constant(0.05)))
+    out = {}
+    for d in ("cpu", dev):
+        state = fed.init_state(torch.Generator().manual_seed(4), device=d)
+        out[str(d)], _ = fed.round(state, tree_map(lambda x: x.to(d), batches))
+    bad, over, total, worst = [], 0, 0, (-1.0, None)
+    for (path, c), (_, k) in zip(named_leaves(out["cpu"]["params"]),
+                                 named_leaves(out[str(dev)]["params"])):
+        diff = (c - k.cpu()).abs()
+        tol = 1e-4 * max(1.0, float(c.abs().max()))
+        lim = tol
+        if codec is not None:
+            # a downlink code flip moves one quantum; an uplink flip
+            # adds w_b = 1/B of an agent's quantum on top
+            lim = tol + 1.5 * float(c.abs().max()) / 127
+            over += int((diff > tol).sum())
+            total += diff.numel()
+        if not bool((diff <= lim).all()):
+            bad.append(f"{path} by {float(diff.max())} (limit {lim})")
+        worst = max(worst, (float(diff.max()) / lim, path), key=lambda r: r[0])
+    return bad, worst, over, total
+
+
+def check_small_round(torch, dev):
+    """One round (K = 1, ``torch_shared.CARD_K``) of the image experiment's
+    nets at 8x8, SGD, from the same weights and batches on the card and on
+    the CPU (the plain versions): plain sync within 1e-4 of each leaf's
+    magnitude (float32 roundoff of cuDNN against the CPU library); int8
+    sync additionally within 1.5 quanta of the leaf's coarsest block on at
+    most 2% of the elements (values at a rounding tie may take the
+    neighbouring code).  Prints the largest ratio of a difference to its
+    limit, and its leaf, and that ratio at K = 2, not held: there the
+    second step amplifies a rounding difference (``CARD_K``), and the CPU
+    round alone moves by most of the plain limit with the host's kernel
+    dispatch (ATen's scalar kernels against its vector ones, say), so the
+    reference would depend on the machine."""
+    from repro_torch.comm import IntQuant
+    from torch_shared import CARD_K
     for codec in (None, IntQuant(8)):
-        task, _ = acgan_task(hw=8)
-        fed = FedGAN(task, FedGANConfig(agent_grid=grid, sync_interval=K,
-                                        strategy=FedAvgSync(codec=codec)),
-                     opt_g=SGD(), opt_d=SGD(), scales=equal_timescale(constant(0.05)))
-        out = {}
-        for d in ("cpu", dev):
-            state = fed.init_state(torch.Generator().manual_seed(4), device=d)
-            out[str(d)], _ = fed.round(state, tree_map(lambda x: x.to(d), batches))
-        over = total = 0
-        worst = (-1.0, None)
-        for (path, c), (_, k) in zip(named_leaves(out["cpu"]["params"]),
-                                     named_leaves(out[str(dev)]["params"])):
-            k = k.cpu()
-            diff = (c - k).abs()
-            tol = 1e-4 * max(1.0, float(c.abs().max()))
-            if codec is not None:
-                # a downlink code flip moves one quantum; an uplink flip
-                # adds w_b = 1/B of an agent's quantum on top
-                lim = tol + 1.5 * float(c.abs().max()) / 127
-                check(bool((diff <= lim).all()),
-                      "small int8 round: card and CPU differ by more than a quantum")
-                over += int((diff > tol).sum())
-                total += diff.numel()
-            else:
-                lim = tol
-                check(bool((diff <= tol).all()),
-                      f"small plain round: card and CPU differ by {float(diff.max())} "
-                      f"on {path} (limit {tol})")
-            worst = max(worst, (float(diff.max()) / lim, path), key=lambda r: r[0])
+        what = "int8" if codec else "plain"
+        bad, worst, over, total = _small_round(torch, dev, codec, CARD_K)
+        check(bad == [], f"small {what} round: card and CPU differ on {bad}")
         check(over <= 0.02 * max(total, 1), f"small int8 round: {over} codes moved")
-        log(f"small round card vs CPU ({'int8' if codec else 'plain'}): agree; largest "
-            f"|card - CPU| / limit {worst[0]:.4g} at {worst[1]}")
+        bad2, worst2, over2, _ = _small_round(torch, dev, codec, 2)
+        log(f"small round card vs CPU ({what}): agree at K = {CARD_K}; largest "
+            f"|card - CPU| / limit {worst[0]:.4g} at {worst[1]} (K = 2, not held: "
+            f"{worst2[0]:.4g} at {worst2[1]}, {len(bad2)} leaves over"
+            + (f", {over2} elements past the plain limit)" if codec else ")"))
 
 
 def check_card_rounds(torch, dev):
@@ -1441,6 +1491,221 @@ def run_serve_reload(torch, dev):
                                 f"{got[0]}, a fresh engine on step 2 {got[1]}")
     log(f"serve hot reload (gemma3-4b .smoke()): step 2 picked up after 4 ticks into the "
         f"same tensors, the captured tick then serves as a fresh engine on step 2 does")
+
+
+LM_GAN_ARCH = "granite-moe-3b-a800m"
+# the depth of each sync's rounds, of granite's 32 layers (PERF.md §4)
+LM_GAN_LAYERS = {"plain": 2, "composed": 1, "fused": 1}
+LM_GAN_SHAPE = dict(agents=4, batch=8, T=256, K=5, sequences=256)
+GRANITE_WORK = [(400, 16), (40, 16), (150, 16), (250, 16)]
+
+
+def _lm_gan_cfg(layers):
+    """granite-moe-3b-a800m at full width (d_model 1,536, 24 query and 8
+    KV heads of 64, 40 experts top-8 of d_ff 512, vocab 49,155 padded to
+    49,408, groups of 1,024, capacity 1.25, bfloat16 compute on float32
+    params; the discriminator at its config), ``layers`` of its 32."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(LM_GAN_ARCH)
+    check((cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+           cfg.num_experts, cfg.experts_per_token, cfg.d_ff, cfg.padded_vocab,
+           cfg.moe_group_size, cfg.capacity_factor, cfg.disc_layers, cfg.disc_d_model)
+          == (1536, 24, 8, 64, 40, 8, 512, 49408, 1024, 1.25, 4, 512),
+          f"{LM_GAN_ARCH} is not at its full width")
+    return cfg.scaled(num_layers=layers)
+
+
+def _lm_gan_spec(dev, cfg, strategy, rounds):
+    """The LM GAN's RunSpec at ``cfg``: 4 agents on a (1, 4) grid, 256
+    sequences of 256 tokens an agent from ``sample_agent_tokens``, batch
+    8, K = 5, Adam at 1e-3 (the recipe of ``arch_smoke_spec`` at this
+    width)."""
+    from repro_torch import prng
+    from repro_torch.data.synthetic import sample_agent_tokens
+    from repro_torch.launch.steps import make_lm_gan_task
+    from repro_torch.launch.train import RunSpec
+    from repro_torch.optim import Adam, constant, equal_timescale
+    sh = LM_GAN_SHAPE
+    A = sh["agents"]
+    data = [{"tokens": sample_agent_tokens(prng.key(0), sh["sequences"], sh["T"],
+                                           cfg.vocab_size, agent=i, num_agents=A)}
+            for i in range(A)]
+    return RunSpec(task=make_lm_gan_task(cfg), agent_data=data, agent_grid=(1, A),
+                   K=sh["K"], steps=rounds * sh["K"], batch_size=sh["batch"],
+                   scales=equal_timescale(constant(1e-3)), opt_d=Adam(), opt_g=Adam(),
+                   strategy=strategy, seed=0, log_every=0, device=str(dev))
+
+
+def run_lm_gan_path(torch, dev, layers, strategy, per_round, label, rounds, card):
+    """``rounds`` LM GAN rounds of granite-moe-3b-a800m at full width and
+    ``layers`` deep under ``strategy``, through ``RunSpec.run_result``,
+    with every sync kernel launch held in place against its plain version
+    on the round's own leaves (``torch_shared.held_sync_kernels``).  Every
+    launch counter is set to 0 just before the run and read just after;
+    each must be ``rounds`` times ``per_round`` (kernels absent: 0).  After
+    every round: every agent holds the synced params, every loss is
+    finite, the peak memory of the round.  Returns (counts, held stats,
+    the spec)."""
+    from repro_torch.tree import tree_leaves
+    from torch_shared import held_sync_kernels
+    cfg = _lm_gan_cfg(layers)
+    log(f"depth cut: {LM_GAN_ARCH} LM GAN under {label} runs {layers} of 32 layers at "
+        f"full width (deeper rounds pass 72 GB of the card's 80), {rounds} rounds x "
+        f"K={LM_GAN_SHAPE['K']}")
+    spec = _lm_gan_spec(dev, cfg, strategy, rounds)
+    unsynced, peaks = [], []
+
+    def after(fed, state, r):
+        unsynced.append(torch.stack([(x != x[:1, :1]).any()
+                                     for x in tree_leaves(state["params"])]).any())
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        return {}
+
+    spec = dataclasses.replace(spec, eval_every=1, eval_hooks=(after,))
+    counters = launch_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(counters)
+    with held_sync_kernels() as held:
+        result = spec.run_result()
+        torch.cuda.synchronize()
+    counts = _read(counters)
+    want = {name: rounds * per_round.get(name, 0) for name in counters}
+    check(counts == want, f"{label}: launches {counts} in {rounds} rounds, expected {want}")
+    check({k: v["calls"] for k, v in held.items()} ==
+          {k: v for k, v in counts.items() if v},
+          f"{label}: held {held}, launched {counts}")
+    check(len(unsynced) == rounds and not any(bool(u) for u in unsynced),
+          f"{label}: agents do not hold identical params after a sync")
+    check(all(math.isfinite(v) for m in result.history for v in m.values()),
+          f"{label}: non-finite losses {result.history}")
+    check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(result.state)
+              if x.is_floating_point()), f"{label}: non-finite state")
+    t = result.timings
+    log(f"LM GAN {label}: {layers} layers, grid (1, 4), batch 8 x T 256, K=5: "
+        f"lm per round {[round(m['lm'], 4) for m in result.history]}, last losses "
+        f"{ {k: round(v, 4) for k, v in result.history[-1].items()} }; with every sync "
+        f"launch held in place {t['total_s'] / rounds * 1e3:.1f} ms/round, "
+        f"{t['steps_per_s']:.3f} steps/s; peak GiB by round "
+        f"{[round(p / 2 ** 30, 2) for p in peaks]}; launches {counts}; {card}")
+    for name, h in sorted(held.items()):
+        log(f"LM GAN {label}: {name} held to its plain version on {h['calls']} launches, "
+            f"{h['elements']} elements, widest {h['widest']}, max_abs_err {h['max_abs_err']}")
+    return counts, held, spec
+
+
+def run_lm_gan(torch, dev):
+    """Phase 11: the five new archs' smoke-width LM GAN rounds on the card
+    against the CPU port; the LM GAN (FedGAN's Algorithm 1 on a backbone)
+    at granite-moe-3b-a800m's full width through the sync kernels; and
+    granite-moe-3b-a800m served at full size through the captured tick."""
+    import gc
+    from repro_torch.launch.train import run_arch_smoke
+    from repro_torch.run.profile import profile_spec
+    from torch_shared import lm_gan_round_mismatches, sync_cases
+    t_phase = time.perf_counter()
+    card = card_line()
+    worst = []
+    for arch in ("mixtral-8x22b", "qwen3-8b", "phi4-mini-3.8b", "glm4-9b", LM_GAN_ARCH):
+        bad, (ratio, path) = lm_gan_round_mismatches(arch, dev)
+        check(bad == [], f"{arch} .smoke() LM GAN round on the card departs from the CPU "
+                         f"port: {bad[:5]}")
+        worst.append((ratio, arch, path))
+    ratio, arch, path = max(worst)
+    log(f"LM GAN .smoke() rounds (K=1, SGD) of the five new archs on the card held to the "
+        f"CPU port within torch_shared's bounds; largest ratio of a difference to its "
+        f"limit {ratio:.4f} ({arch}, {path}); {time.perf_counter() - t_phase:.1f} s wall")
+    # per round: plain 2 fedavg (G and D bucketed), fused 2 qsync, composed
+    # per float32 leaf (all of them) one fedavg and 2 of each qpack kernel
+    cases = sync_cases(_lm_gan_leaf_count(torch))
+    # A process's first local step leaves its input state in a garbage cycle
+    # (torch's first-call set-up), a whole state at full width.  One
+    # step of each sync at smoke width takes that step, then a collection.
+    for strategy, _ in cases.values():
+        run_arch_smoke(LM_GAN_ARCH, steps=1, K=1, seed=0, strategy=strategy, device=dev,
+                       log_every=0)
+    gc.collect()
+
+    t0 = time.perf_counter()
+    embed_n = 49408 * 1536
+    _, held, spec = run_lm_gan_path(torch, dev, LM_GAN_LAYERS["plain"], *cases["plain"],
+                                    "FedAvgSync()", 2, card)
+    check(held["fedavg"]["widest"][1] > 2 * embed_n,
+          "FedAvgSync(): the bucketed launch does not hold embed and lm_head")
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = profile_spec(dataclasses.replace(spec, eval_every=0, eval_hooks=()), rounds=1)
+    log(f"LM GAN FedAvgSync() profiled (run.profile.profile_spec, 1 warm-up round, 1 timed, "
+        f"1 profiled): {prof['ms_per_round']:.1f} ms/round, "
+        f"{1e3 * LM_GAN_SHAPE['K'] / prof['ms_per_round']:.3f} steps/s, device busy share "
+        f"{prof['device_busy_share']:.4f}, device ms/round {prof['device_ms_per_round']}, "
+        f"sync kernels {prof['sync_kernels']}; top kernels {prof['top_kernels'][:6]}; {card}")
+    del spec, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, held, _ = run_lm_gan_path(
+        torch, dev, LM_GAN_LAYERS["composed"], *cases["composed"],
+        "FedAvgSync(codec=TopK(0.25)+IntQuant(4), error_feedback=True)", 1, card)
+    check(embed_n in held["fedavg"]["widths"],
+          "composed: no fedavg launch held at embed's (4, 75,890,688)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, held, _ = run_lm_gan_path(
+        torch, dev, LM_GAN_LAYERS["fused"], *cases["fused"],
+        "FedAvgSync(codec=IntQuant(8), error_feedback=True)", 2, card)
+    check(held["qsync"]["widest"][1] > 2 * embed_n,
+          "fused int8: the bucketed launch does not hold embed and lm_head")
+    del held
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"LM GAN at full width: {time.perf_counter() - t0:.1f} s wall; {card}")
+    run_serve_granite(torch, dev, card)
+
+
+def _lm_gan_leaf_count(torch):
+    """The number of leaves of the LM GAN's (G, D) pair in granite's
+    family, all float32: the composed sync takes them one by one.  Counted
+    on a narrow copy of the config (the leaves do not depend on widths or
+    depth: layers are stacked)."""
+    from repro_torch.launch.steps import make_lm_gan_task
+    from repro_torch.tree import tree_leaves
+    small = _lm_gan_cfg(2).scaled(d_model=16, num_heads=2, num_kv_heads=2, head_dim=8,
+                                  d_ff=8, vocab_size=16, num_experts=4, experts_per_token=2,
+                                  disc_d_model=16, disc_heads=2)
+    leaves = tree_leaves(make_lm_gan_task(small).init(torch.Generator().manual_seed(0)))
+    check(all(x.dtype == torch.float32 for x in leaves), "a non-float32 LM GAN leaf")
+    return len(leaves)
+
+
+def run_serve_granite(torch, dev, card):
+    """granite-moe-3b-a800m at full size (32 layers) served by ServeEngine,
+    max_batch 4, max_seq 1,024: four requests of 400, 40, 150 and 250
+    prompt tokens, 16 new each.  An MoE prompt prefills exactly in whole
+    groups of 1,024 (the reference's rule), so these prompts go through the
+    shared decode tick; eager and captured bit-identical, no kernel of the
+    port launched."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import Backbone
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_GAN_ARCH)
+    params = Backbone(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    n = sum(x.numel() for x in tree_leaves(params))
+    log(f"{LM_GAN_ARCH} serve: full size, {cfg.num_layers} layers, {n} params "
+        f"({n * 4 / 2 ** 30:.2f} GiB float32)")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, T).tolist() for T, _ in GRANITE_WORK]
+    kw = dict(max_batch=4, max_seq=1024)
+    label = f"{LM_GAN_ARCH} serve"
+    eager = _serve_run(torch, cfg, params, dev, GRANITE_WORK, prompts, label + " eager",
+                       capture=False, **kw)
+    capt = _serve_run(torch, cfg, params, dev, GRANITE_WORK, prompts, label + " captured",
+                      capture=True, **kw)
+    _same_run(torch, eager[:2], capt[:2], f"{label}: captured vs eager")
+    _serve_report(torch, label, capt[0], eager[0], capt[2], capt[3], GRANITE_WORK, card)
+    log(f"{label}: captured tick bit-identical to the eager tick; phase "
+        f"{time.perf_counter() - t_phase:.1f} s wall; {card}")
 
 
 def run_main_path(torch, dev, strategy, label, per_round):
@@ -2123,6 +2388,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     run_serve_reload(torch, dev)
+    run_lm_gan(torch, dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     check("jax" not in sys.modules, "the port or this script imported jax")

@@ -1,8 +1,10 @@
 """Architecture registry (a port of ``repro.configs.registry``).
 
-The port has the two architectures of the backbone slice; asking for
-another arch the reference registers raises a ``KeyError`` that names the
-ROADMAP slice bringing it.
+The port has seven of the reference's ten architectures: the dense
+(gemma3-4b, qwen3-8b, phi4-mini-3.8b, glm4-9b), MoE (mixtral-8x22b,
+granite-moe-3b-a800m) and SSM (mamba2-2.7b) families.  Asking for one of
+the other three raises a ``KeyError`` that names the ROADMAP slice
+bringing it.
 """
 from __future__ import annotations
 
@@ -12,18 +14,18 @@ from repro_torch.models.config import SHAPES, ArchConfig, ShapeConfig
 
 _MODULES = {
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "qwen3-8b": "repro_torch.configs.qwen3_8b",
+    "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
+    "glm4-9b": "repro_torch.configs.glm4_9b",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
 }
 
 # the reference's other archs, and the ROADMAP slice (queue 1) that ports them
 _LATER = {
-    "mixtral-8x22b": "slice 5 (MoE)",
-    "qwen3-8b": "slice 5 (serving archs)",
-    "phi4-mini-3.8b": "slice 5 (serving archs)",
     "whisper-medium": "slice 5 (audio)",
-    "glm4-9b": "slice 5 (serving archs)",
     "zamba2-7b": "slice 5 (hybrid)",
-    "granite-moe-3b-a800m": "slice 5 (MoE)",
     "chameleon-34b": "slice 5 (vlm)",
 }
 

@@ -37,11 +37,17 @@ class GANTask:
     disc_loss(params, batch) -> scalar minimised in params["disc"]
     gen_loss(params, batch) -> scalar minimised in params["gen"]
     Losses detach the other player's contribution themselves.
+    fused_grads(params, batch) -> (grad_disc, grad_gen, metrics), optional:
+    when set, an agent's step takes its gradients from it, so that the two
+    objectives can share one generator forward (the separate losses run
+    the generator twice).  The port's losses take no random state, so
+    neither does this hook.
     """
 
     init: Callable[[torch.Generator], Any]
     disc_loss: Callable[[Any, Any], torch.Tensor]
     gen_loss: Callable[[Any, Any], torch.Tensor]
+    fused_grads: Callable[[Any, Any], Any] | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,6 +172,8 @@ class FedGAN:
     # ------------------------------------------------------------------
     def _agent_grads(self, params, batch):
         """One agent's (grad_disc, grad_gen, losses)."""
+        if self.task.fused_grads is not None:
+            return self.task.fused_grads(params, batch)
         gd, ld = grad_and_value(
             lambda d: self.task.disc_loss({**params, "disc": d}, batch))(params["disc"])
         gg, lg = grad_and_value(

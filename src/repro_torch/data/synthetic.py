@@ -4,12 +4,18 @@
 MNIST/CIFAR and CelebA stand-ins) and daily household-load profiles (the
 PG&E stand-in).  Draws come from an explicit ``torch.Generator`` on its
 own device (on the labels' device for the conditional ones): the same
-distributions as the reference, different bits."""
+distributions as the reference, different bits.  The LM GAN's token
+streams (``sample_agent_tokens``) are the exception: they are the
+reference's tokens bit for bit, drawn through the numpy Threefry of
+``repro_torch.prng``."""
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from repro_torch import prng
 
 
 # ---------------------------------------------------------------------------
@@ -109,3 +115,25 @@ def sample_household_load(gen: torch.Generator, n: int, *, climate_zone: torch.T
             + evening_h * torch.exp(-0.5 * ((t - evening_peak) / 2.0) ** 2))
     prof = prof + 0.05 * torch.randn((n, seq_len), generator=gen, device=dev)
     return prof / prof.amax(dim=1, keepdim=True)
+
+
+# ---------------------------------------------------------------------------
+# Synthetic token streams (LM-backbone federated training)
+# ---------------------------------------------------------------------------
+
+
+def sample_agent_tokens(rng, n: int, seq_len: int, vocab: int, *, agent: int,
+                        num_agents: int) -> torch.Tensor:
+    """Non-iid token sequences, (n, seq_len) int32 on the CPU: each agent
+    draws from a distinct slice of the vocabulary, 30% of the tokens from a
+    head shared by all.  ``rng`` is a key's data (``prng.key(seed)``); the
+    tokens are the reference's ``sample_agent_tokens(jax.random.key(seed),
+    ...)`` bit for bit.  As there, the shared tokens and the choice of
+    where they go are both drawn from the same key ``k2``."""
+    k1, k2 = prng.split(prng.fold_in(rng, agent))
+    shard = max(vocab // num_agents, 2)
+    base = prng.randint(k1, (n, seq_len), 0, shard)
+    offset = min(agent * shard, max(vocab - shard, 0))
+    shared = prng.randint(k2, (n, seq_len), 0, vocab)
+    use_shared = prng.uniform(k2, (n, seq_len)) < np.float32(0.3)
+    return torch.from_numpy(np.where(use_shared, shared, base + offset).astype(np.int32))

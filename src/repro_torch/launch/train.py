@@ -1,9 +1,10 @@
-"""FedGAN training launcher (a port of the ``--experiment`` half of
-``repro.launch.train``).
+"""FedGAN training launcher (a port of ``repro.launch.train``).
 
 Runs one of the paper's experiments (toy_2d, mixed_gaussian, swiss_roll,
 image_acgan, celeba_acgan, timeseries_cgan) on its synthetic stand-in
-data, on the card unless told otherwise:
+data, or federated adversarial training of an assigned backbone
+(``--arch``: the LM GAN at the arch's ``.smoke()`` width), on the card
+unless told otherwise:
 
   PYTHONPATH=src python -m repro_torch.launch.train --experiment toy_2d
   PYTHONPATH=src python -m repro_torch.launch.train --experiment mixed_gaussian \
@@ -27,6 +28,8 @@ data, on the card unless told otherwise:
       --device cpu --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --experiment image_acgan \
       --data-mode stream               # host-assembled rounds, pinned uploads
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-3b-a800m \
+      --steps 4 --K 2 --device cpu     # the LM GAN of a reduced backbone
 
 ``--device cuda`` (the default) raises when no GPU is present.  The
 legacy ``--mode`` still resolves through the deprecation shim.
@@ -47,7 +50,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import prng, resolve_device
 from repro_torch.comm import codec_from_flags
 from repro_torch.configs.paper_gans import ALL_EXPERIMENTS, optimizer_for, scales_for
 from repro_torch.core import ACGAN, CONDITIONAL, FedAvgSync, FedGAN, FedGANConfig, \
@@ -145,15 +148,15 @@ class RunSpec:
         """Execute through the round driver; returns its ``RunResult``."""
         from repro_torch.run.driver import RoundDriver
         fed = self.build()
-        state = fed.init_state(torch.Generator().manual_seed(self.seed),
-                               device=self.device)
         driver = RoundDriver(fed, self.build_data(), self.n_rounds,
                              log_every=self.log_every, eval_every=self.eval_every,
                              eval_hooks=self.eval_hooks, ckpt_dir=self.ckpt_dir,
                              ckpt_every=max(self.n_rounds // 4, 1) if self.ckpt_dir else 0,
                              rounds_per_chunk=self.rounds_per_chunk,
                              verbose=bool(self.log_every))
-        return driver.run(self.seed + 1, state=state)
+        # the driver holds the only reference to the initial state
+        return driver.run(self.seed + 1, state=fed.init_state(
+            torch.Generator().manual_seed(self.seed), device=self.device))
 
 
 def _pooled_real(agent_data, seed: int = 0):
@@ -289,13 +292,59 @@ def experiment_spec(name: str, *, K: int | None = None,
     return spec, suite
 
 
+def arch_smoke_spec(arch: str, *, steps: int, K: int, seed: int, strategy=None,
+                    dp=None, ckpt_dir: str = "", batch_size: int | None = None,
+                    agents: int | None = None, log_every: int | None = None,
+                    data_mode: str = "device", rounds_per_chunk: int = 1,
+                    device="cuda") -> RunSpec:
+    """RunSpec for federated adversarial training of a reduced assigned
+    backbone (see :func:`run_arch_smoke`), the reference's recipe: the
+    arch's ``.smoke()`` config, ``agents`` (default 4) agents on a (1, B)
+    grid, each with 256 token sequences of T = 32 from
+    ``sample_agent_tokens`` (the reference's tokens bit for bit for the
+    same ``seed``), minibatches of ``batch_size`` (default 8), Adam under
+    ``equal_timescale(constant(1e-3))``.  ``data_mode`` defaults to the
+    port's ``device``, as ``experiment_spec``'s does."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_lm_gan_task
+    _refuse_unported(a_total=0, dp=dp)
+    dev = resolve_device(device)
+    cfg = get_config(arch).smoke()
+    B, T = agents or 4, 32
+    rng = prng.key(seed)
+    agent_data = [{"tokens": synthetic.sample_agent_tokens(
+        rng, 256, T, cfg.vocab_size, agent=i, num_agents=B)} for i in range(B)]
+    return RunSpec(
+        task=make_lm_gan_task(cfg), agent_data=agent_data, agent_grid=(1, B), K=K,
+        steps=steps, batch_size=batch_size or 8, scales=equal_timescale(constant(1e-3)),
+        opt_d=Adam(), opt_g=Adam(), strategy=strategy, seed=seed,
+        log_every=1 if log_every is None else log_every, ckpt_dir=ckpt_dir,
+        device=str(dev), data_mode=data_mode, rounds_per_chunk=rounds_per_chunk)
+
+
+def run_arch_smoke(arch: str, *, steps: int, K: int, seed: int, strategy=None,
+                   dp=None, ckpt_dir: str = "", batch_size=None, agents=None,
+                   log_every=None, data_mode: str = "device", device="cuda"):
+    """Federated adversarial training of a reduced assigned backbone;
+    returns the driver's ``RunResult``.  With ``ckpt_dir`` the run
+    checkpoints its FedGAN state, which a ``repro_torch.serve`` engine can
+    hot-reload (``CheckpointWatcher``) and serve."""
+    return arch_smoke_spec(
+        arch, steps=steps, K=K, seed=seed, strategy=strategy, dp=dp,
+        ckpt_dir=ckpt_dir, batch_size=batch_size, agents=agents,
+        log_every=log_every, data_mode=data_mode, device=device).run_result()
+
+
 _SYNC_DTYPES = {"": None, "f32": torch.float32, "bf16": torch.bfloat16,
                 "bfloat16": torch.bfloat16, "f16": torch.float16}
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
-    ap.add_argument("--experiment", required=True, choices=sorted(ALL_EXPERIMENTS))
+    ap.add_argument("--experiment", default="", choices=sorted(ALL_EXPERIMENTS))
+    ap.add_argument("--arch", default="",
+                    help="federated adversarial training of this assigned "
+                         "backbone at its .smoke() width (the LM GAN)")
     ap.add_argument("--K", type=int, default=0,
                     help="local steps per round (0 = experiment default)")
     ap.add_argument("--steps", type=int, default=0,
@@ -399,14 +448,29 @@ def strategy_from_args(args) -> strategies.SyncStrategy | None:
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if bool(args.experiment) == bool(args.arch):
+        ap.error("need exactly one of --experiment and --arch")
     strategy = strategy_from_args(args)
-    spec, _ = experiment_spec(
-        args.experiment, K=args.K or None, steps=args.steps or None, seed=args.seed,
-        strategy=strategy, batch_size=args.batch_size or None,
-        agents=args.agents or None, log_every=None if args.log_every < 0 else args.log_every,
-        eval_every=args.eval_every, device=args.device, ckpt_dir=args.ckpt_dir,
-        samples_per_agent=args.samples_per_agent or None, data_mode=args.data_mode)
+    overrides = dict(batch_size=args.batch_size or None, agents=args.agents or None,
+                     log_every=None if args.log_every < 0 else args.log_every,
+                     device=args.device, ckpt_dir=args.ckpt_dir,
+                     data_mode=args.data_mode)
+    if args.experiment:
+        spec, _ = experiment_spec(
+            args.experiment, K=args.K or None, steps=args.steps or None, seed=args.seed,
+            strategy=strategy, eval_every=args.eval_every,
+            samples_per_agent=args.samples_per_agent or None, **overrides)
+    else:
+        if args.eval_every:
+            ap.error("--eval-every needs --experiment (no eval suite exists "
+                     "for backbone smoke runs)")
+        if args.samples_per_agent:
+            ap.error("--samples-per-agent needs --experiment (a backbone smoke "
+                     "run holds 256 sequences an agent)")
+        spec = arch_smoke_spec(args.arch, steps=args.steps or 20, K=args.K or 5,
+                               seed=args.seed, strategy=strategy, **overrides)
     result = spec.run_result()
     for e in result.evals:
         print(json.dumps({"eval": True, **e}))

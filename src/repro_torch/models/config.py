@@ -1,9 +1,8 @@
 """Architecture configuration (a port of ``repro.models.config``).
 
 One ``ArchConfig`` describes a backbone of the zoo.  The port runs the
-dense (grouped local:global included) and SSM families so far; the others
-keep their fields so that every registered config loads, and the Backbone
-raises for them.
+dense (grouped local:global included), MoE and SSM families so far; the
+others keep their fields, and the Backbone raises for them.
 """
 from __future__ import annotations
 
@@ -63,7 +62,7 @@ class ArchConfig:
     vocab_pad_multiple: int = 256
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
-    remat: bool = True               # no effect in the port (forward only)
+    remat: bool = True               # no effect in the port (models/transformer.py)
 
     # --- adversarial (FedGAN) head: discriminator encoder dims ---
     disc_layers: int = 4

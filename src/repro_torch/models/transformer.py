@@ -1,6 +1,7 @@
 """Backbone model (a port of ``repro.models.transformer``): the dense
-family (uniform window, or grouped local:global à la gemma3) and the SSM
-family.
+family (uniform window, or grouped local:global à la gemma3), the MoE
+family (decoder blocks with an MoE FFN, whose router aux loss is summed
+over the layers) and the SSM family.
 
 Entry points:
   init(gen) -> params                   # drawn on the generator's device
@@ -13,8 +14,11 @@ Parameters keep the reference's pytree: stacked layer params with their
 leading ``(L,)`` or ``(G, r)`` dims, so the conversion from the reference
 is leaf by leaf.  The reference's ``lax.scan`` over a stack is a Python
 loop over its leading dim here.  ``ring_cache=True`` gives the
-sliding-window layers O(W) ring-buffer caches.  The families moe, hybrid,
-audio and vlm belong to ROADMAP queue 1, slice 5 and raise.
+sliding-window layers O(W) ring-buffer caches.  The families hybrid,
+audio and vlm belong to ROADMAP queue 1, slice 5 and raise.  The
+reference's ``remat`` (``jax.checkpoint`` over the scan bodies) has no
+counterpart: ``torch.utils.checkpoint`` does not compose with the
+``torch.func.vmap`` of the agents' gradients, and it changes no number.
 """
 from __future__ import annotations
 
@@ -27,10 +31,11 @@ import torch.nn.functional as F
 from repro_torch import nn, resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import Attention, SwiGLU, make_norm
+from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import Mamba2Block
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
-_LATER = "ROADMAP queue 1, slice 5 (MoE, hybrid, audio and vlm)"
+_LATER = "ROADMAP queue 1, slice 5 (hybrid, audio and vlm)"
 
 
 def _pad_attn_cache(cache, extra: int):
@@ -75,12 +80,22 @@ def _layer(stacked, *idx):
     return tree_map(lambda x: x[idx], stacked)
 
 
+def _layers(stacked, n: int) -> list:
+    """The ``n`` per-layer trees of a stack (leading dim ``n``), unbound
+    once.  Under a gradient this matters: the backward of ``n`` indexings
+    allocates a zeroed stack per layer for each leaf, the backward of one
+    unbind stacks the layers' gradients once, after the last of them."""
+    leaves, treedef = tree_flatten(stacked)
+    cols = [torch.unbind(x, 0) for x in leaves]
+    return [tree_unflatten(treedef, [c[i] for c in cols]) for i in range(n)]
+
+
 def _stack(trees):
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
 # ---------------------------------------------------------------------------
-# Decoder block: attention + SwiGLU
+# Decoder block: attention + (SwiGLU | MoE)
 # ---------------------------------------------------------------------------
 
 
@@ -93,9 +108,8 @@ class DecoderBlock(nn.Module):
     use_flash: bool = False
 
     def __post_init__(self):
-        if self.use_moe or self.cross:
-            raise NotImplementedError(f"MoE and cross-attention blocks are not ported "
-                                      f"yet: {_LATER}")
+        if self.cross:
+            raise NotImplementedError(f"cross-attention blocks are not ported yet: {_LATER}")
 
     @property
     def attn(self):
@@ -103,7 +117,7 @@ class DecoderBlock(nn.Module):
 
     @property
     def mlp(self):
-        return SwiGLU(self.cfg)
+        return MoE(self.cfg) if self.use_moe else SwiGLU(self.cfg)
 
     def init(self, gen):
         c = self.cfg
@@ -116,16 +130,22 @@ class DecoderBlock(nn.Module):
         return make_norm(self.cfg, self.cfg.d_model)
 
     def apply(self, params, h, *, window=None, return_kv=False):
+        """-> (h, aux[, kv]); aux is the MoE router's loss, else a float32 0."""
         norm = self._norm()
         a = self.attn.apply(params["attn"], norm.apply(params["ln1"], h),
                             window=window, return_kv=return_kv)
         if return_kv:
             a, kv = a
         h = h + a
-        h = h + self.mlp.apply(params["mlp"], norm.apply(params["ln2"], h))
+        m = self.mlp.apply(params["mlp"], norm.apply(params["ln2"], h))
+        if self.use_moe:
+            m, aux = m
+        else:
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        h = h + m
         if return_kv:
-            return h, kv
-        return h
+            return h, aux, kv
+        return h, aux
 
     def decode(self, params, h, cache, index, *, window=None, ring=False, donate=False):
         norm = self._norm()
@@ -137,7 +157,10 @@ class DecoderBlock(nn.Module):
             a, new_cache = self.attn.decode(params["attn"], x, cache, index,
                                             window=window, donate=donate)
         h = h + a
-        return h + self.mlp.apply(params["mlp"], norm.apply(params["ln2"], h)), new_cache
+        m = self.mlp.apply(params["mlp"], norm.apply(params["ln2"], h))
+        if self.use_moe:
+            m, _ = m
+        return h + m, new_cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,7 +207,7 @@ class Backbone(nn.Module):
     ring_cache: bool = False  # sliding-window layers use O(W) ring buffers
 
     def __post_init__(self):
-        if self.cfg.family not in ("dense", "ssm"):
+        if self.cfg.family not in ("dense", "moe", "ssm"):
             raise NotImplementedError(f"the {self.cfg.family!r} family is not ported "
                                       f"yet: {_LATER}")
 
@@ -204,7 +227,8 @@ class Backbone(nn.Module):
         return c.num_layers % (c.local_global_ratio + 1) if self.grouped else 0
 
     def _block(self):
-        return DecoderBlock(self.cfg, use_flash=self.use_flash)
+        return DecoderBlock(self.cfg, use_moe=self.cfg.num_experts > 0,
+                            use_flash=self.use_flash)
 
     def _mamba(self):
         return MambaLayer(self.cfg, use_kernel=self.use_ssd_kernel)
@@ -267,71 +291,71 @@ class Backbone(nn.Module):
         "none"."""
         c = self.cfg
         h = self._embed(params, tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         caches: dict[str, Any] = {}
         if c.family == "ssm":
             layer = self._mamba()
             states = []
-            for i in range(c.num_layers):
+            for bp in _layers(params["blocks"], c.num_layers):
                 if collect_cache:
-                    h, st = layer.apply(_layer(params["blocks"], i), h, return_state=True)
+                    h, st = layer.apply(bp, h, return_state=True)
                     states.append(st)
                 else:
-                    h = layer.apply(_layer(params["blocks"], i), h)
+                    h = layer.apply(bp, h)
             if collect_cache:
                 caches["blocks"] = _stack(states)
         elif self.grouped:
-            h, caches = self._grouped_forward(params, h, collect_cache)
+            h, aux, caches = self._grouped_forward(params, h, aux, collect_cache)
         else:
             block = self._block()
             window = c.sliding_window if c.sliding_window > 0 else None
             kvs = []
-            for i in range(c.num_layers):
-                out = block.apply(_layer(params["blocks"], i), h, window=window,
-                                  return_kv=collect_cache)
+            for bp in _layers(params["blocks"], c.num_layers):
+                out = block.apply(bp, h, window=window, return_kv=collect_cache)
+                h, a = out[:2]
+                aux = aux + a
                 if collect_cache:
-                    h, kv = out
-                    kvs.append(kv)
-                else:
-                    h = out
+                    kvs.append(out[2])
             if collect_cache:
                 caches["blocks"] = _stack(kvs)
 
         hidden, logits = self._head(params, h, logits_mode=logits_mode)
-        out = {"hidden": hidden, "logits": logits,
-               "aux": torch.zeros((), dtype=torch.float32, device=h.device)}
+        out = {"hidden": hidden, "logits": logits, "aux": aux}
         if collect_cache:
             out["cache"] = caches
         return out
 
-    def _grouped_forward(self, params, h, collect_cache):
-        """gemma3-style [ratio local + 1 global] groups + local tail."""
+    def _grouped_forward(self, params, h, aux, collect_cache):
+        """gemma3-style [ratio local + 1 global] groups + local tail; the
+        layers' aux losses summed onto ``aux``."""
         c = self.cfg
         block = self._block()
         W = c.sliding_window
         gw = W if c.global_uses_window else None
+        total = [aux]
 
         def run(bp, hh, window, kvs):
             out = block.apply(bp, hh, window=window, return_kv=collect_cache)
+            total[0] = total[0] + out[1]
             if collect_cache:
-                hh, kv = out
-                kvs.append(kv)
-                return hh
-            return out
+                kvs.append(out[2])
+            return out[0]
 
         local, glob, tail = [], [], []
-        for g in range(self.n_groups):
-            for r in range(c.local_global_ratio):
-                h = run(_layer(params["local"], g, r), h, W, local)
-            h = run(_layer(params["global"], g), h, gw, glob)
-        for t in range(self.n_tail):
-            h = run(_layer(params["tail"], t), h, W, tail)
+        for lp, gp in zip(_layers(params["local"], self.n_groups),
+                          _layers(params["global"], self.n_groups)):
+            for bp in _layers(lp, c.local_global_ratio):
+                h = run(bp, h, W, local)
+            h = run(gp, h, gw, glob)
+        for bp in _layers(params["tail"], self.n_tail) if self.n_tail else ():
+            h = run(bp, h, W, tail)
         caches = {}
         if collect_cache:
             caches["local"] = self._stack_local(local)
             caches["global"] = _stack(glob)
             if self.n_tail:
                 caches["tail"] = _stack(tail)
-        return h, caches
+        return h, total[0], caches
 
     # ---- prefill ----
     def prefill(self, params, tokens, *, max_seq: int = 0, logits_mode: str = "last"):

@@ -4,13 +4,14 @@ The participation schedule (``core/participation.py``) draws each round's
 cohort from ``jax.random.uniform(fold_in(key(seed), round_idx), (n,))`` in
 the reference.  The port has no JAX, so it computes the same bits on the
 host: ``key``, ``fold_in``, ``split``, 32-bit ``random_bits``, ``uniform``
-and ``randint``, with the counter layout of
+(and so ``bernoulli``) and ``randint``, with the counter layout of
 ``jax_threefry_partitionable=True`` (JAX's default since 0.5): element i
 of a draw hashes the 64-bit counter i (row-major over the draw's shape) as
 the word pair (hi, lo) and keeps ``out0 ^ out1``; key i of a split keeps
 both words.  The host-streaming round pipeline
 (``repro_torch.data.federated``) draws its minibatch indices and seeds
-from these.
+from these, and ``data.synthetic.sample_agent_tokens`` the LM GAN's
+token streams.
 
 A key is a (2,) uint32 array, as ``jax.random.key_data`` gives it.
 """
@@ -78,10 +79,12 @@ def random_bits(k, shape) -> np.ndarray:
     return y0 ^ y1
 
 
-def uniform(k, n: int) -> np.ndarray:
-    """``jax.random.uniform(k, (n,))``, float32 in [0, 1): the top 23 bits
-    as a mantissa under the exponent of 1.0, minus 1."""
-    bits = (random_bits(k, n) >> np.uint32(9)) | np.uint32(0x3F800000)
+def uniform(k, shape) -> np.ndarray:
+    """``jax.random.uniform(k, shape)`` (``shape`` an int or a tuple),
+    float32 in [0, 1): the top 23 bits as a mantissa under the exponent of
+    1.0, minus 1.  ``uniform(k, shape) < p`` is ``jax.random.bernoulli(k,
+    p, shape)`` for a float ``p``."""
+    bits = (random_bits(k, shape) >> np.uint32(9)) | np.uint32(0x3F800000)
     return np.maximum(bits.view(np.float32) - np.float32(1.0), np.float32(0.0))
 
 

@@ -147,7 +147,13 @@ class RoundDriver:
         self._evals, table = [], _Table(self.n_rounds)
         t0 = time.perf_counter()
         run = self._run_device if self.data.kind == "device" else self._run_stream
-        state, gap, captured = run(seed, state, table)
+        # hand the state over: this frame keeps no reference to it, so the
+        # initial state is freed once the first round has its output, not
+        # pinned for the whole run (at a backbone's width, as large as the
+        # state the rounds work on)
+        handoff = [state]
+        del state
+        state, gap, captured = run(seed, handoff, table)
         _synchronize(dev)
         total = time.perf_counter() - t0
         K = self.fed.cfg.sync_interval
@@ -161,9 +167,10 @@ class RoundDriver:
         # one fetch for the whole run, after every round was dispatched
         return RunResult(self.fed, state, table.history(), self._evals, timings)
 
-    def _run_stream(self, seed, state, table):
+    def _run_stream(self, seed, handoff, table):
         """One eager ``FedGAN.round`` per streamed round; the gap is the
         time blocked on the next round's data."""
+        state = handoff.pop()
         gap = 0.0
         it = self.data.iter_rounds(prng.key(seed), self.n_rounds)
         for r in range(self.n_rounds):
@@ -175,7 +182,7 @@ class RoundDriver:
             self._boundaries(state, r, table)
         return state, gap, False
 
-    def _run_device(self, seed, state, table):
+    def _run_device(self, seed, handoff, table):
         """The rounds in chunks (``_chunk_sizes``), captured on the card
         unless a chunk is one round or the strategy reads the round on the
         host; the gap is all host work between round dispatches (generator
@@ -183,6 +190,7 @@ class RoundDriver:
         captured = (self.device.type == "cuda" and self.rounds_per_chunk > 1
                     and not self.fed.cfg.resolve_strategy().reads_round_on_host)
         runner = None
+        state = handoff.pop()
         gap, r = 0.0, 0
         t_host = time.perf_counter()
         gens = round_key_schedule(seed, self.n_rounds, self.device)

@@ -60,7 +60,7 @@ from repro_torch.launch.train import _SYNC_DTYPES, experiment_spec
 from repro_torch.run.graph import CapturedRound
 
 SYNC_KERNELS = ("fedavg_", "qsync_kernel", "qpack_")
-MATMUL_MARKS = ("conv", "gemm", "xmma", "cudnn", "cutlass", "wgrad", "dgrad")
+MATMUL_MARKS = ("conv", "gemm", "xmma", "cudnn", "cutlass", "wgrad", "dgrad", "nvjet")
 
 
 def _category(name: str) -> str:
@@ -88,6 +88,17 @@ def profile_rounds(name="image_acgan", *, codec="", topk=0.0, composed=False,
         strategy = FedAvgSync(codec=c, fused_sync=False if composed else None)
     spec, _ = experiment_spec(name, strategy=strategy, log_every=0, device=device,
                               **spec_kw)
+    fed = spec.build()
+    return {"experiment": name, "codec": c.name if c is not None else None,
+            "strategy": fed.cfg.resolve_strategy().name, "captured": captured,
+            "fused_sync": None if c is None else not composed and c.fused_sync_spec() is not None,
+            **profile_spec(spec, rounds=rounds, top=top, captured=captured)}
+
+
+def profile_spec(spec, *, rounds=2, top=12, captured=False) -> dict:
+    """Where the rounds of ``spec`` (a ``launch.train.RunSpec``: an
+    experiment's, or the LM GAN's of ``arch_smoke_spec`` or one built at
+    another width) spend their time, as the module's docstring says."""
     dev = torch.device(spec.device)
     fed, data = spec.build(), spec.build_data()
     state = fed.init_state(torch.Generator().manual_seed(spec.seed), device=dev)
@@ -125,9 +136,6 @@ def profile_rounds(name="image_acgan", *, codec="", topk=0.0, composed=False,
         split[_category(e.key)] += e.self_device_time_total / 1e3 / rounds
     on_card = dev.type == "cuda"
     return {
-        "experiment": name, "codec": c.name if c is not None else None,
-        "strategy": fed.cfg.resolve_strategy().name, "captured": captured,
-        "fused_sync": None if c is None else not composed and c.fused_sync_spec() is not None,
         "rounds": rounds,
         "K": spec.K, "agents": fed.cfg.num_agents, "batch": spec.batch_size,
         "device": torch.cuda.get_device_name(dev) if on_card else "cpu",

@@ -9,38 +9,40 @@ from __future__ import annotations
 _LEAF, _NONE, _DICT = "leaf", "none", "dict"
 
 
+def _walk(t, leaves):
+    if isinstance(t, dict):
+        keys = sorted(t)
+        return (_DICT, keys, [_walk(t[k], leaves) for k in keys])
+    if isinstance(t, (list, tuple)):
+        return (type(t), None, [_walk(x, leaves) for x in t])
+    if t is None:
+        return (_NONE, None, [])
+    leaves.append(t)
+    return (_LEAF, None, [])
+
+
 def tree_flatten(tree):
-    """tree -> (leaves, treedef)."""
+    """tree -> (leaves, treedef).  The walk is a module-level function: a
+    nested one that calls itself is a reference cycle, which would keep
+    the leaves it collected alive until the next garbage-collector pass
+    (a whole optimizer state a step, at a backbone's width)."""
     leaves = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(t):
-        if isinstance(t, dict):
-            keys = sorted(t)
-            return (_DICT, keys, [walk(t[k]) for k in keys])
-        if isinstance(t, (list, tuple)):
-            return (type(t), None, [walk(x) for x in t])
-        if t is None:
-            return (_NONE, None, [])
-        leaves.append(t)
-        return (_LEAF, None, [])
 
-    return leaves, walk(tree)
+def _build(node, it):
+    kind, keys, kids = node
+    if kind == _LEAF:
+        return next(it)
+    if kind == _NONE:
+        return None
+    if kind == _DICT:
+        return {k: _build(c, it) for k, c in zip(keys, kids)}
+    return kind(_build(c, it) for c in kids)
 
 
 def tree_unflatten(treedef, leaves):
-    it = iter(leaves)
-
-    def build(node):
-        kind, keys, kids = node
-        if kind == _LEAF:
-            return next(it)
-        if kind == _NONE:
-            return None
-        if kind == _DICT:
-            return {k: build(c) for k, c in zip(keys, kids)}
-        return kind(build(c) for c in kids)
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree) -> list:

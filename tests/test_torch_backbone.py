@@ -66,7 +66,11 @@ def _tokens(vocab, shape, seed=1):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "mamba2-2.7b"])
+PORTED_ARCHS = ["gemma3-4b", "mixtral-8x22b", "qwen3-8b", "phi4-mini-3.8b", "glm4-9b",
+                "granite-moe-3b-a800m", "mamba2-2.7b"]
+
+
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_registry_configs_match_reference(arch):
     assert port_config(jget_config(arch)) == get_config(arch)
     assert port_config(jget_config(arch).smoke()) == get_config(arch).smoke()
@@ -78,10 +82,11 @@ def test_registry_configs_match_reference(arch):
 
 
 def test_registry_refuses_unported_archs():
-    assert list_archs() == ["gemma3-4b", "mamba2-2.7b"]
+    assert list_archs() == PORTED_ARCHS
     assert get_shape("prefill_32k").seq_len == 32_768
-    with pytest.raises(KeyError, match="slice 5"):
-        get_config("mixtral-8x22b")
+    for arch in ("zamba2-7b", "whisper-medium", "chameleon-34b"):
+        with pytest.raises(KeyError, match="slice 5"):
+            get_config(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 
@@ -255,7 +260,7 @@ def test_causality(key, flag):
 
 
 def test_unported_paths_raise():
-    for key in ("moe", "hybrid", "audio"):
+    for key in ("hybrid", "audio"):
         with pytest.raises(NotImplementedError, match="slice 5"):
             Backbone(port_config(JCFGS[key]))
 

@@ -34,7 +34,13 @@ CPU round is held to against the reference (``torch_shared``): its
 module imports JAX only inside the helpers that run it.  The serving
 engine's captured decode tick bit-identical to its eager tick (the same
 kernels on the same static buffers); its ring layout within 2e-4 of the
-full layout in float32, as the backbones are held to the CPU.
+full layout in float32, as the backbones are held to the CPU.  The LM
+GAN (slice 12): one round of each new arch's ``.smoke()`` config on the
+card against the CPU port within ``torch_shared``'s round bounds; every
+sync kernel launch of its rounds held in place to its plain version
+(``torch_shared.held_sync_kernels``: fedavg within 1e-6 of sum_b |w_b
+x_bn|, qsync and qpack bit for bit) with exact launch counts; the MoE's
+routing on the card equal to the CPU's token for token.
 """
 import dataclasses
 
@@ -807,7 +813,8 @@ def _serve(cfg, params, cuda, **kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,ring", [("gemma3-4b", False), ("gemma3-4b", True),
-                                       ("mamba2-2.7b", False)])
+                                       ("mamba2-2.7b", False),
+                                       ("granite-moe-3b-a800m", False)])
 def test_serve_captured_tick_matches_eager(cuda, arch, ring):
     """The engine's decode tick replayed from its captured graph gives the
     eager tick's logits, tokens (sampled at temperature 0.7 from the same
@@ -840,3 +847,72 @@ def test_serve_ring_engine_matches_full_engine(cuda):
     for a, b in zip(ring[2], full[2]):
         torch.testing.assert_close(torch.from_numpy(np.stack(a)), torch.from_numpy(np.stack(b)),
                                    rtol=0, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the LM GAN (slice 12)
+# ---------------------------------------------------------------------------
+
+LM_GAN_ARCHS = ["mixtral-8x22b", "qwen3-8b", "phi4-mini-3.8b", "glm4-9b",
+                "granite-moe-3b-a800m"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_GAN_ARCHS)
+def test_lm_gan_round_on_card_matches_cpu(cuda, arch):
+    """One LM GAN round (K = 1, SGD) of the arch's ``.smoke()`` config on
+    the card against the CPU port, within the CPU-vs-JAX bounds."""
+    from torch_shared import lm_gan_round_mismatches
+    bad, (ratio, path) = lm_gan_round_mismatches(arch, cuda)
+    print(f"{arch}: largest ratio {ratio:.4f} at {path}")
+    assert bad == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plain", "fused", "composed"])
+def test_lm_gan_sync_launches_held_on_card(cuda, case):
+    """Two LM GAN rounds of granite's ``.smoke()`` config on the card under
+    each sync: every sync kernel launch held in place to its plain version,
+    the launch counts those the path implies, agents synced."""
+    from torch_shared import held_sync_kernels, sync_cases
+    from repro_torch.kernels import launch_counters
+    from repro_torch.launch.steps import make_lm_gan_task
+    from repro_torch.launch.train import run_arch_smoke
+    arch = "granite-moe-3b-a800m"
+    L = len(tree_leaves(make_lm_gan_task(get_config(arch).smoke()).init(
+        torch.Generator().manual_seed(0))))
+    strategy, per_round = sync_cases(L)[case]
+    counters = launch_counters()
+    before = {n: f.launches for n, f in counters.items()}
+    with held_sync_kernels() as held:
+        result = run_arch_smoke(arch, steps=2, K=1, seed=0, strategy=strategy, device=cuda,
+                                log_every=0)
+        torch.cuda.synchronize()
+    launches = {n: f.launches - before[n] for n, f in counters.items()}
+    assert launches == {n: 2 * per_round.get(n, 0) for n in counters}
+    assert {k: v["calls"] for k, v in held.items()} == {k: 2 * v for k, v in per_round.items()}
+    for x in tree_leaves(result.state["params"]):
+        assert (x == x[:1, :1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_router", [False, True])
+def test_moe_routing_on_card_matches_cpu(cuda, zero_router):
+    """The MoE's routing (expert choices, slots, drops) of granite's
+    ``.smoke()`` config on the card equal to the CPU's on every token, a
+    zero router (every probability tied) included; the output within 1e-5
+    of its largest magnitude (float32)."""
+    from repro_torch.models.moe import MoE
+    cfg = get_config("granite-moe-3b-a800m").smoke().scaled(capacity_factor=0.5)
+    moe = MoE(cfg)
+    params = moe.init(torch.Generator().manual_seed(0))
+    if zero_router:
+        params["router"]["w"].zero_()
+    x = torch.randn((2, 32, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    for a, b in zip(moe.route(params, x)[2:], moe.route(on_card, x.to(cuda))[2:]):
+        assert torch.equal(a, b.cpu())
+    y, aux = moe.apply(params, x)
+    yc, auxc = moe.apply(on_card, x.to(cuda))
+    assert (yc.cpu() - y).abs().max() <= 1e-5 * max(1.0, float(y.abs().max()))
+    assert abs(float(auxc) - float(aux)) <= 1e-5 * max(1.0, abs(float(aux)))

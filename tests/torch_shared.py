@@ -1,16 +1,20 @@
 """Shared set-up of the port's tests: the image experiment's nets at 8x8
 in both packages, the forward-and-gradient parity check of a module
-against its JAX twin, one FedGAN round of each paper experiment at test
-size with the bounds a round is held to, and one torch thread per test
-process (the tier-1 run puts several pytest workers on the same cores,
-where torch's default of one thread per core oversubscribes them).
+against its JAX twin, one FedGAN round of each paper experiment (and of
+the LM GAN at an arch's ``.smoke()`` config) at test size with the bounds
+a round is held to, every sync kernel launch held to its plain version in
+place (``held_sync_kernels``), and one torch thread per test process (the
+tier-1 run puts several pytest workers on the same cores, where torch's
+default of one thread per core oversubscribes them).
 
 The module imports JAX and the reference package only inside the helpers
 that run them: ``test_torch_cuda.py`` and ``chip_smoke.py`` read the round
 bounds on a machine without them.
 """
+import contextlib
 import dataclasses
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -415,3 +419,207 @@ def port_round_mismatches(name, device, K=CARD_K, order=None):
     losses = tuple((m["d_loss"][0].item(), m["g_loss"][0].item()) for m in (gm, wm))
     return round_mismatches(tpaper.ALL_EXPERIMENTS[name], K, to_np(got), to_np(want),
                             to_np(grads), losses)
+
+
+# ---------------------------------------------------------------------------
+# One LM GAN round at an arch's .smoke() config, on a device against the CPU
+# ---------------------------------------------------------------------------
+
+# The reference's arch smoke round (tests/test_arch_smoke.py): a (1, 2)
+# grid, batches of 2 sequences of 16 tokens, SGD at 1e-3.  Under Adam the
+# round bounds do not hold the reference to itself there
+# (test_torch_lm_gan.py's test_adam_bounds_do_not_hold_the_lm_gan_reference_
+# to_itself), so the LM GAN round is held under SGD.
+LM_GRID, LM_BATCH, LM_T, LM_LR = (1, 2), 2, 16, 1e-3
+LM_EXP = types.SimpleNamespace(opt="sgd", lr_d=LM_LR, lr_g=LM_LR)
+
+
+def lm_gan_fed(arch, K):
+    """The port's LM GAN FedGAN of ``arch``'s ``.smoke()`` config, SGD."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_lm_gan_task
+    cfg = get_config(arch).smoke()
+    return FedGAN(make_lm_gan_task(cfg), FedGANConfig(agent_grid=LM_GRID, sync_interval=K),
+                  opt_g=SGD(), opt_d=SGD(), scales=equal_timescale(constant(LM_LR))), cfg
+
+
+def lm_gan_tokens(vocab, K, seed=1):
+    """One round's (K, P, A, b, T) int32 tokens from numpy's generator."""
+    shape = (K,) + LM_GRID + (LM_BATCH, LM_T)
+    return np.random.default_rng(seed).integers(0, vocab, shape).astype(np.int32)
+
+
+def lm_gan_round_mismatches(arch, device, K=CARD_K):
+    """One LM GAN round of ``arch`` (``lm_gan_fed``) on ``device`` against
+    the same round on the CPU port, from one start state (drawn on the CPU
+    from a seeded generator, then copied) and the same numpy tokens:
+    ``round_mismatches`` with the CPU round in the reference's place."""
+    fed, cfg = lm_gan_fed(arch, K)
+    batches = {"tokens": torch.from_numpy(lm_gan_tokens(cfg.vocab_size, K))}
+    start = fed.init_state(torch.Generator().manual_seed(0), device="cpu")
+    want, wm = fed.round(start, batches)
+    grads = first_step_grads(fed, start, batches)
+    to_dev = lambda t: tree_map(lambda x: x.to(device), t)  # noqa: E731
+    got, gm = fed.round(to_dev(start), to_dev(batches))
+    to_np = lambda t: tree_map(lambda x: x.detach().cpu().numpy(), t)  # noqa: E731
+    losses = tuple((m["d_loss"][0].item(), m["g_loss"][0].item()) for m in (gm, wm))
+    return round_mismatches(LM_EXP, K, to_np(got), to_np(want), to_np(grads), losses)
+
+
+def sync_cases(L):
+    """(strategy, calls of each sync kernel wrapper a round) under the
+    plain average (one bucketed launch for G, one for D), the fused int8
+    sync (one qsync for each) and the composed top-k + int4 sync (per
+    float32 leaf one fedavg and, per direction, quant, pack4, unpack4 and
+    dequant)."""
+    from repro_torch.comm import IntQuant, get_codec
+    from repro_torch.core import FedAvgSync
+    return {"plain": (None, {"fedavg": 2}),
+            "fused": (FedAvgSync(codec=IntQuant(bits=8), error_feedback=True), {"qsync": 2}),
+            "composed": (FedAvgSync(codec=get_codec("topk+int4", fraction=0.25),
+                                    error_feedback=True),
+                         {"fedavg": L, "quant": 2 * L, "pack4": 2 * L, "unpack4": 2 * L,
+                          "dequant": 2 * L})}
+
+
+# ---------------------------------------------------------------------------
+# Every sync kernel launch held against its plain version, in place
+# ---------------------------------------------------------------------------
+
+HOLD_COLUMNS = 1 << 24   # plain versions run on column chunks this wide
+
+
+class _Held:
+    """A kernel wrapper that, after each call, holds its outputs to
+    ``hold(out, *args, **kwargs)``; ``launches`` is the wrapper's own."""
+
+    def __init__(self, fn, hold):
+        self.fn, self.hold = fn, hold
+
+    def __call__(self, *args, **kwargs):
+        out = self.fn(*args, **kwargs)
+        self.hold(out, *args, **kwargs)
+        return out
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+
+def _bits_equal(a, b):
+    """Equal in every byte: a comparison that sees the sign of zero."""
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8), b.contiguous().reshape(-1).view(torch.uint8))
+
+
+@contextlib.contextmanager
+def held_sync_kernels(columns=HOLD_COLUMNS):
+    """While open, every call of a sync kernel's wrapper on the paths of
+    the coded and the plain sync (fedavg's float32 route, qsync, and
+    qpack's quant, dequant, pack4 and unpack4) also runs the kernel's plain
+    version on the same inputs, ``columns`` columns at a time (every output
+    column, or block of 128 columns, depends on its own inputs alone), and
+    holds the kernel's outputs to it: fedavg within 1e-6 of sum_b |w_b
+    x_bn| (the plain version's library sum groups the products in another
+    order), qsync's three outputs and the qpack kernels' bit for bit.
+    Yields ``{kernel: {"calls", "elements", "widest", "widths",
+    "max_abs_err"}}`` (``widths``: the set of column counts held); a
+    departure raises ``AssertionError``.  The plain versions launch no
+    kernel, so the launch counters count as they do outside."""
+    from repro_torch.dist import collectives
+    from repro_torch.kernels.fedavg.ref import fedavg_flat_ref
+    from repro_torch.kernels.qpack import kernel as pk
+    from repro_torch.kernels.qpack import ref as pref
+    from repro_torch.kernels.qsync import kernel as qk
+    from repro_torch.kernels.qsync.ref import qsync_flat_ref
+    stats = {}
+
+    def note(name, shape, err):
+        r = stats.setdefault(name, {"calls": 0, "elements": 0, "widest": (0, 0),
+                                    "widths": set(), "max_abs_err": 0.0})
+        r["calls"] += 1
+        r["widths"].add(int(shape[-1]))
+        r["elements"] += int(np.prod(shape))
+        r["widest"] = max(r["widest"], tuple(shape), key=lambda s: s[-1])
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+
+    def spans(n, step):
+        return [(i, min(i + step, n)) for i in range(0, n, step)]
+
+    def hold_fedavg(out, weights, stacked):
+        err = 0.0
+        for a, b in spans(stacked.shape[1], columns):
+            x = stacked[:, a:b]
+            want = fedavg_flat_ref(weights, x)
+            bound = 1e-6 * (weights.float().reshape(-1, 1) * x.float()).abs().sum(0)
+            diff = (out[a:b].float() - want.float()).abs()
+            assert bool((diff <= bound).all()), \
+                f"fedavg {tuple(stacked.shape)}: columns {a}:{b} off by {float(diff.max())}"
+            err = max(err, float(diff.max()))
+        note("fedavg", stacked.shape, err)
+
+    def hold_qsync(out, weights, stacked, ef=None, ef_down=None, *, qmax, block=128):
+        for a, b in spans(stacked.shape[1], columns - columns % block):
+            want = qsync_flat_ref(weights, stacked[:, a:b],
+                                  ef[:, a:b] if ef is not None else None,
+                                  ef_down[a:b] if ef_down is not None else None,
+                                  qmax=qmax, block=block)
+            got = (out[0][a:b], out[1][:, a:b] if out[1] is not None else None,
+                   out[2][a:b] if out[2] is not None else None)
+            for what, g, w in zip(("synced", "new_ef", "new_ef_down"), got, want):
+                assert (g is None) == (w is None) and (w is None or _bits_equal(g, w)), \
+                    f"qsync {tuple(stacked.shape)} {what}: columns {a}:{b} differ"
+        note("qsync", stacked.shape, 0.0)
+
+    def hold_quant(out, x, *, qmax, block=128):
+        for a, b in spans(x.shape[1], columns - columns % block):
+            wq, ws = pref.quant_blocks_ref(x[:, a:b], qmax=qmax, block=block)
+            assert _bits_equal(out[0][:, a:b], wq) and \
+                _bits_equal(out[1][:, a // block:b // block], ws), \
+                f"quant {tuple(x.shape)}: columns {a}:{b} differ"
+        note("quant", x.shape, 0.0)
+
+    def hold_dequant(out, q, scales, *, block=128):
+        for a, b in spans(q.shape[1], columns - columns % block):
+            want = pref.dequant_blocks_ref(q[:, a:b], scales[:, a // block:b // block],
+                                           block=block)
+            assert _bits_equal(out[:, a:b], want), f"dequant {tuple(q.shape)}: columns {a}:{b}"
+        note("dequant", q.shape, 0.0)
+
+    def hold_pack4(out, q):
+        for a, b in spans(q.shape[1], columns):
+            assert _bits_equal(out[:, a // 2:b // 2], pref.pack4_ref(q[:, a:b])), \
+                f"pack4 {tuple(q.shape)}: columns {a}:{b} differ"
+        note("pack4", q.shape, 0.0)
+
+    def hold_unpack4(out, p):
+        for a, b in spans(p.shape[1], columns):
+            assert _bits_equal(out[:, 2 * a:2 * b], pref.unpack4_ref(p[:, a:b])), \
+                f"unpack4 {tuple(p.shape)}: columns {a}:{b} differ"
+        note("unpack4", p.shape, 0.0)
+
+    patches = [(collectives._REDUCE, torch.float32, hold_fedavg),
+               (qk, "qsync_flat", hold_qsync), (pk, "quant_flat", hold_quant),
+               (pk, "dequant_flat", hold_dequant), (pk, "pack4_flat", hold_pack4),
+               (pk, "unpack4_flat", hold_unpack4)]
+    saved = []
+    try:
+        for where, key, hold in patches:
+            get = where.get if isinstance(where, dict) else functools.partial(getattr, where)
+            fn = get(key)
+            saved.append((where, key, fn))
+            if isinstance(where, dict):
+                where[key] = _Held(fn, hold)
+            else:
+                setattr(where, key, _Held(fn, hold))
+        yield stats
+    finally:
+        for where, key, fn in saved:
+            if isinstance(where, dict):
+                where[key] = fn
+            else:
+                setattr(where, key, fn)
