@@ -211,6 +211,45 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    bit-identical to the eager one, with tokens/s, tick ms p50/p99 and
    peak memory.
 
+12. The hybrid, audio and vlm families at full width.  Phase 6 also
+   holds flash at zamba2-7b's shared attention (q, k, v (2, 32, 2048,
+   112) bfloat16, causal; head_dim 112, whose 14 16-byte chunks a row do
+   not divide the block's 128 threads) and whisper-medium's encoder ((2,
+   16, 1500, 64), non-causal), and float32 at 112, each timed against its
+   plain version and ``scaled_dot_product_attention`` with its bound; phase
+   7 the SSD scan at zamba2-7b's shapes (x (2, 2048, 112, 64) bfloat16,
+   state 64, chunk 128, the generic instantiation) with its final state,
+   the output and the state against ``ssd_ref(return_final_state=True)``.
+   zamba2-7b at full size (81 blocks, 5.7 G float32 params): ``apply`` on
+   2 x 2,048 tokens through both kernels (13 flash and 68 SSD launches),
+   held to the flag-free route block by block in bfloat16 (each shared
+   attention application and each mixer from the same normed input,
+   within 2^-5 of its largest |output|) and at the logits in float32
+   compute (2^-6); ``prefill`` with max_seq 2,064 (13 and 68 launches,
+   every scan returning its final state) and 16 greedy decode steps, held
+   to the flag-free prefill and decode within 2^-5 of the largest |logit|
+   in float32 compute (the bfloat16 gap, which the random-init model
+   amplifies over 81 layers as phase 9 shows, printed).  Served at full
+   size (max_batch 4, max_seq 1,536, the requests of phase 10's
+   mamba2-2.7b), eager and captured bit for bit, each request held
+   teacher-forced within 2^-5 in float32 compute (a float32 engine,
+   captured).  whisper-medium at full size (24 + 24 layers): ``encode``
+   of seeded frames (2, 1,500, 1,024) through flash (24 non-causal launches), a
+   prefill of 2 x 448 tokens with them (48: the encoder's 24 and the
+   decoder's 24 causal), ``build_cross_cache`` equal to the prefill's
+   cross caches, 16 greedy decode steps, held to ``use_flash=False``
+   within 2^-5 of the largest |logit| in bfloat16; served (max_batch 4,
+   max_seq 448, four requests of 5, 60, 200 and 400 prompt tokens, each
+   with its own frames, the last two submitted after four ticks), eager
+   and captured bit for bit, teacher-forced within 2^-5.
+   chameleon-34b at full width, cut in depth to the deepest cut whose
+   float32 params and a 12 GB reserve fit 72 GiB (printed): a prefill of
+   2 x 2,048 tokens through flash (one launch a layer), 16 greedy decode
+   steps, held to the plain route within 2^-5 in bfloat16, its peak
+   memory under 72 GiB.  Phase 11's ``.smoke()`` LM GAN rounds on the card
+   against the CPU port take zamba2-7b, whisper-medium (with frames) and
+   chameleon-34b too.
+
 In every main-path run each kernel's launch counter is set to 0 just
 before it and read just after it, and the kernels the path does not run
 must read 0.  The second-to-last line is the kernels' record as one JSON
@@ -878,9 +917,12 @@ def _sdpa_backend(torch, fn):
 
 def check_flash(torch, dev, flush):
     """The flash kernel against its plain version: gemma3-4b's shapes in
-    bfloat16 (windows 1024 and 0), float32 without GQA and with GQA 4:1.
-    Timing at the local layers' window 1024 (29 of the 34 launches of a
-    prefill) and the global layers' 0."""
+    bfloat16 (windows 1024 and 0), zamba2-7b's shared attention (head_dim
+    112, causal) and whisper-medium's encoder (non-causal) in bfloat16,
+    float32 without GQA, with GQA 4:1 and at head_dim 112.  Timing at
+    gemma3-4b's local layers' window 1024 (29 of the 34 launches of a
+    prefill; the kernels line's record) and global layers' 0, and at the
+    two new shapes."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS, bf16_kernel_attrs,
                                                             flash_attention_bhsd)
@@ -890,29 +932,38 @@ def check_flash(torch, dev, flush):
         log(f"flash_fwd_tc<{hd}>: {a['num_regs']} registers, {a['local_bytes']} local bytes "
             f"a thread, {a['smem_bytes']} shared bytes a block, {a['blocks_per_sm']} "
             f"blocks an SM")
-        check(hd != 256 or a["local_bytes"] == 0,
-              f"flash_fwd_tc<256> spills: {a['local_bytes']} local bytes a thread")
+        check(hd not in (112, 256) or a["local_bytes"] == 0,
+              f"flash_fwd_tc<{hd}> spills: {a['local_bytes']} local bytes a thread")
     gen = torch.Generator(device=dev).manual_seed(6)
-    cases = [(2, 8, 4, 2000, 256, 1024, torch.bfloat16), (2, 8, 4, 2000, 256, 0, torch.bfloat16),
-             (2, 4, 4, 333, 64, 0, torch.float32), (2, 8, 2, 333, 128, 100, torch.float32)]
+    # (B, nh, nkv, T, hd, window, causal, dtype, timed label or None)
+    cases = [(2, 8, 4, 2000, 256, 1024, True, torch.bfloat16, "gemma3-4b local"),
+             (2, 8, 4, 2000, 256, 0, True, torch.bfloat16, "gemma3-4b global"),
+             (2, 32, 32, 2048, 112, 0, True, torch.bfloat16, "zamba2-7b shared attention"),
+             (2, 16, 16, 1500, 64, 0, False, torch.bfloat16, "whisper-medium encoder"),
+             (2, 4, 4, 333, 64, 0, True, torch.float32, None),
+             (2, 8, 2, 333, 128, 100, True, torch.float32, None),
+             (2, 4, 4, 333, 112, 0, False, torch.float32, None)]
     record, err_max = None, 0.0
-    for (Bq, nh, nkv, T, hd, window, dtype) in cases:
+    for (Bq, nh, nkv, T, hd, window, causal, dtype, label) in cases:
         q = torch.randn((Bq, nh, T, hd), generator=gen, device=dev).to(dtype)
         k, v = (torch.randn((Bq, nkv, T, hd), generator=gen, device=dev).to(dtype)
                 for _ in range(2))
-        got = flash_attention_bhsd(q, k, v, causal=True, window=window)
-        want = attention_ref(q, k, v, causal=True, window=window)
+        got = flash_attention_bhsd(q, k, v, causal=causal, window=window)
+        want = attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        what = f"flash q {tuple(q.shape)} kv {tuple(k.shape)} window {window} {dtype}"
+        what = (f"flash q {tuple(q.shape)} kv {tuple(k.shape)} "
+                f"{'causal' if causal else 'non-causal'} window {window} {dtype}")
         err = _kernel_close(torch, got, want, what)
         err_max = max(err_max, err) if dtype == torch.bfloat16 else err_max
         log(f"{what}: max_abs_err={err} (max |o| {float(want.float().abs().max())})")
-        if hd != 256:
+        if label is None:
             continue
-        pos = torch.arange(T, device=dev)
-        mask = pos[:, None] >= pos[None, :]
-        if window:
-            mask &= pos[:, None] - pos[None, :] < window
+        mask = None
+        if causal:
+            pos = torch.arange(T, device=dev)
+            mask = pos[:, None] >= pos[None, :]
+            if window:
+                mask &= pos[:, None] - pos[None, :] < window
 
         def lib():
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
@@ -921,22 +972,22 @@ def check_flash(torch, dev, flush):
         check(float((lib().float() - want.float()).abs().max())
               <= 2.0 ** -5 * float(want.float().abs().max()),
               f"{what}: scaled_dot_product_attention disagrees with the plain version")
-        ms = time_ms(torch, lambda: flash_attention_bhsd(q, k, v, causal=True, window=window),
+        ms = time_ms(torch, lambda: flash_attention_bhsd(q, k, v, causal=causal, window=window),
                      flush)
-        plain = time_ms(torch, lambda: attention_ref(q, k, v, causal=True, window=window),
+        plain = time_ms(torch, lambda: attention_ref(q, k, v, causal=causal, window=window),
                         flush)
         lib_ms = time_ms(torch, lib, flush)
-        pairs = _flash_pairs(T, T, window)
+        pairs = _flash_pairs(T, T, window) if causal else T * T
         ops = Bq * nh * pairs * 4 * hd                  # q.k and p.v of the unmasked pairs
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
-        log(f"flash timing {what}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        log(f"flash timing {label}, {what}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             f"scaled_dot_product_attention {lib_ms:.4f} ms "
             f"({_sdpa_backend(torch, lib)}), bound {b_ms:.4f} ms ({b_by}, {pairs} unmasked "
             f"pairs per head, {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
-        log(f"flash window {window}: the kernel is {max(ms, lib_ms) / min(ms, lib_ms):.2f}x "
+        log(f"flash {label}: the kernel is {max(ms, lib_ms) / min(ms, lib_ms):.2f}x "
             f"{'faster' if ms < lib_ms else 'slower'} than scaled_dot_product_attention "
-            f"({ms:.4f} against {lib_ms:.4f} ms)")
+            f"({ms:.4f} against {lib_ms:.4f} ms), {b_ms / ms:.1%} of its bound")
         if window:
             record = {"name": "flash_attention", "route": "cuda",
                       "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -995,10 +1046,55 @@ def check_ssd(torch, dev, flush):
     log(f"ssd phases alone: chunk states {phase_ms[0]:.4f} ms, state pass "
         f"{phase_ms[1]:.4f} ms, chunk outputs {phase_ms[2]:.4f} ms (sum "
         f"{sum(phase_ms):.4f}); workspace {ws.numel() * 4} bytes")
+    err = max(err, check_ssd_final_state(torch, dev, flush))
     return {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:26", "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
+
+
+def check_ssd_final_state(torch, dev, flush):
+    """The SSD scan at zamba2-7b's shapes (x (2, 2048, 112, 64) bfloat16,
+    state 64, chunk 128: the generic instantiation) with its final state,
+    the decode cache of a prefill: the output and the (2, 112, 64, 64)
+    float32 state against ``ssd_ref(return_final_state=True)`` with the
+    tolerance above; timed with and without the state, with its bound.
+    Returns the output's largest error."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan.kernel import ssd_bthd
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    gen = torch.Generator(device=dev).manual_seed(8)
+    Bsz, T, nh, hd, ds, Q = 2, 2048, 112, 64, 64, 128
+    x = (0.5 * torch.randn((Bsz, T, nh, hd), generator=gen, device=dev)).bfloat16()
+    dt = F.softplus(torch.randn((Bsz, T, nh), generator=gen, device=dev))
+    A = -torch.exp(torch.randn((nh,), generator=gen, device=dev))
+    Bm, Cm = ((0.5 * torch.randn((Bsz, T, ds), generator=gen, device=dev)).bfloat16()
+              for _ in range(2))
+    got, state = ssd_bthd(x, dt, A, Bm, Cm, chunk=Q, return_final_state=True)
+    want, want_state = ssd_ref(x, dt, A, Bm, Cm, chunk=Q, return_final_state=True)
+    torch.cuda.synchronize()
+    what = f"ssd x {tuple(x.shape)} state {ds} chunk {Q} bfloat16 with its final state"
+    err = _kernel_close(torch, got, want, what)
+    s_err = _kernel_close(torch, state, want_state, what + " (the state)")
+    check(torch.equal(got, ssd_bthd(x, dt, A, Bm, Cm, chunk=Q)),
+          f"{what}: the output differs from the scan's without the state")
+    log(f"{what}: max_abs_err={err} (max |y| {float(want.float().abs().max())}); state "
+        f"{tuple(state.shape)} max_abs_err={s_err} (max |state| "
+        f"{float(want_state.abs().max())})")
+    ms = time_ms(torch, lambda: ssd_bthd(x, dt, A, Bm, Cm, chunk=Q, return_final_state=True),
+                 flush)
+    ms_y = time_ms(torch, lambda: ssd_bthd(x, dt, A, Bm, Cm, chunk=Q), flush)
+    plain = time_ms(torch, lambda: ssd_ref(x, dt, A, Bm, Cm, chunk=Q, return_final_state=True),
+                    flush)
+    NC = T // Q
+    ops = Bsz * NC * (2 * Q * Q * ds + nh * (2 * Q * Q * hd + 4 * Q * hd * ds))
+    nbytes = (2 * x.numel() * 2 + dt.numel() * 4 + A.numel() * 4 + 2 * Bm.numel() * 2
+              + state.numel() * 4)
+    b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
+    log(f"ssd timing at zamba2-7b's shapes: kernel with the final state {ms:.4f} ms "
+        f"(without {ms_y:.4f} ms), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"{ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), {b_ms / ms:.2%} of the bound")
+    return err
 
 
 # What a checkout's own chip_smoke times, by --<what>-parent: {kernel: ms}.
@@ -1227,18 +1323,34 @@ def _recording_engine(torch, cfg, params, dev, **kw):
     return eng
 
 
-def _serve_run(torch, cfg, params, dev, work, prompts, label, **kw):
+def _serve_run(torch, cfg, params, dev, work, prompts, label, *, frames=None, late=(),
+               **kw):
     """One engine over ``work``, every launch counter 0 just before and read
-    just after (the serve path runs no kernel of the port).  Returns
-    (engine, {rid: request}, wall s, peak bytes)."""
+    just after (the serve path runs no kernel of the port).  ``frames``:
+    each request's encoder frames (audio).  The requests indexed by
+    ``late`` are submitted after the others' first four ticks (admitted
+    mid-stream).  Returns (engine, {rid: request}, wall s, peak bytes)."""
     counters = launch_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     eng = _recording_engine(torch, cfg, params, dev, **kw)
-    rids = [eng.submit(p, max_new_tokens=g) for p, (_, g) in zip(prompts, work)]
+    frames = frames or [None] * len(work)
+
+    def submit(i):
+        return eng.submit(prompts[i], max_new_tokens=work[i][1], frames=frames[i])
+
+    check(tuple(late) == tuple(range(len(work) - len(late), len(work))),
+          f"{label}: the late requests must be the last ones")
+    rids = [submit(i) for i in range(len(work)) if i not in late]
     _reset(counters)
     t0 = time.perf_counter()
+    early = []
+    if late:
+        for _ in range(4):
+            early += eng.tick()
+        rids += [submit(i) for i in late]
     done = eng.run()
+    done.update({r.rid: r for r in early})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _read(counters)
@@ -1268,19 +1380,21 @@ def _same_run(torch, a, b, label):
           f"{label}: final caches differ")
 
 
-def _teacher_rows(torch, bb, params, prompt, generated, dev):
+def _teacher_rows(torch, bb, params, prompt, generated, dev, frames=None):
     """Batch-1 logits for each generated step, teacher-forced on the
     engine's own tokens: ``Backbone.prefill`` of the longest prefix the
-    family prefills in one shot (the whole prompt for attention), then
-    ``decode`` with a scalar index over the rest of the prompt and the
-    generated tokens."""
+    family prefills in one shot (the whole prompt for attention; with the
+    request's encoder ``frames``, audio), then ``decode`` with a scalar
+    index over the rest of the prompt and the generated tokens."""
     from repro_torch.serve.cache import prefill_prefix
     T, g = len(prompt), len(generated)
     seq = list(prompt) + list(generated[:-1])
     prefix = prefill_prefix(bb.cfg, T)
     rows = []
     if prefix:
-        pre = bb.prefill(params, torch.tensor([seq[:prefix]], device=dev), max_seq=T + g)
+        kw = {} if frames is None else {"encoder_frames": frames[None].to(dev)}
+        pre = bb.prefill(params, torch.tensor([seq[:prefix]], device=dev), max_seq=T + g,
+                         **kw)
         cache = pre["cache"]
         if prefix == T:
             rows.append(pre["logits"][0, 0])
@@ -1607,13 +1721,15 @@ def run_lm_gan(torch, dev):
     t_phase = time.perf_counter()
     card = card_line()
     worst = []
-    for arch in ("mixtral-8x22b", "qwen3-8b", "phi4-mini-3.8b", "glm4-9b", LM_GAN_ARCH):
+    for arch in ("mixtral-8x22b", "qwen3-8b", "phi4-mini-3.8b", "glm4-9b", LM_GAN_ARCH,
+                 "zamba2-7b", "whisper-medium", "chameleon-34b"):
         bad, (ratio, path) = lm_gan_round_mismatches(arch, dev)
         check(bad == [], f"{arch} .smoke() LM GAN round on the card departs from the CPU "
                          f"port: {bad[:5]}")
         worst.append((ratio, arch, path))
     ratio, arch, path = max(worst)
-    log(f"LM GAN .smoke() rounds (K=1, SGD) of the five new archs on the card held to the "
+    log(f"LM GAN .smoke() rounds (K=1, SGD) of the eight archs of phases 11 and 12 on "
+        f"the card held to the "
         f"CPU port within torch_shared's bounds; largest ratio of a difference to its "
         f"limit {ratio:.4f} ({arch}, {path}); {time.perf_counter() - t_phase:.1f} s wall")
     # per round: plain 2 fedavg (G and D bucketed), fused 2 qsync, composed
@@ -1706,6 +1822,437 @@ def run_serve_granite(torch, dev, card):
     _serve_report(torch, label, capt[0], eager[0], capt[2], capt[3], GRANITE_WORK, card)
     log(f"{label}: captured tick bit-identical to the eager tick; phase "
         f"{time.perf_counter() - t_phase:.1f} s wall; {card}")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the hybrid, audio and vlm families at full width
+# ---------------------------------------------------------------------------
+
+# zamba2-7b's requests are mamba2-2.7b's (phase 10); whisper-medium's four,
+# the last two submitted after four ticks (admitted mid-stream)
+ZAMBA_WORK = MAMBA_WORK
+WHISPER_WORK = [(5, 16), (60, 16), (200, 16), (400, 16)]
+WHISPER_LATE = (2, 3)
+CARD_BUDGET = 72 * 2 ** 30     # of the card's 80 GiB, what a full-width phase may hold
+
+
+def _counted(torch, counters, fn):
+    """``fn()`` with every launch counter set to 0 just before and read just
+    after; returns (result, counts)."""
+    torch.cuda.synchronize()
+    _reset(counters)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _read(counters)
+
+
+def _greedy(torch, bb, params, pre, T, steps, dev, tokens=None):
+    """``steps`` decode steps from a prefill's cache with a per-row index:
+    greedy on the route's own logits, or teacher-forced on ``tokens``
+    (steps, B, 1).  Returns (the tokens fed, the logits of each step)."""
+    cache, lg = pre["cache"], pre["logits"]
+    fed, out = [], []
+    for s in range(steps):
+        tok = lg[:, -1].argmax(-1, keepdim=True) if tokens is None else tokens[s]
+        index = torch.full((tok.shape[0],), T + s, device=dev)
+        lg, cache = bb.decode(params, tok, cache, index)
+        fed.append(tok)
+        out.append(lg)
+    return torch.stack(fed), torch.stack(out)
+
+
+def _hold_prefill_decode(torch, kern, plain, params, toks, steps, dev, label, kw=None):
+    """``prefill`` of ``toks`` (max_seq T + steps) through ``kern``, then
+    ``steps`` greedy decode steps with a per-row index; the same prefill
+    through ``plain`` and its decode teacher-forced on the kernel route's
+    tokens: every logit finite, the prefill's and every step's within 2^-5
+    of the largest |logit| of the plain route.  The decode continues from
+    each route's own cache (the SSD kernel's final states, the flash
+    route's k and v).  Returns (max err, max |logit|, the share of
+    positions whose argmax agrees)."""
+    kw = kw or {}
+    T = toks.shape[1]
+    pk = kern.prefill(params, toks, max_seq=T + steps, **kw)
+    fed, lk = _greedy(torch, kern, params, pk, T, steps, dev)
+    first_k = pk["logits"]
+    del pk
+    pp = plain.prefill(params, toks, max_seq=T + steps, **kw)
+    _, lp = _greedy(torch, plain, params, pp, T, steps, dev, tokens=fed)
+    first_p = pp["logits"]
+    del pp
+    e0, t0 = _logits_close(torch, first_k, first_p, 2.0 ** -5, f"{label}: prefill logits")
+    e1, t1 = _logits_close(torch, lk, lp, 2.0 ** -5, f"{label}: decode logits")
+    V = kern.cfg.vocab_size
+    same = float((torch.cat([first_k, lk.flatten(0, 1)])[..., :V].argmax(-1) ==
+                  torch.cat([first_p, lp.flatten(0, 1)])[..., :V].argmax(-1)).float().mean())
+    return max(e0, e1), max(t0, t1), same
+
+
+def run_zamba(torch, dev):
+    """zamba2-7b at full size (81 blocks: 13 groups of the one shared
+    decoder block and 5 Mamba2 layers, then 3 Mamba2; d_model 3,584, 32
+    heads of 112, 112 SSD heads of 64, state 64): ``apply`` on 2 x 2,048
+    tokens through flash and the SSD scan (13 and 68 launches), held to the
+    flag-free model block by block in bfloat16 (each shared-attention
+    application and each mixer from the same normed input, within 2^-5 of
+    its largest |output|) and at the logits in float32 compute (2^-6);
+    ``prefill`` with max_seq 2,064 through both kernels (68 scans each
+    returning its final state), 16 greedy decode steps; the prefill and
+    decode held to the flag-free route's within 2^-5 of the largest |logit|
+    in float32 compute (logged, not held, in bfloat16: the random-init
+    model amplifies last-bit differences over 81 layers, as phase 9
+    shows)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import Backbone
+    from repro_torch.models.layers import make_norm
+    from repro_torch.models.transformer import _layer
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    cfg = get_config("zamba2-7b")
+    B, T, steps = 2, 2048, 16
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+           cfg.d_ff, cfg.padded_vocab, cfg.d_inner, cfg.resolved_ssm_heads, cfg.ssm_state,
+           cfg.ssm_chunk, cfg.hybrid_period) ==
+          (81, 3584, 32, 32, 112, 14336, 32000, 7168, 112, 64, 128, 6),
+          "zamba2-7b is not at full size")
+    flags = dict(use_flash=True, use_ssd_kernel=True)
+    bb, plain = Backbone(cfg, **flags), Backbone(cfg)
+    check((bb.n_groups, bb.n_tail) == (13, 3), "zamba2-7b: not 13 groups and a tail of 3")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bb.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"zamba2-7b: {n_params} parameters ({n_params * 4 / 2 ** 30:.2f} GiB float32) "
+        f"initialised on the card in {time.perf_counter() - t0:.1f} s")
+    toks = torch.randint(0, cfg.vocab_size, (B, T),
+                         generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    counters = launch_counters()
+    want_counts = {n: {"flash_attention": 13, "ssd_scan": 68}.get(n, 0) for n in counters}
+    bb.apply(params, toks)                           # warm-up
+    t0 = time.perf_counter()
+    logits, counts = _counted(torch, counters, lambda: bb.apply(params, toks)["logits"])
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    check(counts == want_counts, f"zamba2-7b apply: launches {counts}, expected {want_counts}")
+    check(tuple(logits.shape) == (B, T, cfg.padded_vocab), "zamba2-7b: logits shape")
+    check(bool(torch.isfinite(logits).all()), "zamba2-7b: non-finite logits")
+    plain16 = plain.apply(params, toks)["logits"]
+    drift = float((logits - plain16).abs().max()) / float(plain16.abs().max())
+    agree = float((logits.argmax(-1) == plain16.argmax(-1)).float().mean())
+    del logits, plain16
+    # bf16, block by block, each from the plain route's own hidden state
+    norm = make_norm(cfg, cfg.d_model)
+    ak, ap = bb._block().attn, plain._block().attn
+    mk, mp = bb._mamba().inner, plain._mamba().inner
+    block = plain._block()
+    shared = params["shared_attn"]
+    h, worst = plain._embed(params, toks), {"attention": 0.0, "mixer": 0.0}
+
+    def held(kind, got, want, where):
+        err = float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= 2.0 ** -5,
+              f"zamba2-7b {where}: the kernel route's {kind} differs by {err} of its max "
+              f"|output|")
+        worst[kind] = max(worst[kind], err)
+
+    def mixer(bp, h, where):
+        u = norm.apply(bp["ln"], h)
+        want = mp.apply(bp["mixer"], u)
+        held("mixer", mk.apply(bp["mixer"], u), want, where)
+        return h + want
+
+    for g in range(bb.n_groups):
+        x = norm.apply(shared["ln1"], h)
+        held("attention", ak.apply(shared["attn"], x), ap.apply(shared["attn"], x),
+             f"group {g} shared attention")
+        h, _ = block.apply(shared, h)
+        for r in range(cfg.hybrid_period - 1):
+            h = mixer(_layer(params["mamba"], g, r), h, f"group {g} mixer {r}")
+    for t in range(bb.n_tail):
+        h = mixer(_layer(params["mamba_tail"], t), h, f"tail mixer {t}")
+    del h, x
+    # float32 compute, the same weights: logits within 2^-6 of max |logit|
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    k32, p32 = Backbone(cfg32, **flags), Backbone(cfg32)
+    got, c32 = _counted(torch, counters, lambda: k32.apply(params, toks)["logits"])
+    check(c32 == want_counts, f"zamba2-7b float32 apply: launches {c32}")
+    err32, top32 = _logits_close(torch, got, p32.apply(params, toks)["logits"], 2.0 ** -6,
+                                 "zamba2-7b float32 forward, kernels vs plain route")
+    del got
+    # the prefill through both kernels (each scan returning its final state)
+    pre, counts = _counted(torch, counters, lambda: bb.prefill(params, toks, max_seq=T + steps))
+    check(counts == want_counts, f"zamba2-7b prefill: launches {counts}, expected {want_counts}")
+    cache = pre["cache"]
+    check(tuple(cache["attn"]["k"].shape) == (13, B, T + steps, 32, 112) and
+          tuple(cache["mamba"]["ssm"].shape) == (13, 5, B, 112, 64, 64) and
+          tuple(cache["tail"]["ssm"].shape) == (3, B, 112, 64, 64),
+          "zamba2-7b prefill: cache shapes")
+    (fed, lk), counts = _counted(torch, counters,
+                                 lambda: _greedy(torch, bb, params, pre, T, steps, dev))
+    check(all(v == 0 for v in counts.values()), f"zamba2-7b decode: launches {counts}")
+    check(bool(torch.isfinite(lk).all()), "zamba2-7b decode: non-finite logits")
+    pp = plain.prefill(params, toks, max_seq=T + steps)
+    _, lp = _greedy(torch, plain, params, pp, T, steps, dev, tokens=fed)
+    d16 = float((torch.cat([pre["logits"], lk.flatten(0, 1)]) -
+                 torch.cat([pp["logits"], lp.flatten(0, 1)])).abs().max()) / \
+        float(lp.abs().max())
+    del pre, pp, cache, lk, lp
+    err, top, same = _hold_prefill_decode(torch, k32, p32, params, toks, steps, dev,
+                                          "zamba2-7b float32 prefill + decode")
+    log(f"zamba2-7b: bf16 apply {B} x {T} tokens {fwd_ms:.1f} ms, launches "
+        f"{want_counts['flash_attention']} flash and {want_counts['ssd_scan']} SSD (the apply "
+        f"and the prefill each); kernel routes vs plain: bf16 block by block at most "
+        f"{worst['attention']:.3e} (shared attention) and {worst['mixer']:.3e} (mixers) of "
+        f"max |output|; float32 logits max |diff| {err32} of max |logit| {top32} (2^-6 "
+        f"allowed); float32 prefill + {steps} decode steps max |diff| {err} of max |logit| "
+        f"{top} (2^-5 allowed), same argmax on {same:.3f}; (not held) bf16 logits "
+        f"{drift:.3f} of max |logit| (argmax agreeing on {agree:.3f}), bf16 prefill + "
+        f"decode {d16:.3f}; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} "
+        f"GiB; phase "
+        f"{time.perf_counter() - t_phase:.1f} s wall")
+    return params
+
+
+def run_serve_zamba(torch, dev, params):
+    """zamba2-7b (full size, run_zamba's params) served by ServeEngine,
+    max_batch 4, max_seq 1,536, five requests of 1,000, 77, 300, 640 and
+    129 prompt tokens, 16 new each: exact-prefix prefill (whole chunks of
+    128; 77 is under one, a fresh slot) with the rest of the prompt
+    through the decode tick; the shared block's k/v and the Mamba2 states
+    in one cache; eager and captured bit-identical, no kernel launched.
+    Each request is held teacher-forced within 2^-5 of max |logit| in
+    float32 compute (a captured float32 engine on the same params): in
+    bfloat16 the random-init model amplifies the last-bit differences of
+    a batch-4 tick against a batch-1 decode over 81 layers and a hundred
+    recurrent steps (request 0 departed by 0.365 of max |logit| 2.22 on the
+    card, as the kernel and plain routes depart by 0.86 in run_zamba)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import Backbone
+    t_phase = time.perf_counter()
+    card = card_line()
+    cfg = get_config("zamba2-7b")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, T).tolist() for T, _ in ZAMBA_WORK]
+    kw = dict(max_batch=4, max_seq=1536)
+    label = "zamba2-7b serve"
+    eager = _serve_run(torch, cfg, params, dev, ZAMBA_WORK, prompts, label + " eager",
+                       capture=False, **kw)
+    capt = _serve_run(torch, cfg, params, dev, ZAMBA_WORK, prompts, label + " captured",
+                      capture=True, **kw)
+    _same_run(torch, eager[:2], capt[:2], f"{label}: captured vs eager")
+    _serve_report(torch, label, capt[0], eager[0], capt[2], capt[3], ZAMBA_WORK, card)
+    del eager, capt
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    eng, done = _serve_run(torch, cfg32, params, dev, ZAMBA_WORK, prompts,
+                           label + " float32 captured", capture=True, **kw)[:2]
+    bb = Backbone(cfg32)
+    errs, shares, tops = [], [], []
+    for rid, p in zip(sorted(done), prompts):
+        want = _teacher_rows(torch, bb, params, p, done[rid].generated, dev)
+        err, top, same = _hold(np.stack(eng.rows[rid]), want, 2.0 ** -5,
+                               f"{label} float32 request {rid} vs teacher-forced")
+        errs.append(err), tops.append(top), shares.append(same)
+    log(f"{label}: captured tick bit-identical to the eager tick; float32 engine "
+        f"teacher-forced hold max |diff| {max(errs)} of max |logit| {max(tops)} (2^-5 "
+        f"allowed), same argmax on {np.mean(shares):.3f} of steps; float32 captured tick p50 "
+        f"{eng.stats.tick_ms(50):.3f} ms; phase {time.perf_counter() - t_phase:.1f} s wall; "
+        f"{card}")
+
+
+def run_whisper(torch, dev):
+    """whisper-medium at full size (24 encoder and 24 decoder layers,
+    d_model 1,024, 16 heads of 64, LayerNorm, vocab 51,865): ``encode`` of
+    seeded frames (2, 1,500, 1,024) through flash (24 non-causal
+    launches); ``prefill`` of 2 x 448 tokens with those frames (48: the
+    encoder's 24 again and the decoder's 24 causal); ``build_cross_cache``
+    equal to the prefill's cross caches; 16 greedy decode steps on it; the
+    prefill and decode held to ``use_flash=False`` within 2^-5 of the
+    largest |logit| in bfloat16."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import Backbone
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper-medium")
+    B, T, steps = 2, 448, 16
+    check((cfg.num_layers, cfg.encoder_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, cfg.encoder_seq, cfg.norm) ==
+          (24, 24, 1024, 16, 16, 64, 4096, 51865, 1500, "layernorm"),
+          "whisper-medium is not at full size")
+    bb, plain = Backbone(cfg, use_flash=True), Backbone(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = bb.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    frames = 0.1 * torch.randn((B, cfg.encoder_seq, cfg.d_model), generator=gen, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device=dev)
+    counters = launch_counters()
+    flash_only = lambda n: {k: (n if k == "flash_attention" else 0) for k in counters}  # noqa
+    bb.prefill(params, toks, encoder_frames=frames)          # warm-up
+    t0 = time.perf_counter()
+    memory, counts = _counted(torch, counters, lambda: bb.encode(params, frames))
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    check(counts == flash_only(24), f"whisper-medium encode: launches {counts}")
+    check(tuple(memory.shape) == (B, 1500, 1024) and bool(torch.isfinite(memory).all()),
+          "whisper-medium encode: memory shape or non-finite")
+    t0 = time.perf_counter()
+    pre, counts = _counted(torch, counters, lambda: bb.prefill(
+        params, toks, encoder_frames=frames, max_seq=T + steps))
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    check(counts == flash_only(48), f"whisper-medium prefill: launches {counts}, expected 24 "
+                                    f"non-causal (encoder) + 24 causal (decoder)")
+    check(torch.equal(pre["memory"], memory), "whisper-medium: the prefill's memory differs "
+                                              "from encode's")
+    cross = bb.build_cross_cache(params, memory)
+    check(tuple(cross["k"].shape) == (24, B, 1500, 16, 64) and
+          all(torch.equal(a, b) for a, b in zip(tree_leaves(cross),
+                                                tree_leaves(pre["cache"]["cross"]))),
+          "whisper-medium: build_cross_cache differs from the prefill's cross caches")
+    pre["cache"]["cross"] = cross
+    (fed, lk), counts = _counted(torch, counters,
+                                 lambda: _greedy(torch, bb, params, pre, T, steps, dev))
+    check(all(v == 0 for v in counts.values()), f"whisper-medium decode: launches {counts}")
+    check(bool(torch.isfinite(lk).all()), "whisper-medium decode: non-finite logits")
+    del pre, lk, cross
+    err, top, same = _hold_prefill_decode(torch, bb, plain, params, toks, steps, dev,
+                                          "whisper-medium", {"encoder_frames": frames})
+    log(f"whisper-medium: {n_params} parameters; encode (2, 1500) frames {enc_ms:.1f} ms "
+        f"(24 non-causal flash launches), prefill 2 x {T} tokens with the frames {pre_ms:.1f} "
+        f"ms (48 flash launches: 24 non-causal, 24 causal), {steps} decode steps on "
+        f"build_cross_cache's caches (none); flash vs plain route, prefill + decode: max "
+        f"|diff| {err} of max |logit| {top} (2^-5 allowed), same argmax on {same:.3f}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; phase "
+        f"{time.perf_counter() - t_phase:.1f} s wall")
+    return params
+
+
+def run_serve_whisper(torch, dev, params):
+    """whisper-medium (full size, run_whisper's params) served by
+    ServeEngine, max_batch 4, max_seq 448: four requests of 5, 60, 200 and
+    400 prompt tokens, each with its own (1,500, 1,024) frames, 16 new
+    each, the last two submitted after four ticks; the captured tick reads
+    the cross caches at fixed addresses.  Eager and captured bit-identical,
+    each request held teacher-forced (its frames, a batch-1 prefill, then
+    decode) within 2^-5 of max |logit|, no kernel launched."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import Backbone
+    t_phase = time.perf_counter()
+    card = card_line()
+    cfg = get_config("whisper-medium")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, T).tolist() for T, _ in WHISPER_WORK]
+    gen = torch.Generator().manual_seed(7)
+    frames = [0.1 * torch.randn((cfg.encoder_seq, cfg.d_model), generator=gen)
+              for _ in WHISPER_WORK]
+    kw = dict(max_batch=4, max_seq=448, frames=frames, late=WHISPER_LATE)
+    label = "whisper-medium serve"
+    eager = _serve_run(torch, cfg, params, dev, WHISPER_WORK, prompts, label + " eager",
+                       capture=False, **kw)
+    capt = _serve_run(torch, cfg, params, dev, WHISPER_WORK, prompts, label + " captured",
+                      capture=True, **kw)
+    _same_run(torch, eager[:2], capt[:2], f"{label}: captured vs eager")
+    _serve_report(torch, label, capt[0], eager[0], capt[2], capt[3], WHISPER_WORK, card)
+    del eager
+    eng, done = capt[:2]
+    bb = Backbone(cfg)
+    errs, shares, tops = [], [], []
+    for rid, p, f in zip(sorted(done), prompts, frames):
+        want = _teacher_rows(torch, bb, params, p, done[rid].generated, dev, frames=f)
+        err, top, same = _hold(np.stack(eng.rows[rid]), want, 2.0 ** -5,
+                               f"{label} request {rid} vs teacher-forced")
+        errs.append(err), tops.append(top), shares.append(same)
+    log(f"{label}: two requests admitted mid-stream; captured tick bit-identical to the "
+        f"eager tick; teacher-forced hold max |diff| {max(errs)} of max |logit| {max(tops)} "
+        f"(2^-5 allowed), same argmax on {np.mean(shares):.3f} of steps; phase "
+        f"{time.perf_counter() - t_phase:.1f} s wall; {card}")
+
+
+def chameleon_depth(cfg):
+    """The deepest cut of chameleon-34b's 48 layers whose float32 params
+    and a 12e9-byte reserve for the prefill's activations, the plain
+    route's score tensor and one layer's bfloat16 casts stay under
+    CARD_BUDGET (72 GiB)."""
+    d, nh, nkv, hd, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                          cfg.resolved_head_dim, cfg.d_ff)
+    layer = 4 * (2 * d * nh * hd + 2 * d * nkv * hd + 3 * d * ff + 2 * d + 2 * hd)
+    fixed = 4 * (2 * cfg.padded_vocab * d + d)
+    return int((CARD_BUDGET - fixed - 12e9) // layer), layer, fixed
+
+
+def run_chameleon(torch, dev):
+    """chameleon-34b at full width (d_model 8,192, 64 query and 8 KV heads
+    of 128 with qk-norm, d_ff 22,016, vocab 65,536), cut in depth only to
+    ``chameleon_depth`` layers: ``prefill`` of 2 x 2,048 tokens through
+    flash (one launch a layer), 16 greedy decode steps, held to the plain
+    route within 2^-5 of the largest |logit| in bfloat16; the peak memory
+    under CARD_BUDGET."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import Backbone
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    full = get_config("chameleon-34b")
+    check((full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
+           full.resolved_head_dim, full.d_ff, full.padded_vocab, full.qk_norm) ==
+          (48, 8192, 64, 8, 128, 22016, 65536, True), "chameleon-34b is not at full width")
+    L, layer, fixed = chameleon_depth(full)
+    log(f"depth cut: chameleon-34b runs {L} of its 48 layers at full width (a layer "
+        f"{layer / 2 ** 30:.2f} GiB of float32 params, embed and head {fixed / 2 ** 30:.2f} "
+        f"GiB; all 48 {(fixed + 48 * layer) / 2 ** 30:.1f} GiB, over the card's 80; the cut "
+        f"keeps the peak under {CARD_BUDGET / 2 ** 30:.0f} GiB)")
+    cfg = full.scaled(num_layers=L)
+    B, T, steps = 2, 2048, 16
+    bb, plain = Backbone(cfg, use_flash=True), Backbone(cfg)
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params = bb.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    toks = torch.randint(0, cfg.vocab_size, (B, T),
+                         generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    counters = launch_counters()
+    t0 = time.perf_counter()
+    pre, counts = _counted(torch, counters,
+                           lambda: bb.prefill(params, toks, max_seq=T + steps))
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    want = {k: (L if k == "flash_attention" else 0) for k in counters}
+    check(counts == want, f"chameleon-34b prefill: launches {counts}, expected {want}")
+    check(bool(torch.isfinite(pre["logits"]).all()), "chameleon-34b prefill: non-finite")
+    t0 = time.perf_counter()
+    (fed, lk), counts = _counted(torch, counters,
+                                 lambda: _greedy(torch, bb, params, pre, T, steps, dev))
+    dec_ms = (time.perf_counter() - t0) * 1e3 / steps
+    check(all(v == 0 for v in counts.values()), f"chameleon-34b decode: launches {counts}")
+    del pre, lk
+    err, top, same = _hold_prefill_decode(torch, bb, plain, params, toks, steps, dev,
+                                          "chameleon-34b")
+    peak = torch.cuda.max_memory_allocated()
+    check(peak <= CARD_BUDGET, f"chameleon-34b: peak memory {peak / 2 ** 30:.1f} GiB over "
+                               f"{CARD_BUDGET / 2 ** 30:.0f}")
+    log(f"chameleon-34b: {L} layers, {n_params} parameters; prefill {B} x {T} tokens "
+        f"{pre_ms:.1f} ms ({L} flash launches), decode {dec_ms:.1f} ms a step (none); flash "
+        f"vs plain route, prefill + {steps} decode steps: max |diff| {err} of max |logit| "
+        f"{top} (2^-5 allowed), same argmax on {same:.3f}; peak memory "
+        f"{peak / 2 ** 30:.1f} GiB; "
+        f"phase {time.perf_counter() - t_phase:.1f} s wall")
+
+
+def gc_collect(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_families(torch, dev):
+    """Phase 12: zamba2-7b, whisper-medium and chameleon-34b on the card,
+    each freed before the next."""
+    params = run_zamba(torch, dev)
+    run_serve_zamba(torch, dev, params)
+    del params
+    gc_collect(torch)
+    params = run_whisper(torch, dev)
+    run_serve_whisper(torch, dev, params)
+    del params
+    gc_collect(torch)
+    run_chameleon(torch, dev)
+    gc_collect(torch)
 
 
 def run_main_path(torch, dev, strategy, label, per_round):
@@ -2389,6 +2936,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_serve_reload(torch, dev)
     run_lm_gan(torch, dev)
+    gc_collect(torch)
+    run_families(torch, dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     check("jax" not in sys.modules, "the port or this script imported jax")

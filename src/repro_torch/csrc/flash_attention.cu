@@ -339,7 +339,6 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   constexpr int NS = BK / 8;   // 8-key score tiles of a warp
   constexpr int NO = HD / 8;   // 8-column output tiles of a warp
   constexpr int CH = HD / 8;   // 16-byte chunks of a row
-  constexpr int RSTEP = THR / CH;  // rows one pass of the block copies
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // BQ x LD
   __nv_bfloat16* Ks = Qs + BQ * LD;                                 // 2 x BK x LD
@@ -353,23 +352,36 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   const __nv_bfloat16* kb = k + ((long long)(b * nkv + kvh) * S) * HD;
   const __nv_bfloat16* vb = v + ((long long)(b * nkv + kvh) * S) * HD;
 
-  // a thread copies the 16 bytes at column lc of rows lr, lr + RSTEP, ...
-  const int lr = tid / CH, lc = (tid % CH) * 8;
+  // The block copies a tile's ROWS x CH 16-byte chunks, chunk i = (row i /
+  // CH, column (i % CH) * 8), thread tid taking i = tid, tid + THR, ...: each
+  // chunk exactly once.  (ROWS * CH is a multiple of THR at every head dim:
+  // CH = HD / 8 is even and ROWS is 32 or 64.)  When CH divides THR a
+  // thread's column is fixed and its rows step by THR / CH.
+  auto copy_rows = [&](auto ROWS_, auto&& chunk) {
+    constexpr int ROWS = decltype(ROWS_)::value;
+    static_assert(ROWS * CH % THR == 0, "a tile's chunks must fill whole passes");
+    if constexpr (THR % CH == 0) {
+      const int lc = (tid % CH) * 8;
 #pragma unroll
-  for (int r = lr; r < BQ; r += RSTEP) {
+      for (int r = tid / CH; r < ROWS; r += THR / CH) chunk(r, lc);
+    } else {
+#pragma unroll
+      for (int i = tid; i < ROWS * CH; i += THR) chunk(i / CH, (i % CH) * 8);
+    }
+  };
+  copy_rows(std::integral_constant<int, BQ>{}, [&](int r, int lc) {
     const bool in = q_start + r < T_;
     cp_async16(smem_u32(Qs + r * LD + lc), qb + (in ? (long long)(q_start + r) * HD + lc : 0),
                in);
-  }
+  });
   auto load_kv = [&](int kt, int buf) {
     const int k0 = kt * BK;
-#pragma unroll
-    for (int r = lr; r < BK; r += RSTEP) {
+    copy_rows(std::integral_constant<int, BK>{}, [&](int r, int lc) {
       const bool in = k0 + r < S;
       const int off = in ? (k0 + r) * HD + lc : 0;  // 32-bit: 64-bit offsets spill at hd 256
       cp_async16(smem_u32(Ks + (buf * BK + r) * LD + lc), kb + off, in);
       cp_async16(smem_u32(Vs + (buf * BK + r) * LD + lc), vb + off, in);
-    }
+    });
   };
 
   // KV tiles that hold a key some row of this tile may see
@@ -550,6 +562,7 @@ int by_head_dim(int hd, F&& f) {
     case 16: return f(std::integral_constant<int, 16>{});
     case 32: return f(std::integral_constant<int, 32>{});
     case 64: return f(std::integral_constant<int, 64>{});
+    case 112: return f(std::integral_constant<int, 112>{});  // zamba2-7b's shared attention
     case 128: return f(std::integral_constant<int, 128>{});
     case 256: return f(std::integral_constant<int, 256>{});
     default: return (int)cudaErrorInvalidValue;

@@ -16,10 +16,16 @@
 // all in float32, y rounded once to x's type.  The clamp min(., 0) keeps
 // the masked (p > q) entries from overflowing exp.
 //
-// A scan is three launches on the caller's stream (one when T is a single
-// chunk: phases 1 and 2 then have no state to make), each parallel:
+// With a final-state output (the decode cache of a prefill) the scan also
+// returns S_in[NC], the state after the last step, as the plain version's
+// `return_final_state` does: (Bsz, nh, hd, ds) float32.
 //
-// 1. `ssd_chunk_states`: one block per (chunk c < NC - 1, block of HB = 4
+// A scan is three launches on the caller's stream (one when T is a single
+// chunk and no final state is asked for: phases 1 and 2 then have no state
+// to make), each parallel.  NS, the states the workspace holds, is NC - 1,
+// or NC with a final state:
+//
+// 1. `ssd_chunk_states`: one block per (chunk c < NS, block of HB = 4
 //    heads, batch row).  The chunk's B is staged once for the block, and L
 //    of every head of the block (one lane a head); per head, w_p =
 //    exp(L_last - L_p) and w u, then S_loc^T = B^T (w u), a (ds x hd)
@@ -27,7 +33,9 @@
 // 2. `ssd_state_pass`: one thread per (batch, head, state entry) walks the
 //    chunks and overwrites slot c in place with S_in[c+1], in the plain
 //    version's order (decay times state, rounded, plus S_loc, rounded),
-//    reading the L_last that phase 1 wrote.
+//    reading the L_last that phase 1 wrote.  With a final state, the last
+//    slot's S_in[NC] is also written to the output in the plain version's
+//    (hd, ds) layout.
 // 3. `ssd_chunk_outputs`: one block per (chunk, QR = 64 query rows, block of
 //    HB heads, batch row).  C . B^T of the block's rows against the keys up
 //    to its last row (causal: the first half of a 128-row chunk needs half
@@ -42,9 +50,9 @@
 // rounding, 3x the plain version's error against a float64 scan on the
 // card (8.1e-6 against 2.5e-6 of max |y| at T = 4,096).
 //
-// The workspace is float32: (Bsz, NC - 1, nh, ds, hd) states, each stored
+// The workspace is float32: (Bsz, NS, nh, ds, hd) states, each stored
 // transposed so that phase 3 reads it with 16-byte loads along hd, then
-// (Bsz, NC - 1, nh) L_last.  At mamba2-2.7b width (2 x 2048 tokens, 80
+// (Bsz, NS, nh) L_last.  At mamba2-2.7b width (2 x 2048 tokens, 80
 // heads of 64, state 128, chunk 128) that is 78.6 MB; phases 1, 2 and 3
 // write it, read and write it, and read it: about 315 MB of traffic.
 //
@@ -230,7 +238,7 @@ template <typename T, int CQ, int CHD, int CDS>
 __global__ void __launch_bounds__(THREADS, CQ > 0 ? 2 : 1)
 ssd_chunk_states(const T* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ A, const T* __restrict__ Bm, float* __restrict__ ws,
-                 int T_, int nh, int hd_rt, int ds_rt, int Q_rt) {
+                 int T_, int NS, int nh, int hd_rt, int ds_rt, int Q_rt) {
   using D = Dims<CQ, CHD, CDS>;
   constexpr bool EX = D::EX;
   const int Q = EX ? CQ : Q_rt, hd = EX ? CHD : hd_rt, ds = EX ? CDS : ds_rt;
@@ -242,7 +250,7 @@ ssd_chunk_states(const T* __restrict__ x, const float* __restrict__ dt,
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int c = blockIdx.x, h0 = blockIdx.y * HB, b = blockIdx.z;
-  const int NC1 = T_ / Q - 1, Bsz = gridDim.z;
+  const int Bsz = gridDim.z;
   const size_t row0 = (size_t)b * T_ + (size_t)c * Q;  // (b, t) row of the chunk's first step
   const size_t E = (size_t)hd * ds;
 
@@ -294,7 +302,7 @@ ssd_chunk_states(const T* __restrict__ x, const float* __restrict__ dt,
     float acc[D::DS / 16][D::HD / 16];
     zero(acc);
     mm(acc, Q, Bs, D::DS, uw, D::HD, ty, tx);
-    const size_t slot = ((size_t)b * NC1 + c) * nh + h;
+    const size_t slot = ((size_t)b * NS + c) * nh + h;
     float* out = ws + slot * E;
 #pragma unroll
     for (int i = 0; i < D::DS / 16; ++i) {
@@ -312,24 +320,25 @@ ssd_chunk_states(const T* __restrict__ x, const float* __restrict__ dt,
         }
       }
     }
-    if (tid == 0) ws[(size_t)Bsz * NC1 * nh * E + slot] = Llast;
+    if (tid == 0) ws[(size_t)Bsz * NS * nh * E + slot] = Llast;
   }
 }
 
-// Phase 2: slot c of (b, h) holds S_loc[c] and becomes S_in[c + 1].
+// Phase 2: slot c of (b, h) holds S_loc[c] and becomes S_in[c + 1]; with
+// `state`, the last slot's S_in[NS] also goes there, (hd, ds) per (b, h).
 template <int V>
 __global__ void __launch_bounds__(THREADS)
-ssd_state_pass(float* ws, int Bsz, int NC1, int nh, int E) {
+ssd_state_pass(float* ws, float* __restrict__ state, int Bsz, int NS, int nh, int hd, int E) {
   const int e = (blockIdx.x * THREADS + threadIdx.x) * V;
   if (e >= E) return;
   const int b = blockIdx.y / nh, h = blockIdx.y % nh;
-  const float* Llast = ws + (size_t)Bsz * NC1 * nh * E;
+  const float* Llast = ws + (size_t)Bsz * NS * nh * E;
   float run[V];
 #pragma unroll
   for (int k = 0; k < V; ++k) run[k] = 0.f;
 #pragma unroll 4
-  for (int c = 0; c < NC1; ++c) {
-    const size_t slot = ((size_t)b * NC1 + c) * nh + h;
+  for (int c = 0; c < NS; ++c) {
+    const size_t slot = ((size_t)b * NS + c) * nh + h;
     const float decay = expf(Llast[slot]);
     float* s = ws + slot * E + e;
     float v[V];
@@ -347,6 +356,12 @@ ssd_state_pass(float* ws, int Bsz, int NC1, int nh, int E) {
       *s = run[0];
     }
   }
+  if (state) {  // entry e + k is (s, d) of the transposed state: out[d][s]
+    const int ds = E / hd;
+    float* out = state + ((size_t)b * nh + h) * E;
+#pragma unroll
+    for (int k = 0; k < V; ++k) out[(size_t)((e + k) % hd) * ds + (e + k) / hd] = run[k];
+  }
 }
 
 // Phase 3: y of QR query rows of a chunk, for every head of the block.
@@ -355,7 +370,7 @@ __global__ void __launch_bounds__(THREADS, CQ > 0 ? 2 : 1)
 ssd_chunk_outputs(const T* __restrict__ x, const float* __restrict__ dt,
                   const float* __restrict__ A, const T* __restrict__ Bm,
                   const T* __restrict__ Cm, const float* __restrict__ ws, T* __restrict__ y,
-                  int T_, int nh, int hd_rt, int ds_rt, int Q_rt) {
+                  int T_, int NS, int nh, int hd_rt, int ds_rt, int Q_rt) {
   using D = Dims<CQ, CHD, CDS>;
   constexpr bool EX = D::EX;
   constexpr int TH = D::HD / 16;  // register columns over head_dim
@@ -373,7 +388,6 @@ ssd_chunk_outputs(const T* __restrict__ x, const float* __restrict__ dt,
   const int NR = (Q + QR - 1) / QR;
   const int c = blockIdx.x / NR, q0 = blockIdx.x % NR * QR;
   const int h0 = blockIdx.y * HB, b = blockIdx.z;
-  const int NC1 = T_ / Q - 1;
   const int nq = min(QR, Q - q0);  // real query rows of the block
   const int P = min(Q, q0 + QR);   // keys they attend to
   const size_t row0 = (size_t)b * T_ + (size_t)c * Q;
@@ -402,7 +416,7 @@ ssd_chunk_outputs(const T* __restrict__ x, const float* __restrict__ dt,
     const float* L = Ls + hh * D::Q;
     __syncthreads();  // C B^T is written; the previous head is done with R
     if (c > 0) {  // S_in^T of this chunk: slot c - 1, written by phase 2
-      const float* St = ws + (((size_t)b * NC1 + c - 1) * nh + h) * E;
+      const float* St = ws + (((size_t)b * NS + c - 1) * nh + h) * E;
       if constexpr (EX) {
         for (int i = tid; i < D::DS * D::HD / 4; i += THREADS)
           reinterpret_cast<float4*>(R)[i] = reinterpret_cast<const float4*>(St)[i];
@@ -482,29 +496,32 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 // Launch the phases in `mask` (bit 0: chunk states, 1: state pass, 2: chunk
-// outputs).  Phases 1 and 2 run only when there is more than one chunk.
+// outputs).  Phases 1 and 2 run only when there is a state to make: more
+// than one chunk, or a final state (`state` not null).
 template <typename T, int CQ, int CHD, int CDS>
 int launch(int mask, const void* x, const void* dt, const void* A, const void* B, const void* C,
-           void* y, void* ws, int Bsz, int T_, int nh, int hd, int ds, int Q, void* stream) {
+           void* y, void* ws, void* state, int Bsz, int T_, int nh, int hd, int ds, int Q,
+           void* stream) {
   using D = Dims<CQ, CHD, CDS>;
   const cudaStream_t s = (cudaStream_t)stream;
   const int NC = T_ / Q, NHB = (nh + HB - 1) / HB, NR = (Q + QR - 1) / QR, E = hd * ds;
+  const int NS = NC - 1 + (state != nullptr);
   cudaError_t err = cudaSuccess;
-  if ((mask & 1) && NC > 1) {
+  if ((mask & 1) && NS > 0) {
     if ((err = allow_smem(ssd_chunk_states<T, CQ, CHD, CDS>, D::P1_BYTES)) != cudaSuccess)
       return (int)err;
-    ssd_chunk_states<T, CQ, CHD, CDS><<<dim3(NC - 1, NHB, Bsz), THREADS, D::P1_BYTES, s>>>(
-        (const T*)x, (const float*)dt, (const float*)A, (const T*)B, (float*)ws, T_, nh, hd, ds,
-        Q);
+    ssd_chunk_states<T, CQ, CHD, CDS><<<dim3(NS, NHB, Bsz), THREADS, D::P1_BYTES, s>>>(
+        (const T*)x, (const float*)dt, (const float*)A, (const T*)B, (float*)ws, T_, NS, nh, hd,
+        ds, Q);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  if ((mask & 2) && NC > 1) {
+  if ((mask & 2) && NS > 0) {
     const int V = E % 4 ? 1 : 4, per = THREADS * V;
     const dim3 grid((E + per - 1) / per, Bsz * nh);
     if (V == 4)
-      ssd_state_pass<4><<<grid, THREADS, 0, s>>>((float*)ws, Bsz, NC - 1, nh, E);
+      ssd_state_pass<4><<<grid, THREADS, 0, s>>>((float*)ws, (float*)state, Bsz, NS, nh, hd, E);
     else
-      ssd_state_pass<1><<<grid, THREADS, 0, s>>>((float*)ws, Bsz, NC - 1, nh, E);
+      ssd_state_pass<1><<<grid, THREADS, 0, s>>>((float*)ws, (float*)state, Bsz, NS, nh, hd, E);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   if (mask & 4) {
@@ -512,7 +529,7 @@ int launch(int mask, const void* x, const void* dt, const void* A, const void* B
       return (int)err;
     ssd_chunk_outputs<T, CQ, CHD, CDS><<<dim3(NC * NR, NHB, Bsz), THREADS, D::P3_BYTES, s>>>(
         (const T*)x, (const float*)dt, (const float*)A, (const T*)B, (const T*)C,
-        (const float*)ws, (T*)y, T_, nh, hd, ds, Q);
+        (const float*)ws, (T*)y, T_, NS, nh, hd, ds, Q);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return 0;
@@ -522,13 +539,14 @@ bool main_shape(int Q, int hd, int ds) { return Q == 128 && hd == 64 && ds == 12
 
 template <typename T>
 int dispatch(int mask, const void* x, const void* dt, const void* A, const void* B,
-             const void* C, void* y, void* ws, int Bsz, int T_, int nh, int hd, int ds, int Q,
-             void* stream) {
+             const void* C, void* y, void* ws, void* state, int Bsz, int T_, int nh, int hd,
+             int ds, int Q, void* stream) {
   if (Q < 1 || hd < 1 || ds < 1 || Q > MAXD || hd > MAXD || ds > MAXD || T_ % Q)
     return (int)cudaErrorInvalidValue;
   if (main_shape(Q, hd, ds))  // mamba2's chunk, head_dim and state
-    return launch<T, 128, 64, 128>(mask, x, dt, A, B, C, y, ws, Bsz, T_, nh, hd, ds, Q, stream);
-  return launch<T, 0, 0, 0>(mask, x, dt, A, B, C, y, ws, Bsz, T_, nh, hd, ds, Q, stream);
+    return launch<T, 128, 64, 128>(mask, x, dt, A, B, C, y, ws, state, Bsz, T_, nh, hd, ds, Q,
+                                   stream);
+  return launch<T, 0, 0, 0>(mask, x, dt, A, B, C, y, ws, state, Bsz, T_, nh, hd, ds, Q, stream);
 }
 
 template <typename K>
@@ -560,27 +578,31 @@ int attrs(int phase, int* out) {
 
 }  // namespace
 
+// `state`: null, or the (Bsz, nh, hd, ds) float32 final state to write
 extern "C" int ssd_scan_f32(const void* x, const void* dt, const void* A, const void* B,
-                            const void* C, void* y, void* ws, int Bsz, int T, int nh, int hd,
-                            int ds, int Q, void* stream) {
-  return dispatch<float>(7, x, dt, A, B, C, y, ws, Bsz, T, nh, hd, ds, Q, stream);
+                            const void* C, void* y, void* ws, void* state, int Bsz, int T,
+                            int nh, int hd, int ds, int Q, void* stream) {
+  return dispatch<float>(7, x, dt, A, B, C, y, ws, state, Bsz, T, nh, hd, ds, Q, stream);
 }
 
 extern "C" int ssd_scan_bf16(const void* x, const void* dt, const void* A, const void* B,
-                             const void* C, void* y, void* ws, int Bsz, int T, int nh, int hd,
-                             int ds, int Q, void* stream) {
-  return dispatch<__nv_bfloat16>(7, x, dt, A, B, C, y, ws, Bsz, T, nh, hd, ds, Q, stream);
+                             const void* C, void* y, void* ws, void* state, int Bsz, int T,
+                             int nh, int hd, int ds, int Q, void* stream) {
+  return dispatch<__nv_bfloat16>(7, x, dt, A, B, C, y, ws, state, Bsz, T, nh, hd, ds, Q,
+                                 stream);
 }
 
 // One phase (1, 2 or 3) alone, for timing each: the phases before it must
-// have run on the same workspace.
+// have run on the same workspace and `state` (null or not).
 extern "C" int ssd_scan_phase(int phase, int bf16, const void* x, const void* dt, const void* A,
-                              const void* B, const void* C, void* y, void* ws, int Bsz, int T,
-                              int nh, int hd, int ds, int Q, void* stream) {
+                              const void* B, const void* C, void* y, void* ws, void* state,
+                              int Bsz, int T, int nh, int hd, int ds, int Q, void* stream) {
   if (phase < 1 || phase > 3) return (int)cudaErrorInvalidValue;
   const int mask = 1 << (phase - 1);
-  return bf16 ? dispatch<__nv_bfloat16>(mask, x, dt, A, B, C, y, ws, Bsz, T, nh, hd, ds, Q, stream)
-              : dispatch<float>(mask, x, dt, A, B, C, y, ws, Bsz, T, nh, hd, ds, Q, stream);
+  return bf16 ? dispatch<__nv_bfloat16>(mask, x, dt, A, B, C, y, ws, state, Bsz, T, nh, hd, ds,
+                                        Q, stream)
+              : dispatch<float>(mask, x, dt, A, B, C, y, ws, state, Bsz, T, nh, hd, ds, Q,
+                                stream);
 }
 
 // The dynamic shared memory of the largest phase, for the wrapper's check.

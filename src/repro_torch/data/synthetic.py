@@ -137,3 +137,15 @@ def sample_agent_tokens(rng, n: int, seq_len: int, vocab: int, *, agent: int,
     shared = prng.randint(k2, (n, seq_len), 0, vocab)
     use_shared = prng.uniform(k2, (n, seq_len)) < np.float32(0.3)
     return torch.from_numpy(np.where(use_shared, shared, base + offset).astype(np.int32))
+
+
+def sample_audio_frames(seed: int, n: int, encoder_seq: int, d_model: int, *,
+                        agent: int) -> torch.Tensor:
+    """Stand-in encoder frames for the audio family's stubbed frontend,
+    (n, encoder_seq, d_model) float32 on the CPU: 0.1 x standard normal,
+    from numpy's generator seeded with (seed, 50 + agent).  The reference
+    draws its frames from ``jax.random``; these are the port's own draws
+    of the same distribution."""
+    rng = np.random.default_rng((seed, 50 + agent))
+    return torch.from_numpy(
+        (0.1 * rng.standard_normal((n, encoder_seq, d_model))).astype(np.float32))

@@ -6,8 +6,9 @@ arch, D = the feature discriminator) under FedGAN; the script reports the
 §3.2 communication accounting, per-round losses and whether the agents are
 synced after the final round.  The token streams and each round's
 minibatches are the reference's bit for bit (``sample_agent_tokens`` and
-``FederatedRounds`` over the numpy Threefry); the initial weights are the
-port's own draws.
+``FederatedRounds`` over the numpy Threefry); the initial weights, and an
+audio arch's encoder frames (``sample_audio_frames``), are the port's own
+draws.
 
 Run:  PYTHONPATH=src python -m repro_torch.federated_backbone \\
           --arch mamba2-2.7b --steps 60 --K 5 [--device cpu]
@@ -51,8 +52,14 @@ def main(argv=None):
     state = fed.init_state(torch.Generator().manual_seed(0), device=dev)
 
     rng = prng.key(1)
-    agent_data = [{"tokens": synthetic.sample_agent_tokens(
-        rng, 512, T, cfg.vocab_size, agent=i, num_agents=B)} for i in range(B)]
+    agent_data = []
+    for i in range(B):
+        d = {"tokens": synthetic.sample_agent_tokens(
+            rng, 512, T, cfg.vocab_size, agent=i, num_agents=B)}
+        if cfg.family == "audio":
+            d["frames"] = synthetic.sample_audio_frames(1, 512, cfg.encoder_seq, cfg.d_model,
+                                                        agent=i)
+        agent_data.append(d)
     rounds = FederatedRounds(agent_data, (1, B), batch_size=8, sync_interval=K)
 
     acct = fed.comm_bytes_per_round(state)

@@ -25,7 +25,7 @@ _ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
 _SIGNATURES = {"flash_attention_f32": _ARGS, "flash_attention_bf16": _ARGS,
                "flash_attention_bf16_attrs": [_I, ctypes.POINTER(_I)]}
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 
 
 def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0):

@@ -6,8 +6,11 @@ kernel it replaces: a CUDA input that requires grad raises.
 
 A scan is three CUDA launches on the caller's stream, the kernel's three
 phases (chunk states, state pass, chunk outputs), or one when T is a
-single chunk; they share a float32 workspace of the chunk states that the
-wrapper allocates on x's device.  ``ssd_bthd.launches`` counts scans, one
+single chunk and no final state is asked for; they share a float32
+workspace of the chunk states that the wrapper allocates on x's device.
+``return_final_state=True`` also returns the state after the last step,
+(Bsz, nh, hd, ds) float32 in ``ssd_ref``'s layout, which the state pass
+writes.  ``ssd_bthd.launches`` counts scans, one
 per call that launches them, and nothing else.  ``ssd_phase`` launches one
 phase alone and ``kernel_attrs`` reads a phase's compiled kernel: both are
 for measuring the kernel, and neither is counted.
@@ -22,7 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _SIGNATURES = {"ssd_scan_f32": _ARGS, "ssd_scan_bf16": _ARGS,
                "ssd_scan_phase": [_I, _I, *_ARGS],
                "ssd_scan_smem_bytes": [_I, _I, _I, _I],
@@ -32,25 +35,30 @@ MAX_DIM = 128           # largest chunk, head_dim and state the kernel takes
 SMEM_LIMIT = 232_448    # shared memory a block may use on the H100
 
 
-def ssd_bthd(x, dt, A, B, C, *, chunk: int = 128):
+def ssd_bthd(x, dt, A, B, C, *, chunk: int = 128, return_final_state: bool = False):
     """x: (Bsz, T, nh, hd); dt: (Bsz, T, nh) float32; A: (nh,) float32;
     B, C: (Bsz, T, ds) in x's dtype.  T must be a multiple of
-    ``min(chunk, T)``.  Returns (Bsz, T, nh, hd) in x's dtype."""
+    ``min(chunk, T)``.  Returns (Bsz, T, nh, hd) in x's dtype, and with
+    ``return_final_state`` also the (Bsz, nh, hd, ds) float32 final state."""
     if x.dim() != 4 or dt.shape != x.shape[:3] or A.shape != x.shape[2:3] or \
             B.dim() != 3 or B.shape != C.shape or B.shape[:2] != x.shape[:2]:
         raise ValueError(f"ssd takes x (Bsz, T, nh, hd), dt (Bsz, T, nh), A (nh,), "
                          f"B and C (Bsz, T, ds); got {tuple(x.shape)}, {tuple(dt.shape)}, "
                          f"{tuple(A.shape)}, {tuple(B.shape)}, {tuple(C.shape)}")
     if all(t.device.type == "cpu" for t in (x, dt, A, B, C)):
-        return ssd_ref(x, dt, A, B, C, chunk=chunk)
+        return ssd_ref(x, dt, A, B, C, chunk=chunk, return_final_state=return_final_state)
     lib, Q = _checked(x, dt, A, B, C, chunk)
     y = torch.empty_like(x)
-    ws = workspace(x, B, chunk=Q)
+    ws = workspace(x, B, chunk=Q, final=return_final_state)
+    state = None
+    if return_final_state:
+        Bsz, _, nh, hd = x.shape
+        state = torch.empty((Bsz, nh, hd, B.shape[-1]), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = getattr(lib, _ENTRY[x.dtype])(*_args(x, dt, A, B, C, y, ws, Q))
+        err = getattr(lib, _ENTRY[x.dtype])(*_args(x, dt, A, B, C, y, ws, state, Q))
     _build.check_launch(err, "ssd")
     ssd_bthd.launches += 1
-    return y
+    return (y, state) if return_final_state else y
 
 
 ssd_bthd.launches = 0
@@ -87,24 +95,25 @@ def _checked(x, dt, A, B, C, chunk):
     return lib, Q
 
 
-def workspace(x, B, *, chunk: int):
+def workspace(x, B, *, chunk: int, final: bool = False):
     """An uninitialised float32 workspace for a scan of ``x``: the (ds, hd)
-    state of every chunk but the last, per batch row and head, then their
+    state of every chunk but the last (and of the last too when the scan
+    returns its ``final`` state), per batch row and head, then their
     L_last (at least one element, so that its pointer is valid)."""
-    return torch.empty(_workspace_numel(x, B, min(chunk, x.shape[1])), dtype=torch.float32,
-                       device=x.device)
+    return torch.empty(_workspace_numel(x, B, min(chunk, x.shape[1]), final),
+                       dtype=torch.float32, device=x.device)
 
 
-def _workspace_numel(x, B, Q):
+def _workspace_numel(x, B, Q, final=False):
     Bsz, T, nh, hd = x.shape
-    return max(Bsz * (T // Q - 1) * nh * (B.shape[-1] * hd + 1), 1)
+    return max(Bsz * (T // Q - 1 + int(final)) * nh * (B.shape[-1] * hd + 1), 1)
 
 
-def _args(x, dt, A, B, C, y, ws, Q):
+def _args(x, dt, A, B, C, y, ws, state, Q):
     Bsz, T, nh, hd = x.shape
     return (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-            y.data_ptr(), ws.data_ptr(), Bsz, T, nh, hd, B.shape[-1], Q,
-            torch.cuda.current_stream().cuda_stream)
+            y.data_ptr(), ws.data_ptr(), 0 if state is None else state.data_ptr(),
+            Bsz, T, nh, hd, B.shape[-1], Q, torch.cuda.current_stream().cuda_stream)
 
 
 def ssd_phase(phase: int, x, dt, A, B, C, y, ws, *, chunk: int = 128) -> None:
@@ -119,7 +128,7 @@ def ssd_phase(phase: int, x, dt, A, B, C, y, ws, *, chunk: int = 128) -> None:
         raise ValueError("ssd_phase takes y like x and ws from workspace(x, B, chunk)")
     with torch.cuda.device(x.device):
         err = lib.ssd_scan_phase(phase, int(x.dtype == torch.bfloat16),
-                                 *_args(x, dt, A, B, C, y, ws, Q))
+                                 *_args(x, dt, A, B, C, y, ws, None, Q))
     _build.check_launch(err, f"ssd phase {phase}")
 
 

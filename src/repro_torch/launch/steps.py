@@ -8,7 +8,8 @@ real and fake features, then the generator's objective is differentiated
 in the forward's outputs (hidden states and logits) and pulled back
 through the forward, with the cotangent ``router_aux_weight`` on the MoE
 router's aux loss (a float32 0 in the other families, which still takes
-its cotangent).  The reference's mesh plans and sharded round builders are
+its cotangent).  An audio-family batch carries the encoder's ``frames``
+beside its ``tokens``.  The reference's mesh plans and sharded round builders are
 ROADMAP queue 1, slice 8.
 """
 from __future__ import annotations
@@ -27,11 +28,11 @@ def make_lm_gan_task(cfg: ArchConfig, *, adv_weight: float = 0.1) -> GANTask:
     disc_model = model.discriminator
 
     def fused(params, batch):
-        tokens = batch["tokens"]
+        tokens, frames = batch["tokens"], batch.get("frames")
         gen, disc = params["gen"], params["disc"]
 
         def gfwd(gp):
-            out = model.generator.apply(gp, tokens)
+            out = model.generator.apply(gp, tokens, encoder_frames=frames)
             return out["hidden"], out["logits"], out["aux"]
 
         (h, logits, aux), g_vjp = vjp(gfwd, gen)
@@ -58,12 +59,13 @@ def make_lm_gan_task(cfg: ArchConfig, *, adv_weight: float = 0.1) -> GANTask:
         return gd, gg, {"d_loss": ld, "g_loss": lg, "lm": lm, "adv": adv, "aux": aux}
 
     def disc_loss(params, batch):
-        fake, _, _ = model.fake_features(params["gen"], batch["tokens"])
+        fake, _, _ = model.fake_features(params["gen"], batch["tokens"], batch.get("frames"))
         real = model.real_features(params["gen"], batch["tokens"])
         return model.disc_loss(params["disc"], real, fake)
 
     def gen_loss(params, batch):
-        total, _ = model.gen_loss(params["gen"], params["disc"], batch["tokens"])
+        total, _ = model.gen_loss(params["gen"], params["disc"], batch["tokens"],
+                                  batch.get("frames"))
         return total
 
     return GANTask(init=model.init, disc_loss=disc_loss, gen_loss=gen_loss,

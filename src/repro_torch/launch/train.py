@@ -302,7 +302,8 @@ def arch_smoke_spec(arch: str, *, steps: int, K: int, seed: int, strategy=None,
     arch's ``.smoke()`` config, ``agents`` (default 4) agents on a (1, B)
     grid, each with 256 token sequences of T = 32 from
     ``sample_agent_tokens`` (the reference's tokens bit for bit for the
-    same ``seed``), minibatches of ``batch_size`` (default 8), Adam under
+    same ``seed``; an audio arch's agents also hold 256 frames each from
+    ``sample_audio_frames``), minibatches of ``batch_size`` (default 8), Adam under
     ``equal_timescale(constant(1e-3))``.  ``data_mode`` defaults to the
     port's ``device``, as ``experiment_spec``'s does."""
     from repro_torch.configs.registry import get_config
@@ -312,8 +313,14 @@ def arch_smoke_spec(arch: str, *, steps: int, K: int, seed: int, strategy=None,
     cfg = get_config(arch).smoke()
     B, T = agents or 4, 32
     rng = prng.key(seed)
-    agent_data = [{"tokens": synthetic.sample_agent_tokens(
-        rng, 256, T, cfg.vocab_size, agent=i, num_agents=B)} for i in range(B)]
+    agent_data = []
+    for i in range(B):
+        d = {"tokens": synthetic.sample_agent_tokens(
+            rng, 256, T, cfg.vocab_size, agent=i, num_agents=B)}
+        if cfg.family == "audio":
+            d["frames"] = synthetic.sample_audio_frames(seed, 256, cfg.encoder_seq,
+                                                        cfg.d_model, agent=i)
+        agent_data.append(d)
     return RunSpec(
         task=make_lm_gan_task(cfg), agent_data=agent_data, agent_grid=(1, B), K=K,
         steps=steps, batch_size=batch_size or 8, scales=equal_timescale(constant(1e-3)),

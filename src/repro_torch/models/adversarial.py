@@ -94,8 +94,8 @@ class AdversarialLM(nn.Module):
             gen_params["embed"], tokens)
         return emb.to(self.cfg.dtype)
 
-    def fake_features(self, gen_params, tokens):
-        out = self.generator.apply(gen_params, tokens)
+    def fake_features(self, gen_params, tokens, encoder_frames=None):
+        out = self.generator.apply(gen_params, tokens, encoder_frames=encoder_frames)
         return out["hidden"], out["logits"], out["aux"]
 
     # ---- losses ----
@@ -113,9 +113,9 @@ class AdversarialLM(nn.Module):
         lf_ = d.apply(disc_params, fake_feats.detach())
         return torch.mean(F.softplus(-lr_)) + torch.mean(F.softplus(lf_))
 
-    def gen_loss(self, gen_params, disc_params, tokens):
+    def gen_loss(self, gen_params, disc_params, tokens, encoder_frames=None):
         """LM cross-entropy + adversarial (fool D) + MoE router aux."""
-        fake, logits, aux = self.fake_features(gen_params, tokens)
+        fake, logits, aux = self.fake_features(gen_params, tokens, encoder_frames)
         lm = self.lm_loss(logits, tokens)
         adv = torch.mean(F.softplus(-self.discriminator.apply(disc_params, fake)))
         total = lm + self.adv_weight * adv + self.cfg.router_aux_weight * aux

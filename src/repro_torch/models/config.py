@@ -1,8 +1,7 @@
 """Architecture configuration (a port of ``repro.models.config``).
 
-One ``ArchConfig`` describes a backbone of the zoo.  The port runs the
-dense (grouped local:global included), MoE and SSM families so far; the
-others keep their fields, and the Backbone raises for them.
+One ``ArchConfig`` describes any backbone of the zoo (dense, MoE, SSM,
+hybrid, enc-dec audio, early-fusion VLM).
 """
 from __future__ import annotations
 
@@ -92,6 +91,20 @@ class ArchConfig:
         if self.ssm_heads:
             return self.ssm_heads
         return max(self.d_inner // 64, 1)
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_decode(self) -> bool:
+        """True iff a 500k-token decode is sub-quadratic *and* cache-bounded:
+        SSM (O(1) state), hybrid (O(1) state + the shared attention's
+        windowed variant), and dense/MoE with sliding windows (a
+        window-bounded cache on the local layers)."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window > 0
 
     def is_global_layer(self, i: int) -> bool:
         if self.local_global_ratio <= 0:

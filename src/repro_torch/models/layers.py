@@ -3,8 +3,10 @@ cache decode), SwiGLU, norms (a port of ``repro.models.layers``).
 
 Parameters keep the reference's keys and layouts (Dense ``w`` is
 ``(in, out)``).  The reference's sharding constraints have no counterpart
-on one card and are dropped.  Cross-attention and the encoder memory
-caches belong to a later slice and raise.
+on one card and are dropped.  Cross-attention (the audio family's
+decoder over the encoder's memory) takes its queries from x and its keys
+and values from the memory, with no RoPE, no qk-norm and no mask, always
+through ``_sdpa``, as the reference's.
 
 Both decodes take ``donate``: the port's counterpart of the reference
 engine donating its cache to the compiled decode.  With ``donate=True``
@@ -68,11 +70,6 @@ def make_norm(cfg: ArchConfig, dim: int) -> nn.Module:
     return nn.RMSNorm(dim, dtype=cfg.param_dtype)
 
 
-def _later(what: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP queue 1, slice 5 "
-                              f"(audio and vlm)")
-
-
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -131,24 +128,41 @@ class Attention(nn.Module):
         k = apply_rope(k, positions, c.rope_theta)
         return q, k, v
 
+    def _memory_kv(self, params, memory):
+        """Cross-attention keys and values of the encoder's memory (B, S, d)."""
+        c = self.cfg
+        _, nkv, hd = self.dims
+        B, S, _ = memory.shape
+        k = (memory @ params["wk"]["w"].to(c.dtype)).reshape(B, S, nkv, hd)
+        v = (memory @ params["wv"]["w"].to(c.dtype)).reshape(B, S, nkv, hd)
+        return k, v
+
+    def _query(self, params, x):
+        """Cross-attention queries: no qk-norm, no RoPE."""
+        nh, _, hd = self.dims
+        return (x @ params["wq"]["w"].to(self.cfg.dtype)).reshape(x.shape[0], x.shape[1], nh, hd)
+
     # -- full-sequence (train / prefill) ------------------------------------------
     def apply(self, params, x, *, window=None, positions=None, memory=None,
               return_kv: bool = False):
-        """x: (B, T, d_model) -> (B, T, d_model) [, {"k", "v"}]."""
+        """x: (B, T, d_model) -> (B, T, d_model) [, {"k", "v"}].  ``memory``
+        (B, S_enc, d): cross-attention, k and v from the memory."""
         c = self.cfg
         nh, nkv, hd = self.dims
         B, T, _ = x.shape
-        if memory is not None:
-            _later("cross-attention")
         if positions is None:
             positions = torch.arange(T, device=x.device)[None, :]
-        q, k, v = self._qkv(params, x, positions)
-        if self.use_flash and q.shape[1] == k.shape[1] and \
+        if memory is None:
+            q, k, v = self._qkv(params, x, positions)
+        else:
+            q = self._query(params, x)
+            k, v = self._memory_kv(params, memory)
+        if self.use_flash and memory is None and q.shape[1] == k.shape[1] and \
                 isinstance(window, (int, type(None))):
             from repro_torch.kernels.flash_attention import ops as flash_ops
             y = flash_ops.flash_attention(q, k, v, causal=self.causal, window=window or 0)
         else:
-            y = self._sdpa(q, k, v, window=window, causal=self.causal,
+            y = self._sdpa(q, k, v, window=window, causal=self.causal and memory is None,
                            q_positions=positions)
         y = y.reshape(B, T, nh * hd)
         y = y @ params["wo"]["w"].to(c.dtype)
@@ -182,12 +196,14 @@ class Attention(nn.Module):
         """x: (B, 1, d); cache: dict(k=(B,S,nkv,hd), v=...); index: the
         position being written — a scalar int (lockstep batch) or a (B,)
         vector of per-row positions (continuous batching).  Returns
-        (y, new_cache); the cache given is not modified unless ``donate``."""
+        (y, new_cache); the cache given is not modified unless ``donate``.
+        ``memory`` (B, S_enc, d): cross-attention over the whole memory, the
+        cache returned as given."""
         c = self.cfg
         nh, nkv, hd = self.dims
         B = x.shape[0]
         if memory is not None:
-            _later("cross-attention decode")
+            return self.decode_memory(params, x, self.build_memory_cache(params, memory)), cache
         idx = decode_positions(index, B, x.device)
         q, k1, v1 = self._qkv(params, x, idx[:, None])
         if not donate:
@@ -233,10 +249,18 @@ class Attention(nn.Module):
         return y, cache
 
     def build_memory_cache(self, params, memory):
-        _later("cross-attention memory caches")
+        """Cross-attention k/v of the encoder's output (B, S_enc, d), once."""
+        k, v = self._memory_kv(params, memory)
+        return {"k": k, "v": v}
 
     def decode_memory(self, params, x, mem_cache):
-        _later("cross-attention memory caches")
+        """Single-token cross-attention against a prebuilt memory cache."""
+        c = self.cfg
+        nh, _, hd = self.dims
+        B, S = x.shape[0], mem_cache["k"].shape[1]
+        y = self._decode_attend(self._query(params, x), mem_cache["k"], mem_cache["v"],
+                                torch.ones(S, dtype=torch.bool, device=x.device))
+        return y.reshape(B, 1, nh * hd) @ params["wo"]["w"].to(c.dtype)
 
     def _decode_attend(self, q, k, v, valid):
         nh, nkv, hd = self.dims

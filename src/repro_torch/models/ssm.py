@@ -5,9 +5,9 @@ The chunked SSD scan runs through the ``ssd_scan`` kernel when
 ``use_kernel`` is set, else through the reference's chunked algorithm.
 The causal depthwise conv is k shift-and-accumulate steps, as in the
 reference.  ``apply(return_state=True)`` (the prefill that builds the
-decode cache) scans through the plain ``ssd_ref``, as the reference does;
-with ``use_kernel`` set it raises, since the kernel does not return the
-final state.  ``decode`` is the O(1) recurrent step on that cache.
+decode cache) also returns the scan's final state: through the kernel
+when ``use_kernel`` is set, else through the plain ``ssd_ref``, as the
+reference does.  ``decode`` is the O(1) recurrent step on that cache.
 """
 from __future__ import annotations
 
@@ -77,12 +77,6 @@ class Mamba2Block(nn.Module):
     def apply(self, params, u, *, return_state: bool = False):
         """Full-sequence forward.  u: (B, T, d_model) -> (B, T, d_model).
         ``return_state=True`` additionally returns the decode cache."""
-        if return_state and self.use_kernel:
-            raise NotImplementedError(
-                "the decode-cache prefill through the SSD kernel is not ported yet: the "
-                "kernel does not return its final state (ROADMAP queue 1, slice 5, "
-                "follow-up: a prefill through the SSD kernel); build the Backbone "
-                "without use_ssd_kernel to prefill")
         c = self.cfg
         d_in, nh, hd, ds = self.dims
         Bsz, T, _ = u.shape
@@ -95,16 +89,15 @@ class Mamba2Block(nn.Module):
         A = -torch.exp(params["ssd"]["A_log"].float())                      # (nh,)
         dt = F.softplus(dt.float() + params["ssd"]["dt_bias"].float())      # (B,T,nh)
 
-        from repro_torch.kernels.ssd_scan.ref import ssd_ref
-        state = None
-        if return_state:
-            y, state = ssd_ref(x, dt, A, Bm, Cm, chunk=c.ssm_chunk,
-                               return_final_state=True)
-        elif self.use_kernel:
+        if self.use_kernel:
             from repro_torch.kernels.ssd_scan import ops as ssd_ops
-            y = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=c.ssm_chunk)
+            y = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=c.ssm_chunk,
+                            return_final_state=return_state)
         else:
-            y = ssd_ref(x, dt, A, Bm, Cm, chunk=c.ssm_chunk)
+            from repro_torch.kernels.ssd_scan.ref import ssd_ref
+            y = ssd_ref(x, dt, A, Bm, Cm, chunk=c.ssm_chunk, return_final_state=return_state)
+        if return_state:
+            y, state = y
 
         y = y + x * params["ssd"]["D"].to(c.dtype)[None, None, :, None]
         y = y.reshape(Bsz, T, d_in)

@@ -1,12 +1,24 @@
-"""Backbone model (a port of ``repro.models.transformer``): the dense
-family (uniform window, or grouped local:global à la gemma3), the MoE
-family (decoder blocks with an MoE FFN, whose router aux loss is summed
-over the layers) and the SSM family.
+"""Backbone model (a port of ``repro.models.transformer``): one definition
+covering every family of the zoo.
+
+Families
+  dense / vlm : decoder blocks (uniform window, or grouped local:global
+                à la gemma3); vlm is the plain stack on one early-fusion
+                token stream (chameleon)
+  moe         : decoder blocks with an MoE FFN, whose router aux loss is
+                summed over the layers
+  ssm         : Mamba2 blocks (attention-free)
+  hybrid      : zamba2-style — Mamba2 stacks with a *shared* decoder block
+                applied every ``hybrid_period`` blocks
+  audio       : whisper-style enc-dec; the conv/mel frontend is a stub, so
+                the encoder consumes precomputed frame embeddings
 
 Entry points:
   init(gen) -> params                   # drawn on the generator's device
   apply(params, tokens, ...)            # full-sequence forward
   prefill(params, tokens, ...)          # forward + decode-cache build
+  encode(params, frames)                # audio: the encoder's memory
+  build_cross_cache(params, memory)     # audio: every layer's cross k/v
   init_cache(batch, seq)                # zeroed decode cache
   decode(params, token, cache, index)   # ONE-token serve step
 
@@ -14,11 +26,10 @@ Parameters keep the reference's pytree: stacked layer params with their
 leading ``(L,)`` or ``(G, r)`` dims, so the conversion from the reference
 is leaf by leaf.  The reference's ``lax.scan`` over a stack is a Python
 loop over its leading dim here.  ``ring_cache=True`` gives the
-sliding-window layers O(W) ring-buffer caches.  The families hybrid,
-audio and vlm belong to ROADMAP queue 1, slice 5 and raise.  The
-reference's ``remat`` (``jax.checkpoint`` over the scan bodies) has no
-counterpart: ``torch.utils.checkpoint`` does not compose with the
-``torch.func.vmap`` of the agents' gradients, and it changes no number.
+sliding-window layers O(W) ring-buffer caches.  The reference's ``remat``
+(``jax.checkpoint`` over the scan bodies) has no counterpart:
+``torch.utils.checkpoint`` does not compose with the ``torch.func.vmap``
+of the agents' gradients, and it changes no number.
 """
 from __future__ import annotations
 
@@ -34,9 +45,6 @@ from repro_torch.models.layers import Attention, SwiGLU, make_norm
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import Mamba2Block
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
-
-_LATER = "ROADMAP queue 1, slice 5 (hybrid, audio and vlm)"
-
 
 def _pad_attn_cache(cache, extra: int):
     """Right-pad the sequence axis (-3) of attention k/v buffers; cross-attn
@@ -90,12 +98,17 @@ def _layers(stacked, n: int) -> list:
     return [tree_unflatten(treedef, [c[i] for c in cols]) for i in range(n)]
 
 
-def _stack(trees):
-    return tree_map(lambda *xs: torch.stack(xs), *trees)
+def _stack(trees, lead=None):
+    """Per-layer trees -> one tree stacked along a leading dim, reshaped to
+    the leading dims ``lead`` (e.g. (groups, per)) when given."""
+    out = tree_map(lambda *xs: torch.stack(xs), *trees)
+    if lead is None:
+        return out
+    return tree_map(lambda x: x.reshape(tuple(lead) + tuple(x.shape[1:])), out)
 
 
 # ---------------------------------------------------------------------------
-# Decoder block: attention + (SwiGLU | MoE)
+# Decoder block: attention + (SwiGLU | MoE), optional cross-attention
 # ---------------------------------------------------------------------------
 
 
@@ -107,10 +120,6 @@ class DecoderBlock(nn.Module):
     causal: bool = True
     use_flash: bool = False
 
-    def __post_init__(self):
-        if self.cross:
-            raise NotImplementedError(f"cross-attention blocks are not ported yet: {_LATER}")
-
     @property
     def attn(self):
         return Attention(self.cfg, causal=self.causal, use_flash=self.use_flash)
@@ -119,24 +128,38 @@ class DecoderBlock(nn.Module):
     def mlp(self):
         return MoE(self.cfg) if self.use_moe else SwiGLU(self.cfg)
 
+    @property
+    def xattn(self):
+        """The cross-attention over the encoder's memory: never the flash
+        kernel, as in the reference."""
+        return Attention(self.cfg, causal=False)
+
     def init(self, gen):
         c = self.cfg
-        return {"ln1": make_norm(c, c.d_model).init(gen),
-                "attn": self.attn.init(gen),
-                "ln2": make_norm(c, c.d_model).init(gen),
-                "mlp": self.mlp.init(gen)}
+        p = {"ln1": make_norm(c, c.d_model).init(gen),
+             "attn": self.attn.init(gen),
+             "ln2": make_norm(c, c.d_model).init(gen),
+             "mlp": self.mlp.init(gen)}
+        if self.cross:
+            p["lnx"] = make_norm(c, c.d_model).init(gen)
+            p["xattn"] = self.xattn.init(gen)
+        return p
 
     def _norm(self):
         return make_norm(self.cfg, self.cfg.d_model)
 
-    def apply(self, params, h, *, window=None, return_kv=False):
-        """-> (h, aux[, kv]); aux is the MoE router's loss, else a float32 0."""
+    def apply(self, params, h, *, window=None, memory=None, return_kv=False):
+        """-> (h, aux[, kv]); aux is the MoE router's loss, else a float32 0.
+        ``memory``: the encoder's output, which a cross block attends to."""
         norm = self._norm()
         a = self.attn.apply(params["attn"], norm.apply(params["ln1"], h),
                             window=window, return_kv=return_kv)
         if return_kv:
             a, kv = a
         h = h + a
+        if self.cross:
+            h = h + self.xattn.apply(params["xattn"], norm.apply(params["lnx"], h),
+                                     memory=memory)
         m = self.mlp.apply(params["mlp"], norm.apply(params["ln2"], h))
         if self.use_moe:
             m, aux = m
@@ -147,7 +170,8 @@ class DecoderBlock(nn.Module):
             return h, aux, kv
         return h, aux
 
-    def decode(self, params, h, cache, index, *, window=None, ring=False, donate=False):
+    def decode(self, params, h, cache, index, *, window=None, ring=False, donate=False,
+               mem_cache=None):
         norm = self._norm()
         x = norm.apply(params["ln1"], h)
         if ring:
@@ -157,6 +181,9 @@ class DecoderBlock(nn.Module):
             a, new_cache = self.attn.decode(params["attn"], x, cache, index,
                                             window=window, donate=donate)
         h = h + a
+        if self.cross and mem_cache is not None:
+            h = h + self.xattn.decode_memory(params["xattn"],
+                                             norm.apply(params["lnx"], h), mem_cache)
         m = self.mlp.apply(params["mlp"], norm.apply(params["ln2"], h))
         if self.use_moe:
             m, _ = m
@@ -206,11 +233,6 @@ class Backbone(nn.Module):
     use_ssd_kernel: bool = False
     ring_cache: bool = False  # sliding-window layers use O(W) ring buffers
 
-    def __post_init__(self):
-        if self.cfg.family not in ("dense", "moe", "ssm"):
-            raise NotImplementedError(f"the {self.cfg.family!r} family is not ported "
-                                      f"yet: {_LATER}")
-
     # ---- structure helpers ----
     @property
     def grouped(self) -> bool:
@@ -219,25 +241,23 @@ class Backbone(nn.Module):
     @property
     def n_groups(self) -> int:
         c = self.cfg
+        if c.family == "hybrid":
+            return c.num_layers // c.hybrid_period
         return c.num_layers // (c.local_global_ratio + 1) if self.grouped else 0
 
     @property
     def n_tail(self) -> int:
         c = self.cfg
+        if c.family == "hybrid":
+            return c.num_layers % c.hybrid_period
         return c.num_layers % (c.local_global_ratio + 1) if self.grouped else 0
 
-    def _block(self):
-        return DecoderBlock(self.cfg, use_moe=self.cfg.num_experts > 0,
-                            use_flash=self.use_flash)
+    def _block(self, causal=True, cross=False):
+        return DecoderBlock(self.cfg, use_moe=self.cfg.num_experts > 0, cross=cross,
+                            causal=causal, use_flash=self.use_flash)
 
     def _mamba(self):
         return MambaLayer(self.cfg, use_kernel=self.use_ssd_kernel)
-
-    def _stack_local(self, layers):
-        """Per-layer trees of the local layers, in group order -> one tree
-        stacked with leading dims (n_groups, ratio)."""
-        lead = (self.n_groups, self.cfg.local_global_ratio)
-        return tree_map(lambda x: x.reshape(lead + tuple(x.shape[1:])), _stack(layers))
 
     # ---- init ----
     def init(self, gen):
@@ -251,6 +271,15 @@ class Backbone(nn.Module):
                                     dtype=c.param_dtype).init(gen)
         if c.family == "ssm":
             p["blocks"] = stack_init(self._mamba(), gen, c.num_layers)
+        elif c.family == "hybrid":
+            p["shared_attn"] = self._block().init(gen)
+            p["mamba"] = stack_init2(self._mamba(), gen, self.n_groups, c.hybrid_period - 1)
+            if self.n_tail:
+                p["mamba_tail"] = stack_init(self._mamba(), gen, self.n_tail)
+        elif c.family == "audio":
+            p["enc_blocks"] = stack_init(self._block(causal=False), gen, c.encoder_layers)
+            p["enc_norm"] = make_norm(c, c.d_model).init(gen)
+            p["blocks"] = stack_init(self._block(cross=True), gen, c.num_layers)
         elif self.grouped:
             p["local"] = stack_init2(self._block(), gen, self.n_groups, c.local_global_ratio)
             p["global"] = stack_init(self._block(), gen, self.n_groups)
@@ -284,15 +313,18 @@ class Backbone(nn.Module):
         return logits.float()
 
     # ---- full-sequence forward ----
-    def apply(self, params, tokens, *, collect_cache: bool = False,
+    def apply(self, params, tokens, *, encoder_frames=None, collect_cache: bool = False,
               logits_mode: str = "full"):
-        """Returns dict(hidden, logits, aux[, cache]).  ``logits_mode``:
-        "full" (training), "last" (prefill — only the next-token logits), or
-        "none"."""
+        """Returns dict(hidden, logits, aux[, cache][, memory]).
+        ``logits_mode``: "full" (training), "last" (prefill — only the
+        next-token logits), or "none".  The audio family takes
+        ``encoder_frames`` (B, S_enc, d_model); with ``collect_cache`` its
+        encoder output comes back as ``memory``."""
         c = self.cfg
         h = self._embed(params, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         caches: dict[str, Any] = {}
+        memory = self.encode(params, encoder_frames) if c.family == "audio" else None
         if c.family == "ssm":
             layer = self._mamba()
             states = []
@@ -304,6 +336,20 @@ class Backbone(nn.Module):
                     h = layer.apply(bp, h)
             if collect_cache:
                 caches["blocks"] = _stack(states)
+        elif c.family == "hybrid":
+            h, aux, caches = self._hybrid_forward(params, h, aux, collect_cache)
+        elif c.family == "audio":
+            block = self._block(cross=True)
+            kvs, mem_kvs = [], []
+            for bp in _layers(params["blocks"], c.num_layers):
+                out = block.apply(bp, h, memory=memory, return_kv=collect_cache)
+                h, a = out[:2]
+                aux = aux + a
+                if collect_cache:
+                    kvs.append(out[2])
+                    mem_kvs.append(block.attn.build_memory_cache(bp["xattn"], memory))
+            if collect_cache:
+                caches["self"], caches["cross"] = _stack(kvs), _stack(mem_kvs)
         elif self.grouped:
             h, aux, caches = self._grouped_forward(params, h, aux, collect_cache)
         else:
@@ -323,6 +369,8 @@ class Backbone(nn.Module):
         out = {"hidden": hidden, "logits": logits, "aux": aux}
         if collect_cache:
             out["cache"] = caches
+            if memory is not None:
+                out["memory"] = memory
         return out
 
     def _grouped_forward(self, params, h, aux, collect_cache):
@@ -351,21 +399,86 @@ class Backbone(nn.Module):
             h = run(bp, h, W, tail)
         caches = {}
         if collect_cache:
-            caches["local"] = self._stack_local(local)
+            caches["local"] = _stack(local, (self.n_groups, c.local_global_ratio))
             caches["global"] = _stack(glob)
             if self.n_tail:
                 caches["tail"] = _stack(tail)
         return h, total[0], caches
 
+    def _hybrid_forward(self, params, h, aux, collect_cache):
+        """zamba2-style: every group is the one shared decoder block (one
+        parameter set, applied at every group) and then ``hybrid_period -
+        1`` Mamba2 layers; the tail is Mamba2 layers."""
+        c = self.cfg
+        block, mamba = self._block(), self._mamba()
+        per = c.hybrid_period - 1
+        kvs, states, tail = [], [], []
+
+        def run_mamba(bp, hh, out):
+            if collect_cache:
+                hh, st = mamba.apply(bp, hh, return_state=True)
+                out.append(st)
+                return hh
+            return mamba.apply(bp, hh)
+
+        for mp in _layers(params["mamba"], self.n_groups):
+            out = block.apply(params["shared_attn"], h, window=None, return_kv=collect_cache)
+            h, a = out[:2]
+            aux = aux + a
+            if collect_cache:
+                kvs.append(out[2])
+            for bp in _layers(mp, per):
+                h = run_mamba(bp, h, states)
+        for bp in _layers(params["mamba_tail"], self.n_tail) if self.n_tail else ():
+            h = run_mamba(bp, h, tail)
+        caches = {}
+        if collect_cache:
+            caches["attn"] = _stack(kvs)
+            caches["mamba"] = _stack(states, (self.n_groups, per))
+            if self.n_tail:
+                caches["tail"] = _stack(tail)
+        return h, aux, caches
+
+    # ---- encoder (audio) ----
+    def encode(self, params, frames):
+        """frames: (B, S_enc, d_model), the stubbed frontend's embeddings ->
+        the encoder's memory (B, S_enc, d_model): non-causal blocks, then
+        ``enc_norm``."""
+        c = self.cfg
+        if frames is None:
+            raise ValueError(f"{c.name}: the audio family's forward needs encoder_frames")
+        h = frames.to(c.dtype)
+        block = self._block(causal=False)
+        for bp in _layers(params["enc_blocks"], c.encoder_layers):
+            h, _ = block.apply(bp, h, window=None)
+        return make_norm(c, c.d_model).apply(params["enc_norm"], h)
+
     # ---- prefill ----
-    def prefill(self, params, tokens, *, max_seq: int = 0, logits_mode: str = "last"):
+    def prefill(self, params, tokens, *, encoder_frames=None, max_seq: int = 0,
+                logits_mode: str = "last"):
         """Full forward + decode-cache build.  ``max_seq > T`` right-pads the
-        attention caches so ``decode`` can continue writing at index >= T."""
-        out = self.apply(params, tokens, collect_cache=True, logits_mode=logits_mode)
+        attention caches so ``decode`` can continue writing at index >= T
+        (the cross-attention caches keep the encoder's length)."""
+        out = self.apply(params, tokens, encoder_frames=encoder_frames, collect_cache=True,
+                         logits_mode=logits_mode)
         T = tokens.shape[1]
         if max_seq and max_seq > T:
             out["cache"] = _pad_attn_cache(out["cache"], max_seq - T)
         return out
+
+    # ---- cross-attention cache (audio) ----
+    def build_cross_cache(self, params, memory):
+        """Every decoder layer's cross-attention k/v of the encoder's output
+        (B, S_enc, d): {"k", "v"} stacked over the layers, (L, B, S_enc, n_kv,
+        head_dim), the layout of ``cache["cross"]`` in ``init_cache`` and
+        ``prefill``."""
+        c = self.cfg
+        if c.family != "audio":
+            raise ValueError("build_cross_cache: only the audio (enc-dec) family has "
+                             f"cross-attention, got {c.family!r}")
+        attn = self._block(cross=True).attn
+        return _stack([attn.build_memory_cache(bp["xattn"], memory)
+                       for bp in _layers(params["blocks"], c.num_layers)])
 
     # ---- decode cache ----
     @property
@@ -383,9 +496,11 @@ class Backbone(nn.Module):
         def stacked(base, lead):
             return tree_map(lambda x: x.expand(lead + tuple(x.shape)).contiguous(), base)
 
+        def mamba(lead):
+            return stacked(Mamba2Block(c).init_cache(batch, device=dev), lead)
+
         if c.family == "ssm":
-            return {"blocks": stacked(Mamba2Block(c).init_cache(batch, device=dev),
-                                      (c.num_layers,))}
+            return {"blocks": mamba((c.num_layers,))}
         W = min(c.sliding_window, seq) if c.sliding_window > 0 else seq
         ring = self._ring
 
@@ -394,6 +509,17 @@ class Backbone(nn.Module):
             return stacked(Attention(c).init_cache(batch, W if r else seq, ring=r,
                                                    device=dev), lead)
 
+        if c.family == "hybrid":
+            cache = {"attn": kv((self.n_groups,), False),
+                     "mamba": mamba((self.n_groups, c.hybrid_period - 1))}
+            if self.n_tail:
+                cache["tail"] = mamba((self.n_tail,))
+            return cache
+        if c.family == "audio":
+            shape = (c.num_layers, batch, c.encoder_seq, c.num_kv_heads, c.resolved_head_dim)
+            return {"self": kv((c.num_layers,), False),
+                    "cross": {k: torch.zeros(shape, dtype=c.dtype, device=dev)
+                              for k in ("k", "v")}}
         if self.grouped:
             cache = {"local": kv((self.n_groups, c.local_global_ratio), True),
                      "global": kv((self.n_groups,), c.global_uses_window)}
@@ -409,7 +535,9 @@ class Backbone(nn.Module):
         batching).  Returns (logits (B, 1, V), new_cache).  ``donate=True``
         writes every layer's cache in place and returns ``cache`` itself:
         the port's counterpart of the reference engine donating the cache
-        to its compiled decode (no cache copy in a tick)."""
+        to its compiled decode (no cache copy in a tick).  The audio
+        family reads its cross-attention caches (``cache["cross"]``) and
+        returns them as given."""
         c = self.cfg
         h = self._embed(params, token)
         if c.family == "ssm":
@@ -420,6 +548,17 @@ class Backbone(nn.Module):
                                      _layer(cache["blocks"], i), donate=donate)
                 new.append(nc)
             new_cache = cache if donate else {"blocks": _stack(new)}
+        elif c.family == "hybrid":
+            h, new_cache = self._hybrid_decode(params, h, cache, index, donate)
+        elif c.family == "audio":
+            block = self._block(cross=True)
+            new = []
+            for i in range(c.num_layers):
+                h, nc = block.decode(_layer(params["blocks"], i), h, _layer(cache["self"], i),
+                                     index, donate=donate,
+                                     mem_cache=_layer(cache["cross"], i))
+                new.append(nc)
+            new_cache = cache if donate else {"self": _stack(new), "cross": cache["cross"]}
         elif self.grouped:
             h, new_cache = self._grouped_decode(params, h, cache, index, donate)
         else:
@@ -457,7 +596,32 @@ class Backbone(nn.Module):
             tail.append(nc)
         if donate:
             return h, cache
-        new_cache = {"local": self._stack_local(local), "global": _stack(glob)}
+        new_cache = {"local": _stack(local, (self.n_groups, c.local_global_ratio)),
+                     "global": _stack(glob)}
+        if self.n_tail:
+            new_cache["tail"] = _stack(tail)
+        return h, new_cache
+
+    def _hybrid_decode(self, params, h, cache, index, donate):
+        c = self.cfg
+        block, mamba = self._block(), self._mamba()
+        per = c.hybrid_period - 1
+        attn, states, tail = [], [], []
+        for g in range(self.n_groups):
+            h, nc = block.decode(params["shared_attn"], h, _layer(cache["attn"], g), index,
+                                 donate=donate)
+            attn.append(nc)
+            for r in range(per):
+                h, nc = mamba.decode(_layer(params["mamba"], g, r), h,
+                                     _layer(cache["mamba"], g, r), donate=donate)
+                states.append(nc)
+        for t in range(self.n_tail):
+            h, nc = mamba.decode(_layer(params["mamba_tail"], t), h, _layer(cache["tail"], t),
+                                 donate=donate)
+            tail.append(nc)
+        if donate:
+            return h, cache
+        new_cache = {"attn": _stack(attn), "mamba": _stack(states, (self.n_groups, per))}
         if self.n_tail:
             new_cache["tail"] = _stack(tail)
         return h, new_cache

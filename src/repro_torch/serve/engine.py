@@ -158,7 +158,9 @@ class ServeEngine:
 
     # ---- request intake ----------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, *, temperature: float = 0.0,
-               stop_tokens=()) -> int:
+               frames=None, stop_tokens=()) -> int:
+        """Queue a request; returns its id.  An audio-family request carries
+        its encoder ``frames`` (S_enc, d_model)."""
         prompt = tuple(int(t) for t in np.asarray(prompt).reshape(-1))
         if not prompt:
             raise ValueError("empty prompt")
@@ -166,8 +168,11 @@ class ServeEngine:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens}) "
                 f"exceeds the engine's max_seq {self.max_seq}")
+        if self.cfg.family == "audio" and frames is None:
+            raise ValueError("audio family requests need encoder frames")
         req = Request(rid=-1, prompt=prompt, max_new_tokens=max_new_tokens,
-                      temperature=temperature, stop_tokens=frozenset(stop_tokens))
+                      temperature=temperature, frames=frames,
+                      stop_tokens=frozenset(stop_tokens))
         return self.batcher.submit(req)
 
     # ---- hot reload --------------------------------------------------------
@@ -216,10 +221,11 @@ class ServeEngine:
         return done
 
     # ---- internals ---------------------------------------------------------
-    def _prefill(self, toks, last: int):
-        """Bucketed prefill: forward the padded prompt, take the hidden state
-        at the last REAL token (``last``), project only that row to logits."""
-        out = self.bb.prefill(self.params, toks, logits_mode="none")
+    def _prefill(self, toks, last: int, frames=None):
+        """Bucketed prefill: forward the padded prompt (and, audio, encode
+        the request's frames), take the hidden state at the last REAL token
+        (``last``), project only that row to logits."""
+        out = self.bb.prefill(self.params, toks, encoder_frames=frames, logits_mode="none")
         h = out["hidden"][:, last:last + 1]
         return self.bb.project_logits(self.params, h), out["cache"]
 
@@ -245,7 +251,10 @@ class ServeEngine:
             n = min(T, Tb)
             toks = torch.zeros((1, Tb), dtype=torch.int64)
             toks[0, :n] = torch.tensor(req.prompt[:n])
-            logits, req_cache = self._prefill(toks.to(self.device), n - 1)
+            frames = None
+            if req.frames is not None:
+                frames = torch.as_tensor(req.frames, device=self.device)[None]
+            logits, req_cache = self._prefill(toks.to(self.device), n - 1, frames)
             insert_slot(self.cache, req_cache, slot, prompt_len=n)
             req.position = n
             self._indices[slot] = n

@@ -3,8 +3,9 @@
 ``examples/serve_generator.py``.
 
 Submits ``--requests`` generation requests of staggered prompt lengths to
-a :class:`repro_torch.serve.ServeEngine` (an arch of the port's registry,
-at its reduced ``.smoke()`` size) and drains them: requests are admitted
+a :class:`repro_torch.serve.ServeEngine` (any of the ten archs of the
+port's registry, at its reduced ``.smoke()`` size; an audio arch's
+requests carry seeded encoder frames) and drains them: requests are admitted
 into free batch slots as earlier ones finish, every slot decodes at its
 own position, and sliding-window archs can serve with O(window) ring
 caches (``--ring``).  On the card the decode tick is one captured CUDA
@@ -61,8 +62,12 @@ def main(argv=None):
         # staggered lengths exercise bucketing + mid-stream admission
         T = max(4, args.prompt_len - 3 * (i % args.batch))
         prompt = rng.integers(0, cfg.vocab_size, (T,))
+        frames = None
+        if cfg.family == "audio":
+            frames = (0.1 * rng.standard_normal((cfg.encoder_seq, cfg.d_model))
+                      ).astype(np.float32)
         rids.append(eng.submit(prompt, max_new_tokens=args.gen,
-                               temperature=args.temperature))
+                               temperature=args.temperature, frames=frames))
 
     t0 = time.perf_counter()
     done = eng.run()

@@ -26,7 +26,7 @@ from test_models import CFGS as JCFGS, _dense as _jdense
 from torch_shared import one_torch_thread  # noqa: F401
 
 from repro import nn as jnn
-from repro.configs.registry import get_config as jget_config
+from repro.configs.registry import get_config as jget_config, list_archs as jlist_archs
 from repro.models.transformer import Backbone as JBackbone
 
 from repro_torch import nn as tnn
@@ -66,8 +66,9 @@ def _tokens(vocab, shape, seed=1):
 # ---------------------------------------------------------------------------
 
 
-PORTED_ARCHS = ["gemma3-4b", "mixtral-8x22b", "qwen3-8b", "phi4-mini-3.8b", "glm4-9b",
-                "granite-moe-3b-a800m", "mamba2-2.7b"]
+PORTED_ARCHS = ["gemma3-4b", "mixtral-8x22b", "qwen3-8b", "phi4-mini-3.8b",
+                "whisper-medium", "glm4-9b", "zamba2-7b", "granite-moe-3b-a800m",
+                "chameleon-34b", "mamba2-2.7b"]
 
 
 @pytest.mark.parametrize("arch", PORTED_ARCHS)
@@ -75,18 +76,18 @@ def test_registry_configs_match_reference(arch):
     assert port_config(jget_config(arch)) == get_config(arch)
     assert port_config(jget_config(arch).smoke()) == get_config(arch).smoke()
     tcfg, jcfg = get_config(arch), jget_config(arch)
-    for prop in ("padded_vocab", "resolved_head_dim", "d_inner", "resolved_ssm_heads"):
+    for prop in ("padded_vocab", "resolved_head_dim", "d_inner", "resolved_ssm_heads",
+                 "attention_free", "supports_long_decode"):
         assert getattr(tcfg, prop) == getattr(jcfg, prop)
     assert [tcfg.is_global_layer(i) for i in range(tcfg.num_layers)] == \
         [jcfg.is_global_layer(i) for i in range(jcfg.num_layers)]
 
 
 def test_registry_refuses_unported_archs():
-    assert list_archs() == PORTED_ARCHS
+    """Every arch of the reference is ported, in the reference's order; an
+    arch neither package has is refused."""
+    assert list_archs() == PORTED_ARCHS == jlist_archs()
     assert get_shape("prefill_32k").seq_len == 32_768
-    for arch in ("zamba2-7b", "whisper-medium", "chameleon-34b"):
-        with pytest.raises(KeyError, match="slice 5"):
-            get_config(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 
@@ -259,12 +260,6 @@ def test_causality(key, flag):
     np.testing.assert_allclose(out1.numpy(), out2.numpy(), atol=1e-5)
 
 
-def test_unported_paths_raise():
-    for key in ("hybrid", "audio"):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            Backbone(port_config(JCFGS[key]))
-
-
 # ---------------------------------------------------------------------------
 # serving paths: ring caches, the SSM prefill state and decode
 # ---------------------------------------------------------------------------
@@ -432,17 +427,23 @@ def test_ssm_prefill_state_then_decode_equals_decode_from_scratch(T):
             np.testing.assert_allclose(lg2.numpy(), lg.numpy(), atol=1e-5)
 
 
-def test_ssd_kernel_prefill_refuses():
-    """The decode-cache prefill with the SSD kernel flag set refuses: the
-    kernel does not return its final state, and a silent scan through the
-    plain ``ssd_ref`` would bypass the kernel the caller asked for.  The
-    forward without a state still takes the flag, and the same prefill
-    without it works."""
+@pytest.mark.parametrize("T", [4, 8, 12])
+def test_ssd_kernel_prefill_matches_plain(T):
+    """The decode-cache prefill with the SSD kernel flag set goes through
+    the kernel's wrapper, which returns the scan's final state; on the CPU
+    the wrapper takes the plain ``ssd_ref``, so the prefill (logits and
+    every cache leaf) equals the flag-free one exactly, and no kernel is
+    launched.  Then decode continues from it as from the plain cache."""
     cfg, bb, params = _port("ssm", use_ssd_kernel=True)
-    toks = torch.from_numpy(_tokens(cfg.vocab_size, (1, 8)))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        bb.prefill(params, toks)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        bb.apply(params, toks, collect_cache=True)
-    assert bb.apply(params, toks)["logits"].shape[:2] == (1, 8)
-    assert Backbone(cfg).prefill(params, toks)["cache"] is not None
+    plain = Backbone(cfg)
+    toks = torch.from_numpy(_tokens(cfg.vocab_size, (2, T + 2)))
+    before = skernel.ssd_bthd.launches
+    got = bb.prefill(params, toks[:, :T], max_seq=T + 2)
+    assert skernel.ssd_bthd.launches == before
+    want = plain.prefill(params, toks[:, :T], max_seq=T + 2)
+    assert torch.equal(got["logits"], want["logits"])
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got["cache"]),
+                                                 tree_leaves(want["cache"])))
+    lg, _ = bb.decode(params, toks[:, T:T + 1], got["cache"], T)
+    lw, _ = plain.decode(params, toks[:, T:T + 1], want["cache"], T)
+    assert torch.equal(lg, lw)

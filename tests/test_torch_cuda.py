@@ -488,9 +488,11 @@ def _close(got, want, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 100])
-@pytest.mark.parametrize("nh,nkv,hd", [(8, 4, 256), (4, 4, 64), (8, 2, 32)])
+@pytest.mark.parametrize("nh,nkv,hd", [(8, 4, 256), (4, 4, 64), (8, 2, 32), (4, 4, 112)])
 def test_flash_kernel_matches_plain(cuda, dtype, window, nh, nkv, hd):
-    """T = 300 is a multiple of no tile; GQA 2:1 and 4:1 and none."""
+    """T = 300 is a multiple of no tile; GQA 2:1 and 4:1 and none; head_dim
+    112 (zamba2-7b), whose 14 16-byte chunks a row do not divide the
+    block; non-causal (whisper's encoder) at 64 and 112."""
     g = torch.Generator(device=cuda).manual_seed(hd + window)
     q = torch.randn((2, nh, 300, hd), generator=g, device=cuda).to(dtype)
     k, v = (torch.randn((2, nkv, 300, hd), generator=g, device=cuda).to(dtype)
@@ -501,7 +503,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, window, nh, nkv, hd):
     assert fkernel.flash_attention_bhsd.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     _close(got, attention_ref(q, k, v, causal=True, window=window), dtype)
-    if hd == 64:
+    if hd in (64, 112):
         got = fkernel.flash_attention_bhsd(q, k, v, causal=False)
         _close(got, attention_ref(q, k, v, causal=False), dtype)
 
@@ -568,6 +570,29 @@ def test_ssd_kernel_matches_plain(cuda, dtype, T, nh, hd, ds, chunk):
     assert skernel.ssd_bthd.launches == before + 1
     assert got.dtype == dtype and got.shape == xs[0].shape
     _close(got, ssd_ref(*xs, chunk=chunk), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,nh,hd,ds,chunk", [(512, 6, 64, 128, 128),   # mamba2's sizes
+                                              (256, 112, 64, 64, 128),  # zamba2-7b's
+                                              (128, 3, 64, 128, 128),   # one chunk
+                                              (96, 5, 32, 16, 32)])
+def test_ssd_kernel_final_state_matches_plain(cuda, dtype, T, nh, hd, ds, chunk):
+    """``return_final_state=True``: the (Bsz, nh, hd, ds) float32 state the
+    state pass writes out against the plain version's (float32 bound, 1e-5
+    of max |state|), the output bit for bit the scan's without the state,
+    one launch counted."""
+    g = torch.Generator(device=cuda).manual_seed(T + hd + 1)
+    xs = _ssd_inputs(g, cuda, 2, T, nh, hd, ds, dtype)
+    before = skernel.ssd_bthd.launches
+    y, state = skernel.ssd_bthd(*xs, chunk=chunk, return_final_state=True)
+    torch.cuda.synchronize()
+    assert skernel.ssd_bthd.launches == before + 1
+    assert state.shape == (2, nh, hd, ds) and state.dtype == torch.float32
+    _, want = ssd_ref(*xs, chunk=chunk, return_final_state=True)
+    _close(state, want, torch.float32)
+    assert torch.equal(y, skernel.ssd_bthd(*xs, chunk=chunk))
 
 
 @pytest.mark.cuda
@@ -668,6 +693,41 @@ def test_backbone_on_card_runs_through_the_kernels(cuda, arch, flag):
     assert counter.launches - before == cfg.num_layers
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-medium", "chameleon-34b"])
+def test_family_backbones_on_card_run_through_the_kernels(cuda, arch):
+    """The hybrid, audio and vlm smoke backbones with their kernel flags on
+    the card, from the same weights as on the CPU: ``apply`` and
+    ``prefill`` launch flash once per attention layer (zamba2: once per
+    group, the shared block; whisper: encoder and decoder) and the SSD scan
+    once per Mamba2 layer (the prefill's with its final state); logits
+    and the prefill cache within 2e-4 of the CPU's."""
+    cfg = get_config(arch).smoke()
+    bb = Backbone(cfg, use_flash=True, use_ssd_kernel=True)
+    params = bb.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    kw = {}
+    if cfg.family == "audio":
+        kw["encoder_frames"] = 0.1 * torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                                                 generator=torch.Generator().manual_seed(2))
+    flash = {"hybrid": bb.n_groups, "audio": cfg.encoder_layers + cfg.num_layers,
+             "vlm": cfg.num_layers}[cfg.family]
+    ssd = cfg.num_layers - bb.n_groups if cfg.family == "hybrid" else 0
+    dev = lambda t: tree_map(lambda x: x.to(cuda), t)  # noqa: E731
+    for fn in ("apply", "prefill"):
+        want = getattr(bb, fn)(params, toks, **kw)
+        before = (fkernel.flash_attention_bhsd.launches, skernel.ssd_bthd.launches)
+        got = getattr(bb, fn)(dev(params), toks.to(cuda), **dev(kw))
+        torch.cuda.synchronize()
+        assert (fkernel.flash_attention_bhsd.launches - before[0],
+                skernel.ssd_bthd.launches - before[1]) == (flash, ssd), fn
+        assert bool(torch.isfinite(got["logits"]).all())
+        torch.testing.assert_close(got["logits"].cpu(), want["logits"], rtol=0, atol=2e-4)
+        if fn == "prefill":
+            for a, b in zip(tree_leaves(got["cache"]), tree_leaves(want["cache"])):
+                torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -801,8 +861,13 @@ def _serve(cfg, params, cuda, **kw):
                     **kw)
     eng.rows = {}
     g = torch.Generator().manual_seed(4)
-    rids = [eng.submit(torch.randint(0, cfg.vocab_size, (T,), generator=g).tolist(),
-                       max_new_tokens=n, temperature=0.7) for T, n in SERVE_WORK]
+    rids = []
+    for T, n in SERVE_WORK:
+        frames = None
+        if cfg.family == "audio":   # each request its own encoder frames
+            frames = 0.1 * torch.randn((cfg.encoder_seq, cfg.d_model), generator=g)
+        rids.append(eng.submit(torch.randint(0, cfg.vocab_size, (T,), generator=g).tolist(),
+                               max_new_tokens=n, temperature=0.7, frames=frames))
     counters = launch_counters()
     before = {n: f.launches for n, f in counters.items()}
     done = eng.run()
@@ -814,7 +879,8 @@ def _serve(cfg, params, cuda, **kw):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,ring", [("gemma3-4b", False), ("gemma3-4b", True),
                                        ("mamba2-2.7b", False),
-                                       ("granite-moe-3b-a800m", False)])
+                                       ("granite-moe-3b-a800m", False),
+                                       ("zamba2-7b", False), ("whisper-medium", False)])
 def test_serve_captured_tick_matches_eager(cuda, arch, ring):
     """The engine's decode tick replayed from its captured graph gives the
     eager tick's logits, tokens (sampled at temperature 0.7 from the same
@@ -854,7 +920,7 @@ def test_serve_ring_engine_matches_full_engine(cuda):
 # ---------------------------------------------------------------------------
 
 LM_GAN_ARCHS = ["mixtral-8x22b", "qwen3-8b", "phi4-mini-3.8b", "glm4-9b",
-                "granite-moe-3b-a800m"]
+                "granite-moe-3b-a800m", "zamba2-7b", "whisper-medium", "chameleon-34b"]
 
 
 @pytest.mark.cuda

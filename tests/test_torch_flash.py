@@ -55,8 +55,14 @@ def _assert_close(got, want, dtype):
         assert np.all(np.abs(got - want) <= bound), np.abs(got - want).max()
 
 
+# zamba2-7b's shared attention (head_dim 112, a multiple of no power of two
+# above 16) and whisper's encoder (non-causal), T a multiple of no tile
+NEW_CASES = [(128, 128, 4, 4, 112, True, 0), (150, 150, 4, 2, 112, True, 0),
+             (150, 150, 4, 4, 64, False, 0), (96, 96, 2, 2, 112, False, 0)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T,S,nh,nkv,hd,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("T,S,nh,nkv,hd,causal,window", FLASH_CASES + NEW_CASES)
 def test_flash_plain_matches_jax_kernel(T, S, nh, nkv, hd, causal, window, dtype):
     q, k, v = _inputs(2, T, S, nh, nkv, hd)
     if dtype == "bfloat16":
@@ -158,7 +164,7 @@ def _card_inputs(nh, nkv, hd, window):
 
 @pytest.mark.parametrize("split", [True, False], ids=["p_split", "planted_p_in_bf16"])
 @pytest.mark.parametrize("window", [0, 100])
-@pytest.mark.parametrize("nh,nkv,hd", [(8, 4, 256), (4, 4, 64), (8, 2, 32)])
+@pytest.mark.parametrize("nh,nkv,hd", [(8, 4, 256), (4, 4, 64), (8, 2, 32), (4, 4, 112)])
 def test_tensor_core_design_against_the_card_bound(nh, nkv, hd, window, split):
     """p split in two bf16 halves meets the card test's bound with the
     margin float32 p has (measured 0.47-0.49 of it); p rounded to bf16
@@ -169,3 +175,50 @@ def test_tensor_core_design_against_the_card_bound(nh, nkv, hd, window, split):
     ratio = _card_bound_ratio(
         _tensor_core_emulation(q, k, v, causal=True, window=window, split=split), want)
     assert (ratio <= 1.0) == split, ratio
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["p_split", "planted_p_in_bf16"])
+@pytest.mark.parametrize("hd", [64, 112])
+def test_tensor_core_design_non_causal(hd, split):
+    """The same design on a non-causal head (whisper's encoder: every key
+    of every tile live for every row) meets the card bound with p split
+    and fails it with p in bf16 alone."""
+    q, k, v = _card_inputs(4, 4, hd, 0)
+    want = attention_ref(q, k, v, causal=False)
+    ratio = _card_bound_ratio(_tensor_core_emulation(q, k, v, causal=False, window=0,
+                                                     split=split), want)
+    assert (ratio <= 1.0) == split, ratio
+
+
+def _tile_copies(hd, rows, threads=128, flat=True):
+    """How many times the bf16 kernel's tile copy (``copy_rows`` in
+    ``csrc/flash_attention.cu``) writes each 16-byte chunk of a ``rows`` x
+    ``hd`` tile: thread t takes chunks t, t + threads, ... (``flat``), or,
+    where the chunks of a row divide the block, a fixed column and rows t /
+    CH, t / CH + threads / CH, ...  ``flat=False`` models the loop at every
+    head dim, the design that failed at 112."""
+    CH = hd // 8
+    count = np.zeros((rows, CH), np.int64)
+    for t in range(threads):
+        if not flat or threads % CH == 0:
+            for r in range(t // CH, rows, threads // CH):
+                count[r, t % CH] += 1
+        else:
+            for i in range(t, rows * CH, threads):
+                count[i // CH, i % CH] += 1
+    return count
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128, 256])
+def test_tile_copy_takes_each_chunk_once(hd):
+    """Every 16-byte chunk of the Q tile (64 rows) and of a K/V tile (64
+    rows, 32 at hd 256) is copied exactly once at every head dim the
+    kernel is built for.  At hd 112 a row is 14 chunks, which do not divide
+    the 128 threads: the fixed-column loop then copies a row twice from two
+    threads (threads 126 and 127 start at row 9, which thread 0 also
+    takes)."""
+    assert hd in fkernel.HEAD_DIMS
+    for rows in (64, 32 if hd >= 256 else 64):
+        assert (_tile_copies(hd, rows) == 1).all()
+    if hd == 112:
+        assert (_tile_copies(hd, 64, flat=False) == 2).any()

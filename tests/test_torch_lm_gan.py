@@ -33,7 +33,8 @@ import numpy as np
 import pytest
 import torch
 from test_torch_backbone import port_config
-from torch_shared import _parity, one_torch_thread, round_mismatches, sync_cases  # noqa: F401
+from torch_shared import _parity, lm_gan_batch, one_torch_thread, round_mismatches, \
+    sync_cases  # noqa: F401
 
 from repro.configs.registry import get_config as jget_config, list_archs as jlist_archs
 from repro.core import FedGAN as JFedGAN, FedGANConfig as JConfig
@@ -58,6 +59,7 @@ from repro_torch.tree import tree_leaves, tree_map
 
 NEW_ARCHS = ["mixtral-8x22b", "qwen3-8b", "phi4-mini-3.8b", "glm4-9b",
              "granite-moe-3b-a800m"]
+FAMILY_ARCHS = ["zamba2-7b", "whisper-medium", "chameleon-34b"]   # hybrid, audio, vlm
 
 
 def _smoke(arch):
@@ -103,6 +105,17 @@ def test_sample_agent_tokens_bit_for_bit(seed, agent, num_agents, vocab, n, T):
 _CASES = ["granite-moe-3b-a800m", "qwen3-8b", "gemma3-4b", "mamba2-2.7b"]
 
 
+def _batch(jcfg, shape, seed=1):
+    """Tokens of ``shape`` (..., T) and, for the audio family, encoder
+    frames (..., S_enc, d_model), numpy."""
+    out = {"tokens": _tokens(jcfg.vocab_size, shape, seed)}
+    if jcfg.family == "audio":
+        rng = np.random.default_rng(seed + 100)
+        out["frames"] = (0.1 * rng.standard_normal(
+            shape[:-1] + (jcfg.encoder_seq, jcfg.d_model))).astype(np.float32)
+    return out
+
+
 @pytest.mark.parametrize("arch", _CASES)
 def test_feature_discriminator_matches_jax(arch):
     """Logits and the gradients wrt D's params and the features, within
@@ -118,21 +131,24 @@ def _lm_pair(arch, seed=0):
     return jcfg, tcfg, jparams, from_jax_params(jparams, device="cpu")
 
 
-@pytest.mark.parametrize("arch", _CASES)
+@pytest.mark.parametrize("arch", _CASES + FAMILY_ARCHS)
 def test_adversarial_losses_match_jax(arch):
     """``lm_loss``, ``disc_loss`` and ``gen_loss`` (its total and its lm,
-    adv and aux parts) on the same weights and tokens, within 1e-5."""
+    adv and aux parts) on the same weights and tokens (and, audio, frames),
+    within 1e-5."""
     jcfg, tcfg, jp, tp = _lm_pair(arch)
     jm, tm = JAdversarialLM(jcfg), AdversarialLM(tcfg)
-    toks = _tokens(jcfg.vocab_size, (2, 16))
-    tt, jt = torch.from_numpy(toks), jnp.asarray(toks)
-    tfake, tlogits, _ = tm.fake_features(tp["gen"], tt)
-    jfake, jlogits, _ = jm.fake_features(jp["gen"], jt)
+    b = _batch(jcfg, (2, 16))
+    tt, jt = torch.from_numpy(b["tokens"]), jnp.asarray(b["tokens"])
+    tf = torch.from_numpy(b["frames"]) if "frames" in b else None
+    jf = jnp.asarray(b["frames"]) if "frames" in b else None
+    tfake, tlogits, _ = tm.fake_features(tp["gen"], tt, tf)
+    jfake, jlogits, _ = jm.fake_features(jp["gen"], jt, jf)
     _close(tm.lm_loss(tlogits, tt).item(), jm.lm_loss(jlogits, jt), 1e-5)
     _close(tm.disc_loss(tp["disc"], tm.real_features(tp["gen"], tt), tfake).item(),
            jm.disc_loss(jp["disc"], jm.real_features(jp["gen"], jt), jfake), 1e-5)
-    ttotal, tparts = tm.gen_loss(tp["gen"], tp["disc"], tt)
-    jtotal, jparts = jm.gen_loss(jp["gen"], jp["disc"], jt)
+    ttotal, tparts = tm.gen_loss(tp["gen"], tp["disc"], tt, tf)
+    jtotal, jparts = jm.gen_loss(jp["gen"], jp["disc"], jt, jf)
     _close(ttotal.item(), jtotal, 1e-5)
     for k in ("lm", "adv", "aux"):
         _close(tparts[k].item(), jparts[k], 1e-5)
@@ -140,12 +156,13 @@ def test_adversarial_losses_match_jax(arch):
 
 def _fused_pair(arch, tcfg_fault=None):
     jcfg, tcfg, jp, tp = _lm_pair(arch)
-    toks = _tokens(jcfg.vocab_size, (2, 16))
+    b = _batch(jcfg, (2, 16))
     want = jax.device_get(jax.jit(jmake_lm_gan_task(jcfg).fused_grads)(
-        jp, {"tokens": jnp.asarray(toks)}, jax.random.key(0)))
+        jp, tree_map(jnp.asarray, b), jax.random.key(0)))
     task = make_lm_gan_task(tcfg_fault(tcfg) if tcfg_fault else tcfg)
-    got = task.fused_grads(tp, {"tokens": torch.from_numpy(toks)})
-    return task, tp, toks, got, want
+    batch = tree_map(torch.from_numpy, b)
+    got = task.fused_grads(tp, batch)
+    return task, tp, batch, got, want
 
 
 def _grads_close(got, want, rel=1e-4):
@@ -158,7 +175,7 @@ def _grads_close(got, want, rel=1e-4):
     return off
 
 
-@pytest.mark.parametrize("arch", _CASES + ["mixtral-8x22b"])
+@pytest.mark.parametrize("arch", _CASES + ["mixtral-8x22b"] + FAMILY_ARCHS)
 def test_fused_grads_match_reference(arch):
     """``make_lm_gan_task(cfg).fused_grads`` (one generator forward through
     ``torch.func.vjp``) against the reference's: D's and G's gradients
@@ -181,13 +198,12 @@ def test_fused_grads_reject_a_dropped_aux_cotangent():
     assert _grads_close(gg, jgg) > 0
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen3-8b"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen3-8b", "whisper-medium"])
 def test_fused_grads_match_the_separate_losses(arch):
     """The port twin of the reference's ``test_adversarial_pair_losses_
     finite``: the fused gradients are finite and equal the gradients of the
     separate ``disc_loss`` and ``gen_loss`` (within 1e-5 of each leaf)."""
-    task, tp, toks, (gd, gg, m), _ = _fused_pair(arch)
-    batch = {"tokens": torch.from_numpy(toks)}
+    task, tp, batch, (gd, gg, m), _ = _fused_pair(arch)
     assert all(bool(torch.isfinite(x).all()) for x in tree_leaves((gd, gg)))
     assert np.isfinite(m["d_loss"].item()) and np.isfinite(m["g_loss"].item())
     gd2 = torch.func.grad(lambda d: task.disc_loss({**tp, "disc": d}, batch))(tp["disc"])
@@ -217,17 +233,17 @@ def _round_mismatches(arch, opt):
     tfed = FedGAN(make_lm_gan_task(tcfg), FedGANConfig(agent_grid=_GRID, sync_interval=_K),
                   opt_g=topt(), opt_d=topt(), scales=equal_timescale(constant(lr)))
     jstate = jfed.init_state(jax.random.key(0))
-    toks = _tokens(jcfg.vocab_size, (_K,) + _GRID + (_B, _T))
-    jend, jm = jax.jit(jfed.round)(jstate, {"tokens": jnp.asarray(toks)},
+    batch = lm_gan_batch(jcfg, _K, _GRID, _B, _T)
+    jend, jm = jax.jit(jfed.round)(jstate, tree_map(jnp.asarray, batch),
                                    jnp.zeros((_K,) + _GRID, jnp.uint32))
     start = jax.device_get(jstate)
     n = _GRID[0] * _GRID[1]
     flat = lambda t: jax.tree_util.tree_map(  # noqa: E731
         lambda x: jnp.asarray(x).reshape((n,) + x.shape[2:]), t)
     gd, gg, _ = jax.jit(jax.vmap(lambda p, b: jfed.task.fused_grads(p, b, None)))(
-        flat(start["params"]), flat({"tokens": toks[0]}))
+        flat(start["params"]), flat(tree_map(lambda x: x[0], batch)))
     tstate, tm = tfed.round(from_jax_params(start, device="cpu"),
-                            {"tokens": torch.from_numpy(toks)})
+                            tree_map(torch.from_numpy, batch))
     losses = ((tm["d_loss"][0].item(), tm["g_loss"][0].item()),
               (float(jm["d_loss"][0]), float(jm["g_loss"][0])))
     exp = types.SimpleNamespace(opt=opt, lr_d=lr, lr_g=lr)
@@ -235,7 +251,7 @@ def _round_mismatches(arch, opt):
                             jax.device_get({"disc": gd, "gen": gg}), losses)
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + FAMILY_ARCHS)
 def test_lm_gan_round_matches_reference(arch):
     """The reference's ``tests/test_arch_smoke.py`` round (a (1, 2) grid,
     K = 2, batch 2 of 16 tokens, SGD at 1e-3 as there), held to the
@@ -281,22 +297,30 @@ def test_adam_bounds_do_not_hold_the_lm_gan_reference_to_itself():
 
 
 def test_registry_has_seven_of_the_references_ten():
-    """The port twin of ``test_registry_has_all_ten``: the seven archs of
-    the dense, MoE and SSM families, every one the reference's config."""
+    """The port twin of ``test_registry_has_all_ten`` (the name recalls the
+    seven archs the registry held before the hybrid, audio and vlm
+    families): now all ten, every one the reference's config."""
     archs = list_archs()
-    assert len(archs) == 7 and set(archs) < set(jlist_archs())
-    assert {get_config(a).family for a in archs} == {"dense", "moe", "ssm"}
+    assert len(archs) == 10 and archs == jlist_archs()
+    assert {get_config(a).family for a in archs} == \
+        {"dense", "moe", "ssm", "hybrid", "audio", "vlm"}
     for a in archs:
         assert get_config(a) == port_config(jget_config(a))
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mixtral-8x22b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mixtral-8x22b", "mamba2-2.7b",
+                                  "whisper-medium"])
 def test_run_arch_smoke(arch):
     """``run_arch_smoke`` at its defaults but 2 rounds of K = 2: finite
     losses (with ``lm`` per round), params moved and synced."""
     spec = train.arch_smoke_spec(arch, steps=4, K=2, seed=0, device="cpu", log_every=0)
     assert (spec.agent_grid, spec.batch_size, spec.K) == ((1, 4), 8, 2)
     assert all(d["tokens"].shape == (256, 32) for d in spec.agent_data)
+    cfg = get_config(arch).smoke()
+    if cfg.family == "audio":   # each agent's frames, the port's own seeded draws
+        assert all(tuple(d["frames"].shape) == (256, cfg.encoder_seq, cfg.d_model)
+                   for d in spec.agent_data)
+        assert not torch.equal(spec.agent_data[0]["frames"], spec.agent_data[1]["frames"])
     fed = spec.build()
     start = fed.init_state(torch.Generator().manual_seed(0), device="cpu")
     result = train.run_arch_smoke(arch, steps=4, K=2, seed=0, device="cpu", log_every=0)
@@ -310,14 +334,20 @@ def test_run_arch_smoke(arch):
         assert (x == x[:1, :1]).all()
 
 
-def test_arch_smoke_tokens_are_the_references():
+def test_arch_smoke_tokens_are_the_references(arch="qwen3-8b"):
     """The run's agent data is the reference's ``arch_smoke_spec`` data,
     token for token, for the same seed."""
     from repro.launch.train import arch_smoke_spec as jspec
-    got = train.arch_smoke_spec("qwen3-8b", steps=4, K=2, seed=3, device="cpu")
-    want = jspec("qwen3-8b", steps=4, K=2, seed=3)
+    got = train.arch_smoke_spec(arch, steps=4, K=2, seed=3, device="cpu")
+    want = jspec(arch, steps=4, K=2, seed=3)
     for g, w in zip(got.agent_data, want.agent_data):
         np.testing.assert_array_equal(g["tokens"].numpy(), np.asarray(w["tokens"]))
+
+
+def test_arch_smoke_audio_tokens_are_the_references():
+    """whisper-medium's agents hold the reference's tokens too; their
+    frames are the port's own draws (``sample_audio_frames``)."""
+    test_arch_smoke_tokens_are_the_references("whisper-medium")
 
 
 def test_train_cli_arch(capsys):
@@ -333,8 +363,10 @@ def test_train_cli_arch(capsys):
                  ["--arch", "qwen3-8b", "--experiment", "toy_2d"], []):
         with pytest.raises(SystemExit):
             train.main(argv + ["--device", "cpu"])
-    with pytest.raises(KeyError, match="slice 5"):
-        train.main(["--arch", "zamba2-7b", "--device", "cpu"])
+    result = train.main(["--arch", "zamba2-7b", "--device", "cpu", "--steps", "2", "--K", "1"])
+    assert len(result.history) == 2
+    with pytest.raises(KeyError, match="unknown arch"):
+        train.main(["--arch", "no-such-arch", "--device", "cpu"])
 
 
 def test_federated_backbone_runs_on_the_cpu():

@@ -9,8 +9,9 @@ Tolerances: none.  Tokens, buckets, index maps and cache writes are
 compared exactly; a token is the argmax of logits that agree with the
 reference's within 1e-5 (``tests/test_torch_backbone.py``), and on these
 configs no step is that close to a tie.  The configs are the reference's
-serving test configs (``tests/test_serve.py``) but the audio family,
-which the port does not have.
+serving test configs (``tests/test_serve.py``) and ``tests/test_models.py``'s
+hybrid; an audio request carries its own seeded encoder frames, the same
+numpy array in both packages.
 """
 import os
 import tempfile
@@ -20,7 +21,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_serve import CFGS as JCFGS, WORK, _fedgan_style_state as _jstate
+from test_models import CFGS as JMODEL_CFGS
+from test_serve import CFGS as JSERVE_CFGS, WORK, _fedgan_style_state as _jstate
 from test_torch_backbone import port_config
 from torch_shared import one_torch_thread  # noqa: F401
 
@@ -41,7 +43,8 @@ from repro_torch.serve import cache as tcache
 from repro_torch.serve_generator import main as serve_main
 from repro_torch.tree import tree_leaves, tree_map
 
-PORTED = ["dense", "grouped_ring", "ssm"]
+JCFGS = {**JSERVE_CFGS, "hybrid": JMODEL_CFGS["hybrid"]}
+PORTED = ["dense", "grouped_ring", "ssm", "audio", "hybrid"]
 CFGS = {k: port_config(JCFGS[k]) for k in PORTED}
 
 
@@ -49,12 +52,24 @@ def _engine(key, **kw):
     return ServeEngine(CFGS[key], device="cpu", **kw)
 
 
-def _reference_greedy(cfg, params, prompt, gen):
+def _frames(cfg, i):
+    """Request i's (S_enc, d_model) float32 encoder frames (audio), else None."""
+    if cfg.family != "audio":
+        return None
+    rng = np.random.default_rng(100 + i)
+    return (0.1 * rng.standard_normal((cfg.encoder_seq, cfg.d_model))).astype(np.float32)
+
+
+def _reference_greedy(cfg, params, prompt, gen, frames=None):
     """Batch-1 token-by-token greedy decode from scratch — exact for every
-    family (threads SSM state one token at a time)."""
+    family (threads SSM state one token at a time; an audio request's
+    cross caches from its frames)."""
     bb = Backbone(cfg)
     T = len(prompt)
     cache = bb.init_cache(1, T + gen, device="cpu")
+    if frames is not None:
+        mem = bb.encode(params, torch.from_numpy(frames)[None])
+        cache["cross"] = bb.build_cross_cache(params, mem)
     toks = list(prompt)
     outs = []
     for i in range(T + gen - 1):
@@ -186,21 +201,30 @@ def _case(name, rng):
         dst = {"local": _ring(rng, (2, 1, B), W), "global": _kv(rng, (2, B), S)}
         src = {"local": _ring(rng, (2, 1, 1), W), "global": _kv(rng, (2, 1), Tb)}
         src["local"]["pos"][:] = -1
+    elif name == "audio":    # self caches at the prompt's length, cross at the encoder's
+        dst = {"self": _kv(rng, (2, B), S), "cross": _kv(rng, (2, B), 5)}
+        src = {"self": _kv(rng, (2, 1), Tb), "cross": _kv(rng, (2, 1), 5)}
+    elif name == "hybrid":   # the shared block's k/v per group, (groups, per) states, a tail
+        dst = {"attn": _kv(rng, (2, B), S), "mamba": _ssm(rng, (2, 2, B)),
+               "tail": _ssm(rng, (1, B))}
+        src = {"attn": _kv(rng, (2, 1), Tb), "mamba": _ssm(rng, (2, 2, 1)),
+               "tail": _ssm(rng, (1, 1))}
     else:  # ssm
-        dst = {"blocks": {"ssm": rng.standard_normal((2, B, 2, 4, 5)).astype(np.float32),
-                          **{f"conv_{c}": rng.standard_normal((2, B, 3, 6)).astype(np.float32)
-                             for c in "xbc"}}}
-        src = {"blocks": {"ssm": rng.standard_normal((2, 1, 2, 4, 5)).astype(np.float32),
-                          **{f"conv_{c}": rng.standard_normal((2, 1, 3, 6)).astype(np.float32)
-                             for c in "xbc"}}}
+        dst, src = {"blocks": _ssm(rng, (2, B))}, {"blocks": _ssm(rng, (2, 1))}
     return dst, src
+
+
+def _ssm(rng, lead):
+    return {"ssm": rng.standard_normal(lead + (2, 4, 5)).astype(np.float32),
+            **{f"conv_{c}": rng.standard_normal(lead + (3, 6)).astype(np.float32)
+               for c in "xbc"}}
 
 
 @pytest.mark.parametrize("slot", [0, 2])
 @pytest.mark.parametrize("case,prompt_len", [("full", 5), ("full", 8),
                                              ("ring_from_full", 2), ("ring_from_full", 4),
                                              ("ring_from_full", 7), ("ring_from_ring", 0),
-                                             ("ssm", 0)])
+                                             ("ssm", 0), ("audio", 6), ("hybrid", 8)])
 def test_insert_slot_matches_reference_bit_for_bit(case, prompt_len, slot):
     dst, src = _case(case, np.random.default_rng(7))
     want = jax.device_get(jserve.insert_slot(tree_map(jnp.asarray, dst), tree_map(jnp.asarray, src),
@@ -248,11 +272,12 @@ def test_insert_slot_casts_like_reference_and_refuses_overflow():
 def test_engine_matches_reference_greedy(key):
     cfg = CFGS[key]
     eng = _engine(key, max_batch=2, max_seq=32, min_bucket=8, ring=key.endswith("_ring"))
-    rids = [eng.submit(list(range(1, T + 1)), max_new_tokens=g) for T, g in WORK]
+    rids = [eng.submit(list(range(1, T + 1)), max_new_tokens=g, frames=_frames(cfg, i))
+            for i, (T, g) in enumerate(WORK)]
     done = eng.run()
     assert set(done) == set(rids)
-    for rid, (T, g) in zip(rids, WORK):
-        want = _reference_greedy(cfg, eng.params, list(range(1, T + 1)), g)
+    for i, (rid, (T, g)) in enumerate(zip(rids, WORK)):
+        want = _reference_greedy(cfg, eng.params, list(range(1, T + 1)), g, _frames(cfg, i))
         assert done[rid].generated == want, (key, rid)
     # three requests through two slots: the third was admitted mid-stream
     assert eng.stats.prefills == 3
@@ -273,8 +298,9 @@ def test_engine_matches_reference_engine(key, temperature):
                                                         device="cpu"), **kw)
     outs = []
     for eng in (jeng, teng):
-        rids = [eng.submit(list(range(2, T + 2)), max_new_tokens=g, temperature=temperature)
-                for T, g in WORK]
+        rids = [eng.submit(list(range(2, T + 2)), max_new_tokens=g, temperature=temperature,
+                           frames=_frames(CFGS[key], i))
+                for i, (T, g) in enumerate(WORK)]
         done = eng.run()
         outs.append([done[r].generated for r in rids])
         assert eng.stats.prefills == 3 and max(eng.stats.tick_active) == 2
@@ -440,7 +466,24 @@ def test_serve_generator_cli(argv, capsys):
     assert "serve OK" in out and out.count("req ") == 5
 
 
-def test_serve_generator_refuses_unported_arch(capsys):
+@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-medium", "chameleon-34b"])
+def test_serve_generator_serves_the_new_families(arch, capsys):
+    """``python -m repro_torch.serve_generator --arch ... --device cpu`` for
+    the hybrid, audio (each request with its frames) and vlm archs at
+    ``.smoke()``, greedy; an unknown arch is refused."""
+    serve_main(["--arch", arch, "--device", "cpu", "--requests", "5", "--batch", "2",
+                "--prompt-len", "12", "--gen", "4", "--temperature", "0"])
+    out = capsys.readouterr().out
+    assert "serve OK" in out and out.count("req ") == 5 and f"arch={arch}" in out
     with pytest.raises(SystemExit):
-        serve_main(["--arch", "zamba2-7b", "--device", "cpu"])
-    assert "slice 5 (hybrid)" in capsys.readouterr().err
+        serve_main(["--arch", "no-such-arch", "--device", "cpu"])
+
+
+def test_audio_request_without_frames_is_refused():
+    """As the reference's engine: an audio request needs its frames."""
+    eng = _engine("audio", max_batch=2, max_seq=32)
+    with pytest.raises(ValueError, match="encoder frames"):
+        eng.submit([1, 2, 3], max_new_tokens=2)
+    with pytest.raises(ValueError, match="encoder frames"):
+        JServeEngine(JCFGS["audio"], max_batch=2, max_seq=32).submit([1, 2, 3],
+                                                                    max_new_tokens=2)

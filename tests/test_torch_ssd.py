@@ -125,19 +125,24 @@ def test_ssd_wrapper_refusals():
 HB, QR = 4, 64   # the CUDA kernel's heads per block and query rows per block
 
 
-def _three_phases(x, dt, A, B, C, *, chunk, late=False):
+def _three_phases(x, dt, A, B, C, *, chunk, late=False, final=False, early=False):
     """The CUDA kernel's decomposition, in float32, as ``csrc/ssd_scan.cu``
-    orders it.  Phase 1: per (batch, chunk but the last, head) the local end
-    state S_loc^T = B^T (w u) into slot c of a workspace, with L_last.
+    orders it.  The workspace holds NS = NC - 1 states, NC with the
+    ``final`` state.  Phase 1: per (batch, chunk c < NS, head) the local
+    end state S_loc^T = B^T (w u) into slot c of a workspace, with L_last.
     Phase 2: slot c overwritten in place with the state entering chunk c + 1,
-    exp(L_last) run + S_loc.  Phase 3: per (batch, chunk, QR query rows,
-    block of HB heads, the last block partial) C.B^T of those rows against
-    the keys up to the last of them, once for the block; per head y =
-    exp(L) (C . S_in^T) + M u, M the decayed, masked C.B^T.  ``late``
-    plants a fault: chunk c reads the state entering chunk c - 1."""
+    exp(L_last) run + S_loc; with ``final``, the last run (the state after
+    the last step) is also written out transposed, (hd, ds).  Phase 3: per
+    (batch, chunk, QR query rows, block of HB heads, the last block
+    partial) C.B^T of those rows against the keys up to the last of them,
+    once for the block; per head y = exp(L) (C . S_in^T) + M u, M the
+    decayed, masked C.B^T.  ``late`` plants a fault: chunk c reads the
+    state entering chunk c - 1; ``early`` another: the final state is the
+    one entering the last chunk.  Returns y, or (y, final state)."""
     Bsz, T, nh, hd = x.shape
     Q = min(chunk, T)
     NC = T // Q
+    NS = NC - 1 + int(final)
     xf, Bf, Cf = x.float(), B.float(), C.float()
 
     def cumsum(b, c, h):
@@ -147,18 +152,21 @@ def _three_phases(x, dt, A, B, C, *, chunk, late=False):
         t = slice(c * Q, c * Q + n)
         return dt[b, t, h, None] * xf[b, t, h]
 
-    ws = torch.empty((Bsz, NC - 1, nh, B.shape[-1], hd))
-    Llast = torch.empty((Bsz, NC - 1, nh))
-    for b, c, h in itertools.product(range(Bsz), range(NC - 1), range(nh)):
+    ws = torch.empty((Bsz, NS, nh, B.shape[-1], hd))
+    Llast = torch.empty((Bsz, NS, nh))
+    state = torch.empty((Bsz, nh, hd, B.shape[-1]))
+    for b, c, h in itertools.product(range(Bsz), range(NS), range(nh)):
         L = cumsum(b, c, h)
         w = torch.exp(L[-1] - L)
         ws[b, c, h] = Bf[b, c * Q:(c + 1) * Q].T @ (u(b, c, h, Q) * w[:, None])
         Llast[b, c, h] = L[-1]
     for b, h in itertools.product(range(Bsz), range(nh)):
-        run = torch.zeros_like(ws[b, 0, h])
-        for c in range(NC - 1):
+        run = torch.zeros((B.shape[-1], hd))
+        for c in range(NS):
             run = torch.exp(Llast[b, c, h]) * run + ws[b, c, h]
             ws[b, c, h] = run
+        if final:
+            state[b, h] = (ws[b, NS - 2, h] if early and NS > 1 else run).T
     y = torch.empty((Bsz, T, nh, hd))
     for b, c, q0, h0 in itertools.product(range(Bsz), range(NC), range(0, Q, QR),
                                           range(0, nh, HB)):
@@ -176,7 +184,7 @@ def _three_phases(x, dt, A, B, C, *, chunk, late=False):
             decay = torch.exp(torch.clamp(L[q0:q1, None] - L[None, :P], max=0.0))
             M = torch.where(mask, CB * decay, 0.0)
             y[b, rows, h] = acc + M @ u(b, c, h, P)
-    return y.to(x.dtype)
+    return (y.to(x.dtype), state) if final else y.to(x.dtype)
 
 
 def _scaled_err(got, want):
@@ -209,3 +217,77 @@ def test_three_phase_decomposition_rejects_a_late_state():
     want = ssd_ref(*xs, chunk=128).numpy()
     assert _scaled_err(_three_phases(*xs, chunk=128).numpy(), want) <= 3e-6
     assert _scaled_err(_three_phases(*xs, chunk=128, late=True).numpy(), want) > 100 * 3e-6
+
+
+# ---------------------------------------------------------------------------
+# the final state (the decode cache of a prefill through the kernel)
+# ---------------------------------------------------------------------------
+
+# (T, nh, hd, ds, chunk): several chunks; one chunk (NS = 1: phases 1 and 2
+# then run only for the final state); zamba2-7b's head_dim 64 and state 64
+# at a reduced width and length
+FINAL_CASES = [(64, 4, 16, 8, 16), (32, 2, 8, 4, 32), (256, 6, 64, 64, 128)]
+
+
+@pytest.mark.parametrize("T,nh,hd,ds,chunk", FINAL_CASES)
+def test_ssd_final_state_matches_jax(T, nh, hd, ds, chunk):
+    """``ssd(return_final_state=True)`` on the CPU (the wrapper's plain
+    version, no launch): the (Bsz, nh, hd, ds) float32 state against the
+    reference's ``ssd_ref`` within 1e-5 of its max, the bound the reference
+    holds its chunked scan to the recurrence by (the state is the
+    recurrence's, and at chunk 128 the cumsum L of dt A reaches several
+    hundred, summed in each package's own order: 4.8e-6 at the third
+    case), and the output the port's own without the state, exactly (the
+    output against the reference is held above)."""
+    xs = _inputs(T, nh, hd, ds, seed=11)
+    before = skernel.ssd_bthd.launches
+    y, state = ssd(*_torch(xs), chunk=chunk, return_final_state=True)
+    assert skernel.ssd_bthd.launches == before
+    _, jstate = jssd_ref(*(jnp.asarray(x) for x in xs), chunk=chunk,
+                         return_final_state=True)
+    assert state.shape == (2, nh, hd, ds) and state.dtype == torch.float32
+    assert _scaled_err(state.numpy(), jstate) <= 1e-5
+    assert torch.equal(y, ssd(*_torch(xs), chunk=chunk))
+
+
+@pytest.mark.parametrize("T,nh,hd,ds,chunk", FINAL_CASES)
+def test_three_phase_final_state(T, nh, hd, ds, chunk):
+    """The kernel's decomposition with its final state (phase 1 over every
+    chunk, phase 2's last run written transposed): the output and the state
+    within 3e-6 of the plain version's; the output the same as without the
+    state.  Planted fault: the state entering the last chunk in its place
+    (where there are two or more chunks) fails."""
+    xs = _torch(_inputs(T, nh, hd, ds, seed=12))
+    y, state = _three_phases(*xs, chunk=chunk, final=True)
+    wy, wstate = ssd_ref(*xs, chunk=chunk, return_final_state=True)
+    assert _scaled_err(y.numpy(), wy.numpy()) <= 3e-6
+    assert _scaled_err(state.numpy(), wstate.numpy()) <= 3e-6
+    assert _scaled_err(_three_phases(*xs, chunk=chunk).numpy(), y.numpy()) == 0.0
+    if T > chunk:
+        _, bad = _three_phases(*xs, chunk=chunk, final=True, early=True)
+        assert _scaled_err(bad.numpy(), wstate.numpy()) > 100 * 3e-6
+
+
+def test_mamba_block_kernel_state_matches_jax():
+    """``Mamba2Block(use_kernel=True).apply(return_state=True)``: through the
+    kernel's wrapper (on the CPU its plain version), the output and the
+    decode cache (the scan's final state, the conv tails) against the
+    reference's block with its kernel flag, and bit for bit the port's
+    flag-free block."""
+    from test_models import CFGS as JCFGS
+    from test_torch_backbone import _leaves_close, port_config
+    from repro.models.ssm import Mamba2Block as JMamba
+    from repro_torch.convert import backbone_params_from_jax
+    from repro_torch.models.ssm import Mamba2Block
+    jcfg = JCFGS["ssm"]
+    jm = JMamba(jcfg, use_kernel=True)
+    tm, plain = Mamba2Block(port_config(jcfg), use_kernel=True), Mamba2Block(port_config(jcfg))
+    jp = jax.device_get(jm.init(jax.random.key(3)))
+    tp = backbone_params_from_jax(jp, device="cpu")
+    u = np.random.default_rng(6).standard_normal((2, 12, jcfg.d_model)).astype(np.float32)
+    jy, jst = jm.apply(jp, jnp.asarray(u), return_state=True)
+    ty, tst = tm.apply(tp, torch.from_numpy(u), return_state=True)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-5)
+    _leaves_close(tst, jst, 1e-5)
+    py, pst = plain.apply(tp, torch.from_numpy(u), return_state=True)
+    assert torch.equal(ty, py) and all(torch.equal(tst[k], pst[k]) for k in pst)

@@ -443,19 +443,27 @@ def lm_gan_fed(arch, K):
                   opt_g=SGD(), opt_d=SGD(), scales=equal_timescale(constant(LM_LR))), cfg
 
 
-def lm_gan_tokens(vocab, K, seed=1):
-    """One round's (K, P, A, b, T) int32 tokens from numpy's generator."""
-    shape = (K,) + LM_GRID + (LM_BATCH, LM_T)
-    return np.random.default_rng(seed).integers(0, vocab, shape).astype(np.int32)
+def lm_gan_batch(cfg, K, grid=LM_GRID, batch=LM_BATCH, T=LM_T, seed=1):
+    """One round's numpy batch from numpy's generator: (K, P, A, b, T) int32
+    tokens and, for the audio family, (K, P, A, b, S_enc, d_model) float32
+    encoder frames."""
+    shape = (K,) + tuple(grid) + (batch,)
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, shape + (T,)).astype(np.int32)}
+    if cfg.family == "audio":
+        out["frames"] = (0.1 * rng.standard_normal(shape + (cfg.encoder_seq, cfg.d_model))
+                         ).astype(np.float32)
+    return out
 
 
 def lm_gan_round_mismatches(arch, device, K=CARD_K):
     """One LM GAN round of ``arch`` (``lm_gan_fed``) on ``device`` against
     the same round on the CPU port, from one start state (drawn on the CPU
-    from a seeded generator, then copied) and the same numpy tokens:
-    ``round_mismatches`` with the CPU round in the reference's place."""
+    from a seeded generator, then copied) and the same numpy tokens (and
+    frames): ``round_mismatches`` with the CPU round in the reference's
+    place."""
     fed, cfg = lm_gan_fed(arch, K)
-    batches = {"tokens": torch.from_numpy(lm_gan_tokens(cfg.vocab_size, K))}
+    batches = tree_map(torch.from_numpy, lm_gan_batch(cfg, K))
     start = fed.init_state(torch.Generator().manual_seed(0), device="cpu")
     want, wm = fed.round(start, batches)
     grads = first_step_grads(fed, start, batches)
