@@ -13,8 +13,8 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    shapes the main path gives it.  fedavg and qsync at the bucketed
    generator and discriminator streams of the image experiment's ACGAN
    nets, B = 5 agents: fedavg within 1e-6 of sum_b |w_b x_bn| in float32
-   (the plain version's library sum groups the B products in another
-   order), one bfloat16 ulp more in bfloat16; fedavg's wire route (the
+   (the plain version sums the rounded products in the kernel's agent
+   order too, so the error reads 0), one bfloat16 ulp more in bfloat16; fedavg's wire route (the
    reference's weighted_mean in bfloat16 and float16, each product
    rounded to the type) at the generator stream and its pod route (the
    fused multiply-add chain of average_intra_pod) at that stream on a
@@ -249,6 +249,24 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    memory under 72 GiB.  Phase 11's ``.smoke()`` LM GAN rounds on the card
    against the CPU port take zamba2-7b, whisper-medium (with frames) and
    chameleon-34b too.
+
+13. Privacy and robustness (``run_privacy``): ``experiment_spec(
+   "image_acgan")`` at full width (B = 5, K = 20, batch 64, Adam), one
+   round of each path from one state with the same batches, with
+   ``cudnn.deterministic`` set and exact launches: ``FedAvgSync()`` and
+   ``FedAvgSync(secure_agg=SecureAgg(0))`` (2 fedavg each), params bit
+   for bit equal, the generator's wire image (masks drawn on the card)
+   not the plaintext and summing to it mod 2^32; the trimmed mean on the
+   composed int8 sync under one sign-flipper and the median on top-k 0.25
+   + int4 under two NaN agents (qpack launches only, no fedavg), every
+   aggregate coordinate finite and inside the honest agents' envelope;
+   DP-SGD (clip 1, sigma 1) under the fused int8 sync (2 qsync), finite,
+   its epsilon, and every per-example joint norm of one full-width step at
+   most C.  Printed: each path's ms a round beside the plain round's, each
+   ``round_sync`` alone and the robust reduces against fedavg (CUDA
+   events), peaks, and one K = 1 round of the secure, trimmed-mean, median
+   and clip-only DP paths at 8x8 on the card against the CPU port within
+   ``tests/torch_shared.py``'s bounds.
 
 In every main-path run each kernel's launch counter is set to 0 just
 before it and read just after it, and the kernels the path does not run
@@ -2841,6 +2859,269 @@ def run_captured(torch, dev):
         + "; captured " + _profile_line("image_acgan", device=dev, captured=True))
 
 
+# ---------------------------------------------------------------------------
+# phase 13: privacy and robustness at image_acgan's full width
+# ---------------------------------------------------------------------------
+
+DP_CLIP = 1.0
+
+
+def _enveloped(torch, cls, f, record, **kw):
+    """``cls(**kw)``, a robust strategy whose reduce also appends, per
+    leaf, the count of aggregate coordinates that are not finite or lie
+    outside the per-coordinate envelope of the honest agents' values
+    (agents f.. of the flattened grid: the decoded wire images on the
+    composed path), a device count read after the round."""
+
+    @dataclasses.dataclass(frozen=True)
+    class Enveloped(cls):
+        def sync_reduce(self):
+            inner = cls.sync_reduce(self)
+
+            def reduce(x, w):
+                m = inner(x, w)
+                honest = x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))[f:]
+                record.append(((m < honest.amin(0)) | (m > honest.amax(0))
+                               | ~torch.isfinite(m)).sum())
+                return m
+            return reduce
+
+    return Enveloped(**kw)
+
+
+def _wire_check(torch, fed, local, dev):
+    """The secure sum's uplink at full width: the generator's wire images
+    under the round's key, masks drawn on the card, differ from the
+    plaintext payload bits (all but a 2^-32 chance per element) and still
+    add up, over the agents and mod 2^32, to the payloads' sum.  Returns
+    the share of wire words equal to their payload and the element
+    count."""
+    from repro_torch import prng
+    from repro_torch.dist import collectives
+    from repro_torch.privacy import SecureAgg
+    from repro_torch.tree import tree_leaves
+    key = prng.fold_in_t(SecureAgg(0).round_key(local["step"]), 0)
+    w = fed._w(dev)
+    params = local["params"]["gen"]
+    same, total = 0, 0
+    for x, wire in zip(tree_leaves(params), tree_leaves(collectives.masked_wire(params, w, key))):
+        check(wire.is_cuda, "secure sum: the wire image is not on the card")
+        payload = collectives._to_bits(x * w.reshape(w.shape + (1,) * (x.dim() - 2)))
+        B_ = x.shape[0] * x.shape[1]
+        check(torch.equal(wire.reshape(B_, -1).sum(0) & 0xFFFFFFFF,
+                          payload.reshape(B_, -1).sum(0) & 0xFFFFFFFF),
+              "secure sum: the masks do not cancel over the agents")
+        same += int((wire == payload).sum())
+        total += wire.numel()
+    check(same <= 1e-4 * total, f"secure sum: {same} of {total} wire words are the plaintext")
+    return same, total
+
+
+def _joint_norms(torch, fed, state, data, dev):
+    """Each (agent, example)'s clipped joint (G, D) gradient norm and
+    pre-clip joint norm at full width, from one step's minibatch: the
+    per-example vmap nested in the agent vmap, as the DP-SGD step runs
+    it.  Returns (largest clipped norm, share of examples clipped, peak
+    bytes)."""
+    from torch.func import vmap
+    from repro_torch.core.fedgan import _flat
+    from repro_torch.privacy import per_example_grads
+    from repro_torch.tree import tree_leaves
+    torch.cuda.reset_peak_memory_stats()
+    batch = data.sample_step(torch.Generator(device=dev).manual_seed(11))
+    gd, gg, nd, ng, _ = vmap(lambda p, b: per_example_grads(fed._agent_grads, p, b, DP_CLIP))(
+        _flat(state["params"], B), _flat(batch, B))
+    sq = sum(torch.sum(torch.square(g).reshape(g.shape[0], g.shape[1], -1), dim=2)
+             for g in tree_leaves(gd) + tree_leaves(gg))
+    joint, pre = torch.sqrt(sq), torch.hypot(nd, ng)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    top = float(joint.max())
+    check(top <= DP_CLIP * (1 + 1e-6), f"DP-SGD: a per-example joint norm {top} exceeds {DP_CLIP}")
+    clipped = pre > DP_CLIP
+    check(bool((torch.abs(joint[clipped] - DP_CLIP) <= 1e-5 * DP_CLIP).all()),
+          "DP-SGD: a clipped example's joint norm is not C")
+    return top, float(clipped.float().mean()), peak
+
+
+def _privacy_rounds(torch, dev, base, data, state):
+    """Phase 13's full-width rounds (see ``run_privacy``), one per path
+    from ``state`` with the same round generator.  Returns the local-only
+    round's state, the plain round's peak bytes and each path's ms."""
+    from repro_torch.comm import IntQuant, get_codec
+    from repro_torch.core import (CoordinateMedianSync, FedAvgSync, LocalOnly,
+                                  TrimmedMeanSync)
+    from repro_torch.privacy import DPSGD, SecureAgg, WithByzantine
+    from repro_torch.tree import tree_leaves
+    K = base.cfg.sync_interval
+    L = len(tree_leaves(state["params"]))
+    counters = launch_counters()
+
+    def path(strategy=None, dp=None):
+        return dataclasses.replace(base, cfg=dataclasses.replace(base.cfg, strategy=strategy,
+                                                                 dp=dp))
+
+    def run(fed, label, want):
+        gen = torch.Generator(device=dev).manual_seed(7)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(counters)
+        t = time.perf_counter()
+        out, m = fed.round_from_data(state, data, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        counts = _read(counters)
+        want = {n: want.get(n, 0) for n in counters}
+        check(counts == want, f"{label}: launches {counts} in one round, expected {want}")
+        check(all(bool(torch.isfinite(v).all()) for v in m.values()), f"{label}: non-finite losses")
+        check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(out["params"])),
+              f"{label}: non-finite params")
+        return out, m, ms, torch.cuda.max_memory_allocated()
+
+    ms = {}
+    path().round_from_data(state, data, torch.Generator(device=dev).manual_seed(7))  # warm-up
+    plain, _, ms["plain"], plain_peak = run(path(), "plain", {"fedavg": 2})
+    secure, _, ms["secure"], _ = run(path(FedAvgSync(secure_agg=SecureAgg(0))), "secure",
+                                     {"fedavg": 2})
+    check(_states_same(torch, plain["params"], secure["params"]),
+          "secure sum: the round's params differ from the plain round's")
+    del plain, secure
+    local, _, ms["local only"], _ = run(path(LocalOnly()), "local only", {})
+    same, total = _wire_check(torch, base, local, dev)
+    log(f"privacy secure sum: params bit-identical to FedAvgSync(); generator wire image "
+        f"{same} of {total} words equal to the plaintext, masks drawn on the card and "
+        f"cancelling mod 2^32")
+
+    outside = []
+    tm = WithByzantine(_enveloped(torch, TrimmedMeanSync, 1, outside, trim=1,
+                                  codec=IntQuant(bits=8), fused_sync=False), "sign_flip", 1)
+    out, _, ms["trimmed mean (int8 composed)"], _ = run(
+        path(tm), "trimmed mean under sign_flip x1", {"quant": 2 * L, "dequant": 2 * L})
+    check(len(outside) == L and sum(int(o) for o in outside) == 0,
+          f"trimmed mean: {[int(o) for o in outside]} coordinates outside the honest envelope")
+    check(bool(_agents_equal(torch, out).all()), "trimmed mean: agents differ after the sync")
+    outside = []
+    med = WithByzantine(_enveloped(torch, CoordinateMedianSync, 2, outside,
+                                   codec=get_codec("topk+int4", fraction=0.25)), "nan", 2)
+    out, _, ms["median (top-k + int4)"], _ = run(
+        path(med), "median under nan x2",
+        {"quant": 2 * L, "pack4": 2 * L, "unpack4": 2 * L, "dequant": 2 * L})
+    check(len(outside) == L and sum(int(o) for o in outside) == 0,
+          f"median: {[int(o) for o in outside]} coordinates outside the honest envelope")
+    check(bool(_agents_equal(torch, out).all()), "median: agents differ after the sync")
+    del out
+    log("privacy robust reduces under attack: trimmed mean (trim 1, int8 composed, sign_flip "
+        "x1) and median (top-k 0.25 + int4, nan x2) inside the honest envelope on every "
+        f"coordinate of all {L} leaves, finite; no fedavg launched")
+
+    dp = DPSGD(clip=DP_CLIP, noise_multiplier=1.0)
+    _, _, ms["int8 fused"], _ = run(path(FedAvgSync(codec=IntQuant(bits=8))), "int8 fused",
+                                    {"qsync": 2})
+    _, m_dp, ms["DP-SGD + int8 fused"], dp_peak = run(
+        path(FedAvgSync(codec=IntQuant(bits=8)), dp), "DP-SGD, int8 fused", {"qsync": 2})
+    top, share, pe_peak = _joint_norms(torch, path(None, dp), state, data, dev)
+    log(f"privacy DP-SGD (clip {DP_CLIP}, sigma 1.0, fused int8): round finite, "
+        f"dp_grad_norm_d {float(m_dp['dp_grad_norm_d'].mean()):.4g}, dp_grad_norm_g "
+        f"{float(m_dp['dp_grad_norm_g'].mean()):.4g}, epsilon after one round "
+        f"{dp.epsilon(K)!r} (delta {dp.delta}); largest per-example joint norm {top!r} "
+        f"(<= C), {share:.3f} of examples clipped; peak {dp_peak / 2 ** 30:.2f} GiB in the "
+        f"round, {pe_peak / 2 ** 30:.2f} GiB holding one step's per-example gradients "
+        f"(plain round {plain_peak / 2 ** 30:.2f} GiB)")
+    return local, ms
+
+
+def run_privacy(torch, dev):
+    """Phase 13: ``experiment_spec("image_acgan")`` at full width (B = 5,
+    K = 20, batch 64, Adam), one round of each privacy path from one state
+    and the same batches (the same round generator), after an uncounted
+    warm-up round, every launch counter set to 0 just before and read just
+    after each round:
+    * ``FedAvgSync()`` (2 fedavg) and ``FedAvgSync(secure_agg=SecureAgg(0))``
+      (2 fedavg, the reduce of the unmasked products): params bit-identical;
+      the generator's wire image (masks drawn on the card) is not the
+      plaintext and sums to it over the agents;
+    * ``WithByzantine(TrimmedMeanSync(trim=1, codec=IntQuant(8),
+      fused_sync=False), "sign_flip", 1)``: 2L quant and 2L dequant (L
+      float32 leaves), no fedavg; every leaf's aggregate inside the honest
+      agents' envelope of decoded values;
+    * ``WithByzantine(CoordinateMedianSync(codec=TopK(0.25) +
+      IntQuant(4)), "nan", 2)``: 2L each of quant, pack4, unpack4 and
+      dequant, no fedavg; the aggregate finite and inside the envelope;
+    * ``FedAvgSync(codec=IntQuant(8))`` with ``dp=DPSGD(clip=1,
+      noise_multiplier=1)``: 2 qsync; finite; its accountant epsilon; every
+      per-example joint norm of one step at full width at most C.
+    These rounds run with ``cudnn.deterministic`` set (restored after):
+    cuDNN's weight gradient is not deterministic otherwise, and the secure
+    round is held to the plain one bit for bit.  Then one K = 1 round of
+    the 8x8 ACGAN nets on the card against the CPU port for the secure,
+    trimmed-mean, median and clip-only DP paths, within
+    ``tests/torch_shared.py``'s bounds; the robust reduces' time against
+    fedavg's on the local round's params, and each sync's ``round_sync``
+    alone on that state (CUDA events).  Prints each path's ms a round
+    beside the plain round's, peaks and the card."""
+    from repro_torch.comm import IntQuant
+    from repro_torch.core import CoordinateMedianSync, FedAvgSync, TrimmedMeanSync
+    from repro_torch.dist import collectives
+    from repro_torch.launch.train import experiment_spec
+    from repro_torch.privacy import DPSGD, SecureAgg
+    from repro_torch.tree import tree_leaves
+    from torch_shared import CARD_K, port_round_mismatches
+    t_phase = time.perf_counter()
+    card = card_line()
+    K = 20
+    spec, _ = experiment_spec("image_acgan", steps=K, log_every=0, device=dev)
+    check((spec.K, spec.batch_size, spec.agent_grid) == (K, 64, (1, B)),
+          "image_acgan is not at the experiment's width")
+    base, data = spec.build(), spec.build_data()
+    state = base.init_state(torch.Generator().manual_seed(spec.seed), device=dev)
+    log("depth cut: phase 13 runs image_acgan one round x K=20 a path of the paper's 30000 "
+        "steps")
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        local, ms = _privacy_rounds(torch, dev, base, data, state)
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+    w = base._w(dev)
+    leaves = [x.contiguous() for x in tree_leaves(local["params"])]
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    reduces = {kind: collectives.make_robust_reduce(kind) for kind in ("trimmed_mean", "median")}
+    red_ms = {kind: time_ms(torch, lambda r=r: [r(x, w) for x in leaves], flush)
+              for kind, r in reduces.items()}
+    avg_ms = time_ms(torch, lambda: collectives.average_agents(local["params"], w), flush)
+    log(f"privacy reduce of the local round's params ({sum(x.numel() for x in leaves)} "
+        f"values in {len(leaves)} leaves): trimmed mean {red_ms['trimmed_mean']:.3f} ms, "
+        f"median {red_ms['median']:.3f} ms, fedavg (2 bucketed launches) {avg_ms:.3f} ms; "
+        f"{card}")
+    syncs = {"FedAvgSync()": FedAvgSync(),
+             "FedAvgSync(secure_agg=SecureAgg(0))": FedAvgSync(secure_agg=SecureAgg(0)),
+             "TrimmedMeanSync()": TrimmedMeanSync(),
+             "CoordinateMedianSync()": CoordinateMedianSync(),
+             "FedAvgSync(codec=IntQuant(8), fused_sync=False)":
+                 FedAvgSync(codec=IntQuant(bits=8), fused_sync=False),
+             "TrimmedMeanSync(codec=IntQuant(8), fused_sync=False)":
+                 TrimmedMeanSync(codec=IntQuant(bits=8), fused_sync=False)}
+    sync_ms = {label: time_ms(torch, lambda st=st: st.round_sync(base, local), flush)
+               for label, st in syncs.items()}
+    del flush
+    log("privacy round_sync of the local round's state alone (CUDA events, median of "
+        f"{REPS}, L2 flushed): " + ", ".join(f"{k} {v:.3f} ms" for k, v in sync_ms.items())
+        + f"; {card}")
+
+    for label, kw in (("secure", {"strategy": FedAvgSync(secure_agg=SecureAgg(0))}),
+                      ("trimmed_mean", {"strategy": TrimmedMeanSync()}),
+                      ("median", {"strategy": CoordinateMedianSync()}),
+                      ("dp clip-only", {"dp": DPSGD(clip=DP_CLIP)})):
+        bad, (ratio, where) = port_round_mismatches("image_acgan", dev, K=CARD_K, **kw)
+        check(bad == [], f"image_acgan {label} round, card against CPU: {bad}")
+        log(f"privacy {label} round card vs CPU (8x8 nets, K = {CARD_K}): agree; largest "
+            f"|card - CPU| / limit {ratio:.4g} at {where}")
+    log(f"privacy ms a round (image_acgan, B={B}, K={K}, batch 64, cudnn.deterministic): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+        + f"; phase {time.perf_counter() - t_phase:.1f} s wall; {card}")
+
+
 def launch_counters():
     """Every kernel wrapper of the port, by kernel name."""
     from repro_torch.kernels import launch_counters as counters
@@ -2938,6 +3219,8 @@ def main() -> int:
     run_lm_gan(torch, dev)
     gc_collect(torch)
     run_families(torch, dev)
+    gc_collect(torch)
+    run_privacy(torch, dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     check("jax" not in sys.modules, "the port or this script imported jax")

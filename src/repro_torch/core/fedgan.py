@@ -12,6 +12,15 @@ The per-agent steps run as ``torch.func.vmap`` over the agent axis of
 ``torch.func.grad_and_value`` of the losses, and the optimizer update as
 ``vmap`` of the one-agent update, so one agent computes what it computes
 in the reference.
+
+With ``FedGANConfig(dp=DPSGD(...))`` each agent's gradients come from
+``repro_torch.privacy.dpsgd.dp_grads``: per-example gradients (a vmap over
+the examples nested inside the agent vmap), one joint clip, the mean and,
+with a noise multiplier, Gaussian noise.  The noise is drawn from the
+round's generator after each step's minibatch draws (``step_noise``):
+``round`` takes that generator as ``gen``, ``round_from_data`` draws its
+batches from it too, and ``draw_step`` makes a step's draws of both for a
+captured round.
 """
 from __future__ import annotations
 
@@ -55,7 +64,7 @@ class FedGANConfig:
     agent_grid: tuple = (1, 5)   # (P pods, A agents/pod); B = P*A
     sync_interval: int = 20      # K
     strategy: Any = None         # SyncStrategy; None -> FedAvgSync()
-    dp: Any = None               # DP-SGD is not ported; must stay None
+    dp: Any = None               # repro_torch.privacy.DPSGD; None -> no DP
     # -- deprecated closed-world fields, kept as a shim --------------------
     mode: str = ""               # fedgan|distributed|local_only|hierarchical
     intra_interval: int = 0      # K1 of the hierarchical shim
@@ -100,7 +109,12 @@ class FedGANConfig:
     def validate(self):
         self.resolve_strategy().validate(self)
         if self.dp is not None:
-            raise NotImplementedError("DP-SGD (dp=) is not ported yet")
+            self.dp.validate()
+
+    @property
+    def dp_noise(self) -> bool:
+        """Whether the local steps draw DP-SGD noise."""
+        return self.dp is not None and bool(self.dp.noise_multiplier)
 
 
 def uniform_weights(cfg: FedGANConfig, device="cpu") -> torch.Tensor:
@@ -180,17 +194,46 @@ class FedGAN:
             lambda g: self.task.gen_loss({**params, "gen": g}, batch))(params["gen"])
         return gd, gg, {"d_loss": ld, "g_loss": lg}
 
-    def _step(self, state, batch, strat):
+    def step_noise(self, state, gen: torch.Generator):
+        """One step's DP-SGD noise: standard normals shaped like the
+        (P, A)-stacked discriminator then generator params, drawn from
+        ``gen`` leaf by leaf on their device; None when the config draws no
+        noise."""
+        if not self.cfg.dp_noise:
+            return None
+        from repro_torch.privacy.dpsgd import noise_like
+        return {"disc": noise_like(state["params"]["disc"], gen),
+                "gen": noise_like(state["params"]["gen"], gen)}
+
+    def _grads(self, params, batch, noise):
+        """Every agent's (grad_disc, grad_gen, metrics), (B, ...) leaves:
+        the plain minibatch gradients, or with ``dp`` the DP-SGD ones with
+        ``noise`` ((B, ...) standard normals, or None)."""
+        dp = self.cfg.dp
+        if dp is None:
+            return vmap(self._agent_grads)(params, batch)
+        from repro_torch.privacy.dpsgd import dp_grads
+        if noise is None:
+            return vmap(lambda p, b: dp_grads(self._agent_grads, p, b, dp))(params, batch)
+        return vmap(lambda p, b, nd, ng: dp_grads(self._agent_grads, p, b, dp, (nd, ng)))(
+            params, batch, noise["disc"], noise["gen"])
+
+    def _step(self, state, batch, strat, noise=None):
         """One simultaneous local step on every agent; ``batch`` leaves
-        have leading (P, A) dims.  The strategy's ``grad_hook`` sees the
+        have leading (P, A) dims, ``noise`` is the step's DP-SGD noise
+        (``step_noise``) or None.  The strategy's ``grad_hook`` sees the
         (P, A)-stacked gradients before either optimizer update.  Returns
         (state, per-step metrics: the agent means of the losses)."""
         P, A = self.cfg.agent_grid
         B = P * A
+        if self.cfg.dp_noise and noise is None:
+            raise ValueError("dp has a noise multiplier: the step needs its noise "
+                             "(FedGAN.round(..., gen=) draws it)")
         n = state["step"].to(torch.float32)
         lr_a, lr_b = self.scales.a(n), self.scales.b(n)
         params = _flat(state["params"], B)
-        gd, gg, metrics = vmap(self._agent_grads)(params, _flat(batch, B))
+        gd, gg, metrics = self._grads(params, _flat(batch, B),
+                                      None if noise is None else _flat(noise, B))
         gd, gg = strat.grad_hook(self, _grid(gd, P, A), _grid(gg, P, A), state)
         gd, gg = _flat(gd, B), _flat(gg, B)
         new_disc, new_opt_d = vmap(
@@ -208,15 +251,17 @@ class FedGAN:
         return new_state, tree_map(torch.mean, metrics)
 
     def _run_round(self, state, batch_of):
-        """K local steps (``batch_of(k)`` gives step k's (P, A, ...) batch),
-        with the strategy's ``segment_sync`` after every ``intra_interval``
-        of them when it has one, then its ``round_sync``.  Metrics are
-        stacked to (K,) tensors."""
+        """K local steps (``batch_of(k)`` gives step k's (P, A, ...) batch
+        and its DP-SGD noise or None), with the strategy's
+        ``segment_sync`` after every ``intra_interval`` of them when it has
+        one, then its ``round_sync``.  Metrics are stacked to (K,)
+        tensors."""
         self.cfg.validate()
         strat = self.cfg.resolve_strategy()
         history = []
         for k in range(self.cfg.sync_interval):
-            state, m = self._step(state, batch_of(k), strat)
+            batch, noise = batch_of(k)
+            state, m = self._step(state, batch, strat, noise)
             history.append(m)
             if strat.intra_interval and (k + 1) % strat.intra_interval == 0:
                 state = strat.segment_sync(self, state)
@@ -224,24 +269,38 @@ class FedGAN:
                    for key in history[0]}
         return strat.round_sync(self, state), metrics
 
-    def round(self, state, batches):
+    def round(self, state, batches, gen: torch.Generator | None = None):
         """``batches``: dict of tensors with leading (K, P, A, ...).  Runs
-        K local steps then syncs per the configured strategy."""
-        return self._run_round(state, lambda k: tree_map(lambda x: x[k], batches))
+        K local steps then syncs per the configured strategy.  ``gen``
+        draws the DP-SGD noise (``step_noise``); a config with a noise
+        multiplier needs it."""
+        return self._run_round(state, lambda k: (
+            tree_map(lambda x: x[k], batches),
+            None if gen is None else self.step_noise(state, gen)))
 
     def round_from_data(self, state, data, gen: torch.Generator):
         """Sampling-aware round: the K minibatches are drawn on the device
         from ``data`` (anything with ``sample_step(generator) -> (P, A,
-        batch, ...)``, e.g. ``DeviceFederatedData``) with ``gen``."""
-        return self._run_round(state, lambda k: data.sample_step(gen))
+        batch, ...)``, e.g. ``DeviceFederatedData``) with ``gen``, each
+        step's DP-SGD noise after its minibatch."""
+        return self._run_round(state, lambda k: (data.sample_step(gen),
+                                                 self.step_noise(state, gen)))
+
+    def draw_step(self, state, data, gen: torch.Generator) -> dict:
+        """One step's random draws from ``gen`` in ``round_from_data``'s
+        order: the minibatch's (``data.draw_step``), then the DP-SGD noise
+        (None without it)."""
+        d = data.draw_step(gen)
+        return {"data": d, "noise": self.step_noise(state, gen)}
 
     def round_from_draws(self, state, data, draws):
         """The round of ``round_from_data`` from its K steps' random draws
-        made beforehand (``data.draw_step(gen)`` K times, the order in
-        which ``round_from_data`` makes them): step k trains on
-        ``data.gather_step(draws[k])``.  A captured round
-        (``repro_torch.run.graph``) takes its draws outside the graph so."""
-        return self._run_round(state, lambda k: data.gather_step(draws[k]))
+        made beforehand (``draw_step`` K times): step k trains on
+        ``data.gather_step(draws[k]["data"])`` with ``draws[k]["noise"]``.
+        A captured round (``repro_torch.run.graph``) takes its draws
+        outside the graph so."""
+        return self._run_round(state, lambda k: (data.gather_step(draws[k]["data"]),
+                                                 draws[k]["noise"]))
 
     # ------------------------------------------------------------------
     def agent_params(self, state, p: int = 0, a: int = 0):

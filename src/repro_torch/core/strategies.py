@@ -18,10 +18,12 @@ A :class:`SyncStrategy` owns when, what and how agents sync, and its own
                                  per-agent send+receive wire bytes per round
 
 Ported: ``LocalOnly``, ``FedAvgSync`` (plain average, ``sync_dtype``
-cast, fused and composed coded sync), ``PartialSharing``,
-``SubsampledFedAvg``, ``AdaptiveK``, ``PerStepGradAvg`` (the paper's
-distributed-GAN baseline) and ``Hierarchical``.  Secure aggregation, the
-robust reduces and ``check_async_mergeable`` are not ported yet.
+cast, fused and composed coded sync, the pairwise-masked secure sum),
+``PartialSharing``, ``SubsampledFedAvg``, ``AdaptiveK``,
+``PerStepGradAvg`` (the paper's distributed-GAN baseline),
+``Hierarchical`` and the Byzantine-robust ``TrimmedMeanSync`` and
+``CoordinateMedianSync``.  ``check_async_mergeable`` waits for the fleet
+runtime (ROADMAP slice 7).
 
 ``AdaptiveK`` and ``SubsampledFedAvg`` decide on the host from the round
 index, which they read from the device once per round (a host wait);
@@ -38,6 +40,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import prng
 from repro_torch.dist import collectives
 from repro_torch.tree import tree_map
 
@@ -53,7 +56,7 @@ def _select(mask, new, old):
 
 
 def _fedavg(fed, state, *, subtrees, average_opt_state, sync_dtype=None, mask=None,
-            codec=None, error_feedback=True, fused=None):
+            codec=None, error_feedback=True, reduce=None, secure_agg=None, fused=None):
     """The eq. (2)+(3) aggregation of ``subtrees``: weighted average over
     (P, A), broadcast back.  With a participation ``mask`` ((P, A) bool on
     the state's device) the weights are masked and renormalised, and the
@@ -62,7 +65,13 @@ def _fedavg(fed, state, *, subtrees, average_opt_state, sync_dtype=None, mask=No
     updates regardless.  With ``codec`` the sync runs through
     ``collectives.coded_sync`` and, with ``error_feedback``, updates the
     per-agent uplink residuals (``state["ef"]``) and the shared downlink
-    residual (``state["ef_down"]``)."""
+    residual (``state["ef_down"]``).
+
+    ``reduce`` (``collectives.make_robust_reduce``) takes the weighted
+    mean's place on the plain and the coded paths.  ``secure_agg`` routes
+    the plain path through ``collectives.masked_sync``, each synced tree
+    with its own fold (``salt``) of the round's mask key, so no pad is
+    reused."""
     w = fed._w(state["step"].device)
     if mask is not None:
         w = w * mask
@@ -71,13 +80,18 @@ def _fedavg(fed, state, *, subtrees, average_opt_state, sync_dtype=None, mask=No
     def keep(new, old):
         return new if mask is None else _select(mask, new, old)
 
+    def avg(tree, salt):
+        if secure_agg is not None:
+            k = prng.fold_in_t(secure_agg.round_key(state["step"]), salt)
+            return keep(collectives.masked_sync(tree, w, k, reduce=reduce), tree)
+        return keep(collectives.average_agents(tree, w, sync_dtype=sync_dtype,
+                                               reduce=reduce), tree)
+
     new = dict(state)
     params = dict(state["params"])
     if codec is None:
-        for k in subtrees:
-            params[k] = keep(collectives.average_agents(state["params"][k], w,
-                                                        sync_dtype=sync_dtype),
-                             state["params"][k])
+        for i, k in enumerate(subtrees):
+            params[k] = avg(state["params"][k], i)
     else:
         use_ef = error_feedback and "ef" in state
         ef = dict(state["ef"]) if use_ef else None
@@ -86,7 +100,7 @@ def _fedavg(fed, state, *, subtrees, average_opt_state, sync_dtype=None, mask=No
             synced, e2, ed2 = collectives.coded_sync(
                 state["params"][k], w, codec,
                 ef=ef[k] if use_ef else None,
-                ef_down=ef_down[k] if use_ef else None, fused=fused)
+                ef_down=ef_down[k] if use_ef else None, reduce=reduce, fused=fused)
             params[k] = keep(synced, state["params"][k])
             if use_ef:
                 ef[k], ef_down[k] = keep(e2, ef[k]), ed2
@@ -94,15 +108,16 @@ def _fedavg(fed, state, *, subtrees, average_opt_state, sync_dtype=None, mask=No
             new["ef"], new["ef_down"] = ef, ef_down
     new["params"] = params
     if average_opt_state:
-        for k in subtrees:
+        for i, k in enumerate(subtrees):
             opt = state[_OPT_KEY[k]]
             if codec is None:
-                synced = collectives.average_agents(opt, w, sync_dtype=sync_dtype)
+                new[_OPT_KEY[k]] = avg(opt, i + len(subtrees))
             else:
                 # the moments ride the coded wire too, without residuals:
                 # they are re-estimated every step anyway
-                synced = collectives.coded_sync(opt, w, codec, fused=fused)[0]
-            new[_OPT_KEY[k]] = keep(synced, opt)
+                synced = collectives.coded_sync(opt, w, codec, reduce=reduce,
+                                                fused=fused)[0]
+                new[_OPT_KEY[k]] = keep(synced, opt)
     return new
 
 
@@ -165,8 +180,13 @@ class FedAvgSync(SyncStrategy):
     float32 leaves through the qsync kernel when the codec has a
     ``fused_sync_spec``; False forces the composed per-leaf pipeline (the
     qpack kernels around the fedavg reduce); True requires the fused path
-    and fails validation when the codec cannot ride it.  ``secure_agg`` is
-    not ported and raises."""
+    and fails validation when the codec cannot ride it.  ``secure_agg`` (a
+    ``repro_torch.privacy.SecureAgg``) routes the sync through
+    ``collectives.masked_sync``: pairwise one-time-pad masking of the wire
+    image with the weight folded in agent-side, a bit-identical result.
+    It refuses to stack with anything that needs per-agent decoding at the
+    server (``codec``, ``sync_dtype``) or per-agent values (subsampling,
+    the robust reduces)."""
 
     sync_dtype: Any = None
     average_opt_state: bool = False
@@ -199,7 +219,13 @@ class FedAvgSync(SyncStrategy):
                     f"fused_sync=True needs a codec with a fused_sync_spec; "
                     f"{self.codec.name!r} reshapes the payload and can only "
                     "run the composed per-leaf pipeline")
+            if self.sync_reduce() is not None:
+                raise ValueError(
+                    "fused_sync=True cannot apply a robust reduce: the "
+                    "fused kernel hard-wires the weighted mean — drop "
+                    "fused_sync or fall back to the composed pipeline")
         if self.secure_agg is not None:
+            self.secure_agg.validate()
             if self.codec is not None:
                 raise ValueError(
                     "secure_agg= cannot ride a codec= wire: decoding a "
@@ -211,9 +237,6 @@ class FedAvgSync(SyncStrategy):
                     "secure_agg= pads the 32-bit wire image; sync_dtype= "
                     "re-encodes it per agent and breaks the pad "
                     "cancellation; pick one")
-            raise NotImplementedError(
-                "secure_agg= (pairwise-masked sync) is not ported yet "
-                "(ROADMAP slice 6)")
 
     def init_round_state(self, fed, state) -> dict:
         if self.codec is None or not self.error_feedback:
@@ -239,7 +262,7 @@ class FedAvgSync(SyncStrategy):
 
     def sync_reduce(self):
         """The pluggable per-leaf aggregate, or None for the weighted mean.
-        The robust strategies that override it are not ported yet."""
+        The robust strategies override it."""
         return None
 
     def round_sync(self, fed, state):
@@ -248,6 +271,7 @@ class FedAvgSync(SyncStrategy):
                        sync_dtype=self.sync_dtype, codec=self.codec,
                        error_feedback=self.error_feedback,
                        mask=self.participation_mask(fed, state),
+                       reduce=self.sync_reduce(), secure_agg=self.secure_agg,
                        fused=self.fused_sync)
 
     def bytes_per_round(self, cfg, params, opt=None) -> int:
@@ -321,6 +345,12 @@ class SubsampledFedAvg(FedAvgSync):
                 "ParticipationSchedule(seed=...); passing both would leave "
                 "two competing seed streams — drop mask_seed")
         self.resolve_schedule().validate(cfg.num_agents)
+        if self.secure_agg is not None:
+            raise ValueError(
+                "secure_agg= needs every pair's both mask halves on the "
+                "wire; per-round dropouts (subsampled participation) break "
+                "the cancellation — real SecAgg recovers dropped seeds via "
+                "a protocol this simulation does not model")
 
     def resolve_schedule(self):
         """The single sampling source of this strategy's cohort draws."""
@@ -432,8 +462,57 @@ class Hierarchical(FedAvgSync):
         return full + n_segs * intra
 
 
-# the strategies the port has; the robust reduces (trimmed_mean, median)
-# are not ported yet
+_ROBUST_SECURE_ERR = (
+    "robust aggregation needs the individual per-agent values a secure "
+    "sum hides (order statistics cannot run on a masked total); drop "
+    "secure_agg or fall back to strategy='fedgan'")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrimmedMeanSync(FedAvgSync):
+    """Byzantine-robust FedAvg: per coordinate, drop the ``trim`` smallest
+    and largest of the B agent values and average the rest.  f <= trim
+    corrupted agents (sign-flipped, x100-scaled, NaN) cannot move the
+    aggregate outside the honest agents' range.  The dataset-size weights
+    are ignored (a poisoned agent could otherwise buy influence through a
+    claimed dataset size).  With a codec the reduce runs on the decoded
+    wire images of the composed pipeline; no fedavg launches."""
+
+    trim: int = 1
+    name = "trimmed_mean"
+
+    def validate(self, cfg):
+        super().validate(cfg)
+        if self.trim < 1:
+            raise ValueError(f"trim must be >= 1, got {self.trim}")
+        if cfg.num_agents <= 2 * self.trim:
+            raise ValueError(
+                f"trimmed_mean needs num_agents > 2*trim = {2 * self.trim}, "
+                f"got {cfg.num_agents} — no honest values would survive")
+        if self.secure_agg is not None:
+            raise ValueError(_ROBUST_SECURE_ERR)
+
+    def sync_reduce(self):
+        return collectives.make_robust_reduce("trimmed_mean", trim=self.trim)
+
+
+@dataclasses.dataclass(frozen=True)
+class CoordinateMedianSync(FedAvgSync):
+    """Byzantine-robust FedAvg through the per-coordinate lower median:
+    breakdown point f < B/2, at the cost of all magnitude information.
+    Weight-oblivious, like :class:`TrimmedMeanSync`."""
+
+    name = "median"
+
+    def validate(self, cfg):
+        super().validate(cfg)
+        if self.secure_agg is not None:
+            raise ValueError(_ROBUST_SECURE_ERR)
+
+    def sync_reduce(self):
+        return collectives.make_robust_reduce("median")
+
+
 STRATEGIES = {
     "fedgan": FedAvgSync,
     "distributed": PerStepGradAvg,
@@ -443,17 +522,18 @@ STRATEGIES = {
     "ps_fedgan": PartialSharing,
     "subsampled": SubsampledFedAvg,
     "adaptive_k": AdaptiveK,
+    "trimmed_mean": TrimmedMeanSync,
+    "median": CoordinateMedianSync,
 }
 
 
 def get_strategy(name: str, **kwargs) -> SyncStrategy:
-    """Instantiate a ported strategy by name (the CLI entry point)."""
+    """Instantiate a strategy by name (the CLI entry point)."""
     try:
         cls = STRATEGIES[name]
     except KeyError:
-        raise ValueError(f"unknown or unported strategy {name!r} (the robust "
-                         f"reduces trimmed_mean and median are ROADMAP slice 6); "
-                         f"ported: {sorted(STRATEGIES)}") from None
+        raise ValueError(f"unknown strategy {name!r}; "
+                         f"known: {sorted(STRATEGIES)}") from None
     return cls(**kwargs)
 
 

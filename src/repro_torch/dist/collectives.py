@@ -13,11 +13,20 @@ fedavg reduce.  The plain average, the per-pod mean and the fused sync
 bucket a subtree's leaves by dtype into one buffer first, so a subtree
 costs one launch per dtype however many leaves it has.  Results are
 broadcast back over the grid (eq. (3)) as expanded views.
+
+Two more aggregates stand in for the weighted mean.  The Byzantine-robust
+reduces (``make_robust_reduce``: a trimmed mean or the coordinate median)
+sort the agents' values with PyTorch ops, as the reference sorts with XLA
+ops, and launch no fedavg.  The secure sum (``masked_sync``) one-time-pads
+each agent's uplink with pairwise masks drawn on the device (the tensor
+Threefry of ``repro_torch.prng``) and ends in the fedavg reduce of the
+unmasked products.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import prng
 from repro_torch.kernels.fedavg.kernel import (fedavg_flat, fedavg_pod_flat,
                                                fedavg_wire_flat)
 from repro_torch.kernels.qsync import ops as qsync_ops
@@ -71,15 +80,25 @@ def _bucketed_mean(leaves, weights):
     return _split(_reduce_for(stacked.dtype)(weights, stacked), leaves, ())
 
 
-def average_agents(tree, weights, *, sync_dtype=None):
+def average_agents(tree, weights, *, sync_dtype=None, reduce=None):
     """Weighted average over the leading (P, A) dims, broadcast back.
     ``weights``: (P, A) float32, normalised.  ``sync_dtype`` (a torch
     dtype) casts each inexact leaf to that wire type for the reduce and the
     mean back to the leaf's type: the compressed sync.  Integer leaves (the
     Adam step count) are identical across lockstep agents and pass
-    through.  One launch per wire dtype."""
+    through.  One launch per wire dtype.
+
+    ``reduce(x, weights) -> x.shape[2:]`` replaces the weighted mean leaf
+    by leaf (a robust reduce of ``make_robust_reduce``); it launches no
+    fedavg."""
     leaves, treedef = tree_flatten(tree)
     outs = list(leaves)
+    if reduce is not None:
+        for i, x in enumerate(leaves):
+            if _inexact(x):
+                m = reduce(x.to(sync_dtype) if sync_dtype is not None else x, weights)
+                outs[i] = m.to(x.dtype).expand(x.shape)
+        return tree_unflatten(treedef, outs)
     groups: dict = {}
     for i, x in enumerate(leaves):
         if _inexact(x):
@@ -89,6 +108,179 @@ def average_agents(tree, weights, *, sync_dtype=None):
         for i, m in zip(idx, means):
             outs[i] = m.to(leaves[i].dtype).expand(leaves[i].shape)
     return tree_unflatten(treedef, outs)
+
+
+def make_robust_reduce(kind: str, *, trim: int = 1):
+    """A ``reduce(x, weights)`` that tolerates Byzantine agents.
+
+    ``"trimmed_mean"``: per coordinate, sort the B = P·A agent values,
+    drop the ``trim`` smallest and largest, and average the rest: f <= trim
+    corrupted agents (sign-flipped, scaled, NaN: NaN sorts last, into the
+    trimmed tail) cannot move it outside the honest agents' range.
+    ``"median"``: the per-coordinate lower median, the order statistic
+    ``sorted[(B - 1) // 2]``, an honest value whenever f < B/2.  Never
+    ``torch.median`` or ``nanmedian``: the first returns NaN when any agent
+    is NaN, the second skips NaNs and shifts the order statistic.
+
+    The sort is stable, with NaN last and -0 beside +0 in agent order, as
+    the reference's ``jnp.sort``; so the median is the reference's bit for
+    bit.  The trimmed mean sums its B - 2·trim rows in sorted order, one
+    add at a time, and divides by their count held in a tensor (a division
+    by a Python number multiplies by its reciprocal on the card): the same
+    roundings on the card and the CPU.  Against the reference's
+    ``jnp.mean``, which may group the sum otherwise, it is held within
+    (B - 2·trim - 1) float32 roundings of the sum of the kept |values|,
+    over their count, plus one rounding of the result.
+
+    Robust aggregation ignores the weights (a poisoned agent could
+    otherwise buy influence through a claimed dataset size)."""
+    if kind not in ("trimmed_mean", "median"):
+        raise ValueError(f"unknown robust reduce {kind!r}; "
+                         "known: ['median', 'trimmed_mean']")
+
+    def reduce(x, weights):
+        B = x.shape[0] * x.shape[1]
+        flat = torch.sort(x.reshape((B,) + tuple(x.shape[2:])), dim=0, stable=True).values
+        if kind == "median":
+            return flat[(B - 1) // 2]
+        if B <= 2 * trim:
+            raise ValueError(f"trimmed_mean needs more than 2*trim={2 * trim} "
+                             f"agents, got {B}")
+        acc = flat[trim]
+        for b in range(trim + 1, B - trim):
+            acc = acc + flat[b]
+        return acc / torch.full((), B - 2 * trim, dtype=acc.dtype, device=acc.device)
+
+    return reduce
+
+
+def mask_pair_key(key: torch.Tensor, step) -> torch.Tensor:
+    """The per-round mask key, ``fold_in(key, step)`` on ``key``'s device:
+    from the fleet seed and the (checkpointed) step counter, so masks are
+    never reused across rounds and a restored run draws them again."""
+    return prng.fold_in_t(key, step)
+
+
+def _accumulate_masks(keys: torch.Tensor, sizes, B: int) -> torch.Tensor:
+    """Net pairwise masks of B agents over the concatenation of leaves of
+    ``sizes`` elements, leaf l's bits drawn from ``keys[l]`` ((L, 2) int64
+    key data): (B, sum(sizes)) int64 holding uint32.  m_i = sum_{j>i} r_ij
+    - sum_{j<i} r_ji (mod 2^32), where pair p = (i, j), in the order i < j,
+    draws r from ``fold_in(keys[l], p)``; summed over agents the r
+    telescope to exactly 0.  The pairs are folded in one at a time, so the
+    largest tensor is O(B·leaf), never the (B, B)·leaf pair tensor."""
+    dev = keys.device
+    n = sum(sizes)
+    acc = torch.zeros((B, n), dtype=torch.int64, device=dev)
+    if B < 2 or n == 0:
+        return acc
+    hi = torch.cat([prng.counters_t(k, dev)[0] for k in sizes])
+    lo = torch.cat([prng.counters_t(k, dev)[1] for k in sizes])
+    p = 0
+    for i in range(B):
+        for j in range(i + 1, B):
+            pk = prng.fold_in_t(keys, p)
+            k0 = torch.cat([pk[l, 0].expand(k) for l, k in enumerate(sizes)])
+            k1 = torch.cat([pk[l, 1].expand(k) for l, k in enumerate(sizes)])
+            y0, y1 = prng.threefry2x32_t(k0, k1, hi, lo)
+            r = y0.bitwise_xor_(y1)
+            acc[i].add_(r).bitwise_and_(prng._M32)
+            acc[j].sub_(r).bitwise_and_(prng._M32)
+            p += 1
+    return acc
+
+
+def _pairwise_masks(key: torch.Tensor, grid, shape) -> torch.Tensor:
+    """Net uint32 pairwise masks of one leaf of ``shape`` on the (P, A)
+    ``grid``, drawn from ``key`` ((2,) int64 key data): (P, A) + shape
+    int64, as the reference's ``_pairwise_masks`` draws them."""
+    P, A = grid
+    n = int(torch.Size(shape).numel())
+    return _accumulate_masks(key.reshape(1, 2), [n], P * A).reshape((P, A) + tuple(shape))
+
+
+def _to_bits(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> its uint32 bit pattern, in int64."""
+    return x.contiguous().view(torch.int32).to(torch.int64) & prng._M32
+
+
+def _from_bits(u: torch.Tensor) -> torch.Tensor:
+    """uint32 bit patterns in int64 -> float32."""
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32).view(torch.float32)
+
+
+def _uplink(leaves, weights, key):
+    """Per inexact leaf, each agent's weighted payload w_i·x_i, and the
+    wire image of it: its uint32 bits plus the agent's net mask, mod 2^32;
+    leaf i's masks drawn from ``fold_in(key, i)``.  Returns (indices of the
+    inexact leaves, (B, n) products, (B, n) wire, (B, n) masks), n their
+    total size."""
+    idx = [i for i, x in enumerate(leaves) if _inexact(x)]
+    for i in idx:
+        if leaves[i].dtype != torch.float32:
+            raise ValueError(
+                f"masked_sync pads the 32-bit wire image; got {leaves[i].dtype} — "
+                "cast the synced tree to float32 or drop secure_agg")
+    B = weights.numel()
+    if not idx:
+        return idx, None, None, None
+    w = weights.reshape(-1, 1)
+    prods = torch.cat([leaves[i].reshape(B, -1) * w for i in idx], dim=1)
+    every = prng.fold_in_t(key, torch.arange(len(leaves), device=key.device))
+    leaf_keys = torch.cat([every[i:i + 1] for i in idx])
+    masks = _accumulate_masks(leaf_keys, [leaves[i][0, 0].numel() for i in idx], B)
+    wire = (_to_bits(prods) + masks) & prng._M32
+    return idx, prods, wire, masks
+
+
+def masked_wire(tree, weights, key):
+    """The uplink wire images ``masked_sync`` ships for ``tree``: per
+    inexact leaf a (P, A) + leaf int64 tensor of uint32 words (the bits of
+    w_i·x_i plus agent i's net mask, mod 2^32); other leaves None."""
+    leaves, treedef = tree_flatten(tree)
+    idx, _, wire, _ = _uplink(leaves, weights, key)
+    outs = [None] * len(leaves)
+    for i, part in zip(idx, _split(wire, [leaves[i] for i in idx], (weights.numel(),))
+                       if idx else []):
+        outs[i] = part.reshape(leaves[i].shape)
+    return tree_unflatten(treedef, outs)
+
+
+def masked_sync(tree, weights, key, *, sync_dtype=None, reduce=None):
+    """Secure-aggregation-style sum: every agent's wire image is one-time
+    padded with pairwise PRG masks before it leaves the agent.
+
+    Per inexact leaf, agent (p, a) folds its public weight into the payload
+    first (weight-then-mask: a server that sees only masked payloads cannot
+    weight them), then ships the uint32 bits of w_i·x_i plus its net
+    pairwise mask, mod 2^32.  At the reduce the masks cancel exactly and
+    the server sums the recovered products: ``average_agents`` with unit
+    weights, one fedavg launch per subtree.  The products are already
+    rounded and the kernel rounds each product before it adds in agent
+    order, so the result is ``average_agents(tree, weights)`` bit for bit.
+
+    The masks are drawn on ``key``'s device from ``key`` ((2,) int64 key
+    data, fresh each round: ``mask_pair_key``); leaf i's from ``fold_in(key,
+    i)``, pair p's from ``fold_in(that, p)``.  A robust ``reduce`` (order
+    statistics need the values the sum hides) and a ``sync_dtype`` (a
+    recast breaks the pad) are refused."""
+    if reduce is not None:
+        raise ValueError(
+            "masked_sync cannot apply a robust reduce: order statistics "
+            "need the individual per-agent values a secure sum hides")
+    if sync_dtype is not None:
+        raise ValueError(
+            "masked_sync pads the 32-bit wire image; a sync_dtype recast "
+            "would break the pad cancellation — drop one of the two")
+    leaves, treedef = tree_flatten(tree)
+    idx, _, wire, masks = _uplink(leaves, weights, key)
+    outs = list(leaves)
+    if idx:
+        B = weights.numel()
+        recovered = _from_bits((wire - masks) & prng._M32)
+        for i, part in zip(idx, _split(recovered, [leaves[i] for i in idx], (B,))):
+            outs[i] = part.reshape(leaves[i].shape)
+    return average_agents(tree_unflatten(treedef, outs), torch.ones_like(weights))
 
 
 def average_intra_pod(tree, weights):
@@ -114,7 +306,7 @@ def average_intra_pod(tree, weights):
     return tree_unflatten(treedef, outs)
 
 
-def coded_sync(tree, weights, codec, *, ef=None, ef_down=None, fused=None):
+def coded_sync(tree, weights, codec, *, ef=None, ef_down=None, reduce=None, fused=None):
     """The compressed intermediary sync of one subtree.
 
     Per inexact leaf: the agent adds its residual (``ef``), encodes through
@@ -133,13 +325,22 @@ def coded_sync(tree, weights, codec, *, ef=None, ef_down=None, fused=None):
     requires the fused path and raises ``ValueError`` for a codec without
     a spec.  Leaves the fused kernel cannot take (not float32) fall back to
     the composed pipeline leaf by leaf.  On the card both paths reduce in
-    agent order with the same roundings, so they agree bit for bit."""
+    agent order with the same roundings, so they agree bit for bit.
+
+    ``reduce`` (a robust reduce of ``make_robust_reduce``) takes the
+    weighted mean's place on the decoded per-agent wire images; it runs on
+    the composed path only (no fedavg launch), so ``fused=True`` refuses
+    it and the default then composes."""
     spec = codec.fused_sync_spec()
+    fusable = spec is not None and reduce is None
     if fused is None:
-        fused = spec is not None
-    elif fused and spec is None:
-        raise ValueError(f"fused=True needs a codec with a fused_sync_spec "
-                         f"(got {codec.name!r})")
+        fused = fusable
+    elif fused and not fusable:
+        raise ValueError(
+            f"fused=True needs a codec with a fused_sync_spec (got {codec.name!r}) "
+            "and the default weighted-mean reduce" if reduce is None else
+            "fused=True cannot apply a custom reduce: the fused kernel "
+            "hard-wires the weighted mean")
     leaves, treedef = tree_flatten(tree)
     e_leaves = tree_leaves(ef) if ef is not None else [None] * len(leaves)
     ed_leaves = tree_leaves(ef_down) if ef_down is not None else [None] * len(leaves)
@@ -152,7 +353,7 @@ def coded_sync(tree, weights, codec, *, ef=None, ef_down=None, fused=None):
             continue
         y = x + e if e is not None else x
         q = codec.roundtrip(y, batch_ndims=2)            # uplink wire image
-        m = weighted_mean(q, weights)
+        m = weighted_mean(q, weights) if reduce is None else reduce(q, weights)
         yd = m + ed if ed is not None else m
         qd = codec.roundtrip(yd)                         # downlink wire image
         outs[i] = qd.to(x.dtype).expand(x.shape)

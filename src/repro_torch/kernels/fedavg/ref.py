@@ -8,12 +8,14 @@ from repro_torch.tree import tree_map
 
 def fedavg_flat_ref(weights: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor:
     """``weights`` shaped like the agent grid ((B,) or (P, A)), ``stacked``
-    (B, N).  Products and sum in float32, the sum taken over the grid's own
-    axes like ``repro.dist.collectives.weighted_mean``; the result is cast
-    back to the input dtype."""
-    grid = tuple(weights.shape)
+    (B, N).  Products in float32, each rounded, summed from +0 in agent
+    order, as the kernel sums them and as the reference's
+    ``weighted_mean`` sums them run op by op; the result is cast back to
+    the input dtype."""
     prod = weights.float().reshape(-1, 1) * stacked.float()
-    acc = prod.reshape(grid + (-1,)).sum(dim=tuple(range(len(grid))))
+    acc = torch.zeros(stacked.shape[1], dtype=torch.float32, device=stacked.device)
+    for b in range(prod.shape[0]):
+        acc = acc + prod[b]
     return acc.to(stacked.dtype)
 
 

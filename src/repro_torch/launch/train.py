@@ -30,6 +30,12 @@ unless told otherwise:
       --data-mode stream               # host-assembled rounds, pinned uploads
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-3b-a800m \
       --steps 4 --K 2 --device cpu     # the LM GAN of a reduced backbone
+  PYTHONPATH=src python -m repro_torch.launch.train --experiment mixed_gaussian \
+      --dp-noise 0.8 --eval-every 10   # per-agent DP-SGD; dp_epsilon per eval
+  PYTHONPATH=src python -m repro_torch.launch.train --experiment image_acgan \
+      --secure-agg                     # pairwise-masked secure sum, same result
+  PYTHONPATH=src python -m repro_torch.launch.train --experiment image_acgan \
+      --robust trimmed_mean --trim 1   # Byzantine-robust reduce
 
 ``--device cuda`` (the default) raises when no GPU is present.  The
 legacy ``--mode`` still resolves through the deprecation shim.
@@ -108,6 +114,7 @@ class RunSpec:
     opt_g: Any = dataclasses.field(default_factory=Adam)
     opt_d: Any = dataclasses.field(default_factory=Adam)
     strategy: Any = None            # SyncStrategy; None -> FedAvgSync
+    dp: Any = None                  # repro_torch.privacy.DPSGD; None -> no DP
     sample_extra: Any = None
     weights: Any = None             # (P, A) §3.1 agent weights; None -> uniform
     seed: int = 0
@@ -126,7 +133,8 @@ class RunSpec:
     def build(self) -> FedGAN:
         return FedGAN(self.task,
                       FedGANConfig(agent_grid=self.agent_grid,
-                                   sync_interval=self.K, strategy=self.strategy),
+                                   sync_interval=self.K, strategy=self.strategy,
+                                   dp=self.dp),
                       opt_g=self.opt_g, opt_d=self.opt_d,
                       scales=self.scales or equal_timescale(constant(1e-3)),
                       weights=self.weights)
@@ -169,14 +177,12 @@ def _pooled_real(agent_data, seed: int = 0):
     return xs[perm.to(xs.device)]
 
 
-def _refuse_unported(*, a_total, dp):
+def _refuse_unported(*, a_total):
     """Flags that reach a part of the reference not ported yet raise and
     name where it comes; none is silently ignored."""
     if a_total:
         raise NotImplementedError("a_total: the virtual-client fleet is not "
                                   "ported yet (ROADMAP slice 7)")
-    if dp is not None:
-        raise NotImplementedError("dp: DP-SGD is not ported yet (ROADMAP slice 6)")
 
 
 def experiment_spec(name: str, *, K: int | None = None,
@@ -199,13 +205,15 @@ def experiment_spec(name: str, *, K: int | None = None,
     pipeline: ``"stream"`` makes the agent data on ``device`` as
     ``"device"`` does, then moves it to the host, so both modes see the
     same data bits.  ``rounds_per_chunk`` runs the device path in chunks of
-    that many rounds, captured on the card.
+    that many rounds, captured on the card.  ``dp`` (a
+    ``repro_torch.privacy.DPSGD``) turns on per-agent DP-SGD.
 
-    ``a_total`` and ``dp`` reach parts not ported yet and raise."""
+    ``a_total`` reaches the virtual-client fleet, not ported yet, and
+    raises."""
     from repro_torch.run.evals import EvalSuite, eval_hook
     if name not in ALL_EXPERIMENTS:
         raise KeyError(f"unknown experiment {name!r}; known: {sorted(ALL_EXPERIMENTS)}")
-    _refuse_unported(a_total=a_total, dp=dp)
+    _refuse_unported(a_total=a_total)
     dev = resolve_device(device)
     exp = ALL_EXPERIMENTS[name]
     K = K or exp.default_K
@@ -284,7 +292,7 @@ def experiment_spec(name: str, *, K: int | None = None,
     spec = RunSpec(
         task=task, agent_data=agent_data, agent_grid=(1, B), K=K, steps=steps,
         batch_size=batch_size or exp.batch_size, scales=scales_for(exp),
-        opt_d=opt_d, opt_g=opt_g, strategy=strategy, sample_extra=extra, seed=seed,
+        opt_d=opt_d, opt_g=opt_g, strategy=strategy, dp=dp, sample_extra=extra, seed=seed,
         log_every=max((steps // K) // 10, 1) if log_every is None else log_every,
         ckpt_dir=ckpt_dir, eval_every=eval_every,
         eval_hooks=(eval_hook(suite, seed=seed),) if eval_every else (),
@@ -305,10 +313,10 @@ def arch_smoke_spec(arch: str, *, steps: int, K: int, seed: int, strategy=None,
     same ``seed``; an audio arch's agents also hold 256 frames each from
     ``sample_audio_frames``), minibatches of ``batch_size`` (default 8), Adam under
     ``equal_timescale(constant(1e-3))``.  ``data_mode`` defaults to the
-    port's ``device``, as ``experiment_spec``'s does."""
+    port's ``device``, as ``experiment_spec``'s does; ``dp`` turns on
+    per-agent DP-SGD."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.steps import make_lm_gan_task
-    _refuse_unported(a_total=0, dp=dp)
     dev = resolve_device(device)
     cfg = get_config(arch).smoke()
     B, T = agents or 4, 32
@@ -324,7 +332,7 @@ def arch_smoke_spec(arch: str, *, steps: int, K: int, seed: int, strategy=None,
     return RunSpec(
         task=make_lm_gan_task(cfg), agent_data=agent_data, agent_grid=(1, B), K=K,
         steps=steps, batch_size=batch_size or 8, scales=equal_timescale(constant(1e-3)),
-        opt_d=Adam(), opt_g=Adam(), strategy=strategy, seed=seed,
+        opt_d=Adam(), opt_g=Adam(), strategy=strategy, dp=dp, seed=seed,
         log_every=1 if log_every is None else log_every, ckpt_dir=ckpt_dir,
         device=str(dev), data_mode=data_mode, rounds_per_chunk=rounds_per_chunk)
 
@@ -382,7 +390,24 @@ def build_parser() -> argparse.ArgumentParser:
                     help="adaptive_k: rounds that sync every round")
     ap.add_argument("--sync-every", type=int, default=0,
                     help="adaptive_k: post-warmup rounds between syncs")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dp-clip", type=float, default=0.0,
+                    help="DP-SGD per-example clip norm C (enables DP; "
+                         "defaults to 1.0 when only --dp-noise is given)")
+    ap.add_argument("--dp-noise", type=float, default=0.0,
+                    help="DP-SGD noise multiplier sigma (0 = clip-only)")
+    ap.add_argument("--dp-delta", type=float, default=1e-5,
+                    help="delta at which the accountant reports epsilon")
+    ap.add_argument("--secure-agg", action="store_true",
+                    help="pairwise-mask secure summing at the sync "
+                         "(bit-identical result; refuses --codec/--sync-dtype)")
+    ap.add_argument("--robust", default="",
+                    choices=["", "trimmed_mean", "median"],
+                    help="Byzantine-robust aggregation (shorthand for "
+                         "--strategy trimmed_mean|median)")
+    ap.add_argument("--trim", type=int, default=0,
+                    help="trimmed_mean: agents trimmed per tail (default 1)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the run's seed (and --secure-agg's mask seed)")
     ap.add_argument("--ckpt-dir", default="",
                     help="checkpoint the state here every n_rounds // 4 rounds")
     ap.add_argument("--batch-size", type=int, default=0,
@@ -409,22 +434,36 @@ def build_parser() -> argparse.ArgumentParser:
 def strategy_from_args(args) -> strategies.SyncStrategy | None:
     """CLI flags -> SyncStrategy (None keeps the default ``FedAvgSync()``).
     A knob the chosen strategy does not declare is an error, not a silent
-    no-op.  Without ``--strategy`` and ``--mode``, any strategy knob
-    (``--codec``, ``--sync-dtype``, ``--average-opt-state``,
-    ``--intra-interval``, ``--participation``, ``--warmup-rounds``,
-    ``--sync-every``) implies the ``fedgan`` strategy; the reference does
-    so for ``--codec`` alone and drops the others unread."""
+    no-op.  ``--robust`` is shorthand for ``--strategy trimmed_mean|median``
+    and conflicts with another ``--strategy``.  Without ``--strategy`` and
+    ``--mode``, any strategy knob (``--codec``, ``--sync-dtype``,
+    ``--secure-agg``, ``--average-opt-state``, ``--intra-interval``,
+    ``--participation``, ``--warmup-rounds``, ``--sync-every``,
+    ``--trim``) implies the ``fedgan`` strategy; the reference does so for
+    ``--codec`` and ``--secure-agg`` alone and drops the others unread.
+    Beside ``--mode``, ``--codec`` and ``--secure-agg`` need ``--strategy``,
+    as in the reference."""
     sync_dtype = _SYNC_DTYPES[args.sync_dtype]
     codec = codec_from_flags(args.codec, bits=args.codec_bits, topk=args.topk)
     if codec is not None and args.sync_dtype:
         raise ValueError(
             "--codec and --sync-dtype are both wire compressions; pick one "
             "(chain codecs via --codec a+b instead)")
+    robust = getattr(args, "robust", "")
+    if robust:
+        if args.strategy and args.strategy != robust:
+            raise ValueError(f"--robust {robust} conflicts with "
+                             f"--strategy {args.strategy}; pick one")
+        args.strategy = robust
+    secure = getattr(args, "secure_agg", False)
     requested = {}
     if args.sync_dtype:
         requested["sync_dtype"] = sync_dtype
     if codec is not None:
         requested["codec"] = codec
+    if secure:
+        from repro_torch.privacy import SecureAgg
+        requested["secure_agg"] = SecureAgg(seed=args.seed)
     if args.average_opt_state:
         requested["average_opt_state"] = True
     if args.intra_interval:
@@ -435,6 +474,8 @@ def strategy_from_args(args) -> strategies.SyncStrategy | None:
         requested["warmup_rounds"] = args.warmup_rounds
     if args.sync_every:
         requested["sync_every"] = args.sync_every
+    if getattr(args, "trim", 0):
+        requested["trim"] = args.trim
     if args.strategy or (requested and not args.mode):
         cls = strategies.STRATEGIES[args.strategy] if args.strategy else FedAvgSync
         fields = {f.name for f in dataclasses.fields(cls)}
@@ -448,10 +489,23 @@ def strategy_from_args(args) -> strategies.SyncStrategy | None:
         if codec is not None:
             raise ValueError("--codec requires --strategy (the legacy "
                              "--mode strings predate the codec axis)")
+        if secure:
+            raise ValueError("--secure-agg requires --strategy (the legacy "
+                             "--mode strings predate the privacy axis)")
         return strategies.strategy_from_mode(
             args.mode, intra_interval=args.intra_interval,
             sync_dtype=sync_dtype, average_opt_state=args.average_opt_state)
     return None
+
+
+def dp_from_args(args):
+    """CLI flags -> ``repro_torch.privacy.DPSGD`` (None when no DP flag is
+    set).  ``--dp-noise`` alone enables DP at the default clip of 1.0."""
+    if not (getattr(args, "dp_clip", 0.0) or getattr(args, "dp_noise", 0.0)):
+        return None
+    from repro_torch.privacy import DPSGD
+    return DPSGD(clip=args.dp_clip or 1.0, noise_multiplier=args.dp_noise,
+                 delta=getattr(args, "dp_delta", 1e-5))
 
 
 def main(argv=None):
@@ -460,7 +514,8 @@ def main(argv=None):
     if bool(args.experiment) == bool(args.arch):
         ap.error("need exactly one of --experiment and --arch")
     strategy = strategy_from_args(args)
-    overrides = dict(batch_size=args.batch_size or None, agents=args.agents or None,
+    overrides = dict(dp=dp_from_args(args),
+                     batch_size=args.batch_size or None, agents=args.agents or None,
                      log_every=None if args.log_every < 0 else args.log_every,
                      device=args.device, ckpt_dir=args.ckpt_dir,
                      data_mode=args.data_mode)

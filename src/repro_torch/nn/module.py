@@ -322,7 +322,12 @@ class Sequential(Module):
 
 
 def leaky_relu(slope: float = 0.2):
-    return lambda x: F.leaky_relu(x, slope)
+    """``jax.nn.leaky_relu``: x where x >= 0, else slope·x.  Its gradient
+    at exactly 0 is 1, as the reference's; ``F.leaky_relu``'s is the slope,
+    which a batch norm over one example (DP-SGD's per-example gradients:
+    its output is then exactly its shift, 0 at init) reaches on every
+    element."""
+    return lambda x: torch.where(x >= 0, x, slope * x)
 
 
 def param_count(params) -> int:

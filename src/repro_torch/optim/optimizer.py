@@ -118,6 +118,8 @@ def clip_by_global_norm(grads, max_norm: float):
     as in the reference: the norm's square root has no derivative at 0."""
     norm = global_norm(grads)
     safe = torch.where(norm > 0, norm, torch.ones_like(norm))
-    scale = torch.where(norm > 0, torch.clamp(max_norm / safe, max=1.0),
+    # a tensor over a tensor: a Python number over a tensor multiplies by
+    # the reciprocal, two roundings where the reference divides once
+    scale = torch.where(norm > 0, torch.clamp(torch.full_like(safe, max_norm) / safe, max=1.0),
                         torch.ones_like(norm))
     return tree_map(lambda g: g * scale, grads), norm

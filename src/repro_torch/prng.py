@@ -14,10 +14,17 @@ from these, and ``data.synthetic.sample_agent_tokens`` the LM GAN's
 token streams.
 
 A key is a (2,) uint32 array, as ``jax.random.key_data`` gives it.
+
+The same hash runs over tensors on any device (``threefry2x32_t``,
+``key_t``, ``fold_in_t``, ``random_bits_t``): the 32-bit words ride in
+int64 tensors, every sum masked to 32 bits.  The secure sum's pairwise
+masks (``repro_torch.dist.collectives``) draw their bits so on the card,
+from a round key folded from the device's step counter, with no host read.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = np.uint32(0x1BD11BDA)
@@ -110,3 +117,73 @@ def randint(k, shape, minval: int, maxval: int) -> np.ndarray:
     off = ((hi.astype(np.uint64) % s) * mult) & mask
     off = ((off + lo.astype(np.uint64) % s) & mask) % s
     return (off.astype(np.int64) + minval).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# the same hash over tensors: uint32 words in int64, every sum masked
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _rotl_t(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) & _M32) | (x >> (32 - r))
+
+
+def threefry2x32_t(k0, k1, x0, x1):
+    """``threefry2x32`` over int64 tensors that hold uint32 words: the key
+    words ``k0``, ``k1`` and the counter words ``x0``, ``x1`` (each a
+    tensor or a Python int) broadcast together.  Returns the two output
+    words, int64 in [0, 2^32)."""
+    k2 = k0 ^ k1 ^ int(_PARITY)
+    ks = (k0, k1, k2)
+    x0 = (k0 + x0) & _M32
+    x1 = (k1 + x1) & _M32
+    x0, x1 = torch.broadcast_tensors(x0, x1)
+    x0, x1 = x0.clone(), x1.clone()
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0.add_(x1).bitwise_and_(_M32)
+            x1 = _rotl_t(x1, r).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_M32)
+        x1.add_(ks[(i + 2) % 3]).add_(i + 1).bitwise_and_(_M32)
+    return x0, x1
+
+
+def key_t(k, device) -> torch.Tensor:
+    """Key data ``k`` ((..., 2) uint32, numpy) as an int64 tensor on
+    ``device``, each word filled in on the device: no host-to-device
+    copy, so a captured round can make it."""
+    k = np.asarray(k, np.uint32).astype(np.int64)
+    out = torch.empty(k.shape, dtype=torch.int64, device=device)
+    for idx, v in np.ndenumerate(k):
+        out[idx].fill_(int(v))
+    return out
+
+
+def fold_in_t(k: torch.Tensor, data) -> torch.Tensor:
+    """``fold_in`` over tensors: ``k`` (..., 2) int64 key data, ``data`` an
+    integer tensor or a Python int, broadcast against the keys.  A device
+    ``data`` (the step counter) is never read on the host."""
+    if isinstance(data, torch.Tensor):
+        data = data.to(torch.int64) & _M32
+    else:
+        data = int(data) & _M32
+    y0, y1 = threefry2x32_t(k[..., 0], k[..., 1], 0, data)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def counters_t(n: int, device) -> tuple:
+    """The partitionable layout's counter words of a flat draw of ``n``,
+    int64 tensors on ``device``."""
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    return i >> 32, i & _M32
+
+
+def random_bits_t(k: torch.Tensor, shape) -> torch.Tensor:
+    """``random_bits`` over tensors: the uint32 bits of ``jax.random.bits(k,
+    shape, uint32)`` as an int64 tensor on ``k``'s device."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    hi, lo = counters_t(int(np.prod(shape)), k.device)
+    y0, y1 = threefry2x32_t(k[..., 0], k[..., 1], hi, lo)
+    return (y0 ^ y1).reshape(shape)

@@ -19,6 +19,13 @@ Two data paths, as in the reference:
 No round waits on the device for its metrics: each round's row lands in a
 (n_rounds, n_metrics) tensor on the device, read at ``log_every``
 boundaries and once, all together, at the end.
+
+Under DP-SGD (``FedGANConfig.dp``) the driver refuses an accountant
+``sample_rate`` below what the pipeline delivers
+(``check_dp_sample_rate``), reports ``timings["dp_epsilon"]`` and adds
+``dp_epsilon`` to every eval's scores, on either path, captured or not.
+The DP noise of a streamed round comes from that round's generator of
+``round_key_schedule``, as a device round's does.
 """
 from __future__ import annotations
 
@@ -30,10 +37,10 @@ import torch
 
 from repro_torch import prng
 from repro_torch.checkpoint import save_checkpoint
-from repro_torch.data.federated import (FederatedRounds, StreamingFederatedData,
-                                        round_key_schedule)
+from repro_torch.data.federated import (DeviceFederatedData, FederatedRounds,
+                                        StreamingFederatedData, round_key_schedule)
 from repro_torch.run.graph import CapturedRound, metric_row
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -71,6 +78,42 @@ def _chunk_sizes(n_rounds: int, per_chunk: int, *cadences: int) -> list:
         sizes.append(c)
         r += c
     return sizes
+
+
+def _dp_data_shape(data):
+    """(batch_size, smallest per-agent dataset size) of the pipeline, or
+    None when the data object does not expose them."""
+    if isinstance(data, DeviceFederatedData):
+        # one host read of the shard sizes, before the round loop
+        return data.batch_size, int(data.sizes.min())
+    rounds = data.rounds if isinstance(data, StreamingFederatedData) else data
+    if isinstance(rounds, FederatedRounds):
+        n_min = min(tree_leaves(d)[0].shape[0] for d in rounds.agent_data)
+        return rounds.batch_size, n_min
+    return None
+
+
+def check_dp_sample_rate(dp, data):
+    """Refuse an accountant ``sample_rate`` the pipeline does not deliver.
+
+    Every step samples ``batch_size`` examples from each agent's dataset,
+    so the worst-case per-example participation rate is ``min(1,
+    batch_size / min_i |R_i|)``.  A configured q below that makes
+    ``DPSGD.epsilon`` report a spend the mechanism does not achieve, so
+    this raises."""
+    shape = _dp_data_shape(data)
+    if shape is None:
+        return
+    batch_size, n_min = shape
+    q_actual = min(1.0, batch_size / max(n_min, 1))
+    if dp.sample_rate < q_actual - 1e-9:
+        raise ValueError(
+            f"DPSGD sample_rate={dp.sample_rate} understates the pipeline's "
+            f"participation rate: batch_size={batch_size} from a smallest "
+            f"agent dataset of {n_min} examples samples at rate "
+            f"{q_actual:.6g} per step, so the accountant's epsilon would "
+            "not be delivered — set sample_rate >= batch_size / min |R_i| "
+            "(or leave the conservative default of 1.0)")
 
 
 class _Table:
@@ -141,6 +184,9 @@ class RoundDriver:
         defaults to a fresh init from a ``torch.Generator`` seeded with
         ``seed``."""
         dev = self.device
+        dp = self.fed.cfg.dp
+        if dp is not None:
+            check_dp_sample_rate(dp, self.data)
         if state is None:
             state = self.fed.init_state(torch.Generator().manual_seed(seed),
                                         device=dev)
@@ -164,20 +210,26 @@ class RoundDriver:
             "data_kind": self.data.kind,
             "captured": captured,
         }
+        if dp is not None:
+            timings["dp_epsilon"] = dp.epsilon(self.n_rounds * K)
         # one fetch for the whole run, after every round was dispatched
         return RunResult(self.fed, state, table.history(), self._evals, timings)
 
     def _run_stream(self, seed, handoff, table):
         """One eager ``FedGAN.round`` per streamed round; the gap is the
-        time blocked on the next round's data."""
+        time blocked on the next round's data.  The port's losses take no
+        random state, so the streamed seeds go unread; DP-SGD noise comes
+        from the round's generator of ``round_key_schedule``."""
         state = handoff.pop()
         gap = 0.0
         it = self.data.iter_rounds(prng.key(seed), self.n_rounds)
+        gens = (round_key_schedule(seed, self.n_rounds, self.device)
+                if self.fed.cfg.dp_noise else [None] * self.n_rounds)
         for r in range(self.n_rounds):
             t = time.perf_counter()
-            batches, _seeds = next(it)   # seeds: read by DP-SGD, not ported
+            batches, _seeds = next(it)
             gap += time.perf_counter() - t
-            state, m = self.fed.round(state, batches)
+            state, m = self.fed.round(state, batches, gens[r])
             table.put(r, sorted(m), metric_row(m, sorted(m)))
             self._boundaries(state, r, table)
         return state, gap, False
@@ -234,6 +286,11 @@ class RoundDriver:
             scores = {}
             for hook in self.eval_hooks:
                 scores.update(hook(self.fed, seen, r))
+            dp = self.fed.cfg.dp
+            if dp is not None:
+                # the closed-form accountant: the spend of the (r + 1)·K
+                # local steps so far
+                scores["dp_epsilon"] = dp.epsilon((r + 1) * K)
             self._evals.append({"round": r, "step": (r + 1) * K, **scores})
         if self.ckpt_dir and self.ckpt_every and (r + 1) % self.ckpt_every == 0:
             save_checkpoint(self.ckpt_dir, state, step=(r + 1) * K,

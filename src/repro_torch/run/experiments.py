@@ -17,10 +17,11 @@ reference; the command ends with a summary table of the final metrics vs
 K.  The paper's claim is that the FedGAN column barely moves as K grows
 while the wire bytes per step drop by K.
 
-The privacy axis exists for the reference's rows (``privacy="none"``);
-its other values (DP-SGD, secure summing, robust reduces) are ROADMAP
-slice 6 and raise.  Strategies not ported yet raise as ``get_strategy``
-does.
+``--privacy none,dp,secure,trimmed_mean,median`` adds the privacy axis
+(``repro_torch.privacy``) on the same base: per-agent DP-SGD (the final
+row then carries the accountant's ``dp_epsilon``), the pairwise-masked
+secure sum (bit-identical to the plain sync) and the Byzantine-robust
+reduces, which compose with a codec; the secure sum refuses one.
 """
 from __future__ import annotations
 
@@ -70,27 +71,49 @@ class SweepCell:
                       if isinstance(v, (int, float))}}
         for e in self.evals:
             yield {**base, "eval": True, **e}
+        extra = {}
+        if "dp_epsilon" in self.timings:
+            extra["dp_epsilon"] = self.timings["dp_epsilon"]
         yield {**base, "final": True, **self.final,
                "bytes_per_round": self.bytes_per_round,
-               "steps_per_s": round(self.timings["steps_per_s"], 2)}
+               "steps_per_s": round(self.timings["steps_per_s"], 2), **extra}
 
 
 def _strategy_for(name: str, codec: str = "none", privacy: str = "none"):
-    """The sweep cell's strategy: ``"fedgan"`` keeps the library default
-    (``FedAvgSync()``), anything else resolves through the registry; a
-    codec spec wraps the fedgan base in a compressed-sync ``FedAvgSync``
-    (error feedback on).  Privacy axes other than ``"none"`` are not
-    ported yet."""
+    """The sweep cell's (strategy, dp) pair: ``"fedgan"`` keeps the library
+    default (``FedAvgSync()``), anything else resolves through the
+    registry; a codec spec wraps the fedgan base in a compressed-sync
+    ``FedAvgSync`` (error feedback on).  The privacy axis rides the fedgan
+    base too: ``"dp"`` turns on per-agent DP-SGD (returned as the dp
+    config, not a strategy), ``"secure"`` the pairwise-masked sum,
+    ``"trimmed_mean"`` and ``"median"`` the robust reduces (these compose
+    with a codec; the secure sum refuses one)."""
     if privacy not in PRIVACY_AXES:
         raise ValueError(f"unknown privacy axis {privacy!r}; "
                          f"known: {list(PRIVACY_AXES)}")
-    if privacy != "none":
-        raise NotImplementedError(f"privacy={privacy!r}: DP-SGD, secure summing "
-                                  "and the robust reduces are ROADMAP slice 6")
+    dp = None
+    kwargs = {}
     if codec != "none":
         from repro_torch.comm import get_codec
-        return sync_strategies.FedAvgSync(codec=get_codec(codec))
-    return None if name == "fedgan" else sync_strategies.get_strategy(name)
+        kwargs["codec"] = get_codec(codec)
+    if privacy == "dp":
+        from repro_torch.privacy import DPSGD
+        dp = DPSGD(clip=1.0, noise_multiplier=0.8)
+    elif privacy == "secure":
+        if codec != "none":
+            raise ValueError(
+                "privacy='secure' cannot ride a lossy codec wire (per-agent "
+                "decode at the server reveals the updates the masking "
+                "hides); drop the codec or the secure axis")
+        from repro_torch.privacy import SecureAgg
+        kwargs["secure_agg"] = SecureAgg()
+    if privacy == "trimmed_mean":
+        return sync_strategies.TrimmedMeanSync(**kwargs), dp
+    if privacy == "median":
+        return sync_strategies.CoordinateMedianSync(**kwargs), dp
+    if kwargs:
+        return sync_strategies.FedAvgSync(**kwargs), dp
+    return (None if name == "fedgan" else sync_strategies.get_strategy(name)), dp
 
 
 def run_sweep(experiment: str, Ks: Sequence[int], *,
@@ -102,9 +125,9 @@ def run_sweep(experiment: str, Ks: Sequence[int], *,
               verbose: bool = True, device="cuda") -> list:
     """Run the (K x strategy x codec x privacy) grid on ``device``, each
     cell ``rounds_per_chunk`` rounds a chunk, and persist the JSONL
-    histories.  Codecs and privacy axes apply to the
-    ``fedgan`` base strategy only (the comparison strategies run
-    uncompressed).  Returns the grid's ``SweepCell``s."""
+    histories.  Codecs and privacy axes apply to the ``fedgan`` base
+    strategy only (the comparison strategies run uncompressed and
+    unprotected).  Returns the grid's ``SweepCell``s."""
     from repro_torch.launch.train import experiment_spec
     cells = []
     os.makedirs(out_dir, exist_ok=True)
@@ -116,10 +139,10 @@ def run_sweep(experiment: str, Ks: Sequence[int], *,
                 specs_p = privacy_names if sname == "fedgan" else ("none",)
                 for cname in specs_c:
                     for pname in specs_p:
-                        strat = _strategy_for(sname, cname, pname)
+                        strat, dp = _strategy_for(sname, cname, pname)
                         spec, suite = experiment_spec(
                             experiment, K=K, steps=steps, seed=seed,
-                            strategy=strat, log_every=0, eval_every=eval_every,
+                            strategy=strat, dp=dp, log_every=0, eval_every=eval_every,
                             device=device, rounds_per_chunk=rounds_per_chunk)
                         if verbose:
                             print(f"[sweep] {experiment} K={K} strategy={sname} "
@@ -193,8 +216,9 @@ def main(argv: Any = None):
                     help="comma-separated wire codec specs to run on the "
                          "fedgan base at every K (e.g. 'none,int8,int4')")
     ap.add_argument("--privacy", default="",
-                    help="comma-separated privacy axes on the fedgan base; "
-                         "only 'none' is ported")
+                    help="comma-separated privacy axes to run on the fedgan "
+                         "base at every K: none | dp | secure | "
+                         "trimmed_mean | median")
     ap.add_argument("--steps", type=int, default=0,
                     help="local steps per run (0 = experiment default)")
     ap.add_argument("--eval-every", type=int, default=0,
@@ -211,7 +235,7 @@ def main(argv: Any = None):
     names = ["fedgan"] + [s for s in args.compare.split(",") if s]
     for s in names[1:]:
         if s not in sync_strategies.STRATEGIES:
-            ap.error(f"unknown or unported --compare strategy {s!r}; ported: "
+            ap.error(f"unknown --compare strategy {s!r}; known: "
                      f"{sorted(sync_strategies.STRATEGIES)}")
     codecs = [c for c in args.codecs.split(",") if c] or ["none"]
     from repro_torch.comm import get_codec
@@ -225,6 +249,10 @@ def main(argv: Any = None):
     for p in privacy:
         if p not in PRIVACY_AXES:
             ap.error(f"unknown --privacy axis {p!r}; known: {list(PRIVACY_AXES)}")
+        if p == "secure" and any(c != "none" for c in codecs):
+            ap.error("--privacy secure cannot ride a lossy --codecs wire "
+                     "(per-agent decode reveals the updates the masking "
+                     "hides); drop one")
     return run_sweep(args.experiment, parse_sweep(args.sweep), strategy_names=names,
                      codec_names=codecs, privacy_names=privacy,
                      steps=args.steps or None, seed=args.seed,

@@ -10,10 +10,10 @@ graph updates in place, and the round's metrics land in a static
 (n_metrics,) output that the caller copies out before the next replay.
 
 Random draws stay outside the graph.  Before each replay the round's K
-steps' draws (``DeviceFederatedData.draw_step``: the minibatch uniforms,
-then the ``sample_extra`` draws) are made eagerly from the round's
-generator, in the eager round's order, into static input buffers that
-the graph's gathers read.  So a replayed round uses the bits of the eager
+steps' draws (``FedGAN.draw_step``: the minibatch uniforms, then the
+``sample_extra`` draws, then any DP-SGD noise) are made eagerly from the
+round's generator, in the eager round's order, into static input buffers
+that the graph reads.  So a replayed round uses the bits of the eager
 round from the same generator, and the design needs no generator
 registered with the graph.
 
@@ -81,7 +81,7 @@ class CapturedRound:
         counters = launch_counters()
         with torch.cuda.stream(self.stream):
             # the chunk's first round, eager: the warm-up before capture
-            draws = [data.draw_step(gen) for _ in range(K)]
+            draws = [fed.draw_step(state, data, gen) for _ in range(K)]
             out, m = fed.round_from_draws(state, data, draws)
             self.keys = sorted(m)
             self.metrics = metric_row(m, self.keys)
@@ -123,7 +123,8 @@ class CapturedRound:
         """The next round: its draws from ``gen`` into the static inputs,
         then one replay.  Returns the static (n_metrics,) row."""
         for static in self.draws:
-            for dst, src in zip(tree_leaves(static), tree_leaves(self.data.draw_step(gen))):
+            new = self.fed.draw_step(self.state, self.data, gen)
+            for dst, src in zip(tree_leaves(static), tree_leaves(new)):
                 dst.copy_(src)
         self.graph.replay()
         for fn, n in self.deltas.items():

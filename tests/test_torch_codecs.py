@@ -221,10 +221,13 @@ def test_strategy_registry_holds_the_ported_strategies():
         assert tstrategies.get_strategy(name).name == jstrategies.get_strategy(name).name
     assert tstrategies.get_strategy("partial_sharing", codec=tcodecs.IntQuant(8)) == \
         tstrategies.PartialSharing(codec=tcodecs.IntQuant(8))
-    with pytest.raises(ValueError, match="ported: .*partial_sharing"):
-        tstrategies.get_strategy("median")
-    with pytest.raises(SystemExit):   # argparse's choices: the ported names
-        _args("--strategy", "median")
+    assert tstrategies.get_strategy("median") == tstrategies.CoordinateMedianSync()
+    assert train.strategy_from_args(_args("--strategy", "median", "--codec", "int8")) == \
+        tstrategies.CoordinateMedianSync(codec=tcodecs.IntQuant(8))
+    with pytest.raises(ValueError, match="known: .*partial_sharing"):
+        tstrategies.get_strategy("krum")
+    with pytest.raises(SystemExit):   # argparse's choices: the registry's names
+        _args("--strategy", "krum")
 
 
 def test_fedavg_sync_validation_of_codecs():

@@ -5,9 +5,11 @@ reference, on the CPU, bit for bit.
   leaf's own type.  On a bfloat16 or float16 leaf (a ``sync_dtype`` wire)
   that is the wire route: weights and products rounded to the type, the
   sum in float32 in agent order.  Every element must be equal.  Float32
-  leaves keep the float32 route, whose plain version sums the products
-  with the library's reduce (``fedavg_flat_ref``): within 1e-6 of
-  sum_b |w_b x_b|, the bound ``test_torch_kernels.py`` holds it to.
+  leaves keep the float32 route, whose plain version (``fedavg_flat_ref``)
+  sums the rounded products from +0 in agent order, as the reference's
+  ``weighted_mean`` does op by op; held within 1e-6 of sum_b |w_b x_b|
+  to the reference's compiled reduce, which groups otherwise, the bound
+  ``test_torch_kernels.py`` holds it to.
 * ``average_intra_pod`` is the reference's einsum, which on XLA's CPU
   backend is a fused multiply-add chain in agent order: the pod route.
   Every element must be equal, with one exception of the reference's own:

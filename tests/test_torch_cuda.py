@@ -40,7 +40,15 @@ card against the CPU port within ``torch_shared``'s round bounds; every
 sync kernel launch of its rounds held in place to its plain version
 (``torch_shared.held_sync_kernels``: fedavg within 1e-6 of sum_b |w_b
 x_bn|, qsync and qpack bit for bit) with exact launch counts; the MoE's
-routing on the card equal to the CPU's token for token.
+routing on the card equal to the CPU's token for token.  Privacy and
+robustness (slice 14): the tensor Threefry on the card bit for bit the
+numpy one; ``masked_sync`` bit for bit ``average_agents`` (the kernel
+rounds each product before it adds in agent order, and the unmasked
+products are already rounded); the robust reduces bit for bit the CPU's
+(a stable sort, then an order statistic, or adds in sorted order); every
+per-example joint norm at most C (1 + 1e-6), and C within 1e-5 where it
+was clipped; captured secure, DP and robust rounds bit for bit the eager
+ones.
 """
 import dataclasses
 
@@ -982,3 +990,129 @@ def test_moe_routing_on_card_matches_cpu(cuda, zero_router):
     yc, auxc = moe.apply(on_card, x.to(cuda))
     assert (yc.cpu() - y).abs().max() <= 1e-5 * max(1.0, float(y.abs().max()))
     assert abs(float(auxc) - float(aux)) <= 1e-5 * max(1.0, abs(float(aux)))
+
+
+# ---------------------------------------------------------------------------
+# slice 14: privacy and robustness on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5,), (3, 4), (1_000_003,)])
+def test_tensor_threefry_on_card_matches_numpy(cuda, shape):
+    """The tensor Threefry on the card, folding in a device step counter,
+    bit for bit ``prng``'s numpy Threefry (which the CPU tests hold to
+    ``jax.random``)."""
+    from repro_torch import prng
+    k = prng.key(11)
+    for step in (0, 7, 2 ** 31 - 1):
+        kt = prng.fold_in_t(prng.key_t(k, cuda), torch.tensor(step, dtype=torch.int32,
+                                                              device=cuda))
+        assert kt.is_cuda
+        got = prng.random_bits_t(kt, shape).cpu().numpy().astype(np.uint32)
+        np.testing.assert_array_equal(got, prng.random_bits(prng.fold_in(k, step), shape))
+
+
+def _acgan_tree(gen, dev, grid=(1, 5)):
+    """A (P, A)-stacked tree of the image experiment's generator leaves."""
+    from repro_torch.launch.train import acgan_task
+    task, _ = acgan_task(hw=16)
+    params = task.init(torch.Generator().manual_seed(0))["gen"]
+    return tree_map(lambda x: torch.randn(grid + tuple(x.shape), generator=gen, device=dev),
+                    params)
+
+
+@pytest.mark.cuda
+def test_masked_sync_on_card_bit_identical_to_average_agents(cuda):
+    """The secure sum at the ACGAN generator's leaves: masks drawn on the
+    card equal the CPU's, the output is the plain average bit for bit,
+    and each call launches one fedavg."""
+    from repro_torch import prng
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tree = _acgan_tree(g, cuda)
+    w = _weights(g, cuda)
+    key = collectives.mask_pair_key(prng.key_t(prng.key(3), cuda),
+                                    torch.tensor(40, dtype=torch.int32, device=cuda))
+    before = fedavg_flat.launches
+    got = collectives.masked_sync(tree, w, key)
+    plain = collectives.average_agents(tree, w)
+    torch.cuda.synchronize()
+    assert fedavg_flat.launches == before + 2
+    for a, b in zip(tree_leaves(got), tree_leaves(plain)):
+        assert torch.equal(_bits(a.reshape(-1)), _bits(b.reshape(-1)))
+    small = {k: v for k, v in list(tree.items())[:2]}
+    wire = collectives.masked_wire(small, w, key)
+    cpu_wire = collectives.masked_wire(tree_map(lambda x: x.cpu(), small), w.cpu(), key.cpu())
+    for a, b in zip(tree_leaves(wire), tree_leaves(cpu_wire)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(1, 5), (2, 4)])
+def test_robust_reduces_on_card_match_cpu(cuda, grid):
+    """The median and the trimmed mean on the card bit for bit the CPU's
+    (a stable sort, then an order statistic, or adds in sorted order and a
+    division by a tensor), with a NaN agent and -0/+0 ties."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(grid + (3, 1000), generator=g, device=cuda)
+    x[0, 0, 0, :10] = -0.0
+    x[0, 1, 0, :10] = 0.0
+    x[0, 2, 1] = float("nan")
+    w = torch.full(grid, 1.0 / (grid[0] * grid[1]), device=cuda)
+    for kind in ("median", "trimmed_mean"):
+        r = collectives.make_robust_reduce(kind)
+        got, want = r(x, w).cpu(), r(x.cpu(), w.cpu())
+        assert torch.equal(_bits(got.reshape(-1)), _bits(want.reshape(-1))), kind
+        assert torch.isfinite(got).all(), kind
+
+
+@pytest.mark.cuda
+def test_dp_per_example_joint_norm_on_card(cuda):
+    """Per-example gradients of the image experiment's nets on the card,
+    clipped jointly: every example's (G, D) norm is at most C, and C where
+    it was above."""
+    from repro_torch.launch.train import acgan_task
+    from repro_torch.optim import global_norm
+    from repro_torch.privacy import per_example_grads
+    from repro_torch.core import FedGAN, FedGANConfig
+    task, _ = acgan_task(hw=16)
+    fed = FedGAN(task, FedGANConfig(agent_grid=(1, 1), sync_interval=1))
+    params = tree_map(lambda x: x.to(cuda), task.init(torch.Generator().manual_seed(0)))
+    g = torch.Generator(device=cuda).manual_seed(2)
+    batch = {"x": torch.rand((8, 16, 16, 3), generator=g, device=cuda) * 2 - 1,
+             "y": torch.randint(0, 10, (8,), generator=g, device=cuda),
+             "z": torch.randn((8, 62), generator=g, device=cuda)}
+    C = 0.5
+    gd, gg, nd, ng, _ = per_example_grads(fed._agent_grads, params, batch, C)
+    for i in range(8):
+        jn = float(global_norm((tree_map(lambda v: v[i], gd), tree_map(lambda v: v[i], gg))))
+        assert jn <= C * (1 + 1e-6), (i, jn)
+        if float(torch.hypot(nd[i], ng[i])) > C:
+            assert abs(jn - C) <= 1e-5 * C, (i, jn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("privacy", ["secure", "dp", "trimmed_mean"])
+def test_captured_privacy_rounds_match_eager(cuda, privacy):
+    """The secure sum (its round key folded from the device's step
+    counter), DP-SGD (its noise drawn before each replay into static
+    buffers) and a robust reduce capture: rounds through the graph equal
+    the eager rounds bit for bit, with the same launches."""
+    from repro_torch.core import TrimmedMeanSync
+    from repro_torch.kernels import launch_counters
+    from repro_torch.privacy import DPSGD, SecureAgg
+    strat = {"secure": FedAvgSync(secure_agg=SecureAgg(1)), "dp": None,
+             "trimmed_mean": TrimmedMeanSync()}[privacy]
+    dp = DPSGD(clip=1.0, noise_multiplier=1.0) if privacy == "dp" else None
+    spec, _ = experiment_spec("mixed_gaussian", K=4, steps=24, strategy=strat, dp=dp,
+                              log_every=0, device=cuda, samples_per_agent=256)
+    counters = launch_counters()
+    runs, counts = {}, {}
+    for c in (1, 6):
+        before = {n: f.launches for n, f in counters.items()}
+        runs[c] = dataclasses.replace(spec, rounds_per_chunk=c).run_result()
+        torch.cuda.synchronize()
+        counts[c] = {n: f.launches - before[n] for n, f in counters.items()}
+    assert runs[6].timings["captured"] and counts[6] == counts[1]
+    assert counts[1]["fedavg"] == (0 if privacy == "trimmed_mean" else 2 * 6)
+    assert runs[6].history == runs[1].history and _same_state(runs[6].state, runs[1].state)

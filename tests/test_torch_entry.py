@@ -3,6 +3,7 @@ data, the training CLI, the refusals of what is not ported yet, the
 weight converter, byte accounting against the JAX reference, and the
 import isolation of the port."""
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -78,13 +79,22 @@ def test_driver_runs_device_data_and_keeps_agents_synced():
 
 
 def test_unported_paths_refuse_instead_of_falling_back():
-    """Secure aggregation and DP-SGD wait for their slice; asking for them
-    raises instead of running something else."""
+    """What waits for its slice (the virtual-client fleet, slice 7) raises
+    instead of running something else; secure aggregation and DP-SGD,
+    ported, validate as the reference's do (a secure sum refuses a codec
+    wire, a DP config its bad clip)."""
+    from repro_torch.privacy import DPSGD, SecureAgg
     _, tfed, _ = _pair("adam", True)
-    for cfg in (dataclasses.replace(tfed.cfg, strategy=FedAvgSync(secure_agg=1)),
-                dataclasses.replace(tfed.cfg, dp=1)):
-        with pytest.raises(NotImplementedError):
-            cfg.validate()
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        train.experiment_spec("toy_2d", device="cpu", a_total=16)
+    with pytest.raises(ValueError, match="codec"):
+        dataclasses.replace(tfed.cfg, strategy=FedAvgSync(secure_agg=SecureAgg(),
+                                                          codec=tfed.cfg.strategy.codec)
+                            ).validate()
+    with pytest.raises(ValueError, match="clip"):
+        dataclasses.replace(tfed.cfg, dp=DPSGD(clip=0.0)).validate()
+    dataclasses.replace(tfed.cfg, strategy=FedAvgSync(secure_agg=SecureAgg()),
+                        dp=DPSGD(noise_multiplier=1.0)).validate()
 
 
 def test_train_cli_needs_a_gpu_unless_told_cpu():
@@ -120,6 +130,75 @@ def test_train_cli_runs_the_slice_two_syncs(flags):
     for x in tree_leaves(result.state["params"]["gen"]):
         assert torch.equal(x, x[:1, :1].expand_as(x))
     assert sorted(result.state["ef"]) == sorted(result.fed.cfg.strategy.subtrees)
+
+
+_CLI_CPU = ["--experiment", "toy_2d", "--device", "cpu", "--K", "2", "--steps", "4",
+            "--samples-per-agent", "64", "--log-every", "0"]
+
+
+@pytest.mark.parametrize("flags,strategy", [
+    (["--dp-noise", "0.5", "--eval-every", "1"], "fedgan"),
+    (["--dp-clip", "0.3"], "fedgan"),
+    (["--secure-agg", "--seed", "3"], "fedgan"),
+    (["--robust", "trimmed_mean", "--trim", "1"], "trimmed_mean"),
+    (["--robust", "median", "--codec", "int8"], "median")],
+    ids=["dp_noise", "dp_clip", "secure_agg", "robust_trim", "robust_median_int8"])
+def test_train_cli_privacy_flags_run_on_the_cpu(flags, strategy, capsys):
+    """The privacy flags through the training CLI on the CPU: DP-SGD
+    reports ``dp_epsilon`` in the timings line and every eval, the secure
+    sum equals the plain run bit for bit, the robust reduces run their
+    strategy; every agent holds the synced params."""
+    result = train.main(_CLI_CPU + flags)
+    out = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+           if line.startswith("{")]
+    cfg = result.fed.cfg
+    assert (cfg.strategy.name if cfg.strategy is not None else "fedgan") == strategy
+    assert all(np.isfinite(v) for m in result.history for v in m.values())
+    for x in tree_leaves(result.state["params"]):
+        assert torch.equal(x, x[:1, :1].expand_as(x))
+    if cfg.dp is not None:
+        assert out[-1]["dp_epsilon"] == cfg.dp.epsilon(4)
+        assert all("dp_epsilon" in e for e in result.evals)
+        assert {"dp_grad_norm_d", "dp_grad_norm_g"} <= set(result.history[0])
+    else:
+        assert "dp_epsilon" not in out[-1]
+    if "--secure-agg" in flags:
+        assert cfg.strategy.secure_agg.seed == 3
+        plain = train.main(_CLI_CPU + ["--seed", "3"])
+        for a, b in zip(tree_leaves(result.state), tree_leaves(plain.state)):
+            assert torch.equal(a, b)
+
+
+def test_train_cli_privacy_refusals():
+    """The reference's refusals, through ``main``."""
+    for flags, match in ((["--secure-agg", "--codec", "int8"], "codec"),
+                         (["--robust", "median", "--strategy", "fedgan"], "conflicts"),
+                         (["--robust", "median", "--trim", "2"], "does not accept"),
+                         (["--mode", "fedgan", "--secure-agg"], "requires --strategy"),
+                         (["--robust", "trimmed_mean", "--trim", "3"], "2\\*trim"),
+                         (["--dp-noise", "-1"], "noise_multiplier")):
+        with pytest.raises(ValueError, match=match):
+            train.main(_CLI_CPU + flags)
+
+
+def test_privacy_sweep_cli_end_to_end(tmp_path, capsys):
+    """``run.experiments``' CLI with the whole privacy axis on the CPU: one
+    JSONL cell per axis, ``dp_epsilon`` on the dp cell's final row, the
+    secure cell's state the plain cell's; a secure axis beside a codec is
+    refused."""
+    from repro_torch.run import experiments
+    cells = experiments.main(["--experiment", "toy_2d", "--sweep", "K=2", "--steps", "4",
+                              "--privacy", "none,dp,secure,trimmed_mean,median",
+                              "--eval-n", "64", "--device", "cpu",
+                              "--out-dir", str(tmp_path)])
+    assert [c.privacy for c in cells] == ["none", "dp", "secure", "trimmed_mean", "median"]
+    rows = [json.loads(line) for line in open(tmp_path / "sweep_toy_2d.jsonl")]
+    finals = {r["privacy"]: r for r in rows if r.get("final")}
+    assert finals["dp"]["dp_epsilon"] > 0 and "dp_epsilon" not in finals["none"]
+    assert finals["secure"]["fd"] == finals["none"]["fd"]
+    assert "fedgan+secure" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        experiments.main(["--privacy", "secure", "--codecs", "int8", "--device", "cpu"])
 
 
 def test_profile_runs_rounds_and_reports_no_device_numbers_on_the_cpu():

@@ -188,13 +188,18 @@ def test_run_sweep_writes_the_reference_rows(tmp_path):
 
 
 def test_sweep_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        texperiments._strategy_for("fedgan", privacy="dp")
-    with pytest.raises(ValueError, match="unported"):
-        texperiments._strategy_for("median")
-    assert texperiments._strategy_for("distributed").name == "distributed"
-    assert texperiments._strategy_for("fedgan") is None
-    assert texperiments._strategy_for("fedgan", "int8").codec.bits == 8
+    """The sweep's cells: (strategy, dp) pairs, the privacy axis ported;
+    an unknown strategy or privacy axis raises."""
+    strat, dp = texperiments._strategy_for("fedgan", privacy="dp")
+    assert strat is None and dp.noise_multiplier == 0.8
+    with pytest.raises(ValueError, match="unknown strategy"):
+        texperiments._strategy_for("krum")
+    with pytest.raises(ValueError, match="unknown privacy axis"):
+        texperiments._strategy_for("fedgan", privacy="krum")
+    assert texperiments._strategy_for("median")[0].name == "median"
+    assert texperiments._strategy_for("distributed")[0].name == "distributed"
+    assert texperiments._strategy_for("fedgan") == (None, None)
+    assert texperiments._strategy_for("fedgan", "int8")[0].codec.bits == 8
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             texperiments.main(["--sweep", "K=2", "--steps", "2", "--out-dir", str(tmp_path)])

@@ -452,10 +452,13 @@ def test_experiment_spec_runs_two_rounds(name):
 def test_experiment_spec_refuses_what_is_not_ported():
     """Flags that reach a part not ported yet raise and name where it
     comes; an unknown experiment is a KeyError.  ``data_mode="stream"``,
-    refused until the host-streaming pipeline was ported, now runs."""
-    for kw, match in (({"a_total": 16}, "slice 7"), ({"dp": object()}, "slice 6")):
-        with pytest.raises(NotImplementedError, match=match):
-            ttrain.experiment_spec("toy_2d", device="cpu", **kw)
+    refused until the host-streaming pipeline was ported, now runs, and
+    so does ``dp`` since the privacy slice."""
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        ttrain.experiment_spec("toy_2d", device="cpu", a_total=16)
+    from repro_torch.privacy import DPSGD
+    spec, _ = ttrain.experiment_spec("toy_2d", device="cpu", dp=DPSGD(clip=0.5))
+    assert spec.build().cfg.dp == DPSGD(clip=0.5)
     with pytest.raises(KeyError):
         ttrain.experiment_spec("cifar", device="cpu")
     spec, _ = ttrain.experiment_spec("toy_2d", K=2, steps=4, batch_size=4, log_every=0,

@@ -251,11 +251,12 @@ def test_mask_seed_deprecation_warns_once():
 
 
 def test_registry_holds_every_ported_strategy():
-    assert set(tstrat.STRATEGIES) == set(jstrat.STRATEGIES) - {"trimmed_mean", "median"}
+    assert set(tstrat.STRATEGIES) == set(jstrat.STRATEGIES)
     for name, cls in tstrat.STRATEGIES.items():
         assert cls.__name__ == jstrat.STRATEGIES[name].__name__
         assert cls().name == jstrat.STRATEGIES[name]().name
-    for cls in (tstrat.SubsampledFedAvg, tstrat.AdaptiveK, tstrat.Hierarchical):
+    for cls in (tstrat.SubsampledFedAvg, tstrat.AdaptiveK, tstrat.Hierarchical,
+                tstrat.FedAvgSync, tstrat.TrimmedMeanSync, tstrat.CoordinateMedianSync):
         jcls = getattr(jstrat, cls.__name__)
         assert [f.name for f in dataclasses.fields(cls)] == \
             [f.name for f in dataclasses.fields(jcls)]

@@ -260,13 +260,14 @@ def round_inputs(name, K=ROUND_K, b=ROUND_BATCH):
     return grid, batches
 
 
-def round_fed(name, K=ROUND_K, *, opts=None, scales=None, strategy=None):
+def round_fed(name, K=ROUND_K, *, opts=None, scales=None, strategy=None, dp=None):
     """The port's FedGAN of ``name`` at test size: its task from
     ``ROUND_TASKS``, the experiment's optimizers and schedules unless
-    given."""
+    given, ``strategy`` and ``dp`` in its config."""
     exp = tpaper.ALL_EXPERIMENTS[name]
     opt_d, opt_g = opts or tpaper.optimizer_for(exp)
-    cfg = FedGANConfig(agent_grid=(1, exp.num_agents), sync_interval=K, strategy=strategy)
+    cfg = FedGANConfig(agent_grid=(1, exp.num_agents), sync_interval=K, strategy=strategy,
+                       dp=dp)
     return FedGAN(ROUND_TASKS[name][0]()[0], cfg, opt_d=opt_d, opt_g=opt_g,
                   scales=scales or tpaper.scales_for(exp))
 
@@ -375,10 +376,11 @@ def round_mismatches(exp, K, got, want, grads, losses):
 
 def first_step_grads(fed, state, batches):
     """Each agent's first-step (disc, gen) gradients at ``state``, (B, ...)
-    leaves, as the round's first local step takes them."""
+    leaves, as the round's first local step takes them (under a clip-only
+    ``dp``, the clipped per-example means)."""
     B = fed.cfg.num_agents
-    gd, gg, _ = torch.func.vmap(fed._agent_grads)(
-        _flat(state["params"], B), _flat(tree_map(lambda x: x[0], batches), B))
+    gd, gg, _ = fed._grads(_flat(state["params"], B),
+                           _flat(tree_map(lambda x: x[0], batches), B), None)
     return {"disc": gd, "gen": gg}
 
 
@@ -395,16 +397,17 @@ def first_step_grads(fed, state, batches):
 CARD_K = 1
 
 
-def port_round_mismatches(name, device, K=CARD_K, order=None):
-    """One round of ``name`` (``round_fed``) on ``device`` against the same
-    round on the CPU port, from one start state (drawn on the CPU from a
-    seeded generator, then copied) and the numpy batches of
-    ``round_inputs``: ``round_mismatches`` with the CPU round in the
-    reference's place.  With ``order`` (a seed), the ``device`` round takes
-    each agent's samples in another order.  The CPU runs with oneDNN off,
-    as the round is held to the reference: its convolution backward under
-    the agent vmap is not exact float32."""
-    fed = round_fed(name, K)
+def port_round_mismatches(name, device, K=CARD_K, order=None, strategy=None, dp=None):
+    """One round of ``name`` (``round_fed``, with ``strategy`` and a
+    clip-only ``dp`` when given) on ``device`` against the same round on
+    the CPU port, from one start state (drawn on the CPU from a seeded
+    generator, then copied) and the numpy batches of ``round_inputs``:
+    ``round_mismatches`` with the CPU round in the reference's place.  With
+    ``order`` (a seed), the ``device`` round takes each agent's samples in
+    another order.  The CPU runs with oneDNN off, as the round is held to
+    the reference: its convolution backward under the agent vmap is not
+    exact float32."""
+    fed = round_fed(name, K, strategy=strategy, dp=dp)
     _, batches = round_inputs(name, K)
     start = fed.init_state(torch.Generator().manual_seed(0), device="cpu")
     to_dev = lambda t: tree_map(lambda x: torch.from_numpy(x).to(device), t)  # noqa: E731
@@ -532,8 +535,8 @@ def held_sync_kernels(columns=HOLD_COLUMNS):
     version on the same inputs, ``columns`` columns at a time (every output
     column, or block of 128 columns, depends on its own inputs alone), and
     holds the kernel's outputs to it: fedavg within 1e-6 of sum_b |w_b
-    x_bn| (the plain version's library sum groups the products in another
-    order), qsync's three outputs and the qpack kernels' bit for bit.
+    x_bn| (both sum the rounded products in agent order, so the bound is
+    slack), qsync's three outputs and the qpack kernels' bit for bit.
     Yields ``{kernel: {"calls", "elements", "widest", "widths",
     "max_abs_err"}}`` (``widths``: the set of column counts held); a
     departure raises ``AssertionError``.  The plain versions launch no
