@@ -268,6 +268,26 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    and clip-only DP paths at 8x8 on the card against the CPU port within
    ``tests/torch_shared.py``'s bounds.
 
+14. The virtual-client fleet (``run_fleet``) at image_acgan's full width
+   (5 slots, K = 20, batch 64, Adam): (a) ``a_total = a_active = 5``, 3
+   rounds, bit-identical to the dense stream ``RoundDriver`` (params, Adam
+   state, metrics; ``cudnn.deterministic`` set), both rounds/s printed;
+   (b) ``a_total = 1024``, ``participation_seed = 0``, 6 rounds under
+   ``FedAvgSync()`` (2 fedavg a round) and the fused int8 + EF sync (2
+   qsync a round), every launch held in place to its plain version
+   (``torch_shared.held_sync_kernels``), with ``store_rows``,
+   ``swapped_rows``, rounds/s, the round gap, the host's peak RSS and the
+   card's peak; (c) ``straggler_policy="defer"`` with a planted
+   ``late:1`` and ``drop`` in round 1 of 3: the merges' fedavg launches
+   (one a leaf a round) held in place, and one such round at K = 1 on the
+   8x8 nets against the CPU port within ``tests/torch_shared.py``'s
+   bounds; (d) ``AsyncAggDriver`` buffered over 64 clients, cohort 5, goal
+   2, the demo's latency model, 6 flushes: the flushes' fedavg launches
+   held in place, the journal equal to the CPU port's run apart from the
+   params digests, flushes, timeouts, retries, the makespan and the wall
+   time printed; ``demo_driver`` twice on the card, byte-identical
+   journals.
+
 In every main-path run each kernel's launch counter is set to 0 just
 before it and read just after it, and the kernels the path does not run
 must read 0.  The second-to-last line is the kernels' record as one JSON
@@ -3122,6 +3142,264 @@ def run_privacy(torch, dev):
         + f"; phase {time.perf_counter() - t_phase:.1f} s wall; {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the virtual-client fleet and the async buffered aggregation
+# ---------------------------------------------------------------------------
+
+# image_acgan's width (B = 5 slots, K = 20, batch 64, Adam); the fleet sizes
+# and rounds of each part.  A rehearsal on the CPU shrinks them.
+FLEET_K, FLEET_BATCH = 20, 64
+FLEET_TOTAL, FLEET_ROUNDS = 1024, 6
+FLEET_ASYNC_CLIENTS, FLEET_FLUSHES = 64, 6
+# the demo's latency model (repro_torch.run.simclock.demo_driver)
+FLEET_ASYNC = dict(buffer_goal=2, timeout=6.0, max_retries=2, backoff=2.0)
+FLEET_LATENCY = dict(base=1.0, jitter=0.5, straggler_frac=0.25, straggler_factor=8.0)
+
+
+def _fleet_spec(dev, **kw):
+    from repro_torch.launch.train import experiment_spec
+    spec, _ = experiment_spec("image_acgan", K=FLEET_K, log_every=0, device=dev,
+                              batch_size=FLEET_BATCH, **kw)
+    check((spec.K, spec.batch_size, spec.agent_grid) == (FLEET_K, FLEET_BATCH, (1, B)),
+          "image_acgan is not at the experiment's width")
+    return spec
+
+
+def _host_and_card_peaks(torch):
+    """(the process's peak resident host memory, the card's peak
+    allocation since the last reset), GiB."""
+    import resource
+    return (resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _held_calls(held, counts, names):
+    """Every launch of ``names`` was held in place to its plain version."""
+    for n in names:
+        calls = held.get(n, {}).get("calls", 0)
+        check(calls == counts[n], f"{n}: {calls} calls held, {counts[n]} launches")
+    return {n: held[n]["max_abs_err"] for n in names if n in held}
+
+
+def _fleet_identity(torch, dev, counters, card):
+    """(a) ``a_total = a_active = 5``: the fleet against the dense stream
+    ``RoundDriver`` on the card, from the fleet's init and round keys, bit
+    for bit (``cudnn.deterministic`` set)."""
+    from repro_torch.data import FederatedRounds, StreamingFederatedData
+    from repro_torch.run import RoundDriver
+    from repro_torch.run.virtual import init_generators
+    rounds = 3
+    spec = _fleet_spec(dev, steps=rounds * FLEET_K, a_total=B, a_active=B)
+    fed = spec.build()
+    data = StreamingFederatedData(FederatedRounds(spec.agent_data, (1, B), FLEET_BATCH,
+                                                  FLEET_K, sample_extra=spec.sample_extra),
+                                  device=dev)
+    data_rng, init_gen = init_generators(spec.seed + 1)
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # warm-up round: cuDNN's first calls pick algorithms; not counted
+        RoundDriver(fed, data, 1, log_every=0, verbose=False).run(
+            data_rng, state=fed.init_state(init_gen(), device=dev))
+        _reset(counters)
+        virt = spec.run_result()
+        torch.cuda.synchronize()
+        counts = _read(counters)
+        dense = RoundDriver(fed, data, rounds, log_every=0, verbose=False).run(
+            data_rng, state=fed.init_state(init_gen(), device=dev))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = old
+    want = {n: rounds * 2 if n == "fedavg" else 0 for n in counters}
+    check(counts == want, f"fleet identity: launches {counts}, expected {want}")
+    check(virt.timings["swapped_rows"] == 0, "fleet identity: the identity schedule swapped")
+    check(virt.history == dense.history and _states_same(torch, virt.state, dense.state),
+          "fleet identity: the fleet differs from the dense stream run")
+    log(f"fleet (a) identity a_total = a_active = {B}, {rounds} rounds x K={FLEET_K}: params, "
+        f"Adam state and metrics bit-identical to the dense stream RoundDriver; fleet "
+        f"{virt.timings['rounds_per_s']:.3f} rounds/s (gap {virt.timings['round_gap_s'] * 1e3:.2f}"
+        f" ms), dense {rounds / dense.timings['total_s']:.3f} rounds/s (gap "
+        f"{dense.timings['round_gap_s'] * 1e3:.2f} ms); launches {counts}; {card}")
+
+
+def _fleet_sampled(torch, dev, counters, card):
+    """(b) ``a_total = FLEET_TOTAL``, 5 slots, ``participation_seed = 0``:
+    FLEET_ROUNDS rounds under the plain and the fused int8 + EF sync, every
+    sync launch held in place.  Returns the spec."""
+    from repro_torch.comm import IntQuant
+    from repro_torch.core import FedAvgSync
+    from repro_torch.tree import tree_leaves
+    from torch_shared import held_sync_kernels
+    t = time.perf_counter()
+    spec = _fleet_spec(dev, steps=FLEET_ROUNDS * FLEET_K, a_total=FLEET_TOTAL, a_active=B,
+                       participation_seed=0)
+    n_samples = spec.agent_data[0]["x"].shape[0]
+    log(f"fleet (b) data: {FLEET_TOTAL} clients x {n_samples} images on the host, made in "
+        f"{time.perf_counter() - t:.1f} s; depth cut: {FLEET_ROUNDS} rounds x K={FLEET_K} of "
+        "the paper's 30000 steps")
+    for label, strategy, per_round in (
+            ("FedAvgSync()", None, {"fedavg": 2}),
+            ("FedAvgSync(codec=IntQuant(8), error_feedback=True)",
+             FedAvgSync(codec=IntQuant(bits=8), error_feedback=True), {"qsync": 2})):
+        run = dataclasses.replace(spec, strategy=strategy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(counters)
+        with held_sync_kernels() as held:
+            res = run.run_result()
+            torch.cuda.synchronize()
+        counts = _read(counters)
+        want = {n: FLEET_ROUNDS * per_round.get(n, 0) for n in counters}
+        check(counts == want, f"fleet {label}: launches {counts}, expected {want}")
+        errs = _held_calls(held, counts, ("fedavg", "qsync", "adam_sync"))
+        t_ = res.timings
+        check(t_["swapped_rows"] > 0 and B <= t_["store_rows"] <= FLEET_ROUNDS * B,
+              f"fleet {label}: store_rows {t_['store_rows']}, swapped {t_['swapped_rows']}")
+        check(all(math.isfinite(v) for m in res.history for v in m.values()),
+              f"fleet {label}: non-finite losses")
+        check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(res.state)
+                  if x.is_floating_point()), f"fleet {label}: non-finite state")
+        rss, peak = _host_and_card_peaks(torch)
+        log(f"fleet (b) {label}, a_total {FLEET_TOTAL}, a_active {B}: {FLEET_ROUNDS} rounds, "
+            f"{t_['rounds_per_s']:.3f} rounds/s, round gap {t_['round_gap_s'] * 1e3:.2f} ms "
+            f"(paging {t_['paging_s'] * 1e3:.2f} ms of it), store_rows {t_['store_rows']}, swapped_rows {t_['swapped_rows']}, launches "
+            f"{ {n: c for n, c in counts.items() if c} } (adam_sync {counts['adam_sync']}: the "
+            f"round takes Adam.update, then the sync), each held in place (max |kernel - "
+            f"plain| {errs}); host peak RSS {rss:.2f} GiB, card peak {peak:.2f} GiB; {card}")
+    return spec
+
+
+def _fleet_deferred(torch, dev, spec, counters, card):
+    """(c) ``straggler_policy="defer"`` on (b)'s fleet, a planted
+    ``late:1`` and a ``drop`` in round 1: every round takes the split path,
+    whose merge launches fedavg once per leaf, held in place; then one such
+    round at K = 1 on the 8x8 nets against the CPU port."""
+    from repro_torch.core import ParticipationSchedule
+    from repro_torch.tree import tree_leaves
+    from repro_torch.run.virtual import StragglerPolicy, VirtualClientDriver
+    from torch_shared import CARD_K, held_sync_kernels, port_fleet_round_mismatches
+    rounds = 3
+    fed, fleet = spec.build_fleet()
+    L = len(tree_leaves(fed.init_state(torch.Generator().manual_seed(0),
+                                       device="cpu")["params"]))
+    faults = lambda r, slots: {slots[0]: "late:1", slots[2]: "drop"} if r == 1 else {}  # noqa: E731
+    drv = VirtualClientDriver(fed, fleet, rounds, schedule=ParticipationSchedule(seed=0),
+                              straggler=StragglerPolicy(mode="defer"), faults=faults,
+                              log_every=0, device=dev)
+    _reset(counters)
+    with held_sync_kernels() as held:
+        res = drv.run(spec.seed + 1)
+        torch.cuda.synchronize()
+    counts = _read(counters)
+    want = {n: rounds * L if n == "fedavg" else 0 for n in counters}
+    check(counts == want, f"fleet deferred: launches {counts}, expected {want}")
+    errs = _held_calls(held, counts, ("fedavg",))
+    t_ = res.timings
+    check((t_["late"], t_["dropped"], t_["merged_deltas"]) == (1, 1, 1),
+          f"fleet deferred: late {t_['late']}, dropped {t_['dropped']}, merged "
+          f"{t_['merged_deltas']}")
+    (bad, (ratio, where)), dropped = port_fleet_round_mismatches(dev)
+    check(bad == [] and dropped, f"fleet deferred round, card against CPU: {bad}, "
+                                 f"dropped slot reverted: {dropped}")
+    log(f"fleet (c) defer, late:1 and drop in round 1 of {rounds}: the merges launched fedavg "
+        f"{counts['fedavg']} times ({L} leaves a round), each held in place (max |kernel - "
+        f"plain| {errs['fedavg']!r}); {t_['rounds_per_s']:.3f} rounds/s; one such round "
+        f"(8x8 nets, K = {CARD_K}) card vs CPU: agree, largest |card - CPU| / limit "
+        f"{ratio:.4g} at {where}; {card}")
+
+
+def _fleet_async(torch, dev, counters, card):
+    """(d) ``AsyncAggDriver`` buffered over FLEET_ASYNC_CLIENTS clients,
+    cohort 5, goal 2, the demo's latency model, FLEET_FLUSHES flushes: each
+    flush's fedavg launches held in place; its journal equals the CPU
+    port's run of the same fleet (at K = 1: the journal is the schedule's
+    and the latency model's alone) apart from the params digests; then
+    ``demo_driver`` twice on the card, byte-identical."""
+    from repro_torch.core import ParticipationSchedule
+    from repro_torch.run.async_agg import AsyncAggDriver
+    from repro_torch.run.simclock import LatencyModel, demo_driver
+    from repro_torch.run.virtual import StragglerPolicy
+    from repro_torch.tree import tree_leaves
+    from torch_shared import CARD_K, held_sync_kernels
+    spec = _fleet_spec(dev, steps=FLEET_K, a_total=FLEET_ASYNC_CLIENTS, a_active=B)
+
+    def driver(run_spec, device):
+        fed, fleet = run_spec.build_fleet()
+        return AsyncAggDriver(fed, fleet, FLEET_FLUSHES, schedule=ParticipationSchedule(seed=0),
+                              straggler=StragglerPolicy(mode="defer", decay=0.5, max_staleness=2),
+                              latency=LatencyModel(**FLEET_LATENCY), device=device,
+                              log_every=0, **FLEET_ASYNC)
+
+    drv = driver(spec, dev)
+    L = len(tree_leaves(drv.fed.init_state(torch.Generator().manual_seed(0),
+                                           device="cpu")["params"]))
+    _reset(counters)
+    t = time.perf_counter()
+    with held_sync_kernels() as held:
+        res = drv.run(spec.seed + 1)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = _read(counters)
+    want = {n: FLEET_FLUSHES * L if n == "fedavg" else 0 for n in counters}
+    check(counts == want, f"fleet async: launches {counts}, expected {want}")
+    errs = _held_calls(held, counts, ("fedavg",))
+    check(all(bool(torch.isfinite(torch.from_numpy(x)).all())
+              for x in tree_leaves(res.state["params"])), "fleet async: non-finite params")
+    t = time.perf_counter()
+    cpu = driver(dataclasses.replace(spec, K=CARD_K, steps=CARD_K), "cpu")
+    cpu.run(spec.seed + 1)
+    cpu_wall = time.perf_counter() - t
+    strip = lambda j: [{k: v for k, v in r.items() if k != "params_digest"}  # noqa: E731
+                       for r in j.records]
+    check(strip(drv.journal) == strip(cpu.journal),
+          "fleet async: the card's journal differs from the CPU port's")
+    t_ = res.timings
+    log(f"fleet (d) async buffered, {FLEET_ASYNC_CLIENTS} clients, cohort {B}, goal "
+        f"{FLEET_ASYNC['buffer_goal']}: {t_['flushes']} flushes, {t_['dispatches']} dispatches, "
+        f"{t_['timeouts']} timeouts, {t_['retries']} retries, {t_['gave_up']} gave up, "
+        f"{t_['expired_deltas']} expired, makespan {t_['makespan']!r} (virtual), {wall:.1f} s "
+        f"wall; flush fedavg launches {counts['fedavg']} ({L} leaves a flush), each held in "
+        f"place (max |kernel - plain| {errs['fedavg']!r}); journal of {len(drv.journal)} "
+        f"events equal to the CPU port's (K = {CARD_K}, {cpu_wall:.1f} s) apart from the "
+        f"params digests; {card}")
+    runs = []
+    for _ in range(2):
+        d = demo_driver(device=dev)
+        d.run(7)
+        runs.append(d)
+    check(runs[0].journal.canonical_bytes() == runs[1].journal.canonical_bytes(),
+          "fleet async: two demo runs on the card give different journals")
+    c = runs[0].journal.counts()
+    log(f"fleet (d) demo_driver twice on the card: journals of {len(runs[0].journal)} events "
+        f"byte-identical, digests included ({c.get('flush', 0)} flushes, "
+        f"{c.get('timeout', 0)} timeouts, end digest "
+        f"{runs[0].journal.select('end')[-1]['params_digest']})")
+
+
+def run_fleet(torch, dev):
+    """Phase 14: the virtual-client fleet at image_acgan's full width (5
+    slots, K = 20, batch 64, Adam, 4.56 M params an agent), through the
+    sync kernels: (a) the identity fleet against the dense stream run, bit
+    for bit; (b) a sampled 1,024-client fleet under the plain and the fused
+    int8 + EF syncs, every sync launch held in place, its paging counts,
+    rounds/s, round gap and peaks; (c) deferred stragglers, the merges'
+    fedavg launches held in place, one such round at K = 1 against the
+    CPU port; (d) the async buffered server over 64 clients, its flushes'
+    fedavg launches held in place, its journal against the CPU port's and
+    the demo's determinism on the card.  Each launch counter is set to 0
+    just before each run and read just after."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    counters = launch_counters()
+    _fleet_identity(torch, dev, counters, card)
+    spec = _fleet_sampled(torch, dev, counters, card)
+    _fleet_deferred(torch, dev, spec, counters, card)
+    del spec
+    gc_collect(torch)
+    _fleet_async(torch, dev, counters, card)
+    log(f"fleet phase 14: {time.perf_counter() - t_phase:.1f} s wall; {card}")
+
+
 def launch_counters():
     """Every kernel wrapper of the port, by kernel name."""
     from repro_torch.kernels import launch_counters as counters
@@ -3221,6 +3499,8 @@ def main() -> int:
     run_families(torch, dev)
     gc_collect(torch)
     run_privacy(torch, dev)
+    gc_collect(torch)
+    run_fleet(torch, dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     check("jax" not in sys.modules, "the port or this script imported jax")

@@ -22,8 +22,9 @@ cast, fused and composed coded sync, the pairwise-masked secure sum),
 ``PartialSharing``, ``SubsampledFedAvg``, ``AdaptiveK``,
 ``PerStepGradAvg`` (the paper's distributed-GAN baseline),
 ``Hierarchical`` and the Byzantine-robust ``TrimmedMeanSync`` and
-``CoordinateMedianSync``.  ``check_async_mergeable`` waits for the fleet
-runtime (ROADMAP slice 7).
+``CoordinateMedianSync``.  ``check_async_mergeable`` refuses what the
+fleet's buffered async merge (``repro_torch.run.async_agg``) cannot
+replay as a weighted sum of deltas.
 
 ``AdaptiveK`` and ``SubsampledFedAvg`` decide on the host from the round
 index, which they read from the device once per round (a host wait);
@@ -511,6 +512,57 @@ class CoordinateMedianSync(FedAvgSync):
 
     def sync_reduce(self):
         return collectives.make_robust_reduce("median")
+
+
+def check_async_mergeable(strategy) -> None:
+    """Refuse strategies whose sync cannot ride the async buffered merge.
+
+    ``repro_torch.run.async_agg`` applies staleness-weighted parameter
+    deltas (``theta_post - theta_dispatch``) as they arrive, so the server
+    never sees a synchronous cohort; anything whose aggregation is not a
+    plain weighted mean of the declared subtrees raises here rather than
+    merging wrongly, each knob with its own message (the reference's)."""
+    if isinstance(strategy, SubsampledFedAvg):
+        raise ValueError(
+            "subsampled participation draws its own per-round mask inside "
+            "the traced sync; under asynchronous buffering the server "
+            "already decides who contributes to each flush — drop "
+            "SubsampledFedAvg and pass the schedule to the async driver")
+    if getattr(strategy, "sync_reduce", None) is not None \
+            and strategy.sync_reduce() is not None:
+        raise ValueError(
+            "a robust reduce is an order statistic over one synchronous "
+            "cohort's values; an asynchronous buffer mixes deltas taken "
+            "against different server versions, which voids the breakdown "
+            "bound — run strategy='fedgan' or the per-round driver")
+    if getattr(strategy, "secure_agg", None) is not None:
+        raise ValueError(
+            "secure_agg= pairwise masks only cancel when every cohort "
+            "member's update is summed in one shot; an asynchronous "
+            "buffer flushes partial sums, leaving pads uncancelled — "
+            "drop secure_agg or use the per-round driver")
+    if getattr(strategy, "codec", None) is not None:
+        raise ValueError(
+            "codec= residual feedback assumes every agent decodes the "
+            "same aggregate each round; an asynchronous flush would "
+            "replay stale payloads against a moved server — drop the "
+            "codec for async runs")
+    if getattr(strategy, "sync_dtype", None) is not None:
+        raise ValueError(
+            "sync_dtype= casts the wire image of a synchronous average; "
+            "the asynchronous buffered merge applies host-side deltas and "
+            "has no wire cast point — drop sync_dtype for async runs")
+    if getattr(strategy, "average_opt_state", False):
+        raise ValueError(
+            "average_opt_state= needs one agent-stacked moment tensor to "
+            "average; under asynchronous buffering each client's moments "
+            "stay local between its own dispatches — drop it")
+    if type(strategy) not in (FedAvgSync, PartialSharing):
+        raise ValueError(
+            f"asynchronous buffered aggregation supports plain FedAvgSync/"
+            f"PartialSharing only; {strategy.name!r} schedules or "
+            f"transforms its aggregation in ways a delta buffer cannot "
+            f"replay — use the per-round driver for it")
 
 
 STRATEGIES = {

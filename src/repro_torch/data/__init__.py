@@ -3,6 +3,7 @@ from repro_torch.data.federated import (
     DeviceFederatedData,
     FederatedData,
     FederatedRounds,
+    FleetRounds,
     StreamingFederatedData,
     dirichlet_partition,
     label_shard_partition,
@@ -12,7 +13,7 @@ from repro_torch.data.federated import (
 )
 
 __all__ = [
-    "DeviceFederatedData", "FederatedData", "FederatedRounds",
+    "DeviceFederatedData", "FederatedData", "FederatedRounds", "FleetRounds",
     "StreamingFederatedData", "dirichlet_partition", "label_shard_partition",
     "partition_sizes", "round_key_schedule", "stream_key_schedule", "synthetic",
 ]

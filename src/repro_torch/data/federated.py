@@ -231,7 +231,7 @@ class DeviceFederatedData(FederatedData):
 
 def _host_generator(k) -> torch.Generator:
     """A host ``torch.Generator`` seeded from the two words of key ``k``."""
-    return torch.Generator().manual_seed((int(k[0]) << 32) | int(k[1]))
+    return torch.Generator().manual_seed(prng.key_seed(k))
 
 
 def _assemble_round(agent_data, salts, slot_grid, batch_size, sync_interval,
@@ -306,31 +306,87 @@ class FederatedRounds:
                                self.sync_interval, self.sample_extra, rng, out)
 
 
+@dataclasses.dataclass
+class FleetRounds:
+    """Round assembler for a fleet larger than the device: ``agent_data``
+    holds every registered client's local dataset (len ``A_total``, host
+    tensors), but each round only the sampled cohort, ``P * A_active``
+    clients, is assembled into the (K, P, A_active, batch, ...) slot
+    tensors.  Draws are salted with the *global* client id, not the slot
+    position, so a client sees the same data stream whichever slot it is
+    paged into, and with the identity cohort the rounds are
+    :class:`FederatedRounds`' over the same ``agent_data`` bit for bit."""
+
+    agent_data: Sequence[Any]          # len A_total
+    slot_grid: tuple                   # (P, A_active)
+    batch_size: int
+    sync_interval: int
+    sample_extra: Callable | None = None
+
+    @property
+    def num_clients(self) -> int:
+        return len(self.agent_data)
+
+    @property
+    def cohort_size(self) -> int:
+        return self.slot_grid[0] * self.slot_grid[1]
+
+    def __post_init__(self):
+        if self.num_clients < self.cohort_size:
+            raise ValueError(
+                f"fleet of {self.num_clients} clients cannot fill "
+                f"{self.cohort_size} device slots {self.slot_grid}")
+        for d in self.agent_data:
+            for x in tree_leaves(d):
+                if x.device.type != "cpu":
+                    raise ValueError("FleetRounds assembles on the host: client data "
+                                     f"must be CPU tensors, got one on {x.device}")
+
+    def client_sizes(self) -> np.ndarray:
+        """Per-client dataset sizes |R_i| (len A_total), the §3.1 weight
+        numerators of dataset-size weighting."""
+        return np.asarray([tree_leaves(d)[0].shape[0] for d in self.agent_data], np.int64)
+
+    def round_batches(self, rng, slot_clients, out=None):
+        """One round for ``slot_clients``, the global client id in each
+        slot, in slot order (len ``P * A_active``); see
+        ``_assemble_round``."""
+        ids = [int(c) for c in slot_clients]
+        if len(ids) != self.cohort_size:
+            raise ValueError(f"got {len(ids)} cohort ids for "
+                             f"{self.cohort_size} slots")
+        return _assemble_round([self.agent_data[c] for c in ids], ids,
+                               self.slot_grid, self.batch_size,
+                               self.sync_interval, self.sample_extra, rng, out)
+
+
 class _PinnedUpload:
     """The card half of the stream: a ring of ``slots`` pinned host
     buffers, each round assembled into one and copied to fresh device
     tensors with ``non_blocking=True`` on a side stream, an event recorded
     after the copy.  A slot is written again only after the round that
-    consumed it was handed out and its copy's event has completed."""
+    consumed it was handed out and its copy's event has completed.
+    ``rounds`` is a :class:`FederatedRounds` or a :class:`FleetRounds`;
+    ``launch`` passes its arguments on to ``rounds.round_batches``."""
 
-    def __init__(self, rounds: FederatedRounds, slots: int, device: torch.device):
+    def __init__(self, rounds, slots: int, device: torch.device):
         self.rounds, self.device = rounds, device
         self.stream = torch.cuda.Stream(device)
         self.pins: list = [None] * slots
         self.events: list = [None] * slots
         self.n = 0
 
-    def launch(self, rng):
+    def launch(self, *args):
         """Assemble and start uploading one round; returns its pending
         (batches, seeds, event) on the device."""
         slot = self.n % len(self.pins)
         self.n += 1
         if self.pins[slot] is None:   # first use: pin the slot's round
             self.pins[slot] = tree_map(lambda x: x.pin_memory(),
-                                       self.rounds.round_batches(rng))
+                                       self.rounds.round_batches(*args))
         else:
             self.events[slot].synchronize()   # that slot's last copy has landed
-            self.rounds.round_batches(rng, out=self.pins[slot])
+            self.rounds.round_batches(*args, out=self.pins[slot])
         batches, seeds = self.pins[slot]
         with torch.cuda.stream(self.stream):
             up = lambda x: torch.empty(x.shape, dtype=x.dtype, device=self.device).copy_(  # noqa: E731

@@ -19,7 +19,7 @@ def fedavg_tree(weights: torch.Tensor, stacked_tree):
     B = w.shape[0]
 
     def avg(x):
-        nd = agent_dims(x.shape, B)
+        nd = agent_dims(x.shape, B, weights.dim())
         out = fedavg_flat(w, x.reshape(B, -1).contiguous())
         return out.reshape(x.shape[nd:]).to(x.dtype)
 

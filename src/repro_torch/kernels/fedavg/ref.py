@@ -69,9 +69,15 @@ def fedavg_pod_ref(weights: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor
     return acc
 
 
-def agent_dims(shape, B: int) -> int:
+def agent_dims(shape, B: int, weight_dims: int = 1) -> int:
     """How many leading dims of ``shape`` make up the B agents: 1 for
-    (B, ...), 2 for (P, A, ...)."""
+    (B, ...), 2 for (P, A, ...).  One agent is ambiguous (any run of
+    leading 1s makes it up): then the weights' own dims, ``weight_dims``
+    (1 for (1,) weights, 2 for (1, 1))."""
+    if B == 1:
+        if tuple(shape[:weight_dims]) != (1,) * weight_dims:
+            raise ValueError(f"leaf shape {tuple(shape)} incompatible with 1 agent")
+        return weight_dims
     prod, nd = 1, 0
     while prod < B:
         prod *= shape[nd]
@@ -88,7 +94,7 @@ def fedavg_tree_ref(weights, stacked_tree):
     B = w.shape[0]
 
     def avg(x):
-        nd = agent_dims(x.shape, B)
+        nd = agent_dims(x.shape, B, weights.dim())
         return fedavg_flat_ref(w, x.reshape(B, -1)).reshape(x.shape[nd:]).to(x.dtype)
 
     return tree_map(avg, stacked_tree)

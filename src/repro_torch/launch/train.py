@@ -36,6 +36,8 @@ unless told otherwise:
       --secure-agg                     # pairwise-masked secure sum, same result
   PYTHONPATH=src python -m repro_torch.launch.train --experiment image_acgan \
       --robust trimmed_mean --trim 1   # Byzantine-robust reduce
+  PYTHONPATH=src python -m repro_torch.launch.train --experiment image_acgan \
+      --a-total 1024 --a-active 5      # a 1024-client fleet paged through 5 slots
 
 ``--device cuda`` (the default) raises when no GPU is present.  The
 legacy ``--mode`` still resolves through the deprecation shim.
@@ -44,7 +46,9 @@ legacy ``--mode`` still resolves through the deprecation shim.
 sampled there), where the reference defaults to ``stream``: the
 reference keeps ``stream`` for bit parity with its own blocking loop from
 before its runtime, a loop the port never had.  ``stream`` runs the
-reference's host pipeline, with its minibatch indices bit for bit.
+reference's host pipeline, with its minibatch indices bit for bit.  A
+fleet (``--a-total``) keeps its clients' data on the host and streams its
+rounds; ``--data-mode device`` beside it is refused.
 """
 from __future__ import annotations
 
@@ -61,7 +65,8 @@ from repro_torch.comm import codec_from_flags
 from repro_torch.configs.paper_gans import ALL_EXPERIMENTS, optimizer_for, scales_for
 from repro_torch.core import ACGAN, CONDITIONAL, FedAvgSync, FedGAN, FedGANConfig, \
     GANTask, make_gan_task, strategies
-from repro_torch.data import DeviceFederatedData, StreamingFederatedData, synthetic
+from repro_torch.data import (DeviceFederatedData, FleetRounds, StreamingFederatedData,
+                              synthetic)
 from repro_torch.models.gan_nets import one_hot
 from repro_torch.optim import Adam, constant, equal_timescale
 
@@ -102,7 +107,16 @@ class RunSpec:
     ``"stream"``: rounds assembled on the host and uploaded),
     ``run_result()`` executes the round loop through
     :class:`repro_torch.run.RoundDriver`, ``rounds_per_chunk`` rounds a
-    chunk on the device path."""
+    chunk on the device path.
+
+    With ``a_total`` the spec runs the virtual-client fleet
+    (:class:`repro_torch.run.VirtualClientDriver`): ``agent_data`` holds
+    the ``a_total`` clients' data, ``agent_grid`` is the device slot grid
+    of each round's cohort (drawn by ``ParticipationSchedule(
+    participation_seed)``), stragglers follow ``straggler_policy``
+    (``"block"`` or ``"defer"``).  The fleet streams its rounds from the
+    host (``data_mode="stream"``) and runs them one by one (a cohort
+    changes between rounds, so no chunk of rounds is captured)."""
 
     task: GANTask
     agent_data: list
@@ -125,10 +139,34 @@ class RunSpec:
     device: str = "cuda"
     data_mode: str = "device"       # "device" | "stream"
     rounds_per_chunk: int = 1       # device mode: rounds per captured chunk
+    # -- virtual-client fleet (repro_torch.run.virtual) ---------------------
+    a_total: int = 0                # fleet size; 0 = dense (all on the device)
+    participation_seed: int = 0     # ParticipationSchedule seed
+    straggler_policy: str = "block"  # "block" | "defer"
+
+    def __post_init__(self):
+        if self.a_total and self.rounds_per_chunk > 1:
+            raise ValueError(
+                f"rounds_per_chunk={self.rounds_per_chunk} with a_total: the fleet "
+                "pages a new cohort's state into the slots between rounds, so its "
+                "rounds run one by one and cannot be captured in chunks; leave "
+                "rounds_per_chunk at 1")
+        if self.a_total and self.data_mode != "stream":
+            raise ValueError(
+                f"data_mode={self.data_mode!r} with a_total: the fleet keeps its "
+                "clients' data on the host and streams each cohort's rounds; "
+                "use data_mode='stream'")
 
     @property
     def n_rounds(self) -> int:
         return max(self.steps // self.K, 1)
+
+    @property
+    def virtual(self) -> bool:
+        """Whether this spec runs the virtual-client fleet (``a_total``
+        set): a cohort of the ``a_total`` clients paged into the
+        ``agent_grid`` slots each round."""
+        return self.a_total > 0
 
     def build(self) -> FedGAN:
         return FedGAN(self.task,
@@ -152,9 +190,36 @@ class RunSpec:
         raise ValueError(f"unknown data_mode {self.data_mode!r} "
                          "(expected 'stream' or 'device')")
 
+    def build_fleet(self):
+        """The fleet's ``(FedGAN, FleetRounds)`` pair: the model on the
+        ``agent_grid`` slot grid, the data of all ``a_total`` clients (host
+        tensors)."""
+        if len(self.agent_data) != self.a_total:
+            raise ValueError(f"a_total={self.a_total} but agent_data holds "
+                             f"{len(self.agent_data)} client datasets")
+        return self.build(), FleetRounds(self.agent_data, self.agent_grid, self.batch_size,
+                                         self.K, sample_extra=self.sample_extra)
+
     def run_result(self):
-        """Execute through the round driver; returns its ``RunResult``."""
+        """Execute through the round driver (the fleet's, with
+        ``a_total``); returns its ``RunResult``.  The dense run inits from
+        ``seed`` and draws its rounds from ``seed + 1``; the fleet splits
+        ``seed + 1`` into both, as the reference's does."""
         from repro_torch.run.driver import RoundDriver
+        if self.virtual:
+            from repro_torch.core.participation import ParticipationSchedule
+            from repro_torch.run.virtual import StragglerPolicy, VirtualClientDriver
+            fed, fleet = self.build_fleet()
+            driver = VirtualClientDriver(
+                fed, fleet, self.n_rounds,
+                schedule=ParticipationSchedule(seed=self.participation_seed),
+                straggler=StragglerPolicy(mode=self.straggler_policy),
+                log_every=self.log_every, verbose=bool(self.log_every),
+                eval_every=self.eval_every, eval_hooks=self.eval_hooks,
+                ckpt_dir=self.ckpt_dir,
+                ckpt_every=max(self.n_rounds // 4, 1) if self.ckpt_dir else 0,
+                device=self.device)
+            return driver.run(self.seed + 1)
         fed = self.build()
         driver = RoundDriver(fed, self.build_data(), self.n_rounds,
                              log_every=self.log_every, eval_every=self.eval_every,
@@ -177,21 +242,15 @@ def _pooled_real(agent_data, seed: int = 0):
     return xs[perm.to(xs.device)]
 
 
-def _refuse_unported(*, a_total):
-    """Flags that reach a part of the reference not ported yet raise and
-    name where it comes; none is silently ignored."""
-    if a_total:
-        raise NotImplementedError("a_total: the virtual-client fleet is not "
-                                  "ported yet (ROADMAP slice 7)")
-
-
 def experiment_spec(name: str, *, K: int | None = None,
                     steps: int | None = None, seed: int = 0, strategy=None,
                     batch_size: int | None = None,
                     agents: int | None = None, log_every: int | None = None,
                     eval_every: int = 0, device="cuda", ckpt_dir: str = "",
                     samples_per_agent: int | None = None, a_total: int = 0,
-                    dp=None, data_mode: str = "device", rounds_per_chunk: int = 1):
+                    a_active: int = 0, participation_seed: int = 0,
+                    straggler_policy: str = "block", dp=None,
+                    data_mode: str | None = None, rounds_per_chunk: int = 1):
     """``(RunSpec, EvalSuite)`` for one of the paper's experiments on its
     synthetic stand-in data, built on ``device`` from a ``torch.Generator``
     seeded with ``seed``: the reference's recipe (nets, non-iid split,
@@ -208,17 +267,43 @@ def experiment_spec(name: str, *, K: int | None = None,
     that many rounds, captured on the card.  ``dp`` (a
     ``repro_torch.privacy.DPSGD``) turns on per-agent DP-SGD.
 
-    ``a_total`` reaches the virtual-client fleet, not ported yet, and
-    raises."""
+    ``a_total`` switches to the virtual-client fleet: the experiment's
+    non-iid split is dealt over ``a_total`` clients (modes, class slices
+    and climate zones wrap; each client's shard shrinks to
+    ``samples_per_agent``, default 512, so a thousand-client fleet fits the
+    host's memory), made on ``device`` and kept on the host, and each round
+    the ``ParticipationSchedule(participation_seed)`` cohort of
+    ``a_active`` (default the experiment's B) runs on the device slots.
+    ``data_mode`` defaults to ``"device"``, and to ``"stream"`` for a
+    fleet."""
     from repro_torch.run.evals import EvalSuite, eval_hook
     if name not in ALL_EXPERIMENTS:
         raise KeyError(f"unknown experiment {name!r}; known: {sorted(ALL_EXPERIMENTS)}")
-    _refuse_unported(a_total=a_total)
     dev = resolve_device(device)
     exp = ALL_EXPERIMENTS[name]
     K = K or exp.default_K
     steps = steps or exp.iterations
-    B = agents or exp.num_agents
+    if a_total:
+        if agents:
+            raise ValueError("--agents conflicts with --a-total (the fleet "
+                             "size IS the client count); use --a-active for "
+                             "the per-round cohort size")
+        B = a_total
+        a_active = a_active or exp.num_agents
+        if not 1 <= a_active <= a_total:
+            raise ValueError(f"a_active={a_active} must be in [1, "
+                             f"a_total={a_total}]")
+    elif a_active or participation_seed or straggler_policy != "block":
+        raise ValueError("a_active, participation_seed and straggler_policy set the "
+                         "fleet's cohorts and stragglers: they need a_total")
+    else:
+        B = agents or exp.num_agents
+    if samples_per_agent is None and a_total:
+        # a thousand-client fleet lives on the host: smaller shards keep the
+        # whole fleet's data in memory (dense runs keep the paper's sizes)
+        samples_per_agent = 512
+    if data_mode is None:
+        data_mode = "stream" if a_total else "device"
     n_of = lambda default: samples_per_agent or default  # noqa: E731
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -288,15 +373,20 @@ def experiment_spec(name: str, *, K: int | None = None,
         suite = EvalSuite(real=_pooled_real(agent_data, seed),
                           sample_fake=sample_profiles, kind="timeseries")
 
+    if a_total:   # the fleet's data lives on the host
+        agent_data = [{k: v.cpu() for k, v in d.items()} for d in agent_data]
     opt_d, opt_g = optimizer_for(exp)
     spec = RunSpec(
-        task=task, agent_data=agent_data, agent_grid=(1, B), K=K, steps=steps,
+        task=task, agent_data=agent_data, agent_grid=(1, a_active) if a_total else (1, B),
+        K=K, steps=steps,
         batch_size=batch_size or exp.batch_size, scales=scales_for(exp),
         opt_d=opt_d, opt_g=opt_g, strategy=strategy, dp=dp, sample_extra=extra, seed=seed,
         log_every=max((steps // K) // 10, 1) if log_every is None else log_every,
         ckpt_dir=ckpt_dir, eval_every=eval_every,
         eval_hooks=(eval_hook(suite, seed=seed),) if eval_every else (),
-        device=str(dev), data_mode=data_mode, rounds_per_chunk=rounds_per_chunk)
+        device=str(dev), data_mode=data_mode, rounds_per_chunk=rounds_per_chunk,
+        a_total=a_total, participation_seed=participation_seed,
+        straggler_policy=straggler_policy)
     return spec, suite
 
 
@@ -422,10 +512,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=-1,
                     help="rounds between metric logs; 0 silences, "
                          "-1 = experiment default")
-    ap.add_argument("--data-mode", default="device", choices=["device", "stream"],
+    ap.add_argument("--data-mode", default=None, choices=["device", "stream"],
                     help="round data pipeline: device-resident sampling (the "
                          "port's default) or host-streaming rounds (the "
-                         "reference's default)")
+                         "reference's default; a fleet's only pipeline)")
+    ap.add_argument("--a-total", type=int, default=0,
+                    help="virtual-client fleet size (0 = dense: every agent "
+                         "on the device)")
+    ap.add_argument("--a-active", type=int, default=0,
+                    help="fleet: clients per round on the device slots "
+                         "(0 = experiment default B)")
+    ap.add_argument("--straggler-policy", default="block", choices=["block", "defer"],
+                    help="fleet: what a planted-late client does (block: the "
+                         "round waits; defer: its delta merges later, decayed)")
+    ap.add_argument("--participation-seed", type=int, default=0,
+                    help="fleet: seed of the per-round cohort draw")
     ap.add_argument("--device", default="cuda",
                     help="torch device; cuda (the default) needs a GPU")
     return ap
@@ -513,17 +614,21 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if bool(args.experiment) == bool(args.arch):
         ap.error("need exactly one of --experiment and --arch")
+    if args.arch and (args.a_total or args.a_active):
+        ap.error("--a-total/--a-active need --experiment (a backbone smoke run "
+                 "has no fleet)")
     strategy = strategy_from_args(args)
     overrides = dict(dp=dp_from_args(args),
                      batch_size=args.batch_size or None, agents=args.agents or None,
                      log_every=None if args.log_every < 0 else args.log_every,
-                     device=args.device, ckpt_dir=args.ckpt_dir,
-                     data_mode=args.data_mode)
+                     device=args.device, ckpt_dir=args.ckpt_dir)
     if args.experiment:
         spec, _ = experiment_spec(
             args.experiment, K=args.K or None, steps=args.steps or None, seed=args.seed,
             strategy=strategy, eval_every=args.eval_every,
-            samples_per_agent=args.samples_per_agent or None, **overrides)
+            samples_per_agent=args.samples_per_agent or None, a_total=args.a_total,
+            a_active=args.a_active, participation_seed=args.participation_seed,
+            straggler_policy=args.straggler_policy, data_mode=args.data_mode, **overrides)
     else:
         if args.eval_every:
             ap.error("--eval-every needs --experiment (no eval suite exists "
@@ -532,7 +637,8 @@ def main(argv=None):
             ap.error("--samples-per-agent needs --experiment (a backbone smoke "
                      "run holds 256 sequences an agent)")
         spec = arch_smoke_spec(args.arch, steps=args.steps or 20, K=args.K or 5,
-                               seed=args.seed, strategy=strategy, **overrides)
+                               seed=args.seed, strategy=strategy,
+                               data_mode=args.data_mode or "device", **overrides)
     result = spec.run_result()
     for e in result.evals:
         print(json.dumps({"eval": True, **e}))

@@ -56,6 +56,30 @@ def key(seed: int) -> np.ndarray:
     return np.array([0, int(seed) & 0xFFFFFFFF], np.uint32)
 
 
+def as_key(seed) -> np.ndarray:
+    """A driver's root key: ``key(seed)`` for an int seed, else ``seed``
+    itself, a key's (2,) uint32 data."""
+    if isinstance(seed, (int, np.integer)):
+        return key(int(seed))
+    k = np.asarray(seed, np.uint32)
+    if k.shape != (2,):
+        raise ValueError(f"a key is (2,) uint32 data, got shape {k.shape}")
+    return k
+
+
+def key_seed(k) -> int:
+    """The 64-bit integer of key ``k``'s two words, high word first: the
+    seed of a ``torch.Generator`` made from a key."""
+    return (int(k[0]) << 32) | int(k[1])
+
+
+def seed_int(seed) -> int:
+    """A driver's integer seed: an int as it is, a key as ``key_seed``."""
+    if isinstance(seed, (int, np.integer)):
+        return int(seed)
+    return key_seed(as_key(seed))
+
+
 def fold_in(k, data: int) -> np.ndarray:
     """``jax.random.fold_in``: the hash of the pair (0, data) under ``k``."""
     y0, y1 = threefry2x32(k, np.zeros(1, np.uint32),

@@ -37,7 +37,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.checkpoint import save_checkpoint
-from repro_torch.data.federated import (DeviceFederatedData, FederatedRounds,
+from repro_torch.data.federated import (DeviceFederatedData, FederatedRounds, FleetRounds,
                                         StreamingFederatedData, round_key_schedule)
 from repro_torch.run.graph import CapturedRound, metric_row
 from repro_torch.tree import tree_leaves, tree_map
@@ -87,7 +87,7 @@ def _dp_data_shape(data):
         # one host read of the shard sizes, before the round loop
         return data.batch_size, int(data.sizes.min())
     rounds = data.rounds if isinstance(data, StreamingFederatedData) else data
-    if isinstance(rounds, FederatedRounds):
+    if isinstance(rounds, (FederatedRounds, FleetRounds)):
         n_min = min(tree_leaves(d)[0].shape[0] for d in rounds.agent_data)
         return rounds.batch_size, n_min
     return None
@@ -176,19 +176,21 @@ class RoundDriver:
     def device(self) -> torch.device:
         return torch.device(self.data.device)
 
-    def run(self, seed: int, state=None) -> RunResult:
-        """Execute the round loop.  ``seed`` seeds the rounds' draws: the
-        device path's per-round generators (``round_key_schedule``), the
-        stream path's keys (``stream_key_schedule(prng.key(seed))``, the
-        reference's schedule from ``jax.random.key(seed)``).  ``state``
-        defaults to a fresh init from a ``torch.Generator`` seeded with
-        ``seed``."""
+    def run(self, seed, state=None) -> RunResult:
+        """Execute the round loop.  ``seed`` (an int, or a
+        ``repro_torch.prng`` key, which stands for ``prng.seed_int`` of it
+        where an int is needed) seeds the rounds' draws: the device path's
+        per-round generators (``round_key_schedule``), the stream path's
+        keys (``stream_key_schedule(prng.as_key(seed))``, the reference's
+        schedule from ``jax.random.key(seed)`` or from that key).
+        ``state`` defaults to a fresh init from a ``torch.Generator``
+        seeded with ``prng.seed_int(seed)``."""
         dev = self.device
         dp = self.fed.cfg.dp
         if dp is not None:
             check_dp_sample_rate(dp, self.data)
         if state is None:
-            state = self.fed.init_state(torch.Generator().manual_seed(seed),
+            state = self.fed.init_state(torch.Generator().manual_seed(prng.seed_int(seed)),
                                         device=dev)
         self._evals, table = [], _Table(self.n_rounds)
         t0 = time.perf_counter()
@@ -222,8 +224,8 @@ class RoundDriver:
         from the round's generator of ``round_key_schedule``."""
         state = handoff.pop()
         gap = 0.0
-        it = self.data.iter_rounds(prng.key(seed), self.n_rounds)
-        gens = (round_key_schedule(seed, self.n_rounds, self.device)
+        it = self.data.iter_rounds(prng.as_key(seed), self.n_rounds)
+        gens = (round_key_schedule(prng.seed_int(seed), self.n_rounds, self.device)
                 if self.fed.cfg.dp_noise else [None] * self.n_rounds)
         for r in range(self.n_rounds):
             t = time.perf_counter()
@@ -245,7 +247,7 @@ class RoundDriver:
         state = handoff.pop()
         gap, r = 0.0, 0
         t_host = time.perf_counter()
-        gens = round_key_schedule(seed, self.n_rounds, self.device)
+        gens = round_key_schedule(prng.seed_int(seed), self.n_rounds, self.device)
         for c in _chunk_sizes(self.n_rounds, self.rounds_per_chunk,
                               self.eval_every, self.ckpt_every):
             for rr in range(r, r + c):

@@ -48,7 +48,13 @@ products are already rounded); the robust reduces bit for bit the CPU's
 (a stable sort, then an order statistic, or adds in sorted order); every
 per-example joint norm at most C (1 + 1e-6), and C within 1e-5 where it
 was clipped; captured secure, DP and robust rounds bit for bit the eager
-ones.
+ones.  The virtual-client fleet: the identity fleet on the card
+bit for bit the dense stream run (the same rounds; ``cudnn.deterministic``
+set); a deferred-straggler round (K = 1) on the card against the CPU port
+within ``torch_shared``'s round bounds; the deferred merge's and the
+async flush's fedavg launches held in place as the sync's are, the async
+demo's journal equal to the CPU's apart from the params digests, and two
+card runs byte-identical.
 """
 import dataclasses
 
@@ -1116,3 +1122,90 @@ def test_captured_privacy_rounds_match_eager(cuda, privacy):
     assert runs[6].timings["captured"] and counts[6] == counts[1]
     assert counts[1]["fedavg"] == (0 if privacy == "trimmed_mean" else 2 * 6)
     assert runs[6].history == runs[1].history and _same_state(runs[6].state, runs[1].state)
+
+
+# ---------------------------------------------------------------------------
+# the virtual-client fleet and the async buffered aggregation
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_fleet_identity_on_card_matches_dense(cuda):
+    """With A_total == A_active and the identity schedule the fleet on the
+    card is the dense stream run on the card bit for bit (image_acgan's
+    nets at a small batch, int8 + EF under Adam), its rows and
+    batches paged through pinned buffers; ``cudnn.deterministic`` set,
+    since cuDNN's weight gradient is not deterministic otherwise."""
+    from repro_torch.data import FederatedRounds, StreamingFederatedData
+    from repro_torch.run import RoundDriver
+    from repro_torch.run.virtual import init_generators
+    strat = FedAvgSync(codec=IntQuant(bits=8))
+    fleet_spec, _ = experiment_spec("image_acgan", K=2, steps=6, a_total=5, a_active=5,
+                                    batch_size=8, samples_per_agent=64, log_every=0,
+                                    strategy=strat, device=cuda)
+    fed = fleet_spec.build()
+    data = StreamingFederatedData(FederatedRounds(fleet_spec.agent_data, (1, 5), 8, 2,
+                                                  sample_extra=fleet_spec.sample_extra),
+                                  device=cuda)
+    data_rng, init_gen = init_generators(fleet_spec.seed + 1)
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        virt = fleet_spec.run_result()
+        dense = RoundDriver(fed, data, 3, log_every=0, verbose=False).run(
+            data_rng, state=fed.init_state(init_gen(), device=cuda))
+    finally:
+        torch.backends.cudnn.deterministic = old
+    assert virt.timings["swapped_rows"] == 0 and virt.history == dense.history
+    assert _same_state(virt.state, dense.state)
+
+
+@pytest.mark.cuda
+def test_fleet_round_on_card_matches_cpu(cuda):
+    """One deferred-straggler fleet round (K = 1, a planted late and drop,
+    the merge through the fedavg kernel) on the card against the CPU port
+    within ``torch_shared``'s round bounds; the dropped slot reverted bit
+    for bit on both."""
+    from torch_shared import port_fleet_round_mismatches
+    (bad, _), dropped = port_fleet_round_mismatches(cuda)
+    assert bad == [] and dropped
+
+
+@pytest.mark.cuda
+def test_fleet_merge_and_flush_launch_fedavg(cuda):
+    """The deferred merge and the async flush run the fedavg kernel, each
+    launch held in place to its plain version: one launch per synced leaf
+    per merged round and per flush.  The async demo's journal on the card
+    equals the CPU's apart from the params digests, and two card runs are
+    byte-identical, digests included."""
+    from torch_shared import held_sync_kernels
+    from repro_torch.core import FedGAN, FedGANConfig, ParticipationSchedule
+    from repro_torch.data import FleetRounds
+    from repro_torch.optim import SGD, constant, equal_timescale
+    from repro_torch.run.simclock import demo_data, demo_driver, demo_task
+    from repro_torch.run.virtual import StragglerPolicy, VirtualClientDriver
+    fed = FedGAN(demo_task(1), FedGANConfig(agent_grid=(1, 4), sync_interval=3),
+                 opt_g=SGD(), opt_d=SGD(), scales=equal_timescale(constant(0.05)))
+    fleet = FleetRounds(demo_data(1, 8), (1, 4), 8, 3)
+    faults = lambda r, slots: {slots[0]: "late:1", slots[2]: "drop"} if r == 0 else {}  # noqa: E731
+    before = fedavg_flat.launches
+    with held_sync_kernels() as held:
+        res = VirtualClientDriver(fed, fleet, 3, straggler=StragglerPolicy(mode="defer"),
+                                  faults=faults, log_every=0, device=cuda,
+                                  schedule=ParticipationSchedule(seed=2)).run(1)
+        torch.cuda.synchronize()
+        assert fedavg_flat.launches - before == 2 * 3 == held["fedavg"]["calls"]
+        assert res.timings["merged_deltas"] == 1
+        before = fedavg_flat.launches
+        runs = [demo_driver(seed=7, device=cuda) for _ in range(2)]
+        for d in runs:
+            d.run(7)
+        torch.cuda.synchronize()
+        flushes = sum(d.journal.counts()["flush"] for d in runs)
+        assert fedavg_flat.launches - before == 2 * flushes
+    assert runs[0].journal.canonical_bytes() == runs[1].journal.canonical_bytes()
+    cpu = demo_driver(seed=7, device="cpu")
+    cpu.run(7)
+    strip = lambda j: [{k: v for k, v in r.items() if k != "params_digest"}  # noqa: E731
+                       for r in j.records]
+    assert strip(cpu.journal) == strip(runs[0].journal)

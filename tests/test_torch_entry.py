@@ -79,14 +79,19 @@ def test_driver_runs_device_data_and_keeps_agents_synced():
 
 
 def test_unported_paths_refuse_instead_of_falling_back():
-    """What waits for its slice (the virtual-client fleet, slice 7) raises
-    instead of running something else; secure aggregation and DP-SGD,
-    ported, validate as the reference's do (a secure sum refuses a codec
-    wire, a DP config its bad clip)."""
+    """The virtual-client fleet, once refused, builds and runs on the CPU
+    (``a_total=16``: 16 clients paged through the experiment's 5 slots);
+    secure aggregation and DP-SGD validate as the reference's do (a secure
+    sum refuses a codec wire, a DP config its bad clip)."""
     from repro_torch.privacy import DPSGD, SecureAgg
     _, tfed, _ = _pair("adam", True)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        train.experiment_spec("toy_2d", device="cpu", a_total=16)
+    spec, _ = train.experiment_spec("toy_2d", device="cpu", a_total=16, K=2, steps=6,
+                                    samples_per_agent=32, batch_size=4, log_every=0)
+    assert spec.virtual and spec.agent_grid == (1, 5) and len(spec.agent_data) == 16
+    result = spec.run_result()
+    assert result.timings["data_kind"] == "virtual" and len(result.history) == 3
+    assert result.timings["a_total"] == 16 and result.timings["swapped_rows"] > 0
+    assert all(np.isfinite(v) for m in result.history for v in m.values())
     with pytest.raises(ValueError, match="codec"):
         dataclasses.replace(tfed.cfg, strategy=FedAvgSync(secure_agg=SecureAgg(),
                                                           codec=tfed.cfg.strategy.codec)

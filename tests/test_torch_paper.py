@@ -450,12 +450,17 @@ def test_experiment_spec_runs_two_rounds(name):
 
 
 def test_experiment_spec_refuses_what_is_not_ported():
-    """Flags that reach a part not ported yet raise and name where it
-    comes; an unknown experiment is a KeyError.  ``data_mode="stream"``,
-    refused until the host-streaming pipeline was ported, now runs, and
-    so does ``dp`` since the privacy slice."""
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        ttrain.experiment_spec("toy_2d", device="cpu", a_total=16)
+    """An unknown experiment is a KeyError.  ``data_mode="stream"``,
+    refused until the host-streaming pipeline was ported, now runs, and so
+    do ``dp`` since the privacy slice and ``a_total`` (the virtual-client
+    fleet, on the host stream) since the fleet slice."""
+    spec, _ = ttrain.experiment_spec("toy_2d", device="cpu", a_total=16, K=2, steps=4,
+                                     samples_per_agent=32, batch_size=4, log_every=0)
+    assert (spec.a_total, spec.data_mode, spec.agent_grid) == (16, "stream", (1, 5))
+    result = spec.run_result()
+    assert result.timings["data_kind"] == "virtual" and len(result.history) == 2
+    assert 5 <= result.timings["store_rows"] <= 16
+    assert all(np.isfinite(v) for m in result.history for v in m.values())
     from repro_torch.privacy import DPSGD
     spec, _ = ttrain.experiment_spec("toy_2d", device="cpu", dp=DPSGD(clip=0.5))
     assert spec.build().cfg.dp == DPSGD(clip=0.5)

@@ -326,7 +326,7 @@ def noise_leaves(grads, net):
     return {p for p, g in leaves if float(np.abs(g).max()) <= _ZERO_TO_ROUNDING * top}
 
 
-def round_mismatches(exp, K, got, want, grads, losses):
+def round_mismatches(exp, K, got, want, grads, losses, synced=True):
     """Every way the round ``got`` departs from ``want`` under the bounds
     above, and the worst leaf.  ``got``, ``want``: the states after the
     round as trees of numpy arrays (``params`` leaves (P, A, ...),
@@ -335,7 +335,9 @@ def round_mismatches(exp, K, got, want, grads, losses):
     ((d_loss, g_loss) of ``got``'s first step, the same of ``want``'s).
     Returns (departures, (ratio, path)): an empty list when the round is
     within its bounds, and the largest ratio of |got - want| to its limit
-    with the leaf where it sits."""
+    with the leaf where it sits.  ``synced=False`` drops the check that
+    every agent holds the same params (a fleet round whose faulted slots
+    keep their own)."""
     bad, worst = [], (-1.0, None)
     for k, g, w in zip(("d_loss", "g_loss"), *losses):
         if not np.isclose(g, w, rtol=_LOSS_RTOL, atol=0):
@@ -348,7 +350,7 @@ def round_mismatches(exp, K, got, want, grads, losses):
         assert [p for p, _ in gl] == [p for p, _ in wl] == [p for p, _ in rl]
         noise = noise_leaves(grads, net) if exp.opt == "adam" else set()
         for (path, g), (_, w), (_, gr) in zip(gl, wl, rl):
-            if not (g == g[:1, :1]).all():
+            if synced and not (g == g[:1, :1]).all():
                 bad.append((path, "agents not synced"))
             d = np.abs(g - w)
             if exp.opt == "sgd":
@@ -422,6 +424,53 @@ def port_round_mismatches(name, device, K=CARD_K, order=None, strategy=None, dp=
     losses = tuple((m["d_loss"][0].item(), m["g_loss"][0].item()) for m in (gm, wm))
     return round_mismatches(tpaper.ALL_EXPERIMENTS[name], K, to_np(got), to_np(want),
                             to_np(grads), losses)
+
+
+def port_fleet_round_mismatches(device, K=CARD_K):
+    """One deferred-straggler fleet round of image_acgan's nets at test
+    size (``round_fed``) on ``device`` against the same round on the CPU
+    port: 8 clients of 16 numpy samples on 5 slots, the round's cohort with
+    a planted ``late:1`` and a ``drop`` under ``StragglerPolicy("defer")``,
+    so the round takes the split path (K local steps, the merge through
+    ``fedavg_tree`` over the on-time slots, the dropped slot reverted).
+    Both runs init on the CPU from one generator and assemble the same
+    host batches (the latents come from host generators).  Returns
+    ``round_mismatches`` (unsynced: the faulted slots keep their own
+    params) and whether the dropped slot holds its start params bit for
+    bit on both."""
+    from repro_torch.data import FleetRounds, stream_key_schedule
+    from repro_torch.run.virtual import StragglerPolicy, VirtualClientDriver, init_generators
+    fed = round_fed("image_acgan", K)
+    rng = np.random.default_rng(0)
+    shards = [{"x": torch.from_numpy(rng.standard_normal((16, 8, 8, 3)).astype(np.float32)),
+               "y": torch.from_numpy(rng.integers(0, 10, 16).astype(np.int32))}
+              for _ in range(8)]
+    extra = lambda g, s: {"z": torch.randn(s + (62,), generator=g)}  # noqa: E731
+    fleet = FleetRounds(shards, fed.cfg.agent_grid, ROUND_BATCH, K, sample_extra=extra)
+    faults = lambda r, slots: {slots[1]: "late:1", slots[3]: "drop"}  # noqa: E731
+
+    def run(dev):
+        drv = VirtualClientDriver(fed, fleet, 1, straggler=StragglerPolicy(mode="defer"),
+                                  faults=faults, log_every=0, device=dev)
+        out = drv.run(3)
+        assert (out.timings["late"], out.timings["dropped"]) == (1, 1)
+        return out
+
+    data_rng, init_gen = init_generators(3)
+    start = fed.init_state(init_gen(), device="cpu")
+    cohort = VirtualClientDriver(fed, fleet, 1, device="cpu").cohort(0)
+    batches, _ = fleet.round_batches(stream_key_schedule(data_rng, 1)[0], cohort)
+    with torch.backends.mkldnn.flags(enabled=False, allow_tf32=None):
+        want = run("cpu")
+        grads = first_step_grads(fed, start, batches)
+    got = run(device)
+    to_np = lambda t: tree_map(lambda x: x.detach().cpu().numpy(), t)  # noqa: E731
+    dropped = all(bool((x[0, 3] == y[0, 3]).all()) for s in (got, want)
+                  for x, y in zip(tree_leaves(to_np(s.state["params"])),
+                                  tree_leaves(to_np(start["params"]))))
+    losses = tuple((r.history[0]["d_loss"], r.history[0]["g_loss"]) for r in (got, want))
+    return round_mismatches(tpaper.ALL_EXPERIMENTS["image_acgan"], K, to_np(got.state),
+                            to_np(want.state), to_np(grads), losses, synced=False), dropped
 
 
 # ---------------------------------------------------------------------------
@@ -530,8 +579,10 @@ def _bits_equal(a, b):
 @contextlib.contextmanager
 def held_sync_kernels(columns=HOLD_COLUMNS):
     """While open, every call of a sync kernel's wrapper on the paths of
-    the coded and the plain sync (fedavg's float32 route, qsync, and
-    qpack's quant, dequant, pack4 and unpack4) also runs the kernel's plain
+    the coded and the plain sync (fedavg's float32 route, through the
+    collectives and through ``fedavg_tree``, the fleet's deferred merge and
+    async flush; qsync; and qpack's quant, dequant, pack4 and unpack4) also
+    runs the kernel's plain
     version on the same inputs, ``columns`` columns at a time (every output
     column, or block of 128 columns, depends on its own inputs alone), and
     holds the kernel's outputs to it: fedavg within 1e-6 of sum_b |w_b
@@ -542,6 +593,7 @@ def held_sync_kernels(columns=HOLD_COLUMNS):
     departure raises ``AssertionError``.  The plain versions launch no
     kernel, so the launch counters count as they do outside."""
     from repro_torch.dist import collectives
+    from repro_torch.kernels.fedavg import ops as fops
     from repro_torch.kernels.fedavg.ref import fedavg_flat_ref
     from repro_torch.kernels.qpack import kernel as pk
     from repro_torch.kernels.qpack import ref as pref
@@ -614,6 +666,7 @@ def held_sync_kernels(columns=HOLD_COLUMNS):
         note("unpack4", p.shape, 0.0)
 
     patches = [(collectives._REDUCE, torch.float32, hold_fedavg),
+               (fops, "fedavg_flat", hold_fedavg),
                (qk, "qsync_flat", hold_qsync), (pk, "quant_flat", hold_quant),
                (pk, "dequant_flat", hold_dequant), (pk, "pack4_flat", hold_pack4),
                (pk, "unpack4_flat", hold_unpack4)]
