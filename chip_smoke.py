@@ -288,6 +288,26 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    time printed; ``demo_driver`` twice on the card, byte-identical
    journals.
 
+15. The mesh on one card (``run_mesh``), on ``make_serving_mesh()`` (a
+   (1, 1) ("data", "model") ``DeviceMesh`` over a one-rank NCCL group;
+   every spec filters to replicated, so the mesh path must equal the
+   unsharded one bit for bit): (a) gemma3-4b at full width on phase 8's
+   params placed by ``param_specs`` (DTensors): a prefill of 2 x 2,048
+   tokens through ``Backbone(cfg, use_flash=True)`` under ``use_mesh``,
+   exactly 34 flash launches, logits bit-identical to the unsharded
+   prefill; ``build_prefill`` and ``build_decode`` (flash off, as the
+   reference's builders) bit-identical to the unsharded backbone; (b)
+   ``ServeEngine(cfg, mesh=make_serving_mesh())`` on those params serving
+   GEMMA_WORK's first two requests, eager and captured: the captured tick
+   bit-identical to the eager one, the tokens the unsharded engine's; (c)
+   the LM GAN round ``build_step(granite-moe-3b-a800m cut to 2 layers,
+   ShapeConfig("train_card", 256, 8, "train"), mesh, K=5,
+   plan=AGENTS_DATA)`` (one agent) against ``FedGAN.round`` on the same
+   state and batches without a mesh: the new state bit-identical, 2
+   fedavg launches each and no other kernel; (d) ``run_experiment(
+   "toy_2d")`` for 4 rounds, its history ``experiment_spec(...).run()``'s.
+   Each part's wall time and the card's peak memory are printed.
+
 In every main-path run each kernel's launch counter is set to 0 just
 before it and read just after it, and the kernels the path does not run
 must read 0.  The second-to-last line is the kernels' record as one JSON
@@ -3400,6 +3420,220 @@ def run_fleet(torch, dev):
     log(f"fleet phase 14: {time.perf_counter() - t_phase:.1f} s wall; {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the mesh on one card
+# ---------------------------------------------------------------------------
+
+
+def _mesh_part(torch, label, t0, card):
+    torch.cuda.synchronize()
+    log(f"mesh {label}: {time.perf_counter() - t0:.1f} s wall, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; {card}")
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _tree_same_bits(torch, a, b):
+    from repro_torch.dist.sharding import full_tree
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(full_tree(a)), tree_leaves(full_tree(b))
+    return len(la) == len(lb) and all(same_bits(torch, x, y) for x, y in zip(la, lb))
+
+
+def _mesh_gemma(torch, dev, params, mesh, card):
+    """(a): gemma3-4b's prefill and the serving builders on the mesh."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist.sharding import (is_sharded, named_shardings, param_specs, place,
+                                           use_mesh)
+    from repro_torch.launch.steps import build_decode, build_prefill
+    from repro_torch.models import Backbone
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    cfg = get_config("gemma3-4b")
+    B, T = 2, 2048
+    toks = torch.randint(0, cfg.vocab_size, (B, T),
+                         generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    counters = launch_counters()
+    flash = Backbone(cfg, use_flash=True)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    want, plain_ms = timed(lambda: flash.prefill(params, toks)["logits"])
+    placed = place(params, named_shardings(mesh, param_specs(params, mesh)))
+    check(all(is_sharded(x) for x in tree_leaves(placed)), "mesh: params are not DTensors")
+    mesh_ms = []
+    for _ in range(2):   # the first call fills DTensor's sharding caches
+        _reset(counters)
+        with use_mesh(mesh):
+            got, ms = timed(lambda: flash.prefill(placed, toks)["logits"])
+        mesh_ms.append(ms)
+    counts = _read(counters)
+    expect = {n: 34 if n == "flash_attention" else 0 for n in counters}
+    check(counts == expect, f"mesh gemma3-4b prefill: launches {counts}, expected {expect}")
+    check(is_sharded(got) and _tree_same_bits(torch, got, want),
+          "mesh gemma3-4b prefill: logits differ from the unsharded prefill")
+    del got, want
+    plain = Backbone(cfg)
+    bp = build_prefill(cfg, ShapeConfig("prefill_card", T, B, "prefill"), mesh)
+    _reset(counters)
+    # the builders' param specs are param_specs' on the same mesh: the
+    # placed params serve all three
+    out = bp.fn(placed, place(toks, bp.in_shardings[1]))
+    torch.cuda.synchronize()
+    check(all(v == 0 for v in _read(counters).values()), "mesh build_prefill launched a kernel")
+    ref = plain.prefill(params, toks, logits_mode="last")
+    check(_tree_same_bits(torch, out["logits"], ref["logits"]),
+          "mesh build_prefill: logits differ from the unsharded backbone's")
+    del out, ref
+    steps = 4
+    bd = build_decode(cfg, ShapeConfig("decode_card", T + steps, B, "decode"), mesh)
+    pre = plain.prefill(params, toks, max_seq=T + steps)
+    tok = pre["logits"][:, -1].argmax(-1, keepdim=True)
+    cache = place(pre["cache"], bd.in_shardings[2])
+    ref_cache = pre["cache"]
+    for s in range(steps):
+        lg, cache = bd.fn(placed, place(tok, bd.in_shardings[1]), cache,
+                          torch.tensor(T + s, device=dev))
+        rl, ref_cache = plain.decode(params, tok, ref_cache, T + s)
+        check(_tree_same_bits(torch, lg, rl), f"mesh build_decode step {s}: logits differ")
+        tok = rl[:, -1].argmax(-1, keepdim=True)
+    check(_tree_same_bits(torch, cache, ref_cache), "mesh build_decode: caches differ")
+    log(f"mesh (a) gemma3-4b (34 layers, d_model 2560, bf16 compute) on {mesh}: prefill "
+        f"2 x {T} under use_mesh with {counts['flash_attention']} flash launches, logits "
+        f"bit-identical to the unsharded prefill, {mesh_ms[0]:.1f} ms on the first call and "
+        f"{mesh_ms[1]:.1f} on the second against {plain_ms:.1f} unsharded (wall); "
+        f"build_prefill and {steps} build_decode steps bit-identical to the unsharded "
+        f"backbone")
+    _mesh_part(torch, "(a) gemma3-4b prefill and builders", t0, card)
+
+
+def _mesh_serve(torch, dev, params, mesh, card):
+    """(b): ServeEngine(mesh=) against the unsharded engine."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist.sharding import is_sharded
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    cfg = get_config("gemma3-4b")
+    work = GEMMA_WORK[:2]
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, T).tolist() for T, _ in GEMMA_WORK][:2]
+    kw = dict(max_batch=4, max_seq=4096, min_bucket=16)
+    plain = _serve_run(torch, cfg, params, dev, work, prompts, "mesh (b) unsharded engine",
+                       capture=True, **kw)
+    plain_eager = _serve_run(torch, cfg, params, dev, work, prompts,
+                             "mesh (b) unsharded engine eager", capture=False, **kw)
+    eager = _serve_run(torch, cfg, params, dev, work, prompts, "mesh (b) engine eager",
+                       capture=False, mesh=mesh, **kw)
+    capt = _serve_run(torch, cfg, params, dev, work, prompts, "mesh (b) engine captured",
+                      capture=True, mesh=mesh, **kw)
+    eng = capt[0]
+    check(eng.captured and all(is_sharded(x) for x in tree_leaves(eng.cache)),
+          "mesh (b): the engine's tick is not captured on DTensors")
+    for a, b, label in ((capt, eager, "captured vs eager"), (capt, plain, "vs unsharded")):
+        check(a[0].stats.decode_ticks == b[0].stats.decode_ticks, f"mesh (b) {label}: ticks")
+        check(all(a[1][r].generated == b[1][r].generated for r in a[1]),
+              f"mesh (b) {label}: tokens differ")
+    same_rows = all(np.array_equal(x.view(np.uint32), y.view(np.uint32))
+                    for r in capt[0].rows for x, y in zip(capt[0].rows[r], eager[0].rows[r]))
+    check(same_rows and _tree_same_bits(torch, capt[0].cache, eager[0].cache),
+          "mesh (b): the captured tick is not the eager tick bit for bit")
+    vs_plain = all(np.array_equal(x.view(np.uint32), y.view(np.uint32))
+                   for r in capt[0].rows for x, y in zip(capt[0].rows[r], plain[0].rows[r]))
+    s = eng.stats
+    log(f"mesh (b) ServeEngine(gemma3-4b, mesh=make_serving_mesh()): {len(work)} requests "
+        f"({[T for T, _ in work]} prompt tokens, {work[0][1]} new each), tokens equal to the "
+        f"unsharded engine's, captured tick bit-identical to the eager one, logits rows "
+        f"bit-identical to the unsharded engine's: {vs_plain}; tick p50 captured "
+        f"{s.tick_ms(50):.2f} ms (unsharded {plain[0].stats.tick_ms(50):.2f} ms), eager "
+        f"{eager[0].stats.tick_ms(50):.2f} ms (unsharded "
+        f"{plain_eager[0].stats.tick_ms(50):.2f} ms), {s.tokens_per_sec():.1f} tokens/s")
+    _mesh_part(torch, "(b) sharded engine", t0, card)
+
+
+def _mesh_lm_gan(torch, dev, mesh, card):
+    """(c): the built LM GAN round against FedGAN.round without a mesh."""
+    from repro_torch.dist.sharding import full_tree, is_sharded, place
+    from repro_torch.launch.steps import AGENTS_DATA, build_step
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    cfg = _lm_gan_cfg(2)
+    built = build_step(cfg, ShapeConfig("train_card", 256, 8, "train"), mesh, K=5,
+                       plan=AGENTS_DATA)
+    fed = built.fed
+    check(fed.cfg.agent_grid == (1, 1), f"mesh (c): agent grid {fed.cfg.agent_grid}")
+    state = fed.init_state(torch.Generator(device=dev).manual_seed(0), device=dev)
+    shape = tuple(built.input_sds[1]["tokens"].shape)
+    batches = {"tokens": torch.randint(0, cfg.vocab_size, shape, device=dev,
+                                       generator=torch.Generator(device=dev).manual_seed(1))}
+    counters = launch_counters()
+    expect = {n: 2 if n == "fedavg" else 0 for n in counters}   # one per subtree
+    _reset(counters)
+    t1 = time.perf_counter()
+    want, wm = fed.round(state, batches)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    plain_counts = _read(counters)
+    check(plain_counts == expect, f"mesh (c) unsharded round: launches {plain_counts}")
+    placed = place(state, built.in_shardings[0])
+    pb = place(batches, built.in_shardings[1])
+    check(all(is_sharded(x) for x in tree_leaves(placed)), "mesh (c): state not DTensors")
+    _reset(counters)
+    t1 = time.perf_counter()
+    got, gm = built.fn(placed, pb)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t1
+    counts = _read(counters)
+    check(counts == expect, f"mesh (c) built round: launches {counts}, expected {expect}")
+    check(_tree_same_bits(torch, got, want), "mesh (c): the built round's state differs "
+                                             "from FedGAN.round's")
+    check(_tree_same_bits(torch, gm, wm), "mesh (c): the built round's metrics differ")
+    log(f"mesh (c) build_step({LM_GAN_ARCH} 2 of 32 layers at full width, train_card 256 x "
+        f"8, K=5, {AGENTS_DATA.name}): new state bit-identical to FedGAN.round without a "
+        f"mesh ({len(tree_leaves(got))} leaves), fedavg launches {counts['fedavg']} a round "
+        f"and no other kernel; the built round {mesh_s:.2f} s against {plain_s:.2f} s "
+        f"unsharded (wall; the unsharded round runs first), lm "
+        f"{[round(float(x), 4) for x in full_tree(gm)['lm']]}")
+    _mesh_part(torch, "(c) LM GAN round", t0, card)
+
+
+def _mesh_experiment(torch, dev, card):
+    """(d): run_experiment against experiment_spec(...).run()."""
+    from repro_torch.launch.train import experiment_spec, run_experiment
+    t0 = time.perf_counter()
+    kw = dict(K=5, steps=20, seed=0, log_every=0, device=str(dev))
+    _, _, hist = run_experiment("toy_2d", **kw)
+    spec, _ = experiment_spec("toy_2d", **kw)
+    want = spec.run()[2]
+    check(len(hist) == 4 and hist == want, f"mesh (d): run_experiment history {hist} "
+                                           f"is not experiment_spec's {want}")
+    check(all(math.isfinite(v) for m in hist for v in m.values()), "mesh (d): non-finite")
+    log(f"mesh (d) run_experiment('toy_2d', K=5, steps=20): {len(hist)} rounds, history "
+        f"equal to experiment_spec(...).run()'s; last {hist[-1]}")
+    _mesh_part(torch, "(d) run_experiment", t0, card)
+
+
+def run_mesh(torch, dev, params):
+    """Phase 15: the mesh on one card (module docstring)."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    t_phase = time.perf_counter()
+    card = card_line()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_serving_mesh()
+    check(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda",
+          f"mesh: {mesh} is not the one-card serving mesh")
+    _mesh_gemma(torch, dev, params, mesh, card)
+    _mesh_serve(torch, dev, params, mesh, card)
+    _mesh_lm_gan(torch, dev, mesh, card)
+    _mesh_experiment(torch, dev, card)
+    log(f"phase 15 (the mesh on one card): {time.perf_counter() - t_phase:.1f} s wall; {card}")
+
+
 def launch_counters():
     """Every kernel wrapper of the port, by kernel name."""
     from repro_torch.kernels import launch_counters as counters
@@ -3487,6 +3721,8 @@ def main() -> int:
     run_ksweep(torch, dev)
     records["flash_attention"]["launches"], params = run_gemma(torch, dev)
     run_serve_gemma(torch, dev, params)
+    gc_collect(torch)
+    run_mesh(torch, dev, params)
     del params
     torch.cuda.empty_cache()
     records["ssd_scan"]["launches"], params = run_mamba(torch, dev)

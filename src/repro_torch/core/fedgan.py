@@ -34,8 +34,9 @@ from torch.func import grad_and_value, vmap
 from repro_torch import resolve_device
 from repro_torch.core import strategies as sync_strategies
 from repro_torch.dist import collectives
+from repro_torch.dist.sharding import AgentShards
 from repro_torch.optim import Adam, Optimizer, TimeScales, constant, equal_timescale
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,32 +224,73 @@ class FedGAN:
         have leading (P, A) dims, ``noise`` is the step's DP-SGD noise
         (``step_noise``) or None.  The strategy's ``grad_hook`` sees the
         (P, A)-stacked gradients before either optimizer update.  Returns
-        (state, per-step metrics: the agent means of the losses)."""
-        P, A = self.cfg.agent_grid
-        B = P * A
+        (state, per-step metrics: the agent means of the losses).
+
+        On a mesh whose agent axes shard the state, every rank steps its own
+        agents (``AgentShards``: the agent axes manual, tensor parallelism
+        left to DTensor), and the hook and the metrics see all agents."""
         if self.cfg.dp_noise and noise is None:
             raise ValueError("dp has a noise multiplier: the step needs its noise "
                              "(FedGAN.round(..., gen=) draws it)")
         n = state["step"].to(torch.float32)
         lr_a, lr_b = self.scales.a(n), self.scales.b(n)
-        params = _flat(state["params"], B)
-        gd, gg, metrics = self._grads(params, _flat(batch, B),
-                                      None if noise is None else _flat(noise, B))
-        gd, gg = strat.grad_hook(self, _grid(gd, P, A), _grid(gg, P, A), state)
-        gd, gg = _flat(gd, B), _flat(gg, B)
-        new_disc, new_opt_d = vmap(
-            lambda p, g, s: self.opt_d.update(p, g, s, lr_a))(
-                params["disc"], gd, _flat(state["opt_d"], B))
-        new_gen, new_opt_g = vmap(
-            lambda p, g, s: self.opt_g.update(p, g, s, lr_b))(
-                params["gen"], gg, _flat(state["opt_g"], B))
+        view = AgentShards.of(state["params"])
+        if view is None:
+            params, opt_d, opt_g, metrics = self._local_step(
+                state["params"], state["opt_d"], state["opt_g"], batch, noise, lr_a, lr_b,
+                lambda gd, gg: strat.grad_hook(self, gd, gg, state))
+        else:
+            if self.cfg.dp is not None:
+                raise NotImplementedError(
+                    "DP-SGD on a mesh (per-example gradients of agent-sharded state) "
+                    "is not ported; run the DP round unsharded")
+            like = state["params"]
+
+            def hook(gd, gg):
+                gd, gg = strat.grad_hook(self, view.to_global(gd, like["disc"]),
+                                         view.to_global(gg, like["gen"]), state)
+                return view.local(gd), view.local(gg)
+
+            local = view.local((state["params"], state["opt_d"], state["opt_g"], batch))
+            params, opt_d, opt_g, metrics = self._local_step(
+                *local, None, view.local(lr_a), view.local(lr_b), hook,
+                gather=view.batch_dims(local[3]))
+            P, A = tree_leaves(params)[0].shape[:2]
+            params = view.to_global(params, like)
+            opt_d = view.to_global(opt_d, state["opt_d"])
+            opt_g = view.to_global(opt_g, state["opt_g"])
+            metrics = view.to_global(_grid(metrics, P, A), tree_leaves(like)[0])
         new_state = {
             **state,  # strategy-carried entries (EF residuals) ride along
-            "params": _grid({"gen": new_gen, "disc": new_disc}, P, A),
-            "opt_g": _grid(new_opt_g, P, A), "opt_d": _grid(new_opt_d, P, A),
+            "params": params, "opt_g": opt_g, "opt_d": opt_d,
             "step": state["step"] + 1,
         }
         return new_state, tree_map(torch.mean, metrics)
+
+    def _local_step(self, params, opt_d, opt_g, batch, noise, lr_a, lr_b, hook, gather=None):
+        """The agents' gradients (``hook`` applied to the (P, A)-stacked
+        ones) and optimizer updates: (params, opt_d, opt_g) on the (P, A)
+        grid, and the (B,) per-agent metrics.  ``gather`` (on a mesh: the
+        mesh dims of the data parallelism inside an agent) gathers the
+        weights' shards on those dims for the gradients, whose sums then go
+        back to the weights' shards."""
+        P, A = tree_leaves(params)[0].shape[:2]
+        B = P * A
+        flat = _flat(params, B)
+        use = flat if gather is None else AgentShards.gathered(flat, gather)
+        gd, gg, metrics = self._grads(use, _flat(batch, B),
+                                      None if noise is None else _flat(noise, B))
+        if gather is not None:
+            gd = AgentShards.placed_like(gd, flat["disc"])
+            gg = AgentShards.placed_like(gg, flat["gen"])
+        gd, gg = hook(_grid(gd, P, A), _grid(gg, P, A))
+        gd, gg = _flat(gd, B), _flat(gg, B)
+        new_disc, new_opt_d = vmap(
+            lambda p, g, s: self.opt_d.update(p, g, s, lr_a))(flat["disc"], gd, _flat(opt_d, B))
+        new_gen, new_opt_g = vmap(
+            lambda p, g, s: self.opt_g.update(p, g, s, lr_b))(flat["gen"], gg, _flat(opt_g, B))
+        return (_grid({"gen": new_gen, "disc": new_disc}, P, A), _grid(new_opt_d, P, A),
+                _grid(new_opt_g, P, A), metrics)
 
     def _run_round(self, state, batch_of):
         """K local steps (``batch_of(k)`` gives step k's (P, A, ...) batch

@@ -169,9 +169,11 @@ class DeviceFederatedData(FederatedData):
     @classmethod
     def from_agent_data(cls, agent_data: Sequence[Any], agent_grid,
                         batch_size: int, *, sample_extra: Callable | None = None,
-                        device="cuda") -> "DeviceFederatedData":
+                        device="cuda", mesh=None) -> "DeviceFederatedData":
         """Stack per-agent datasets (len B = P*A, arbitrary sizes) into the
-        device-resident layout on ``device``."""
+        device-resident layout on ``device``.  With ``mesh``, leaves are
+        placed with the (P, A) lead sharded over ("pod", "data"): each
+        agent's shard lands on its own rank (:meth:`place`)."""
         dev = resolve_device(device)
         P, A = agent_grid
         if P * A != len(agent_data):
@@ -188,9 +190,22 @@ class DeviceFederatedData(FederatedData):
             return s.reshape((P, A) + tuple(s.shape[1:]))
 
         data = tree_map(stack, agent_data[0], *agent_data[1:])
-        return cls(data=data,
-                   sizes=torch.tensor(sizes, dtype=torch.int64).reshape(P, A).to(dev),
-                   batch_size=batch_size, sample_extra=sample_extra)
+        out = cls(data=data,
+                  sizes=torch.tensor(sizes, dtype=torch.int64).reshape(P, A).to(dev),
+                  batch_size=batch_size, sample_extra=sample_extra)
+        return out.place(mesh) if mesh is not None else out
+
+    def place(self, mesh) -> "DeviceFederatedData":
+        """Explicit placement: the (P, A) lead of every leaf (and of
+        ``sizes``) sharded over the mesh's ("pod", "data") axes as
+        ``repro_torch.dist.sharding.filter_spec`` adapts them."""
+        from repro_torch.dist.sharding import NamedSharding, filter_spec, place
+
+        def put(x):
+            spec = filter_spec(mesh, ("pod", "data") + (None,) * (x.dim() - 2), x.shape)
+            return place(x, NamedSharding(mesh, spec))
+
+        return dataclasses.replace(self, data=tree_map(put, self.data), sizes=put(self.sizes))
 
     def draw_step(self, gen: torch.Generator) -> dict:
         """One local step's random draws from ``gen``, in the order

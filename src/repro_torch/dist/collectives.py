@@ -21,12 +21,22 @@ ops, and launch no fedavg.  The secure sum (``masked_sync``) one-time-pads
 each agent's uplink with pairwise masks drawn on the device (the tensor
 Threefry of ``repro_torch.prng``) and ends in the fedavg reduce of the
 unmasked products.
+
+On a mesh (DTensor leaves, the agent grid sharded over ("pod", "data")),
+the float32 weighted mean runs the fedavg kernel on each rank's own
+agents, with the rank's slice of the globally normalised weights, and
+sums the partial means across the ranks (``Partial(sum)`` to
+``Replicate``).  Every other aggregate (the wire and pod routes, the
+coded, robust and secure syncs) runs on inputs gathered from every rank,
+as XLA runs a custom call it cannot partition, and each result is put
+back with its input's placements.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import prng
+from repro_torch.dist.sharding import full_tree, is_sharded
 from repro_torch.kernels.fedavg.kernel import (fedavg_flat, fedavg_pod_flat,
                                                fedavg_wire_flat)
 from repro_torch.kernels.qsync import ops as qsync_ops
@@ -80,6 +90,79 @@ def _bucketed_mean(leaves, weights):
     return _split(_reduce_for(stacked.dtype)(weights, stacked), leaves, ())
 
 
+def _any_sharded(*trees) -> bool:
+    return any(is_sharded(x) for t in trees if t is not None for x in tree_leaves(t))
+
+
+def _place_like(tree, like):
+    """Each leaf of ``tree`` (the same on every rank) put on the mesh with
+    the placements of the matching DTensor leaf of ``like``; other leaves
+    as they are."""
+    if tree is None:
+        return None
+    from torch.distributed.tensor import distribute_tensor
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [
+        distribute_tensor(x, ref.device_mesh, ref.placements, src_data_rank=None)
+        if is_sharded(ref) else x for x, ref in zip(leaves, tree_leaves(like))])
+
+
+def _agent_placements(x) -> tuple:
+    """The placements of a (P, A, ...) DTensor leaf restricted to its agent
+    dims: ``Shard(0)``/``Shard(1)`` kept, every other one ``Replicate``."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+                 for p in x.placements)
+
+
+def _sum_over_agents(m):
+    """The cross-rank sum of the partial means: every ``Partial`` mesh dim
+    reduced to ``Replicate``."""
+    from torch.distributed.tensor import Replicate
+    return m.redistribute(m.device_mesh, tuple(Replicate() if p.is_partial() else p
+                                               for p in m.placements))
+
+
+def _mesh_means(leaves, weights):
+    """The weighted means of float32 DTensor leaves (P, A, ...): on every
+    rank one fedavg launch over its own agents' slices of all the leaves,
+    then the cross-rank sum.  Returns DTensors shaped past the grid."""
+    from torch.distributed.tensor import Partial, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+    mesh, agent_pl = leaves[0].device_mesh, _agent_placements(leaves[0])
+    if any(_agent_placements(x) != agent_pl for x in leaves):
+        raise ValueError("the synced leaves shard their agent grid differently: "
+                         f"{sorted({_agent_placements(x) for x in leaves}, key=str)}")
+    w = distribute_tensor(weights.float(), mesh, agent_pl, src_data_rank=None)
+
+    def out_placements(x):
+        return tuple(Partial() if isinstance(p, Shard) and p.dim < 2 else
+                     Shard(p.dim - 2) if isinstance(p, Shard) else p for p in x.placements)
+
+    def local(wl, *xs):
+        b = wl.numel()
+        flat = [x.reshape(b, -1) for x in xs]
+        stacked = flat[0].contiguous() if len(flat) == 1 else torch.cat(flat, dim=1)
+        return tuple(_split(fedavg_flat(wl, stacked), xs, ()))
+
+    parts = local_map(local, out_placements=tuple(out_placements(x) for x in leaves),
+                      in_placements=(w.placements,) + tuple(x.placements for x in leaves),
+                      device_mesh=mesh, redistribute_inputs=False)(w, *leaves)
+    return [_sum_over_agents(m) for m in parts]
+
+
+def _average_on_mesh(tree, weights):
+    """``average_agents`` of a tree of DTensor leaves, float32 route."""
+    leaves, treedef = tree_flatten(tree)
+    outs = list(leaves)
+    idx = [i for i, x in enumerate(leaves) if _inexact(x)]
+    if idx:
+        for i, m in zip(idx, _mesh_means([leaves[i] for i in idx], weights)):
+            x = leaves[i]
+            outs[i] = m.expand(x.shape).redistribute(x.device_mesh, x.placements)
+    return tree_unflatten(treedef, outs)
+
+
 def average_agents(tree, weights, *, sync_dtype=None, reduce=None):
     """Weighted average over the leading (P, A) dims, broadcast back.
     ``weights``: (P, A) float32, normalised.  ``sync_dtype`` (a torch
@@ -90,7 +173,16 @@ def average_agents(tree, weights, *, sync_dtype=None, reduce=None):
 
     ``reduce(x, weights) -> x.shape[2:]`` replaces the weighted mean leaf
     by leaf (a robust reduce of ``make_robust_reduce``); it launches no
-    fedavg."""
+    fedavg.
+
+    On a mesh the float32 weighted mean is reduced rank by rank and summed
+    across ranks; a wire type or a robust reduce runs on gathered inputs."""
+    if _any_sharded(tree):
+        if reduce is None and sync_dtype is None and all(
+                x.dtype == torch.float32 for x in tree_leaves(tree) if _inexact(x)):
+            return _average_on_mesh(tree, weights)
+        return _place_like(average_agents(full_tree(tree), weights, sync_dtype=sync_dtype,
+                                          reduce=reduce), tree)
     leaves, treedef = tree_flatten(tree)
     outs = list(leaves)
     if reduce is not None:
@@ -264,6 +356,9 @@ def masked_sync(tree, weights, key, *, sync_dtype=None, reduce=None):
     i)``, pair p's from ``fold_in(that, p)``.  A robust ``reduce`` (order
     statistics need the values the sum hides) and a ``sync_dtype`` (a
     recast breaks the pad) are refused."""
+    if _any_sharded(tree):
+        return _place_like(masked_sync(full_tree(tree), weights, key, sync_dtype=sync_dtype,
+                                       reduce=reduce), tree)
     if reduce is not None:
         raise ValueError(
             "masked_sync cannot apply a robust reduce: order statistics "
@@ -287,7 +382,9 @@ def average_intra_pod(tree, weights):
     """Average within each pod only (tier 1 of hierarchical sync): the
     weighted mean over the A dim with each pod's weights renormalised,
     broadcast back over the pod.  Float32 leaves, bucketed into one pod
-    launch; integer leaves pass through."""
+    launch; integer leaves pass through.  On a mesh, on gathered inputs."""
+    if _any_sharded(tree):
+        return _place_like(average_intra_pod(full_tree(tree), weights), tree)
     leaves, treedef = tree_flatten(tree)
     outs = list(leaves)
     idx = [i for i, x in enumerate(leaves) if _inexact(x)]
@@ -341,6 +438,11 @@ def coded_sync(tree, weights, codec, *, ef=None, ef_down=None, reduce=None, fuse
             "and the default weighted-mean reduce" if reduce is None else
             "fused=True cannot apply a custom reduce: the fused kernel "
             "hard-wires the weighted mean")
+    if _any_sharded(tree, ef, ef_down):
+        # the codec re-encodes after the global reduce: gathered inputs
+        out, e2, ed2 = coded_sync(full_tree(tree), weights, codec, ef=full_tree(ef),
+                                  ef_down=full_tree(ef_down), reduce=reduce, fused=fused)
+        return _place_like(out, tree), _place_like(e2, ef), _place_like(ed2, ef_down)
     leaves, treedef = tree_flatten(tree)
     e_leaves = tree_leaves(ef) if ef is not None else [None] * len(leaves)
     ed_leaves = tree_leaves(ef_down) if ef_down is not None else [None] * len(leaves)

@@ -231,6 +231,24 @@ class RunSpec:
         return driver.run(self.seed + 1, state=fed.init_state(
             torch.Generator().manual_seed(self.seed), device=self.device))
 
+    def run(self):
+        """Legacy entry point: returns (fed, state, history)."""
+        return self.run_result().legacy_tuple()
+
+
+def train_fedgan(task, *, agent_data, agent_grid, K, steps, batch_size, scales, opt_d,
+                 opt_g, strategy=None, mode="", sample_extra=None, seed=0, log_every=1,
+                 ckpt_dir="", weights=None, device="cuda"):
+    """Compat wrapper over RunSpec (prefer ``RunSpec(...).run()`` directly);
+    returns (fed, state, history)."""
+    if strategy is None and mode:
+        strategy = strategies.strategy_from_mode(mode)
+    return RunSpec(task=task, agent_data=agent_data, agent_grid=agent_grid, K=K,
+                   steps=steps, batch_size=batch_size, scales=scales, opt_g=opt_g,
+                   opt_d=opt_d, strategy=strategy, sample_extra=sample_extra,
+                   weights=weights, seed=seed, log_every=log_every, ckpt_dir=ckpt_dir,
+                   device=device).run()
+
 
 def _pooled_real(agent_data, seed: int = 0):
     """Cross-agent pooled real samples, shuffled so any prefix is an
@@ -388,6 +406,24 @@ def experiment_spec(name: str, *, K: int | None = None,
         a_total=a_total, participation_seed=participation_seed,
         straggler_policy=straggler_policy)
     return spec, suite
+
+
+def run_experiment(name: str, *, K: int | None, steps: int | None, seed: int,
+                   strategy=None, dp=None, ckpt_dir: str = "", batch_size=None,
+                   agents=None, log_every=None, eval_every: int = 0,
+                   data_mode: str | None = None, a_total: int = 0, a_active: int = 0,
+                   participation_seed: int = 0, straggler_policy: str = "block",
+                   samples_per_agent: int | None = None, device="cuda"):
+    """One paper experiment end to end through :func:`experiment_spec`;
+    returns (fed, state, history)."""
+    spec, _ = experiment_spec(
+        name, K=K, steps=steps, seed=seed, strategy=strategy, dp=dp,
+        ckpt_dir=ckpt_dir, batch_size=batch_size, agents=agents,
+        log_every=log_every, eval_every=eval_every, data_mode=data_mode,
+        a_total=a_total, a_active=a_active, participation_seed=participation_seed,
+        straggler_policy=straggler_policy, samples_per_agent=samples_per_agent,
+        device=device)
+    return spec.run()
 
 
 def arch_smoke_spec(arch: str, *, steps: int, K: int, seed: int, strategy=None,

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import nn
+from repro_torch.dist.sharding import batch_spec, shard
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import make_norm
 from repro_torch.models.transformer import Backbone, DecoderBlock, _layers, stack_init
@@ -58,6 +59,7 @@ class FeatureDiscriminator(nn.Module):
         """feats: (B, T, d_model) -> (B,) real/fake logits."""
         c, dc = self.cfg, self._dcfg()
         h = feats.to(c.dtype) @ params["proj_in"]["w"].to(c.dtype)
+        h = shard(h, *batch_spec(None, None))
         block = self._block()
         for bp in _layers(params["blocks"], c.disc_layers):
             h, _ = block.apply(bp, h, window=None)

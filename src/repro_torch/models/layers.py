@@ -2,8 +2,11 @@
 cache decode), SwiGLU, norms (a port of ``repro.models.layers``).
 
 Parameters keep the reference's keys and layouts (Dense ``w`` is
-``(in, out)``).  The reference's sharding constraints have no counterpart
-on one card and are dropped.  Cross-attention (the audio family's
+``(in, out)``).  The reference's sharding constraints stand at the same
+places (``repro_torch.dist.sharding.shard``: the identity without a mesh);
+under a mesh attention (the flash kernel or the plain route) runs on
+local shards with the sequence and head_dim whole
+(``_attend_on_shards``).  Cross-attention (the audio family's
 decoder over the encoder's memory) takes its queries from x and its keys
 and values from the memory, with no RoPE, no qk-norm and no mask, always
 through ``_sdpa``, as the reference's.
@@ -22,6 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import nn
+from repro_torch.dist.sharding import (batch_spec, is_sharded, local_kernel, shard,
+                                       shard_attn_qkv, whole_dims)
 from repro_torch.models.config import ArchConfig
 
 NEG_INF = -2.0 ** 30  # large-but-finite mask value (NaN-safe under softmax)
@@ -157,23 +162,29 @@ class Attention(nn.Module):
         else:
             q = self._query(params, x)
             k, v = self._memory_kv(params, memory)
+        q, k, v = shard_attn_qkv(q, k, v)
         if self.use_flash and memory is None and q.shape[1] == k.shape[1] and \
                 isinstance(window, (int, type(None))):
             from repro_torch.kernels.flash_attention import ops as flash_ops
-            y = flash_ops.flash_attention(q, k, v, causal=self.causal, window=window or 0)
+            y = _attend_on_shards(
+                lambda q_, k_, v_: flash_ops.flash_attention(
+                    q_, k_, v_, causal=self.causal, window=window or 0), q, k, v)
         else:
-            y = self._sdpa(q, k, v, window=window, causal=self.causal and memory is None,
-                           q_positions=positions)
+            y = _attend_on_shards(
+                lambda q_, k_, v_: self._sdpa(q_, k_, v_, window=window,
+                                              causal=self.causal and memory is None,
+                                              q_positions=positions), q, k, v)
         y = y.reshape(B, T, nh * hd)
         y = y @ params["wo"]["w"].to(c.dtype)
+        y = shard(y, *batch_spec(None, None))
         if return_kv:
             return y, {"k": k, "v": v}
         return y
 
     def _sdpa(self, q, k, v, *, window, causal, q_positions=None, k_positions=None):
-        nh, nkv, hd = self.dims
+        # head counts from the tensors: on a mesh these are a rank's shards
+        (B, T, nh, hd), nkv = q.shape, k.shape[2]
         group = nh // max(nkv, 1)
-        B, T = q.shape[0], q.shape[1]
         S = k.shape[1]
         qh = q.reshape(B, T, nkv, group, hd)
         logits = torch.einsum("btkgd,bskd->bkgts", qh, k).float()
@@ -203,14 +214,15 @@ class Attention(nn.Module):
         nh, nkv, hd = self.dims
         B = x.shape[0]
         if memory is not None:
-            return self.decode_memory(params, x, self.build_memory_cache(params, memory)), cache
+            y = self.decode_memory(params, x, self.build_memory_cache(params, memory))
+            return shard(y, *batch_spec(None, None)), cache
         idx = decode_positions(index, B, x.device)
         q, k1, v1 = self._qkv(params, x, idx[:, None])
         if not donate:
             cache = {key: t.clone() for key, t in cache.items()}
         k, v = cache["k"], cache["v"]
         kpos = torch.arange(k.shape[1], device=x.device)
-        if torch.as_tensor(index).dim() == 0:
+        if torch.as_tensor(index).dim() == 0 and not is_sharded(k):
             # lockstep: one slice written, shared (S,) mask
             i = int(index)
             k[:, i:i + 1] = k1.to(k.dtype)
@@ -226,7 +238,7 @@ class Attention(nn.Module):
                 valid &= kpos[None, :] > idx[:, None] - window
         y = self._decode_attend(q, k, v, valid)
         y = y.reshape(B, 1, nh * hd) @ params["wo"]["w"].to(c.dtype)
-        return y, cache
+        return shard(y, *batch_spec(None, None)), cache
 
     def decode_ring(self, params, x, cache, index, *, donate: bool = False):
         """Sliding-window decode on a ring-buffer cache of width W: the
@@ -246,7 +258,7 @@ class Attention(nn.Module):
         valid = (cache["pos"] >= 0) & (cache["pos"] <= idx[:, None])      # (B, W)
         y = self._decode_attend(q, cache["k"], cache["v"], valid)
         y = y.reshape(B, 1, nh * hd) @ params["wo"]["w"].to(c.dtype)
-        return y, cache
+        return shard(y, *batch_spec(None, None)), cache
 
     def build_memory_cache(self, params, memory):
         """Cross-attention k/v of the encoder's output (B, S_enc, d), once."""
@@ -260,16 +272,23 @@ class Attention(nn.Module):
         B, S = x.shape[0], mem_cache["k"].shape[1]
         y = self._decode_attend(self._query(params, x), mem_cache["k"], mem_cache["v"],
                                 torch.ones(S, dtype=torch.bool, device=x.device))
-        return y.reshape(B, 1, nh * hd) @ params["wo"]["w"].to(c.dtype)
+        y = y.reshape(B, 1, nh * hd) @ params["wo"]["w"].to(c.dtype)
+        return shard(y, *batch_spec(None, None))
 
     def _decode_attend(self, q, k, v, valid):
-        nh, nkv, hd = self.dims
+        # valid: (S,) shared mask, or (B, S) per-row (continuous batching)
+        if valid.dim() == 1:
+            return _attend_on_shards(lambda q_, k_, v_: self._attend1(q_, k_, v_, valid),
+                                     q, k, v)
+        return _attend_on_shards(self._attend1, q, k, v, valid)
+
+    @staticmethod
+    def _attend1(q, k, v, valid):
+        (B, _, nh, hd), nkv = q.shape, k.shape[2]
         group = nh // max(nkv, 1)
-        B = k.shape[0]
         qh = q.reshape(B, nkv, group, hd)
         logits = torch.einsum("bkgd,bskd->bkgs", qh, k.to(q.dtype)).float()
         logits = logits * (1.0 / math.sqrt(hd))
-        # valid: (S,) shared mask, or (B, S) per-row (continuous batching)
         mask = valid[None, None, None] if valid.dim() == 1 else valid[:, None, None, :]
         logits = torch.where(mask, logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(q.dtype)
@@ -288,15 +307,87 @@ class Attention(nn.Module):
         return cache
 
 
+def _attend_on_shards(kernel, q, k, v, *rows):
+    """``kernel(q, k, v, *rows)`` (B, T, heads, head_dim) -> like q: flash or
+    the plain attention.  Under a mesh it runs on the local shards: the
+    sequence and head_dim enter whole (the kernel sums over the one and
+    contracts the other), batch stays sharded, and heads stay sharded
+    where both q's and k/v's head counts divide, so each rank keeps whole
+    GQA groups (``rows``, per-row masks, follow the batch).  DTensor's own
+    propagation is not asked to flatten the batch and head dims sharded on
+    two mesh axes, which some versions refuse.  Plain tensors go straight
+    in."""
+    if not is_sharded(q):
+        return kernel(q, k, v, *rows)
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    q = whole_dims(q, 1, 3)
+    mesh = q.device_mesh
+    sizes = dict(zip(range(mesh.ndim), mesh.shape))
+    kv_heads_div = all(k.shape[2] % sizes[i] == 0 for i, p in enumerate(q.placements)
+                       if p == Shard(2))
+    want = tuple(p if p == Shard(0) or (p == Shard(2) and kv_heads_div) else Replicate()
+                 for p in q.placements)
+    by_row = tuple(p if p == Shard(0) else Replicate() for p in want)
+
+    def put(t, placements):
+        if is_sharded(t):
+            return t.redistribute(mesh, placements)
+        return distribute_tensor(t, mesh, placements, src_data_rank=None)
+
+    args = [put(t, want) for t in (q, k, v)] + [put(r, by_row) for r in rows]
+    return local_kernel(kernel, want, *args)
+
+
 def _write_rows(cache, slot, k1, v1, idx):
     """Row b's new k/v into sequence slot ``slot[b]`` of the cache, in place
     (and, in a ring cache, position ``idx[b]`` into its ``pos``)."""
+    if is_sharded(cache["k"]):
+        return _write_rows_on_shards(cache, slot, k1, v1, idx)
     rows = torch.arange(k1.shape[0], device=k1.device)
     k, v = cache["k"], cache["v"]
     k.index_put_((rows, slot), k1[:, 0].to(k.dtype))
     v.index_put_((rows, slot), v1[:, 0].to(v.dtype))
     if "pos" in cache:
         cache["pos"].index_put_((rows, slot), idx.to(cache["pos"].dtype))
+
+
+def _write_rows_on_shards(cache, slot, k1, v1, idx):
+    """``_write_rows`` into a cache placed on a mesh, each rank writing its
+    own shard in place (an in-place write cannot move the cache's
+    placement).  A leaf's rows follow its batch sharding, the new values
+    its other shardings.  Where the sequence is sharded (the batch-1
+    context parallel cache) a rank writes the rows whose slot falls in its
+    range, as a masked rewrite of its shard."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    vals = {"k": k1[:, 0], "v": v1[:, 0]}
+    if "pos" in cache:
+        vals["pos"] = idx
+    for key, val in vals.items():
+        dst = cache[key]
+        mesh, pl = dst.device_mesh, dst.placements
+        B, S = dst.shape[0], dst.shape[1]
+
+        def local(t, placements):
+            if is_sharded(t):
+                return t.redistribute(mesh, placements).to_local()
+            return distribute_tensor(t, mesh, placements, src_data_rank=None).to_local()
+
+        # the written row: the leaf's placements with its sequence dim dropped
+        row_pl = tuple(Replicate() if p == Shard(1) else
+                       Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1 else p
+                       for p in pl)
+        val = local(val, row_pl).to(dst.dtype)
+        slot_l = local(slot, tuple(p if p == Shard(0) else Replicate() for p in pl))
+        out = dst.to_local()
+        if any(p == Shard(1) for p in pl):
+            seq = local(torch.arange(S, device=slot_l.device),
+                        tuple(Shard(0) if p == Shard(1) else Replicate() for p in pl))
+            hit = seq[None, :] == slot_l[:, None]                        # (B_l, S_l)
+            hit = hit.reshape(tuple(hit.shape) + (1,) * (out.dim() - 2))
+            out.copy_(torch.where(hit, val[:, None], out))
+        else:
+            rows = torch.arange(out.shape[0], device=out.device)
+            out.index_put_((rows, slot_l), val)
 
 
 # ---------------------------------------------------------------------------
@@ -323,4 +414,6 @@ class SwiGLU(nn.Module):
         g = x @ params["w_gate"]["w"].to(c.dtype)
         u = x @ params["w_up"]["w"].to(c.dtype)
         h = F.silu(g) * u
-        return h @ params["w_down"]["w"].to(c.dtype)
+        h = shard(h, *batch_spec(None, "model"))
+        y = h @ params["w_down"]["w"].to(c.dtype)
+        return shard(y, *batch_spec(None, None))

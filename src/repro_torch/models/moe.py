@@ -5,8 +5,8 @@ group, and the dispatch and combine are one-hot einsums in ``cfg.dtype``.
 
 Expert weights are stacked (E, d_model, d_ff), so the FedGAN sync averages
 them like any other leaf.  A Switch-style load-balance auxiliary loss is
-returned beside the output.  The reference's sharding constraints have no
-counterpart on one card and are left out.
+returned beside the output.  The reference's sharding constraints stand at
+the same places (the identity without a mesh).
 
 Two details keep the routing the reference's, token for token:
 
@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import nn
+from repro_torch.dist.sharding import batch_spec, shard
 from repro_torch.models.config import ArchConfig
 
 
@@ -105,13 +106,16 @@ class MoE(nn.Module):
         oh = onehot.to(c.dtype)
         disp = torch.einsum("ngke,ngkc->ngec", oh, pos_oh)
         comb = torch.einsum("ngk,ngke,ngkc->ngec", gate_vals.to(c.dtype), oh, pos_oh)
+        disp = shard(disp, *batch_spec(None, None, None))
         expert_in = torch.einsum("ngec,ngd->necd", disp, xt)               # (n, E, cap, d)
+        expert_in = shard(expert_in, *batch_spec(None, None, None))
 
         wg = params["experts"]["w_gate"].to(c.dtype)
         wu = params["experts"]["w_up"].to(c.dtype)
         wd = params["experts"]["w_down"].to(c.dtype)
         h = F.silu(torch.einsum("necd,edf->necf", expert_in, wg))
         h = h * torch.einsum("necd,edf->necf", expert_in, wu)
+        h = shard(h, *batch_spec(None, None, "model"))
         expert_out = torch.einsum("necf,efd->necd", h, wd)                 # (n, E, cap, d)
         y = torch.einsum("ngec,necd->ngd", comb, expert_out)
-        return y.reshape(B, T, d), aux.float()
+        return shard(y.reshape(B, T, d), *batch_spec(None, None)), aux.float()

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import nn
+from repro_torch.dist.sharding import (batch_spec, is_sharded, local_kernel, shard,
+                                       whole_dims)
 from repro_torch.models.config import ArchConfig
 
 
@@ -85,14 +87,16 @@ class Mamba2Block(nn.Module):
         Bm = F.silu(causal_depthwise_conv(B_raw, params["conv"]["b"].to(c.dtype)))
         Cm = F.silu(causal_depthwise_conv(C_raw, params["conv"]["c"].to(c.dtype)))
         x = x.reshape(Bsz, T, nh, hd)
+        x = shard(x, *batch_spec(None, "model", None))
 
         A = -torch.exp(params["ssd"]["A_log"].float())                      # (nh,)
         dt = F.softplus(dt.float() + params["ssd"]["dt_bias"].float())      # (B,T,nh)
 
         if self.use_kernel:
             from repro_torch.kernels.ssd_scan import ops as ssd_ops
-            y = ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=c.ssm_chunk,
-                            return_final_state=return_state)
+            y = _scan_on_shards(lambda *a: ssd_ops.ssd(*a, chunk=c.ssm_chunk,
+                                                       return_final_state=return_state),
+                                x, dt, A, Bm, Cm, return_state)
         else:
             from repro_torch.kernels.ssd_scan.ref import ssd_ref
             y = ssd_ref(x, dt, A, Bm, Cm, chunk=c.ssm_chunk, return_final_state=return_state)
@@ -103,6 +107,7 @@ class Mamba2Block(nn.Module):
         y = y.reshape(Bsz, T, d_in)
         y = nn.RMSNorm(d_in).apply(params["norm"], y) * F.silu(z)
         out = y @ params["out_proj"]["w"].to(c.dtype)
+        out = shard(out, *batch_spec(None, None))
         if return_state:
             k = c.conv_kernel - 1
             return out, {"ssm": state, "conv_x": _tail_window(x_raw, k),
@@ -154,6 +159,34 @@ class Mamba2Block(nn.Module):
                 cache[key].copy_(leaf)
             return out, cache
         return out, new
+
+
+def _scan_on_shards(scan, x, dt, A, Bm, Cm, return_state):
+    """``scan(x, dt, A, Bm, Cm)`` (the SSD kernel) -> y [, final state].
+    Under a mesh it runs on the local shards: the time axis and head_dim
+    enter whole (the scan runs along the one, the state contracts the
+    other), batch stays sharded, and heads stay sharded with ``dt`` and
+    ``A`` sharded alike (every head scans on its own; B and C are shared by
+    the heads).  Plain tensors go straight in."""
+    if not is_sharded(x):
+        return scan(x, dt, A, Bm, Cm)
+    from torch.distributed.tensor import Replicate, Shard
+    x = whole_dims(x, 1, 3)
+    mesh = x.device_mesh
+
+    def pick(rule):
+        return tuple(rule.get(p, Replicate()) for p in x.placements)
+
+    batch, head = Shard(0), Shard(2)
+    pl = {"x": pick({batch: batch, head: head}), "dt": pick({batch: batch, head: head}),
+          "A": pick({head: Shard(0)}), "bc": pick({batch: batch})}
+    args = (x.redistribute(mesh, pl["x"]), dt.redistribute(mesh, pl["dt"]),
+            A.redistribute(mesh, pl["A"]), Bm.redistribute(mesh, pl["bc"]),
+            Cm.redistribute(mesh, pl["bc"]))
+    out = pl["x"]
+    if return_state:
+        out = (out, pick({batch: batch, head: Shard(1)}))
+    return local_kernel(scan, out, *args)
 
 
 def _tail_window(x, k: int):

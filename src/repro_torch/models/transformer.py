@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import nn, resolve_device
+from repro_torch.dist.sharding import batch_spec, shard
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import Attention, SwiGLU, make_norm
 from repro_torch.models.moe import MoE
@@ -292,7 +293,8 @@ class Backbone(nn.Module):
     # ---- embedding / head ----
     def _embed(self, params, tokens):
         c = self.cfg
-        return nn.Embedding(c.padded_vocab, c.d_model).apply(params["embed"], tokens).to(c.dtype)
+        h = nn.Embedding(c.padded_vocab, c.d_model).apply(params["embed"], tokens)
+        return shard(h.to(c.dtype), *batch_spec(None, None))
 
     def _head(self, params, h, *, logits_mode: str = "full"):
         c = self.cfg
@@ -310,7 +312,7 @@ class Backbone(nn.Module):
             logits = h @ params["embed"]["table"].T.to(c.dtype)
         else:
             logits = h @ params["lm_head"]["w"].to(c.dtype)
-        return logits.float()
+        return shard(logits.float(), *batch_spec(None, "model"))
 
     # ---- full-sequence forward ----
     def apply(self, params, tokens, *, encoder_frames=None, collect_cache: bool = False,
@@ -447,7 +449,7 @@ class Backbone(nn.Module):
         c = self.cfg
         if frames is None:
             raise ValueError(f"{c.name}: the audio family's forward needs encoder_frames")
-        h = frames.to(c.dtype)
+        h = shard(frames.to(c.dtype), *batch_spec(None, None))
         block = self._block(causal=False)
         for bp in _layers(params["enc_blocks"], c.encoder_layers):
             h, _ = block.apply(bp, h, window=None)

@@ -58,6 +58,9 @@ class RunResult:
     evals: list
     timings: dict
 
+    def legacy_tuple(self):
+        return self.fed, self.state, self.history
+
 
 def _synchronize(device: torch.device):
     if device.type == "cuda":

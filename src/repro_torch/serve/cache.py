@@ -28,7 +28,9 @@ import dataclasses
 
 import torch
 
+from repro_torch.dist.sharding import full_tree, is_sharded
 from repro_torch.models.config import ArchConfig
+from repro_torch.tree import tree_leaves
 
 # Where the batch dim sits in each cache-leaf kind (negative = from the end).
 BATCH_AXIS = {"k": -4, "v": -4, "pos": -2, "ssm": -4,
@@ -133,8 +135,28 @@ def _slot_write(dst, src, slot, key):
     axis = dst.dim() + BATCH_AXIS[key]
     region = [slice(0, n) for n in src.shape]
     region[axis] = slice(slot, slot + 1)
+    if is_sharded(dst):
+        _write_region_on_shards(dst, src, region)
+        return dst
     dst[tuple(region)].copy_(src)
     return dst
+
+
+def _write_region_on_shards(dst, src, region):
+    """``dst[region] = src`` for a cache placed on a mesh: each rank writes
+    the part of the region its own shard holds (a replica writes all of
+    it), in place."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    shape, offset = compute_local_shape_and_global_offset(dst.shape, dst.device_mesh,
+                                                          dst.placements)
+    dst_sl, src_sl = [], []
+    for r, n, o in zip(region, shape, offset):
+        lo, hi = max(r.start, o), min(r.stop, o + n)
+        if lo >= hi:
+            return
+        dst_sl.append(slice(lo - o, hi - o))
+        src_sl.append(slice(lo - r.start, hi - r.start))
+    dst.to_local()[tuple(dst_sl)].copy_(src[tuple(src_sl)])
 
 
 def _insert_attn_node(dst, src, slot, prompt_len):
@@ -174,6 +196,9 @@ def insert_slot(cache, request_cache, slot: int, *, prompt_len: int):
     occupant (or idle decode garbage) left in positions the new request
     will attend to is overwritten; positions beyond the prompt stay masked
     until decode writes reach them."""
+    if any(is_sharded(x) for x in tree_leaves(cache)):
+        request_cache = full_tree(request_cache)   # every rank writes its own shard
+
     def walk(d, s, key=""):
         if isinstance(d, dict):
             if "k" in d and "v" in d:

@@ -15,6 +15,12 @@ One engine owns
   * optionally a :class:`~repro_torch.serve.reload.CheckpointWatcher` that
     swaps in newer generator params between ticks (same shapes).
 
+With ``mesh`` (a ``DeviceMesh``, e.g. ``launch.mesh.make_serving_mesh()``)
+the engine serves sharded: params are placed by ``param_specs``, the
+cache by ``cache_specs``, and every prefill, decode and slot write runs
+under ``use_mesh`` on DTensors (on the card the tick is still one captured
+graph).  Every rank of the mesh runs the same engine loop.
+
 Every slot decodes at its *own* sequence position (``Backbone.decode``
 takes a (B,) index vector), which is what lets a new request start while
 its neighbours are mid-generation.  Sampling runs on the host on the
@@ -30,8 +36,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
 
 from repro_torch import resolve_device
+from repro_torch.dist.sharding import is_sharded, named_shardings, param_specs, place, use_mesh
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import Backbone
 from repro_torch.serve.batcher import Batcher, Request
@@ -104,17 +112,16 @@ class ServeEngine:
     reload writes the new weights into the served tensors (the captured
     tick reads their addresses); with ``ckpt_dir`` set, params given here
     are copied first, so a reload never writes into the caller's tensors.
-    ``mesh`` (sharded serving) is not ported and raises."""
+    ``mesh`` serves sharded (module docstring); it must be a ``DeviceMesh``
+    of ``device``'s type."""
 
     def __init__(self, cfg: ArchConfig, *, max_batch: int = 4,
                  max_seq: int = 256, ring: bool = False,
                  params=None, rng_seed: int = 0, min_bucket: int = 16,
                  ckpt_dir: str = "", ckpt_extract=None, reload_every: int = 1,
                  mesh=None, device="cuda", capture: bool = True):
-        if mesh is not None:
-            raise NotImplementedError("sharded serving (mesh=) is not ported yet: "
-                                      "ROADMAP queue 1, slice 8 (sharding)")
         self.cfg = cfg
+        self.mesh = self._check_mesh(mesh, torch.device(device))
         self.device = resolve_device(device)
         self.bb = Backbone(cfg, ring_cache=ring)
         self.layout = plan_layout(cfg, max_seq, ring=ring)
@@ -141,8 +148,10 @@ class ServeEngine:
                 params, self.loaded_step = got
         if params is None:
             params = self.bb.init(torch.Generator(device=self.device).manual_seed(rng_seed))
-        self.params = tree_map(lambda x: x.to(self.device, copy=copy), params)
-        self.cache = self.bb.init_cache(max_batch, max_seq, device=self.device)
+        self.params = self._place_params(
+            tree_map(lambda x: x.to(self.device, copy=copy), params))
+        self.cache = self._place_cache(self.bb.init_cache(max_batch, max_seq,
+                                                          device=self.device))
         self._param_spec = self._spec(self.params)
         # the decode tick's static inputs and, once captured, its graph and
         # static logits
@@ -150,6 +159,37 @@ class ServeEngine:
         self._idx = torch.zeros((max_batch,), dtype=torch.int64, device=self.device)
         self._graph = None
         self._logits = None
+
+    # ---- sharded-serving plumbing -----------------------------------------
+    @staticmethod
+    def _check_mesh(mesh, device):
+        if mesh is None:
+            return None
+        from torch.distributed.device_mesh import DeviceMesh
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch DeviceMesh "
+                            f"(launch.mesh.make_serving_mesh), got {type(mesh).__name__}")
+        if mesh.device_type != device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot serve on {device}: "
+                             f"make the mesh with device={device.type!r}")
+        return mesh
+
+    def _place_params(self, params):
+        if self.mesh is None:
+            return params
+        return place(params, named_shardings(self.mesh, param_specs(params, self.mesh)))
+
+    def _place_cache(self, cache):
+        if self.mesh is None:
+            return cache
+        from repro_torch.launch.steps import cache_specs
+        specs = cache_specs(cache, self.mesh, batch=self.max_batch)
+        return place(cache, named_shardings(self.mesh, specs))
+
+    @staticmethod
+    def _fetch(x):
+        """A result on every rank as a plain tensor (a collective on a mesh)."""
+        return x.full_tensor() if is_sharded(x) else x
 
     @staticmethod
     def _spec(params):
@@ -188,6 +228,11 @@ class ServeEngine:
                 f"checkpoint step {step} params tree does not match the "
                 f"serving arch {self.cfg.name} — wrong --ckpt-dir or config?")
         for dst, src in zip(tree_leaves(self.params), tree_leaves(params)):
+            if is_sharded(dst):
+                # this rank's shard of the new weights into its shard
+                src = distribute_tensor(src.to(self.device), dst.device_mesh,
+                                        dst.placements, src_data_rank=None)
+                dst, src = dst.to_local(), src.to_local()
             dst.copy_(src)
         self.loaded_step = step
         self.stats.reloads += 1
@@ -200,11 +245,12 @@ class ServeEngine:
         self.maybe_reload()
         finished = self.batcher.evict()
         self.stats.ticks += 1
-        for slot, req in self.batcher.admit():
-            self._prefill_into(slot, req)
-        active = self.batcher.active()
-        if active:
-            self._decode_tick(active)
+        with use_mesh(self.mesh):
+            for slot, req in self.batcher.admit():
+                self._prefill_into(slot, req)
+            active = self.batcher.active()
+            if active:
+                self._decode_tick(active)
         return finished
 
     def run(self, *, max_ticks: int = 1_000_000) -> dict[int, Request]:
@@ -227,7 +273,7 @@ class ServeEngine:
         (``last``), project only that row to logits."""
         out = self.bb.prefill(self.params, toks, encoder_frames=frames, logits_mode="none")
         h = out["hidden"][:, last:last + 1]
-        return self.bb.project_logits(self.params, h), out["cache"]
+        return self._fetch(self.bb.project_logits(self.params, h)), out["cache"]
 
     def _prefill_into(self, slot: int, req: Request) -> None:
         """Bucketed (attention families) or exact-prefix (recurrent-state
@@ -299,7 +345,7 @@ class ServeEngine:
         self._tok[:, 0].copy_(torch.from_numpy(self._tokens))
         self._idx.copy_(torch.from_numpy(self._indices))
         logits = self._decode_captured() if self.captured else self._decode()
-        logits = logits[:, 0, :self.cfg.vocab_size].cpu().numpy()
+        logits = self._fetch(logits)[:, 0, :self.cfg.vocab_size].cpu().numpy()
         for slot, req in active:
             req.position += 1
             self._indices[slot] += 1

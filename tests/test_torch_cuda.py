@@ -929,6 +929,27 @@ def test_serve_ring_engine_matches_full_engine(cuda):
                                    rtol=0, atol=2e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma3-4b", "granite-moe-3b-a800m", "mamba2-2.7b"])
+def test_serve_on_one_card_mesh_matches_unsharded(cuda, arch):
+    """The engine on the one-card serving mesh (DTensor params and cache,
+    every spec replicated) against the unsharded engine: the same tokens,
+    logits rows and final cache bit for bit, its tick captured."""
+    from repro_torch.dist.sharding import full_tree, is_sharded
+    from repro_torch.launch.mesh import make_serving_mesh
+    cfg = get_config(arch).smoke()
+    params = Backbone(cfg).init(torch.Generator(device=cuda).manual_seed(0))
+    plain = _serve(cfg, params, cuda)
+    meshed = _serve(cfg, params, cuda, mesh=make_serving_mesh())
+    assert meshed[0].captured and all(is_sharded(x) for x in tree_leaves(meshed[0].params))
+    assert meshed[1] == plain[1]
+    assert all(len(a) == len(b) and all((x.view("u4") == y.view("u4")).all()
+                                        for x, y in zip(a, b))
+               for a, b in zip(meshed[2], plain[2]))
+    assert _same_state(full_tree(meshed[0].cache), plain[0].cache)
+    assert meshed[3] == plain[3]
+
+
 # ---------------------------------------------------------------------------
 # the LM GAN (slice 12)
 # ---------------------------------------------------------------------------

@@ -266,3 +266,35 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert {"repro_torch.evals.fd", "repro_torch.evals.modes", "repro_torch.evals.kmeans",
             "repro_torch.run.evals", "repro_torch.run.experiments",
             "repro_torch.quickstart"} <= loaded
+
+
+def test_run_experiment_hierarchical_end_to_end():
+    """The twin of the reference's test: a hierarchical toy_2d run through
+    ``run_experiment`` trains, and returns the legacy (fed, state,
+    history) triple."""
+    from repro_torch.core import Hierarchical
+    fed, state, hist = train.run_experiment("toy_2d", K=2, steps=4, seed=0,
+                                            strategy=Hierarchical(intra_interval=1),
+                                            device="cpu")
+    assert len(hist) == 2
+    assert fed.cfg.resolve_strategy().name == "hierarchical"
+    assert all(np.isfinite(v) for m in hist for v in m.values())
+
+
+def test_run_experiment_with_overrides_and_evals():
+    """The twin of the reference's test: overrides and evals reach the
+    spec; the history is ``experiment_spec(...).run()``'s, and
+    ``train_fedgan`` over the same spec's pieces gives it too."""
+    kw = dict(K=2, steps=8, seed=0, batch_size=8, agents=2, log_every=0, eval_every=2,
+              data_mode="device", device="cpu")
+    fed, state, hist = train.run_experiment("toy_2d", **kw)
+    assert fed.cfg.agent_grid == (1, 2)
+    assert len(hist) == 4
+    spec, _ = train.experiment_spec("toy_2d", **kw)
+    assert spec.run()[2] == hist
+    _, _, again = train.train_fedgan(
+        spec.task, agent_data=spec.agent_data, agent_grid=spec.agent_grid, K=spec.K,
+        steps=spec.steps, batch_size=spec.batch_size, scales=spec.scales, opt_d=spec.opt_d,
+        opt_g=spec.opt_g, sample_extra=spec.sample_extra, seed=spec.seed, log_every=0,
+        device="cpu")
+    assert again == hist

@@ -331,10 +331,35 @@ def test_submit_validation_and_mesh():
         eng.submit([], max_new_tokens=2)
     with pytest.raises(ValueError):
         eng.submit(list(range(10)), max_new_tokens=10)  # 10+10 > 16
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ServeEngine(CFGS["dense"], mesh=object(), device="cpu")
+    from repro_torch.launch.mesh import make_serving_mesh
+    with pytest.raises(ValueError, match="cannot serve"):
+        ServeEngine(CFGS["dense"], mesh=make_serving_mesh(device="cpu"), device="cuda")
     with pytest.raises(ValueError, match="sliding_window"):
         _engine("dense", ring=True)
+
+
+def test_engine_on_serving_mesh_single_device():
+    """The twin of the reference's test: the engine on the one-device
+    serving mesh (DTensor params and cache, every spec replicated) gives
+    the reference's greedy tokens."""
+    from repro.launch.mesh import make_serving_mesh as jax_serving_mesh
+    from test_serve import _reference_greedy as jax_reference_greedy
+
+    from repro_torch.dist.sharding import is_sharded
+    from repro_torch.launch.mesh import make_serving_mesh
+    jeng = JServeEngine(JCFGS["dense"], max_batch=2, max_seq=32, min_bucket=8,
+                        mesh=jax_serving_mesh())
+    jparams = jax.device_get(jeng.params)
+    eng = _engine("dense", max_batch=2, max_seq=32, min_bucket=8,
+                  params=backbone_params_from_jax(jparams, device="cpu"),
+                  mesh=make_serving_mesh(device="cpu"))
+    assert all(is_sharded(x) for x in tree_leaves(eng.params))
+    assert all(is_sharded(x) for x in tree_leaves(eng.cache))
+    rid = eng.submit([1, 2, 3, 4], max_new_tokens=3)
+    want = jax_reference_greedy(JCFGS["dense"], jparams, [1, 2, 3, 4], 3)
+    assert eng.run()[rid].generated == want
 
 
 # ---------------------------------------------------------------------------
