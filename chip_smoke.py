@@ -308,6 +308,30 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    "toy_2d")`` for 4 rounds, its history ``experiment_spec(...).run()``'s.
    Each part's wall time and the card's peak memory are printed.
 
+16. The analysis and the dry run (``run_analysis``): (a) the trace audit
+   (``repro_torch.analysis.trace``) of two real rounds on the card:
+   phase 15's built granite-moe-3b-a800m round (the (1, 1) serving mesh,
+   2 layers, one agent, batch 8 x T 256, K = 5) through ``audit_built``,
+   and one ``image_acgan`` round at full width (B = 5, K = 20, batch 64)
+   under ``FedAvgSync(codec=IntQuant(8), error_feedback=True)`` through
+   ``audit_traced``; every finding printed with its file:line, none new
+   against the committed ``baseline.json``; launches exactly 2 fedavg and
+   2 qsync, every other counter 0.  (b) ``launch.dryrun.run_pair`` of that
+   granite round on a fake (1, 1) process group, in a subprocess: its
+   predicted argument bytes equal to the bytes of the storages the state
+   and batches hold once placed on the card, in a fresh process, where
+   ``torch.cuda.memory_allocated`` grows by at least as much from before
+   the state is made to after it is placed (the growth is printed: the
+   caching allocator rounds each block up); the predicted peak printed
+   beside the card's ``max_memory_allocated`` for (a)'s round above what
+   was resident, with their ratio (not held).  (c) the production dry
+   runs, each in a subprocess over a fake group: gemma3-4b ``train_4k`` at
+   K = 1 under agents-data on (16, 16) and on (2, 16, 16), at its 34
+   layers; per-rank memory, FLOPs, collective bytes by axis and the
+   roofline terms printed; each ``ok``, its argument bytes the sum of its
+   local shards by the specs, agent- and model-axis bytes nonzero.
+   The dry runs are host work, started first and run beside (a).
+
 In every main-path run each kernel's launch counter is set to 0 just
 before it and read just after it, and the kernels the path does not run
 must read 0.  The second-to-last line is the kernels' record as one JSON
@@ -3634,6 +3658,248 @@ def run_mesh(torch, dev, params):
     log(f"phase 15 (the mesh on one card): {time.perf_counter() - t_phase:.1f} s wall; {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the analysis and the dry run, on the card
+# ---------------------------------------------------------------------------
+
+# The dry run starts a fake process group of its own, so each of its runs
+# is a subprocess of this one (which holds the serving mesh's real group).
+_DRY_GRANITE = r"""
+import json, sys
+from repro_torch.configs.registry import get_config
+from repro_torch.launch.dryrun import run_pair
+from repro_torch.models.config import ShapeConfig
+cfg = get_config("granite-moe-3b-a800m").scaled(num_layers=2)
+rec = run_pair("granite-moe-3b-a800m", "train_card", cfg=cfg,
+               shape=ShapeConfig("train_card", 256, 8, "train"), mesh_shape=(1, 1), K=5)
+print("DRYRUN " + json.dumps(rec))
+"""
+_DRY_GEMMA = r"""
+import json, sys, time
+t0 = time.perf_counter()
+from repro_torch.launch.dryrun import run_pair
+rec = run_pair("gemma3-4b", "train_4k", multi_pod=sys.argv[1] == "1", plan="agents-data", K=1)
+rec["wall_s"] = round(time.perf_counter() - t0, 1)
+print("DRYRUN " + json.dumps(rec))
+"""
+# (b)'s card side in a fresh process (what the caching allocator adds for
+# the placed state depends on what it already caches): the bytes of the
+# placed tensors' storages, and what torch.cuda.memory_allocated adds
+_CARD_BYTES = r"""
+import json, sys, torch
+from torch.utils._pytree import tree_leaves
+from repro_torch.configs.registry import get_config
+from repro_torch.dist.sharding import place
+from repro_torch.launch.mesh import make_serving_mesh
+from repro_torch.launch.steps import AGENTS_DATA, build_step
+from repro_torch.models.config import ShapeConfig
+dev = torch.device("cuda")
+mesh = make_serving_mesh()
+cfg = get_config("granite-moe-3b-a800m").scaled(num_layers=2)
+built = build_step(cfg, ShapeConfig("train_card", 256, 8, "train"), mesh, K=5, plan=AGENTS_DATA)
+g_init, g_tok = (torch.Generator(device=dev).manual_seed(s) for s in (0, 1))
+# the group's first collective before the count: its buffers are not the state's
+place(torch.zeros(1, device=dev), built.in_shardings[0]["step"])
+torch.cuda.synchronize()
+base = torch.cuda.memory_allocated()
+state = built.fed.init_state(g_init, device=dev)
+shape = tuple(built.input_sds[1]["tokens"].shape)
+batches = {"tokens": torch.randint(0, cfg.vocab_size, shape, device=dev, generator=g_tok)}
+args = (place(state, built.in_shardings[0]), place(batches, built.in_shardings[1]))
+del state, batches
+torch.cuda.synchronize()
+storages = {}
+for x in tree_leaves(args):
+    st = (x._local_tensor if hasattr(x, "_local_tensor") else x).untyped_storage()
+    if st.device.type != "cuda":
+        sys.exit(f"a placed leaf on {st.device}")
+    storages[st.data_ptr()] = st.nbytes()
+print("CARDBYTES " + json.dumps({"storages": sum(storages.values()), "tensors": len(storages),
+                                 "allocated": torch.cuda.memory_allocated() - base}))
+torch.distributed.destroy_process_group()
+"""
+
+def _dry_start(code, *args):
+    return subprocess.Popen([sys.executable, "-c", code, *map(str, args)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=dict(os.environ, PYTHONPATH=SRC), cwd=ROOT)
+
+
+def _dry_result(proc, label, tag="DRYRUN ", timeout=600):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure(f"{label}: over {timeout} s")
+    check(proc.returncode == 0, f"{label} failed: {err[-3000:]}")
+    rec = json.loads([ln for ln in out.splitlines() if ln.startswith(tag)][-1][len(tag):])
+    check(tag != "DRYRUN " or rec.get("status") == "ok", f"dry run {label}: {rec}")
+    return rec
+
+
+def _audit_report(label, findings, baseline):
+    from repro_torch.analysis.findings import new_findings
+    for f in findings:
+        log(f"  {label}: {f.render()}")
+    new = new_findings(findings, baseline)
+    check(not new, f"analysis (a) {label}: {len(new)} new finding(s) against the "
+                   f"committed baseline: {[f.render() for f in new]}")
+
+
+def _analysis_granite(torch, dev, mesh, baseline, card):
+    """(a) on phase 15's built LM GAN round, and the round's peak above
+    what was resident before its state was made ((b) prints it)."""
+    from repro_torch.analysis.findings import filter_suppressed
+    from repro_torch.analysis.trace import audit_built
+    from repro_torch.dist.sharding import place
+    from repro_torch.launch.steps import AGENTS_DATA, build_step, round_donation
+    from repro_torch.models.config import ShapeConfig
+    cfg = _lm_gan_cfg(2)
+    built = build_step(cfg, ShapeConfig("train_card", 256, 8, "train"), mesh, K=5,
+                       plan=AGENTS_DATA)
+    fed = built.fed
+    shape = tuple(built.input_sds[1]["tokens"].shape)
+    g_init, g_tok = (torch.Generator(device=dev).manual_seed(s) for s in (0, 1))
+    # the mesh's group does its first collective before the count starts:
+    # the communicator's own buffers are not the state's
+    place(torch.zeros(1, device=dev), built.in_shardings[0]["step"])
+    gc_collect(torch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = fed.init_state(g_init, device=dev)
+    batches = {"tokens": torch.randint(0, cfg.vocab_size, shape, device=dev, generator=g_tok)}
+    args = (place(state, built.in_shardings[0]), place(batches, built.in_shardings[1]))
+    del state, batches
+    torch.cuda.reset_peak_memory_stats()
+    counters = launch_counters()
+    _reset(counters)
+    t0 = time.perf_counter()
+    findings = filter_suppressed(audit_built(built, donate_argnums=round_donation(built),
+                                             args=args, name="granite.round"), ROOT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read(counters)
+    peak = torch.cuda.max_memory_allocated() - base
+    expect = {n: 2 if n == "fedavg" else 0 for n in counters}
+    check(counts == expect, f"analysis (a) granite round: launches {counts}, expected {expect}")
+    _audit_report("granite.round", findings, baseline)
+    log(f"analysis (a) audit_built({LM_GAN_ARCH} 2 of 32 layers at full width, train_card 256 "
+        f"x 8, K=5, {AGENTS_DATA.name}, on {mesh}): {len(findings)} finding(s), launches "
+        f"{counts}, {wall:.2f} s wall under the audit; {card}")
+    del args
+    return peak
+
+
+def _analysis_acgan(torch, dev, baseline, card):
+    """(a) on one image_acgan round at full width under fused int8 + EF."""
+    from repro_torch.analysis.findings import filter_suppressed
+    from repro_torch.analysis.trace import TracedFn, audit_traced
+    from repro_torch.comm import IntQuant
+    from repro_torch.core import FedAvgSync
+    from repro_torch.launch.train import experiment_spec
+    strategy = FedAvgSync(codec=IntQuant(bits=8), error_feedback=True)
+    spec, _ = experiment_spec("image_acgan", steps=20, strategy=strategy, log_every=0,
+                              device=dev)
+    check((spec.K, spec.batch_size, spec.agent_grid) == (20, 64, (1, B)),
+          "analysis (a): image_acgan is not at the experiment's width")
+    fed, data = spec.build(), spec.build_data()
+    state = fed.init_state(torch.Generator(device=dev).manual_seed(0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    fed.round_from_data(state, data, gen)   # warm-up: cuDNN picks its algorithms
+    counters = launch_counters()
+    _reset(counters)
+    t0 = time.perf_counter()
+    target = TracedFn("image_acgan.int8_ef", lambda st, g: fed.round_from_data(st, data, g),
+                      (state, gen), donate_argnums=(0,), state_argnums=(0,))
+    findings = filter_suppressed(audit_traced(target, ROOT), ROOT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read(counters)
+    expect = {n: 2 if n == "qsync" else 0 for n in counters}
+    check(counts == expect, f"analysis (a) image_acgan int8 round: launches {counts}, "
+                            f"expected {expect}")
+    _audit_report("image_acgan.int8_ef", findings, baseline)
+    log(f"analysis (a) audit_traced(image_acgan, B={B}, K=20, batch 64, FedAvgSync(codec="
+        f"IntQuant(8), error_feedback=True)): {len(findings)} finding(s), launches {counts}, "
+        f"{wall:.2f} s wall under the audit; {card}")
+
+
+def _dry_line(rec):
+    m, r, by = rec["memory"], rec["roofline_per_step"], rec["collective_by_axis"]
+    return (f"per rank: arguments {m['argument_bytes']} B ({m['argument_bytes'] / 2 ** 30:.3f} "
+            f"GiB), peak {m['peak_bytes'] / 2 ** 30:.3f} GiB; {rec['flops']:.4g} FLOPs, "
+            f"{rec['bytes_accessed']:.4g} operand bytes over {rec['op_count']} ops; collective "
+            f"bytes agent {by['agent']}, model {by['model']}, other {by['other']} (once a "
+            f"round: {rec['once_per_call_by_axis']}); roofline a step: compute "
+            f"{r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} ms, collectives "
+            f"{r['collective_s'] * 1e3:.3f} ms ({r['collective_s_nvlink'] * 1e3:.3f} ms all on "
+            f"NVLink), {r['dominant']}; axes across nodes {rec['node_crossing_axes']}; built in "
+            f"{rec['build_s']} s, run in {rec['run_s']} s, {rec.get('wall_s', '?')} s the "
+            f"process")
+
+
+def run_analysis(torch, dev):
+    """Phase 16: the trace audit of two real rounds, the dry run's memory
+    model against the card, and the production dry runs (module
+    docstring)."""
+    from repro_torch.analysis.findings import load_baseline
+    from repro_torch.launch.mesh import make_serving_mesh
+    t_phase = time.perf_counter()
+    card = card_line()
+    # the dry runs are host work in subprocesses: they run beside (a)
+    procs = {"granite": _dry_start(_DRY_GRANITE),
+             "16x16": _dry_start(_DRY_GEMMA, 0),
+             "2x16x16": _dry_start(_DRY_GEMMA, 1),
+             "card bytes": _dry_start(_CARD_BYTES)}
+    try:
+        baseline = load_baseline()
+        mesh = make_serving_mesh()
+        peak = _analysis_granite(torch, dev, mesh, baseline, card)
+        gc_collect(torch)
+        _analysis_acgan(torch, dev, baseline, card)
+        gc_collect(torch)
+        t_a = time.perf_counter() - t_phase
+
+        # every dry run is read and printed first, then held
+        on_card = _dry_result(procs.pop("card bytes"), "analysis (b) card bytes",
+                              tag="CARDBYTES ")
+        recs = {k: _dry_result(p, f"dry run {k}") for k, p in procs.items()}
+        m = recs["granite"]["memory"]
+        log(f"analysis (b) run_pair({LM_GAN_ARCH} 2 layers, train_card, K=5) on a fake (1, 1) "
+            f"group: argument bytes {m['argument_bytes']} against {on_card['storages']} in the "
+            f"storages of the {on_card['tensors']} placed tensors on the card (a fresh process; "
+            f"torch.cuda.memory_allocated grew by {on_card['allocated']}, "
+            f"{on_card['allocated'] - on_card['storages']} of it the caching allocator's "
+            f"rounding); predicted peak {m['peak_bytes']} B ({m['peak_bytes'] / 2 ** 30:.3f} "
+            f"GiB) beside the card's {peak} B ({peak / 2 ** 30:.3f} GiB) above what was "
+            f"resident before the state, ratio {m['peak_bytes'] / peak:.4f}; the dry run "
+            f"{recs['granite']['run_s']} s; {card}")
+        for label in ("16x16", "2x16x16"):
+            rec = recs[label]
+            log(f"analysis (c) gemma3-4b train_4k on {rec['mesh']} (agents-data, K=1, "
+                f"{rec['meta']['agents']} agents of batch {rec['meta']['per_agent_batch']}) over "
+                f"a fake group: {_dry_line(rec)}")
+        check(m["argument_bytes"] == on_card["storages"] <= on_card["allocated"],
+              f"analysis (b): the dry run predicts {m['argument_bytes']} argument bytes, the "
+              f"card's placed state and batches hold {on_card['storages']} in their storages "
+              f"({on_card['allocated']} allocated)")
+        for label in ("16x16", "2x16x16"):
+            m, by = recs[label]["memory"], recs[label]["collective_by_axis"]
+            check(m["argument_bytes"] == m["shard_sum_bytes"],
+                  f"analysis (c) {label}: argument bytes {m['argument_bytes']} are not the "
+                  f"local shards' sum {m['shard_sum_bytes']}")
+            check(by["agent"] > 0 and by["model"] > 0,
+                  f"analysis (c) {label}: collective bytes by axis {by}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    log(f"phase 16 (the analysis and the dry run): {time.perf_counter() - t_phase:.1f} s wall "
+        f"((a) {t_a:.1f} s); {card}")
+
+
 def launch_counters():
     """Every kernel wrapper of the port, by kernel name."""
     from repro_torch.kernels import launch_counters as counters
@@ -3672,6 +3938,14 @@ def main() -> int:
     log(f"nvcc build: {time.perf_counter() - t0:.1f} s wall "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in per_source.items()) or 'cached'})")
 
+    last = [time.perf_counter()]
+
+    def mark(name):
+        # each phase's wall time, for the smoke's time budget
+        now = time.perf_counter()
+        log(f"elapsed: {name} {now - last[0]:.1f} s, {now - t_start:.1f} s in all")
+        last[0] = now
+
     shapes = stream_shapes()
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
     records = {r["name"]: r for r in (check_fedavg(torch, shapes, dev, flush),
@@ -3686,9 +3960,11 @@ def main() -> int:
         kernels_against(args.ssd_parent, "ssd")
     for other in args.qpack_parent:
         kernels_against(other, "qpack")
+    mark("kernel checks")
     check_composed_vs_fused(torch, dev)
     check_small_round(torch, dev)
     check_card_rounds(torch, dev)
+    mark("sync checks")
 
     L = sum(len(v) for v in shapes.values())   # float32 leaves of gen + disc
     plain_counts, _ = run_main_path(torch, dev, None, "FedAvgSync()", {"fedavg": 2})
@@ -3711,32 +3987,46 @@ def main() -> int:
         records[name]["launches"] = chain_counts[name]
     records["fedavg_wire"]["launches"], records["fedavg_pod"]["launches"] = \
         run_strategy_paths(torch, dev)
+    mark("main paths and strategies")
     run_stream(torch, dev)
     run_captured(torch, dev)
     run_checkpoint(torch, dev)
+    mark("stream, captured, checkpoint")
     run_federated_images(torch, dev)
     run_quickstart(torch, dev)
     for name, rounds in PAPER_ROUNDS.items():
         run_paper(torch, dev, name, rounds)
+    mark("paper experiments")
     run_ksweep(torch, dev)
+    mark("K sweep")
     records["flash_attention"]["launches"], params = run_gemma(torch, dev)
     run_serve_gemma(torch, dev, params)
     gc_collect(torch)
+    mark("gemma3-4b and its serving")
     run_mesh(torch, dev, params)
     del params
     torch.cuda.empty_cache()
+    mark("mesh")
     records["ssd_scan"]["launches"], params = run_mamba(torch, dev)
     run_serve_mamba(torch, dev, params)
     del params
     torch.cuda.empty_cache()
     run_serve_reload(torch, dev)
+    mark("mamba2-2.7b and serving reload")
     run_lm_gan(torch, dev)
     gc_collect(torch)
+    mark("LM GAN")
     run_families(torch, dev)
     gc_collect(torch)
+    mark("families")
     run_privacy(torch, dev)
     gc_collect(torch)
+    mark("privacy")
     run_fleet(torch, dev)
+    gc_collect(torch)
+    mark("fleet")
+    run_analysis(torch, dev)
+    mark("analysis")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     check("jax" not in sys.modules, "the port or this script imported jax")

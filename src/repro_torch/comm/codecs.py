@@ -40,6 +40,7 @@ class Like(NamedTuple):
 
 
 def _like_n(like) -> int:
+    # a shape's product: a host number (analysis: allow(host-sync))
     return int(math.prod(like.shape)) if len(like.shape) else 1
 
 

@@ -11,7 +11,11 @@ segment of ``intra_interval`` steps (``segment_sync``: hierarchical).
 The per-agent steps run as ``torch.func.vmap`` over the agent axis of
 ``torch.func.grad_and_value`` of the losses, and the optimizer update as
 ``vmap`` of the one-agent update, so one agent computes what it computes
-in the reference.
+in the reference.  On a mesh whose ranks split an agent's work (a
+tensor-parallel submesh of more than one rank), the agents' gradients
+run by ``torch.autograd`` on the DTensors, one agent at a time: inside
+the transforms the model's layout constraints could not act
+(``repro_torch.dist.sharding.grad_and_value``).
 
 With ``FedGANConfig(dp=DPSGD(...))`` each agent's gradients come from
 ``repro_torch.privacy.dpsgd.dp_grads``: per-example gradients (a vmap over
@@ -29,12 +33,12 @@ import warnings
 from typing import Any, Callable
 
 import torch
-from torch.func import grad_and_value, vmap
+from torch.func import vmap
 
 from repro_torch import resolve_device
 from repro_torch.core import strategies as sync_strategies
 from repro_torch.dist import collectives
-from repro_torch.dist.sharding import AgentShards
+from repro_torch.dist.sharding import AgentShards, grad_and_value, is_sharded
 from repro_torch.optim import Adam, Optimizer, TimeScales, constant, equal_timescale
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -211,6 +215,14 @@ class FedGAN:
         the plain minibatch gradients, or with ``dp`` the DP-SGD ones with
         ``noise`` ((B, ...) standard normals, or None)."""
         dp = self.cfg.dp
+        if dp is None and any(is_sharded(x) and x.device_mesh.size() > 1
+                              for x in tree_leaves(params)):
+            # a rank's agents on a submesh of several ranks: one at a time,
+            # outside the transforms (``sharding.grad_and_value`` says why)
+            per = [self._agent_grads(tree_map(lambda x: x[b], params),
+                                     tree_map(lambda x: x[b], batch))
+                   for b in range(tree_leaves(params)[0].shape[0])]
+            return tree_map(lambda *xs: torch.stack(xs), *per)
         if dp is None:
             return vmap(self._agent_grads)(params, batch)
         from repro_torch.privacy.dpsgd import dp_grads

@@ -1,9 +1,11 @@
-"""GAN losses (the subset of ``repro.core.losses`` the ported tasks use).
+"""GAN loss zoo (a port of ``repro.core.losses``).
 
     d_loss(d_logits_real, d_logits_fake) -> scalar   (minimised by D)
     g_loss(d_logits_fake) -> scalar                  (minimised by G)
 
-plus the ACGAN auxiliary terms.  All reductions are float32 means.
+for the non-saturating, least-squares, hinge and Wasserstein objectives,
+the WGAN-GP ``gradient_penalty``, the raw zero-sum ``minimax_value`` and
+the ACGAN auxiliary terms.  All reductions are float32 means.
 """
 from __future__ import annotations
 
@@ -22,6 +24,65 @@ def ns_d_loss(real_logits, fake_logits):
 
 def ns_g_loss(fake_logits):
     return torch.mean(_softplus(-fake_logits))
+
+
+# -- minimax (the 2D toy analysis uses the raw zero-sum form) ----------------
+
+
+def minimax_value(real_scores, fake_scores):
+    """V(D, G) with a sigmoid-free D (the paper's 2D system uses f(x) =
+    D(x) directly); D ascends V, G descends it."""
+    return torch.mean(real_scores.float()) - torch.mean(fake_scores.float())
+
+
+# -- least squares GAN -------------------------------------------------------
+
+
+def ls_d_loss(real_logits, fake_logits):
+    return 0.5 * (torch.mean((real_logits.float() - 1.0) ** 2)
+                  + torch.mean(fake_logits.float() ** 2))
+
+
+def ls_g_loss(fake_logits):
+    return 0.5 * torch.mean((fake_logits.float() - 1.0) ** 2)
+
+
+# -- hinge --------------------------------------------------------------------
+
+
+def hinge_d_loss(real_logits, fake_logits):
+    return (torch.mean(torch.relu(1.0 - real_logits.float()))
+            + torch.mean(torch.relu(1.0 + fake_logits.float())))
+
+
+def hinge_g_loss(fake_logits):
+    return -torch.mean(fake_logits.float())
+
+
+# -- WGAN (+ gradient penalty helper) ----------------------------------------
+
+
+def w_d_loss(real_logits, fake_logits):
+    return torch.mean(fake_logits.float()) - torch.mean(real_logits.float())
+
+
+def w_g_loss(fake_logits):
+    return -torch.mean(fake_logits.float())
+
+
+def gradient_penalty(d_apply, d_params, real, fake, eps, weight=10.0):
+    """WGAN-GP penalty on interpolates (Gulrajani et al.): the mean of
+    (|grad_x D(x)| - 1)^2 over x = eps real + (1 - eps) fake, times
+    ``weight``.  ``eps`` is the interpolation noise, uniform in [0, 1)
+    with shape (n, 1, ..., 1); the reference draws it from its key, the
+    port takes it from the caller."""
+    inter = eps * real + (1.0 - eps) * fake
+    grads = torch.func.grad(lambda x: torch.sum(d_apply(d_params, x)))(inter).float()
+    gn = torch.sqrt(torch.sum(grads * grads, dim=tuple(range(1, grads.ndim))) + 1e-12)
+    return weight * torch.mean((gn - 1.0) ** 2)
+
+
+# -- ACGAN auxiliary classification -------------------------------------------
 
 
 def aux_class_loss(cls_logits, labels):

@@ -127,7 +127,7 @@ def _round_index(fed, state) -> int:
     the device's step counter is a host wait: only the strategies whose
     sync depends on the round (AdaptiveK, SubsampledFedAvg) call this, once
     per round."""
-    return int(state["step"]) // fed.cfg.sync_interval - 1
+    return int(state["step"]) // fed.cfg.sync_interval - 1  # analysis: allow(host-sync)
 
 
 class SyncStrategy:
@@ -359,6 +359,7 @@ class SubsampledFedAvg(FedAvgSync):
         if self.schedule is not None:
             return self.schedule
         return ParticipationSchedule(
+            # a config field, a host number (analysis: allow(host-sync))
             seed=0 if self.mask_seed is None else int(self.mask_seed))
 
     def num_participants(self, cfg) -> int:

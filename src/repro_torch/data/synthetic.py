@@ -1,8 +1,8 @@
 """Synthetic data standing in for the paper's gated datasets (a port of
 ``repro.data.synthetic``): the exact toy distributions (2D segments, the
 8-mode ring of Gaussians, the Swiss roll), class-conditional images (the
-MNIST/CIFAR and CelebA stand-ins) and daily household-load profiles (the
-PG&E stand-in).  Draws come from an explicit ``torch.Generator`` on its
+MNIST/CIFAR and CelebA stand-ins), daily household-load profiles (the
+PG&E stand-in) and EV charging sessions.  Draws come from an explicit ``torch.Generator`` on its
 own device (on the labels' device for the conditional ones): the same
 distributions as the reference, different bits.  The LM GAN's token
 streams (``sample_agent_tokens``) are the exception: they are the
@@ -89,9 +89,16 @@ def sample_class_images(gen: torch.Generator, n: int, labels: torch.Tensor, *,
     return torch.clamp(img + shift, -1.0, 1.0)
 
 
+def sample_attribute_faces(gen: torch.Generator, n: int, attrs: torch.Tensor, *,
+                           hw: int = 32):
+    """CelebA stand-in: 4 binary attributes -> 16 'identity classes'
+    (Eyeglasses, Male, Smiling, Young in the paper).  ``attrs``: (n,) in
+    [0, 16), on the generator's device."""
+    return sample_class_images(gen, n, attrs, hw=hw, channels=3, num_classes=16)
+
 
 # ---------------------------------------------------------------------------
-# Synthetic time series (PG&E household load)
+# Synthetic time series (PG&E household load / EV charging sessions)
 # ---------------------------------------------------------------------------
 
 
@@ -115,6 +122,26 @@ def sample_household_load(gen: torch.Generator, n: int, *, climate_zone: torch.T
             + evening_h * torch.exp(-0.5 * ((t - evening_peak) / 2.0) ** 2))
     prof = prof + 0.05 * torch.randn((n, seq_len), generator=gen, device=dev)
     return prof / prof.amax(dim=1, keepdim=True)
+
+
+def sample_ev_sessions(gen: torch.Generator, n: int, *, category: torch.Tensor,
+                       seq_len: int = 24):
+    """EV charging power profile over 24 hourly bins, normalised to a peak
+    of 1 (0 stays 0).  ``category`` (the station's point of interest, (n,)
+    int on the generator's device): 0 high-tech workplace (day charging),
+    1 shopping (till midnight), 2 municipal, 3 retail, 4 residential
+    (overnight), the contrast of the paper's Fig. 10."""
+    dev = gen.device
+    cat = category.to(torch.int64)
+    t = torch.arange(seq_len, dtype=torch.float32, device=dev)[None, :]
+    starts = torch.tensor([8.5, 16.0, 10.0, 12.0, 21.0], device=dev)[cat][:, None]
+    durs = torch.tensor([4.0, 5.0, 3.0, 2.0, 7.0], device=dev)[cat][:, None]
+    start = starts + 1.0 * torch.randn((n, 1), generator=gen, device=dev)
+    dur = torch.clamp(durs + 0.8 * torch.randn((n, 1), generator=gen, device=dev), min=0.5)
+    ramp = torch.sigmoid(2.0 * (t - start)) * torch.sigmoid(2.0 * (start + dur - t))
+    power = ramp * (0.7 + 0.3 * torch.rand((n, 1), generator=gen, device=dev))
+    peak = power.amax(dim=1, keepdim=True)
+    return power / torch.where(peak == 0, torch.ones_like(peak), peak)
 
 
 # ---------------------------------------------------------------------------

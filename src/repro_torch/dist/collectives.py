@@ -40,7 +40,7 @@ from repro_torch.dist.sharding import full_tree, is_sharded
 from repro_torch.kernels.fedavg.kernel import (fedavg_flat, fedavg_pod_flat,
                                                fedavg_wire_flat)
 from repro_torch.kernels.qsync import ops as qsync_ops
-from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 # the reduce of a leaf of each type, as the reference's weighted_mean
 # computes it in that type
@@ -176,20 +176,33 @@ def average_agents(tree, weights, *, sync_dtype=None, reduce=None):
     fedavg.
 
     On a mesh the float32 weighted mean is reduced rank by rank and summed
-    across ranks; a wire type or a robust reduce runs on gathered inputs."""
+    across ranks; a wire type or a robust reduce runs on gathered inputs,
+    each rank casting its own shards to the wire type before the gather, so
+    the agent axis carries the declared wire type (a cast is elementwise:
+    before the gather or after it, the same values)."""
     if _any_sharded(tree):
         if reduce is None and sync_dtype is None and all(
                 x.dtype == torch.float32 for x in tree_leaves(tree) if _inexact(x)):
             return _average_on_mesh(tree, weights)
-        return _place_like(average_agents(full_tree(tree), weights, sync_dtype=sync_dtype,
-                                          reduce=reduce), tree)
+        wire = tree if sync_dtype is None else tree_map(
+            lambda x: x.to(sync_dtype) if _inexact(x) else x, tree)
+        return _place_like(_average_gathered(
+            full_tree(wire), weights, sync_dtype=sync_dtype, reduce=reduce,
+            dtypes=[x.dtype for x in tree_leaves(tree)]), tree)
+    return _average_gathered(tree, weights, sync_dtype=sync_dtype, reduce=reduce)
+
+
+def _average_gathered(tree, weights, *, sync_dtype=None, reduce=None, dtypes=None):
+    """``average_agents`` of plain (gathered) leaves; leaf i's mean comes
+    back in ``dtypes[i]`` (default: its own type)."""
     leaves, treedef = tree_flatten(tree)
+    dtypes = [x.dtype for x in leaves] if dtypes is None else dtypes
     outs = list(leaves)
     if reduce is not None:
         for i, x in enumerate(leaves):
             if _inexact(x):
                 m = reduce(x.to(sync_dtype) if sync_dtype is not None else x, weights)
-                outs[i] = m.to(x.dtype).expand(x.shape)
+                outs[i] = m.to(dtypes[i]).expand(x.shape)
         return tree_unflatten(treedef, outs)
     groups: dict = {}
     for i, x in enumerate(leaves):
@@ -198,7 +211,7 @@ def average_agents(tree, weights, *, sync_dtype=None, reduce=None):
     for wire, idx in groups.items():
         means = _bucketed_mean([leaves[i].to(wire) for i in idx], weights)
         for i, m in zip(idx, means):
-            outs[i] = m.to(leaves[i].dtype).expand(leaves[i].shape)
+            outs[i] = m.to(dtypes[i]).expand(leaves[i].shape)
     return tree_unflatten(treedef, outs)
 
 
@@ -287,7 +300,7 @@ def _pairwise_masks(key: torch.Tensor, grid, shape) -> torch.Tensor:
     ``grid``, drawn from ``key`` ((2,) int64 key data): (P, A) + shape
     int64, as the reference's ``_pairwise_masks`` draws them."""
     P, A = grid
-    n = int(torch.Size(shape).numel())
+    n = int(torch.Size(shape).numel())  # a host number: analysis: allow(host-sync)
     return _accumulate_masks(key.reshape(1, 2), [n], P * A).reshape((P, A) + tuple(shape))
 
 

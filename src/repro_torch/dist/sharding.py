@@ -10,9 +10,12 @@ of that story, on a ``torch.distributed`` ``DeviceMesh``:
                declares constraints positionally ("batch dims, then these
                trailing entries") and the active :func:`batch_axes` context
                decides which mesh axes the batch dims occupy.  ``shard``
-               redistributes a DTensor to the filtered spec; without a
-               mesh (:func:`use_mesh`) or on a plain tensor it is the
-               identity, so the same model code runs unsharded.
+               redistributes a DTensor to the filtered spec, and its
+               gradient with it; without a mesh (:func:`use_mesh`) or on
+               a plain tensor it is the identity, so the same model code
+               runs unsharded.  ``grad_and_value`` and ``vjp`` run
+               ``torch.autograd`` on DTensors, where these constraints
+               act (``torch.func`` wraps them away).
 
   parameters   ``param_specs``: name-rule tensor parallelism (column- or
                row-parallel by module name, divisibility fallback to
@@ -44,7 +47,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 # The production default: activation batch dims live on the agent grid.
 DEFAULT_BATCH_AXES = ("pod", "data")
@@ -271,20 +274,60 @@ def is_sharded(x) -> bool:
 
 
 def shard(x, *entries):
-    """Constrain ``x`` to ``entries`` on the current mesh: redistribute the
-    DTensor to the filtered spec.  Entries beyond ``x.ndim`` are rejected;
-    missing trailing entries mean replicated.  The identity with no mesh
-    bound, no entries, an all-replicated filtered spec (as the reference
-    leaves such a tensor unconstrained) or a plain tensor: inside
-    ``torch.func`` transforms (the agents' vmap) tensors are wrapped, and
-    DTensor's own sharding propagation decides there."""
-    mesh = current_mesh()
-    if mesh is None or not entries or not is_sharded(x):
+    """Constrain ``x`` to ``entries`` on its mesh: redistribute the DTensor
+    to the filtered spec.  Entries beyond ``x.ndim`` are rejected; missing
+    trailing entries mean replicated.  The identity with no mesh bound, no
+    entries, or a plain tensor (inside ``torch.func`` transforms tensors
+    are wrapped).  Where the reference leaves an all-replicated spec
+    unconstrained for XLA to choose, the port replicates the tensor on
+    every mesh dim of more than one rank: DTensor's propagation weighs
+    only the bytes it moves, so a hidden state left sharded or partial
+    lets it gather weights and repeat the work on every tensor-parallel
+    rank (the Megatron layout pins the hidden state replicated between
+    the column- and row-parallel products)."""
+    if current_mesh() is None or not entries or not is_sharded(x):
         return x
+    # the tensor's own mesh: on a rank's submesh (``AgentShards``) the
+    # agent axes are gone, and their entries with them
+    mesh = x.device_mesh
     spec = filter_spec(mesh, entries, x.shape)
-    if all(e is None for e in spec):
+    if all(e is None for e in spec) and all(
+            n == 1 or p.is_replicate() for n, p in zip(mesh.shape, x.placements)):
         return x
-    return x.redistribute(x.device_mesh, to_placements(mesh, spec))
+    want = to_placements(mesh, spec)
+    y = x.redistribute(mesh, want)
+    return _GradPlaced.apply(y, want) if y.requires_grad else y
+
+
+def pin_grad(x):
+    """``x``, its gradient placed as ``x`` is (a DTensor that needs one).
+    After a reshape that merges dims: its backward splits them again, which
+    DTensor refuses for a gradient sharded over more ranks than the outer
+    dim has rows (a row-parallel product leaves its input's gradient
+    sharded on the merged dim), and always manages for the forward's own
+    layout."""
+    if is_sharded(x) and x.requires_grad:
+        return _GradPlaced.apply(x, tuple(x.placements))
+    return x
+
+
+class _GradPlaced(torch.autograd.Function):
+    """The identity, whose gradient is redistributed to ``placements``: a
+    constraint holds for the cotangent too, as the transpose of
+    ``with_sharding_constraint`` does in the reference (a partial gradient
+    is reduced there, where the Megatron layout reduces it, and not left
+    for DTensor to meet with a gathered weight)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # contiguous: DTensor reshapes a local shard with ``view``, which a
+        # transposed gradient (a matmul's) refuses
+        return g.redistribute(g.device_mesh, ctx.placements).contiguous(), None
 
 
 def shard_attn_qkv(q, k, v):
@@ -496,6 +539,78 @@ def shape_of(x) -> tuple:
     """Shape of a tensor, a meta tensor, or anything with ``.shape``."""
     return tuple(x.shape)
 
+
+
+# ---------------------------------------------------------------------------
+# gradients on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _on_mesh(tree) -> bool:
+    return any(is_sharded(x) for x in tree_leaves(tree))
+
+
+def _grads_of(outs, trees, cotangents=None, retain_graph=False):
+    """``torch.autograd.grad`` of ``outs`` in the leaves of each tree of
+    ``trees``: one tree of gradients each, zeros where a leaf is unused."""
+    flat = [tree_flatten(t) for t in trees]
+    ins = [x for leaves, _ in flat for x in leaves]
+    outs = outs if isinstance(outs, list) else [outs]
+    cots = [None] * len(outs) if cotangents is None else cotangents
+    live = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]   # constants: no gradient
+    got = torch.autograd.grad([o for o, _ in live], ins,
+                              None if cotangents is None else [c for _, c in live],
+                              retain_graph=retain_graph, allow_unused=True)
+    got = iter(torch.zeros_like(x) if g is None else g for g, x in zip(got, ins))
+    return tuple(tree_unflatten(d, [next(got) for _ in leaves]) for leaves, d in flat)
+
+
+def _leaf_vars(tree):
+    return tree_map(lambda x: x.detach().requires_grad_(True), tree)
+
+
+def grad_and_value(f, argnums=0, has_aux: bool = False):
+    """``torch.func.grad_and_value``, run by ``torch.autograd`` when an
+    argument holds a DTensor.  Inside ``torch.func`` transforms a DTensor is
+    wrapped: the model's layout constraints (``shard``,
+    ``_attend_on_shards``) cannot act there, and DTensor's propagation,
+    which weighs only the bytes it moves, lays out every op alone (it
+    gathers weights and repeats the work on each tensor-parallel rank).
+    The results are the same either way: the gradients (zeros for unused
+    inputs) and the value, detached."""
+    def run(*args):
+        if not _on_mesh(args):
+            return torch.func.grad_and_value(f, argnums, has_aux=has_aux)(*args)
+        nums = (argnums,) if isinstance(argnums, int) else tuple(argnums)
+        args = list(args)
+        with torch.enable_grad():
+            for i in nums:
+                args[i] = _leaf_vars(args[i])
+            out = f(*args)
+            value, aux = out if has_aux else (out, None)
+            grads = _grads_of(value, [args[i] for i in nums])
+        grads = grads[0] if isinstance(argnums, int) else grads
+        if has_aux:
+            return grads, (value.detach(), tree_map(lambda x: x.detach(), aux))
+        return grads, value.detach()
+
+    return run
+
+
+def vjp(f, *primals):
+    """``torch.func.vjp``, run by ``torch.autograd`` when a primal holds a
+    DTensor (:func:`grad_and_value` says why): the outputs, detached, and
+    a function of the cotangents giving the primals' gradients."""
+    if not _on_mesh(primals):
+        return torch.func.vjp(f, *primals)
+    primals = [_leaf_vars(p) for p in primals]
+    with torch.enable_grad():
+        out = f(*primals)
+
+    def pull(cotangents, retain_graph: bool = False):
+        return _grads_of(tree_leaves(out), primals, tree_leaves(cotangents), retain_graph)
+
+    return tree_map(lambda x: x.detach(), out), pull
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """Entry points (``python -m repro_torch.launch.train``), meshes and the
-step builders.  The reference's v5e roofline constants (peak FLOP/s, HBM
-and ICI rates) are a TPU's numbers and have no counterpart here."""
+step builders, the collective accounting of a built step
+(``hlo_analysis``) and the production dry run (``dryrun``).  The
+roofline constants in ``launch.mesh`` are an H100's, in place of the
+reference's v5e ones."""
 from repro_torch.launch.mesh import (make_production_mesh, make_serving_mesh,
                                      make_test_mesh, mesh_dims)
 

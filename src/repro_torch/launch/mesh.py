@@ -21,6 +21,30 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 from repro_torch.dist.sharding import mesh_dims  # noqa: F401  (canonical copy)
 
+# H100 SXM roofline constants, per card (the dry run's roofline terms)
+PEAK_FLOPS_BF16 = 989e12   # FLOP/s, dense bf16 on the tensor cores (H100 SXM data sheet)
+HBM_BW = 3.35e12           # bytes/s of HBM3 (data sheet)
+HBM_BYTES = 80e9           # device memory (data sheet): the dry run's fits-one-card check
+NVLINK_BW = 450e9          # bytes/s each way, 900 GB/s aggregate (data sheet)
+# Across nodes, an assumption: one 400 Gb/s NIC a card and 8 cards a node,
+# as in a DGX H100; ranks fill a node in order (rank // 8 is its node).
+NODE_BW = 50e9             # bytes/s a card across nodes (assumed)
+CARDS_PER_NODE = 8         # (assumed)
+
+
+def node_crossing_axes(shape, axes) -> tuple:
+    """The mesh axes whose groups span more than one node when ranks fill
+    nodes of ``CARDS_PER_NODE`` in row-major mesh order.  On (16, 16) and
+    (2, 16, 16) that is every axis: "model" spans two nodes, and every
+    member of a "data" or "pod" group sits on a node of its own."""
+    out = []
+    stride = 1
+    for size, name in reversed(list(zip(shape, axes))):
+        if size > 1 and (size - 1) * stride >= CARDS_PER_NODE:
+            out.append(name)
+        stride *= size
+    return tuple(reversed(out))
+
 
 def _ensure_process_group(device: torch.device) -> None:
     if dist.is_initialized():

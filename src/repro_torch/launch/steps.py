@@ -26,9 +26,11 @@ GSPMD inserts in the reference.  The port's rounds draw no per-agent keys
 batches), without the reference's seeds.
 
 The LM task's fused gradients run the generator forward once, through
-``torch.func.vjp``: the discriminator's gradients come from the detached
-real and fake features, then the generator's objective is differentiated
-in the forward's outputs (hidden states and logits) and pulled back
+``vjp`` (``torch.func``'s, or ``torch.autograd``'s on DTensors of a
+submesh of several ranks: ``repro_torch.dist.sharding.vjp``): the
+discriminator's gradients come from the detached real and fake
+features, then the generator's objective is differentiated in the
+forward's outputs (hidden states and logits) and pulled back
 through the forward, with the cotangent ``router_aux_weight`` on the MoE
 router's aux loss (a float32 0 in the other families, which still takes
 its cotangent).  An audio-family batch carries the encoder's ``frames``
@@ -41,13 +43,12 @@ from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
-from torch.func import grad_and_value, vjp
 
 from repro_torch.core.fedgan import FedGAN, FedGANConfig, GANTask
 from repro_torch.core.strategies import strategy_from_mode
 from repro_torch.dist.sharding import (PartitionSpec, batch_axes, dp_param_specs, filter_spec,
-                                       mesh_dims, named_shardings, param_specs, place,
-                                       use_mesh)
+                                       grad_and_value, mesh_dims, named_shardings,
+                                       param_specs, place, use_mesh, vjp)
 from repro_torch.models.adversarial import AdversarialLM
 from repro_torch.models.config import ArchConfig, ShapeConfig
 from repro_torch.models.transformer import Backbone

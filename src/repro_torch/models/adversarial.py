@@ -21,10 +21,35 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import nn
-from repro_torch.dist.sharding import batch_spec, shard
+from repro_torch.dist.sharding import batch_spec, is_sharded, shard
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import make_norm
 from repro_torch.models.transformer import Backbone, DecoderBlock, _layers, stack_init
+
+
+def _vocab_sharded(x) -> bool:
+    from torch.distributed.tensor import Shard
+    return is_sharded(x) and any(isinstance(p, Shard) and p.dim % x.ndim == x.ndim - 1
+                                 for p in x.placements)
+
+
+def _vocab_parallel_nll(x, tgt):
+    """``-log_softmax(x)[tgt]`` for a DTensor ``x`` (..., V) sharded on V
+    (the vocab-parallel cross entropy): the row max, the sum of
+    exponentials and the target's logit are reductions over the shards, so
+    no rank holds a whole (..., V) row (DTensor's ``log_softmax`` gathers
+    the vocab first: gemma3-4b's float32 logits of one agent's batch are
+    64 GiB).  The max is a constant shift and takes no gradient."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    z = x - x.amax(-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(z).sum(-1))
+    vocab = [Shard(0) if isinstance(p, Shard) and p.dim % x.ndim == x.ndim - 1
+             else Replicate() for p in x.placements]
+    ids = distribute_tensor(torch.arange(x.shape[-1], device=x.device_mesh.device_type),
+                            x.device_mesh, vocab, src_data_rank=None)
+    hit = torch.where(ids == tgt[..., None], z, torch.zeros((), dtype=z.dtype,
+                                                            device=z.device))
+    return lse - hit.sum(-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,9 +128,13 @@ class AdversarialLM(nn.Module):
     # ---- losses ----
     def lm_loss(self, logits, tokens):
         """Next-token cross entropy (teacher forcing), float32 log-softmax
-        over the padded vocab as the reference takes it."""
+        over the padded vocab as the reference takes it.  Logits sharded on
+        the vocab (a DTensor) stay so: ``_vocab_parallel_nll``."""
         tgt = tokens[:, 1:].long()
-        lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+        x = logits[:, :-1].float()
+        if _vocab_sharded(x):
+            return torch.mean(_vocab_parallel_nll(x, tgt))
+        lp = torch.log_softmax(x, dim=-1)
         return torch.mean(-torch.gather(lp, -1, tgt[..., None])[..., 0])
 
     def disc_loss(self, disc_params, real_feats, fake_feats):

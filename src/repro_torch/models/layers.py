@@ -25,8 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import nn
-from repro_torch.dist.sharding import (batch_spec, is_sharded, local_kernel, shard,
-                                       shard_attn_qkv, whole_dims)
+from repro_torch.dist.sharding import (batch_spec, is_sharded, local_kernel, pin_grad,
+                                       shard, shard_attn_qkv, whole_dims)
 from repro_torch.models.config import ArchConfig
 
 NEG_INF = -2.0 ** 30  # large-but-finite mask value (NaN-safe under softmax)
@@ -122,10 +122,9 @@ class Attention(nn.Module):
     def _qkv(self, params, x, positions):
         c = self.cfg
         nh, nkv, hd = self.dims
-        B, T = x.shape[0], x.shape[1]
-        q = (x @ params["wq"]["w"].to(c.dtype)).reshape(B, T, nh, hd)
-        k = (x @ params["wk"]["w"].to(c.dtype)).reshape(B, T, nkv, hd)
-        v = (x @ params["wv"]["w"].to(c.dtype)).reshape(B, T, nkv, hd)
+        q = _split_heads(x @ params["wq"]["w"].to(c.dtype), nh, hd)
+        k = _split_heads(x @ params["wk"]["w"].to(c.dtype), nkv, hd)
+        v = _split_heads(x @ params["wv"]["w"].to(c.dtype), nkv, hd)
         if c.qk_norm:
             q = nn.RMSNorm(hd).apply(params["q_norm"], q)
             k = nn.RMSNorm(hd).apply(params["k_norm"], k)
@@ -137,15 +136,14 @@ class Attention(nn.Module):
         """Cross-attention keys and values of the encoder's memory (B, S, d)."""
         c = self.cfg
         _, nkv, hd = self.dims
-        B, S, _ = memory.shape
-        k = (memory @ params["wk"]["w"].to(c.dtype)).reshape(B, S, nkv, hd)
-        v = (memory @ params["wv"]["w"].to(c.dtype)).reshape(B, S, nkv, hd)
+        k = _split_heads(memory @ params["wk"]["w"].to(c.dtype), nkv, hd)
+        v = _split_heads(memory @ params["wv"]["w"].to(c.dtype), nkv, hd)
         return k, v
 
     def _query(self, params, x):
         """Cross-attention queries: no qk-norm, no RoPE."""
         nh, _, hd = self.dims
-        return (x @ params["wq"]["w"].to(self.cfg.dtype)).reshape(x.shape[0], x.shape[1], nh, hd)
+        return _split_heads(x @ params["wq"]["w"].to(self.cfg.dtype), nh, hd)
 
     # -- full-sequence (train / prefill) ------------------------------------------
     def apply(self, params, x, *, window=None, positions=None, memory=None,
@@ -174,7 +172,7 @@ class Attention(nn.Module):
                 lambda q_, k_, v_: self._sdpa(q_, k_, v_, window=window,
                                               causal=self.causal and memory is None,
                                               q_positions=positions), q, k, v)
-        y = y.reshape(B, T, nh * hd)
+        y = pin_grad(y.reshape(B, T, nh * hd))
         y = y @ params["wo"]["w"].to(c.dtype)
         y = shard(y, *batch_spec(None, None))
         if return_kv:
@@ -307,13 +305,31 @@ class Attention(nn.Module):
         return cache
 
 
+def _split_heads(y, heads: int, hd: int):
+    """A projection (..., heads * hd) -> (..., heads, hd).  On a mesh, a
+    last dim sharded over ranks that do not divide ``heads`` is gathered
+    first: DTensor views a sharded dim only into an outer dim its ranks
+    divide (gemma3-4b's 8 heads on a 16-way "model" axis)."""
+    if is_sharded(y):
+        from torch.distributed.tensor import Shard
+        nd = y.ndim
+        ranks = math.prod(y.device_mesh.shape[i] for i, p in enumerate(y.placements)
+                          if isinstance(p, Shard) and p.dim % nd == nd - 1)
+        if heads % ranks:
+            y = whole_dims(y, nd - 1)
+    return y.reshape(*y.shape[:-1], heads, hd)
+
+
 def _attend_on_shards(kernel, q, k, v, *rows):
     """``kernel(q, k, v, *rows)`` (B, T, heads, head_dim) -> like q: flash or
     the plain attention.  Under a mesh it runs on the local shards: the
     sequence and head_dim enter whole (the kernel sums over the one and
-    contracts the other), batch stays sharded, and heads stay sharded
-    where both q's and k/v's head counts divide, so each rank keeps whole
-    GQA groups (``rows``, per-row masks, follow the batch).  DTensor's own
+    contracts the other).  Each mesh dim of more than one rank splits the
+    work: q's heads stay sharded where its ranks divide them (k and v then
+    sharded alike, their heads repeated to q's count where the ranks do
+    not divide the kv heads, so each rank keeps whole GQA groups), else
+    the batch is sharded where it divides, else that dim is replicated
+    (``rows``, per-row masks, follow the batch).  DTensor's own
     propagation is not asked to flatten the batch and head dims sharded on
     two mesh axes, which some versions refuse.  Plain tensors go straight
     in."""
@@ -322,11 +338,18 @@ def _attend_on_shards(kernel, q, k, v, *rows):
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     q = whole_dims(q, 1, 3)
     mesh = q.device_mesh
-    sizes = dict(zip(range(mesh.ndim), mesh.shape))
-    kv_heads_div = all(k.shape[2] % sizes[i] == 0 for i, p in enumerate(q.placements)
-                       if p == Shard(2))
-    want = tuple(p if p == Shard(0) or (p == Shard(2) and kv_heads_div) else Replicate()
-                 for p in q.placements)
+    (B, _, nh, hd), nkv = q.shape, k.shape[2]
+    want, on_heads, on_batch = [], 1, 1
+    for n, p in zip(mesh.shape, q.placements):
+        if p == Shard(2) and nh % (on_heads * n) == 0:
+            want.append(p)
+            on_heads *= n
+        elif p == Shard(0) or (n > 1 and B % (on_batch * n) == 0):
+            want.append(Shard(0))
+            on_batch *= n
+        else:
+            want.append(Replicate())
+    want = tuple(want)
     by_row = tuple(p if p == Shard(0) else Replicate() for p in want)
 
     def put(t, placements):
@@ -334,6 +357,13 @@ def _attend_on_shards(kernel, q, k, v, *rows):
             return t.redistribute(mesh, placements)
         return distribute_tensor(t, mesh, placements, src_data_rank=None)
 
+    if nkv % on_heads:
+        def repeat(t):
+            t = put(t, by_row)
+            S = t.shape[1]
+            return t.unsqueeze(3).expand(B, S, nkv, nh // nkv, hd).reshape(B, S, nh, hd)
+
+        k, v = repeat(k), repeat(v)
     args = [put(t, want) for t in (q, k, v)] + [put(r, by_row) for r in rows]
     return local_kernel(kernel, want, *args)
 

@@ -17,8 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import nn
-from repro_torch.dist.sharding import (batch_spec, is_sharded, local_kernel, shard,
-                                       whole_dims)
+from repro_torch.dist.sharding import (batch_spec, is_sharded, local_kernel, pin_grad,
+                                       shard, whole_dims)
 from repro_torch.models.config import ArchConfig
 
 
@@ -104,7 +104,7 @@ class Mamba2Block(nn.Module):
             y, state = y
 
         y = y + x * params["ssd"]["D"].to(c.dtype)[None, None, :, None]
-        y = y.reshape(Bsz, T, d_in)
+        y = pin_grad(y.reshape(Bsz, T, d_in))
         y = nn.RMSNorm(d_in).apply(params["norm"], y) * F.silu(z)
         out = y @ params["out_proj"]["w"].to(c.dtype)
         out = shard(out, *batch_spec(None, None))

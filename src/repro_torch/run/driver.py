@@ -64,7 +64,8 @@ class RunResult:
 
 def _synchronize(device: torch.device):
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        # once a run, after the last round, for the wall-time total
+        torch.cuda.synchronize(device)  # analysis: allow(host-sync)
 
 
 def _chunk_sizes(n_rounds: int, per_chunk: int, *cadences: int) -> list:
@@ -88,7 +89,7 @@ def _dp_data_shape(data):
     None when the data object does not expose them."""
     if isinstance(data, DeviceFederatedData):
         # one host read of the shard sizes, before the round loop
-        return data.batch_size, int(data.sizes.min())
+        return data.batch_size, int(data.sizes.min())  # analysis: allow(host-sync)
     rounds = data.rounds if isinstance(data, StreamingFederatedData) else data
     if isinstance(rounds, (FederatedRounds, FleetRounds)):
         n_min = min(tree_leaves(d)[0].shape[0] for d in rounds.agent_data)
@@ -134,11 +135,14 @@ class _Table:
         self.rows[r].copy_(row)
 
     def round(self, r: int) -> dict:
-        return dict(zip(self.keys, self.rows[r].tolist()))
+        # a logged round's metrics, fetched every ``log_every`` rounds
+        return dict(zip(self.keys, self.rows[r].tolist()))  # analysis: allow(host-sync)
 
     def history(self) -> list:
         if self.rows is None:
             return []
+        # the whole run's metrics, fetched once after its last round:
+        # analysis: allow(host-sync)
         return [dict(zip(self.keys, row)) for row in self.rows.tolist()]
 
 

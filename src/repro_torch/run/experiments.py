@@ -154,6 +154,8 @@ def run_sweep(experiment: str, Ks: Sequence[int], *,
                         cell = SweepCell(experiment, K, sname, res.history,
                                          res.evals, final, res.timings,
                                          codec=cname, privacy=pname,
+                                         # the strategy's bill, a host number
+                                         # analysis: allow(host-sync)
                                          bytes_per_round=int(
                                              acct["strategy_bytes_per_round"]))
                         for row in cell.rows():
@@ -195,7 +197,7 @@ def parse_sweep(arg: str) -> list:
     """'K=10,20,100' (or bare '10,20,100') -> [10, 20, 100]."""
     body = arg.split("=", 1)[1] if "=" in arg else arg
     try:
-        Ks = [int(x) for x in body.split(",") if x]
+        Ks = [int(x) for x in body.split(",") if x]  # CLI text: analysis: allow(host-sync)
     except ValueError:
         raise ValueError(f"bad --sweep {arg!r}; expected K=10,20,100") from None
     if not Ks or any(k < 1 for k in Ks):

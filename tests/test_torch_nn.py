@@ -87,6 +87,45 @@ def test_acgan_losses_match_jax():
     np.testing.assert_allclose(t.item(), float(j), rtol=1e-6)
 
 
+@pytest.mark.parametrize("name", ["ls", "hinge", "w"])
+def test_gan_losses_match_jax(name):
+    """The least-squares, hinge and Wasserstein pairs, within 1e-6
+    relative of the reference on the same logits."""
+    rng = np.random.default_rng(11)
+    rl, fl = (rng.standard_normal(64).astype(np.float32) * 3 for _ in range(2))
+    jd, td = getattr(jlosses, f"{name}_d_loss"), getattr(tlosses, f"{name}_d_loss")
+    jg, tg = getattr(jlosses, f"{name}_g_loss"), getattr(tlosses, f"{name}_g_loss")
+    np.testing.assert_allclose(td(torch.from_numpy(rl), torch.from_numpy(fl)).item(),
+                               float(jd(jnp.asarray(rl), jnp.asarray(fl))), rtol=1e-6)
+    np.testing.assert_allclose(tg(torch.from_numpy(fl)).item(), float(jg(jnp.asarray(fl))),
+                               rtol=1e-6)
+
+
+def test_minimax_value_matches_jax():
+    rng = np.random.default_rng(12)
+    r, f = (rng.standard_normal(33).astype(np.float32) for _ in range(2))
+    np.testing.assert_allclose(
+        tlosses.minimax_value(torch.from_numpy(r), torch.from_numpy(f)).item(),
+        float(jlosses.minimax_value(jnp.asarray(r), jnp.asarray(f))), rtol=1e-6)
+
+
+def test_gradient_penalty_matches_jax():
+    """WGAN-GP on the Swiss-roll MLP discriminator's weights, converted, with
+    the reference's interpolation noise passed to the port."""
+    rng = np.random.default_rng(13)
+    real, fake = (rng.standard_normal((16, 2)).astype(np.float32) for _ in range(2))
+    jd = jnets.MLPDiscriminator(in_dim=2, hidden=16)
+    td = tnets.MLPDiscriminator(in_dim=2, hidden=16)
+    jp = jd.init(jax.random.key(0))
+    key = jax.random.key(5)
+    eps = np.array(jax.random.uniform(key, (16, 1)))
+    want = jlosses.gradient_penalty(jd.apply, jp, jnp.asarray(real), jnp.asarray(fake), key)
+    got = tlosses.gradient_penalty(td.apply, from_jax_params(jp, device="cpu"),
+                                   torch.from_numpy(real), torch.from_numpy(fake),
+                                   torch.from_numpy(eps))
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+
+
 @pytest.mark.parametrize("make", [
     pytest.param(lambda m: m.Adam(), id="adam"),
     pytest.param(lambda m: m.Adam(b1=0.9, b2=0.99, eps=1e-6), id="adam-knobs"),

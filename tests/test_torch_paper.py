@@ -223,6 +223,37 @@ def test_sample_household_load_matches_reference():
         _same_moments(t, j, n)
 
 
+def test_sample_ev_sessions_matches_reference():
+    """Per-hour means within 5 standard errors, and the hour of each
+    session's peak distributed alike.  Not the standard deviations: the
+    hours outside a session sit in a sigmoid's tail, so heavy-tailed that
+    two seeds of the reference differ there by hundreds of standard
+    errors of a Gaussian's std."""
+    n = 4096
+    for cat in (0, 4):
+        t = tsyn.sample_ev_sessions(_gen(cat), n, category=torch.full((n,), cat)).numpy()
+        j = np.asarray(jsyn.sample_ev_sessions(jax.random.key(cat), n,
+                                               category=jnp.full((n,), cat)))
+        assert t.shape == (n, 24) and t.min() >= 0.0
+        np.testing.assert_allclose(t.max(1), 1.0, rtol=1e-6)   # normalised to peak 1
+        t64, j64 = t.astype(np.float64), j.astype(np.float64)
+        np.testing.assert_array_less(np.abs(t64.mean(0) - j64.mean(0)),
+                                     5 * j64.std(0) / np.sqrt(n) + 1e-9)
+        pt = np.bincount(t.argmax(1), minlength=24) / n
+        pj = np.bincount(j.argmax(1), minlength=24) / n
+        np.testing.assert_array_less(np.abs(pt - pj),
+                                     5 * np.sqrt(pj * (1 - pj) / n) + 3 / n)
+
+
+def test_sample_attribute_faces_matches_reference():
+    n = 4096
+    attrs = np.random.default_rng(6).integers(0, 16, n)
+    t = tsyn.sample_attribute_faces(_gen(6), n, torch.from_numpy(attrs), hw=8).numpy()
+    j = np.asarray(jsyn.sample_attribute_faces(jax.random.key(6), n, attrs, hw=8))
+    assert t.shape == (n, 8, 8, 3) and t.min() >= -1.0 and t.max() <= 1.0
+    _same_moments(t.reshape(n, -1), j.reshape(n, -1), n)
+
+
 def test_sample_class_images_matches_reference():
     n = 4096
     lab = np.random.default_rng(5).integers(0, 16, n)
