@@ -18,7 +18,14 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    reference's weighted_mean in bfloat16 and float16, each product
    rounded to the type) at the generator stream and its pod route (the
    fused multiply-add chain of average_intra_pod) at that stream on a
-   (2, 4) grid, bit-identical; qsync at 8 and 4 bits, with
+   (2, 4) grid, bit-identical, and both at every residue of N, at B = 33
+   and on a (2, 9) grid, on aligned allocations and on views 3 elements
+   into their storage; their times at the aligned N = 2,314,440, one empty
+   launch and the unchanged main route beside them, and every
+   instantiation's registers, local bytes (none allowed) and blocks an
+   SM.  With ``--fedavg-parent DIR`` (repeatable), time that checkout's
+   main, wire and pod routes and their yardsticks beside this one's, in
+   turns, one process each; qsync at 8 and 4 bits, with
    and without error feedback, bit-identical (both sum in agent order).
    The four qpack kernels bit-identical (elementwise): quant and dequant at
    the largest ACGAN leaf, (5, 2,097,152) float32, at 8 and 4 bits; pack4
@@ -466,6 +473,14 @@ def check_fedavg(torch, shapes, dev, flush):
     return record
 
 
+def _offset_view(torch, gen, dev, shape, dtype, offset):
+    """Random ``dtype`` values of ``shape``, contiguous, ``offset`` elements
+    into their storage (an unaligned base when ``offset`` is not 0)."""
+    n = math.prod(shape)
+    buf = torch.randn((n + offset,), generator=gen, device=dev).to(dtype)
+    return buf[offset:].view(shape)
+
+
 def check_fedavg_routes(torch, shapes, dev, flush):
     """fedavg's wire route (the reference's weighted_mean in bfloat16 and
     float16: products rounded to the type) at the generator bucket, and
@@ -473,11 +488,39 @@ def check_fedavg_routes(torch, shapes, dev, flush):
     at that bucket on a (2, 4) grid, each bit-identical to its plain
     version and timed, beside one library call of the same function
     (``torch.mv`` in bfloat16; ``torch.einsum`` on the row-normalised
-    weights), which the port never calls.  Returns the two records."""
-    from repro_torch.kernels.fedavg.kernel import fedavg_pod_flat, fedavg_wire_flat
+    weights), which the port never calls.  Before that, both routes bit
+    for bit at every residue of N (100,000 to 100,007), on an aligned
+    allocation and on a view 3 elements into its storage, at B = 33 and
+    on a (2, 9) grid.  After it: each route's time at N = 2,314,440, where
+    every row is 16-byte aligned and the realignment shifts nothing, one
+    empty launch through the same timing, the main route (``fedavg_f32``,
+    unchanged) at the bucket as the control, a PyTorch copy of the wire
+    route's bytes as a yardstick of the card's rate, and the registers, local
+    bytes and blocks an SM of every instantiation of the two routes (no
+    local bytes allowed).  Returns the two records."""
+    from repro_torch.kernels.fedavg import kernel as fk
+    from repro_torch.kernels.fedavg.kernel import (fedavg_flat, fedavg_pod_flat,
+                                                   fedavg_wire_flat)
     from repro_torch.kernels.fedavg.ref import fedavg_pod_ref, fedavg_wire_ref
     gen = torch.Generator(device=dev).manual_seed(2)
     N = sum(math.prod(s) for s in shapes["gen"])
+    for n in range(100_000, 100_008):
+        for offset in (0, 3):
+            for rows in (B, 33):
+                w = torch.rand((1, rows), generator=gen, device=dev) + 0.1
+                for dtype in (torch.bfloat16, torch.float16):
+                    x = _offset_view(torch, gen, dev, (rows, n), dtype, offset)
+                    check(same_bits(torch, fedavg_wire_flat(w, x), fedavg_wire_ref(w, x)),
+                          f"fedavg_wire ({rows}, {n}) {dtype} at offset {offset}: "
+                          "kernel differs from plain")
+            for grid in ((2, 4), (2, 9)):
+                w = torch.rand(grid, generator=gen, device=dev) + 0.1
+                x = _offset_view(torch, gen, dev, grid + (n,), torch.float32, offset)
+                check(same_bits(torch, fedavg_pod_flat(w, x), fedavg_pod_ref(w, x)),
+                      f"fedavg_pod {grid + (n,)} at offset {offset}: kernel differs from plain")
+    torch.cuda.synchronize()
+    log("fedavg_wire (B = 5, 33) and fedavg_pod ((2, 4), (2, 9)) at N = 100,000..100,007, "
+        "aligned and 3 elements into their storage: bit-identical to plain")
     w = torch.rand((1, B), generator=gen, device=dev) + 0.1
     w = w / w.sum()
     records = {}
@@ -520,6 +563,33 @@ def check_fedavg_routes(torch, shapes, dev, flush):
         "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
     log(f"fedavg_pod ({P}, {A}, {N}) f32: bit-identical to plain; kernel {ms:.4f} ms, plain "
         f"{plain:.4f} ms, torch.einsum {lib:.4f} ms, bound {b_ms:.4f} ms")
+    n_al = N + (-N) % 8   # every bf16 and f32 row 16-byte aligned
+    x = torch.randn((B, n_al), generator=gen, device=dev).to(torch.bfloat16)
+    wb = torch.rand((1, B), generator=gen, device=dev) + 0.1
+    wire_al = time_ms(torch, lambda: fedavg_wire_flat(wb, x), flush)
+    x = torch.randn((P, A, n_al), generator=gen, device=dev)
+    pod_al = time_ms(torch, lambda: fedavg_pod_flat(w, x), flush)
+    floor = time_ms(torch, lambda: torch.cuda._sleep(1), flush)
+    x = torch.randn((B, N), generator=gen, device=dev)
+    control = time_ms(torch, lambda: fedavg_flat(wb, x), flush)
+    # a yardstick of the wire route's bytes: a copy that reads and writes
+    # (B + 1) N bytes each, 2 (B + 1) N in all
+    x = torch.empty(((B + 1) * N,), dtype=torch.uint8, device=dev)
+    y = torch.empty_like(x)
+    copy = time_ms(torch, lambda: y.copy_(x), flush)
+    del x, y
+    log(f"fedavg routes at N = {n_al} (every row aligned) beside N = {N}: wire "
+        f"{wire_al:.4f} ms against {records['fedavg_wire']['ms']:.4f}, pod {pod_al:.4f} ms "
+        f"against {records['fedavg_pod']['ms']:.4f}; one empty launch (torch.cuda._sleep(1)) "
+        f"{floor:.4f} ms; the main route fedavg_f32 ({B}, {N}) {control:.4f} ms (the control); "
+        f"a PyTorch copy_ moving the wire route's {2 * (B + 1) * N} bytes {copy:.4f} ms")
+    for route in ("wire_bf16", "wire_f16", "pod"):
+        attrs = [fk.kernel_attrs(name) for name in fk.KERNELS if name.startswith(route + "_")]
+        regs, local, blocks = ([a[k] for a in attrs]
+                               for k in ("num_regs", "local_bytes", "blocks_per_sm"))
+        log(f"fedavg {route} rows 1..8, groups of 8: registers {regs}, local bytes "
+            f"{local}, blocks an SM {blocks}")
+        check(all(a["local_bytes"] == 0 for a in attrs), f"fedavg {route} spills: {attrs}")
     return [records["fedavg_wire"], records["fedavg_pod"]]
 
 
@@ -1182,6 +1252,10 @@ def check_ssd_final_state(torch, dev, flush):
 # What a checkout's own chip_smoke times, by --<what>-parent: {kernel: ms}.
 AGAINST = {
     "ssd": "{'ssd': cs.check_ssd(torch, dev, flush)['ms']}",
+    "fedavg": "(lambda main, routes: {'fedavg': main['ms'], **{r['name']: r['ms'] for r in "
+              "routes}, **{r['name'] + ' library': r['library_ms'] for r in routes}})("
+              "cs.check_fedavg(torch, cs.stream_shapes(), dev, flush), "
+              "cs.check_fedavg_routes(torch, cs.stream_shapes(), dev, flush))",
     "qpack": "{r['name']: r['ms'] for r in cs.check_qpack(torch, dev, flush) "
              "if r['name'] in ('dequant', 'pack4', 'unpack4')}",
 }
@@ -3914,6 +3988,9 @@ def main() -> int:
     ap.add_argument("--qpack-parent", metavar="DIR", action="append", default=[],
                     help="also time the dequant, pack4 and unpack4 kernels of the "
                          "checkout DIR beside this one's (may be given more than once)")
+    ap.add_argument("--fedavg-parent", metavar="DIR", action="append", default=[],
+                    help="also time the fedavg kernel's main, wire and pod routes (and "
+                         "their library yardsticks) of the checkout DIR beside this one's")
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -3960,6 +4037,8 @@ def main() -> int:
         kernels_against(args.ssd_parent, "ssd")
     for other in args.qpack_parent:
         kernels_against(other, "qpack")
+    for other in args.fedavg_parent:
+        kernels_against(other, "fedavg")
     mark("kernel checks")
     check_composed_vs_fused(torch, dev)
     check_small_round(torch, dev)

@@ -10,6 +10,10 @@ kernel's launches and nothing else:
   float16 leaf's own type (products rounded to it);
 * ``fedavg_pod_flat``: the reference's ``average_intra_pod`` reduce, a
   fused multiply-add chain per pod (float32).
+
+The wire and pod routes take any contiguous input, a view with a storage
+offset included: the kernel realigns each row's 16-byte loads itself.
+``kernel_attrs`` reads each of their compiled instantiations (``KERNELS``).
 """
 from __future__ import annotations
 
@@ -26,9 +30,15 @@ _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
 _POD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
 _SIGNATURES = {"fedavg_f32": _ARGS, "fedavg_bf16": _ARGS, "fedavg_wire_bf16": _ARGS,
-               "fedavg_wire_f16": _ARGS, "fedavg_pod_f32": _POD_ARGS}
+               "fedavg_wire_f16": _ARGS, "fedavg_pod_f32": _POD_ARGS,
+               "fedavg_attrs": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]}
 _ENTRY = {torch.float32: "fedavg_f32", torch.bfloat16: "fedavg_bf16"}
 _WIRE_ENTRY = {torch.bfloat16: "fedavg_wire_bf16", torch.float16: "fedavg_wire_f16"}
+# The wire and pod routes' instantiations, in the order of the C entry
+# ``fedavg_attrs``: per route, 1 to 8 agent rows unrolled, then any count
+# in unrolled groups of 8 (``_g8``).
+KERNELS = tuple(f"{route}_{rows}" for route in ("wire_bf16", "wire_f16", "pod")
+                for rows in (*range(1, 9), "g8"))
 
 
 def _check_shape(weights, stacked):
@@ -106,6 +116,20 @@ def fedavg_pod_flat(weights: torch.Tensor, stacked: torch.Tensor) -> torch.Tenso
     _launch("fedavg_pod_f32", weights, stacked, out, P, A, N)
     fedavg_pod_flat.launches += 1
     return out
+
+
+def kernel_attrs(name: str) -> dict:
+    """Registers and local (spill) bytes a thread, and blocks resident an
+    SM, of the compiled instantiation ``name`` (one of ``KERNELS``).
+    Launches nothing."""
+    if name not in KERNELS:
+        raise ValueError(f"kernel_attrs takes one of {KERNELS}, got {name!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_attrs reads the card's compiled kernel: needs CUDA")
+    out = (ctypes.c_int * 3)()
+    _build.check_launch(_build.load("fedavg", _SIGNATURES).fedavg_attrs(
+        KERNELS.index(name), out), "fedavg attrs")
+    return dict(zip(("num_regs", "local_bytes", "blocks_per_sm"), out))
 
 
 fedavg_flat.launches = 0

@@ -12,7 +12,10 @@ sum_b |w_b x_bn| (another summation order of B products), bfloat16 one
 bfloat16 ulp more (the f32 sum may round to the neighbouring bfloat16);
 fedavg's wire and pod routes bit-identical (both sum in agent order with
 the same roundings: the products rounded to the wire type, or one fused
-multiply-add each, which the plain version emulates exactly in float64);
+multiply-add each, which the plain version emulates exactly in float64)
+at every residue of N mod 8, at B = 33 and on a (2, 9) grid, and on views
+whose storage offset leaves every row off 16-byte alignment (the kernel
+realigns its 16-byte loads row by row);
 qsync bit-identical in every output (kernel and plain version both sum
 the rounded products in agent order and round every step alike); the fused
 Adam + quantize kernel bit-identical to its plain version and to
@@ -57,6 +60,7 @@ demo's journal equal to the CPU's apart from the params digests, and two
 card runs byte-identical.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -66,6 +70,7 @@ from torch_shared import CARD_K, ROUND_TASKS, port_round_mismatches
 from repro_torch.comm import IntQuant, get_codec
 from repro_torch.core import FedAvgSync
 from repro_torch.dist import collectives
+from repro_torch.kernels.fedavg import kernel as avgkernel
 from repro_torch.kernels.fedavg.kernel import fedavg_flat, fedavg_pod_flat, fedavg_wire_flat
 from repro_torch.kernels.fedavg.ref import fedavg_flat_ref, fedavg_pod_ref, fedavg_wire_ref
 from repro_torch.kernels.qpack import kernel as pkernel
@@ -125,17 +130,29 @@ def _same_bits(a, b):
     return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
 
 
+# N at every residue mod 8, small and large, and the ACGAN generator bucket
+FEDAVG_NS = [1, 2, 7, 1027, *range(100_000, 100_008), 2_314_435]
+
+
+def _route_input(g, cuda, shape, dtype, offset=0):
+    """Mixed magnitudes of ``dtype``; with ``offset``, a contiguous view
+    that many elements into its storage (an unaligned base)."""
+    n = math.prod(shape)
+    scale = torch.tensor([1e-3, 1.0, 30.0], device=cuda)[
+        torch.randint(0, 3, (n + offset,), generator=g, device=cuda)]
+    buf = (torch.randn((n + offset,), generator=g, device=cuda) * scale).to(dtype)
+    return buf[offset:].view(shape)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [1, 1027, 100_003])
-@pytest.mark.parametrize("B", [5, 8, 16])
+@pytest.mark.parametrize("N", FEDAVG_NS)
+@pytest.mark.parametrize("B", [5, 8, 16, 33])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_fedavg_wire_kernel_matches_plain(cuda, dtype, B, N):
     g = torch.Generator(device=cuda).manual_seed(B + N)
     w = torch.rand((1, B), generator=g, device=cuda) + 0.1
     w = w / w.sum()
-    scale = torch.tensor([1e-3, 1.0, 30.0], device=cuda)[
-        torch.randint(0, 3, (B, N), generator=g, device=cuda)]
-    x = (torch.randn((B, N), generator=g, device=cuda) * scale).to(dtype)
+    x = _route_input(g, cuda, (B, N), dtype)
     before = fedavg_wire_flat.launches
     got = fedavg_wire_flat(w, x)
     torch.cuda.synchronize()
@@ -148,15 +165,13 @@ def test_fedavg_wire_kernel_matches_plain(cuda, dtype, B, N):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [1, 513, 100_003])
-@pytest.mark.parametrize("grid", [(1, 5), (2, 4), (4, 4), (3, 5)])
+@pytest.mark.parametrize("N", [513, *FEDAVG_NS])
+@pytest.mark.parametrize("grid", [(1, 5), (2, 4), (4, 4), (3, 5), (2, 9)])
 def test_fedavg_pod_kernel_matches_plain(cuda, grid, N):
     g = torch.Generator(device=cuda).manual_seed(sum(grid) + N)
     w = torch.rand(grid, generator=g, device=cuda) + 0.1
     w = w / w.sum()
-    scale = torch.tensor([1e-3, 1.0, 30.0], device=cuda)[
-        torch.randint(0, 3, grid + (N,), generator=g, device=cuda)]
-    x = torch.randn(grid + (N,), generator=g, device=cuda) * scale
+    x = _route_input(g, cuda, grid + (N,), torch.float32)
     before = fedavg_pod_flat.launches
     got = fedavg_pod_flat(w, x)
     torch.cuda.synchronize()
@@ -164,6 +179,39 @@ def test_fedavg_pod_kernel_matches_plain(cuda, grid, N):
     assert _same_bits(got, fedavg_pod_ref(w, x))
     with pytest.raises(TypeError, match="float32"):
         fedavg_pod_flat(w, x.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("N", [1, 1027, 100_003])
+def test_fedavg_routes_take_unaligned_views(cuda, offset, N):
+    """A contiguous view ``offset`` elements into its storage: every row of
+    the wire and pod routes starts off 16-byte alignment, the first row's
+    first word before the tensor; both routes still equal their plain
+    versions bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(offset * N)
+    w = torch.rand((1, 5), generator=g, device=cuda) + 0.1
+    w = w / w.sum()
+    for dtype in (torch.bfloat16, torch.float16):
+        x = _route_input(g, cuda, (5, N), dtype, offset)
+        assert x.is_contiguous() and x.data_ptr() % 16
+        assert _same_bits(fedavg_wire_flat(w, x), fedavg_wire_ref(w, x))
+    wp = torch.rand((2, 9), generator=g, device=cuda) + 0.1
+    x = _route_input(g, cuda, (2, 9, N), torch.float32, offset)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    got = fedavg_pod_flat(wp, x)
+    torch.cuda.synchronize()
+    assert _same_bits(got, fedavg_pod_ref(wp, x))
+
+
+@pytest.mark.cuda
+def test_fedavg_kernels_do_not_spill(cuda):
+    """Every instantiation of the wire and pod routes: no local bytes, and
+    at least three blocks resident an SM (their launch bounds)."""
+    assert len(avgkernel.KERNELS) == 27
+    for name in avgkernel.KERNELS:
+        a = avgkernel.kernel_attrs(name)
+        assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 3, (name, a)
 
 
 @pytest.mark.cuda
