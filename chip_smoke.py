@@ -20,7 +20,13 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    fused multiply-add chain of average_intra_pod) at that stream on a
    (2, 4) grid, bit-identical, and both at every residue of N, at B = 33
    and on a (2, 9) grid, on aligned allocations and on views 3 elements
-   into their storage; their times at the aligned N = 2,314,440, one empty
+   into their storage; the pod route's bfloat16 and float16 ops (the
+   reference's einsum in the leaf's type: the weights rounded to it, the
+   chain in float32, one rounding at the end) bit-identical at every
+   residue of N on (2, 4) and (2, 9), aligned and 1 and 3 elements in, and
+   at N = 2,314,435 on both grids, each timed beside the float32 pod route
+   and a ``torch.einsum`` in its type with its bound; their times at the
+   aligned N = 2,314,440, one empty
    launch and the unchanged main route beside them, and every
    instantiation's registers, local bytes (none allowed) and blocks an
    SM.  With ``--fedavg-parent DIR`` (repeatable), time that checkout's
@@ -198,7 +204,15 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    round).  Deeper rounds pass 72 GB of the card's 80 (NVIDIA H100 80GB
    HBM3, 700 W): a round holds its input state beside the steps' (the
    functional API, as the reference's undonated jit), and Adam's update
-   the old and the new state.  The five new archs' ``.smoke()`` rounds
+   the old and the new state.  Then ``Hierarchical(intra_interval=5)``
+   on a (2, 2) grid of pods with the model built in ``param_dtype``
+   bfloat16 (2 layers, K = 10, 2 rounds, Adam) and float16 (1 layer, K =
+   5, 1 round, SGD: Adam's second moment of a float16 gradient underflows):
+   one pod launch of the leaf's type a segment (all params in one bucket)
+   and 2 wire launches at each round's end, exact, each held in place bit
+   for bit; every pod's agents equal after each segment, all agents after
+   each round, losses finite, each path's wall time printed.  The five
+   new archs' ``.smoke()`` rounds
    and one step of each sync at smoke width run first: a process's first
    local step leaves its input state in a garbage cycle once (torch's
    first-call set-up keeps a list of frames), a full state at full width.
@@ -311,7 +325,13 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    ShapeConfig("train_card", 256, 8, "train"), mesh, K=5,
    plan=AGENTS_DATA)`` (one agent) against ``FedGAN.round`` on the same
    state and batches without a mesh: the new state bit-identical, 2
-   fedavg launches each and no other kernel; (d) ``run_experiment(
+   fedavg launches each and no other kernel; (e) a DP-SGD round (clip 1,
+   sigma 1, K = 2) of that built round on its state placed with the agent
+   grid sharded over the size-1 "data" dim (``AgentShards`` asserted in
+   use: the noise placed as the params, the dense DP route on the rank's
+   local tensors), bit-identical to the unsharded DP round from one
+   generator, 2 fedavg launches; 2 layers unless the per-example
+   gradients would pass 72 GiB (then 1, printed); (d) ``run_experiment(
    "toy_2d")`` for 4 rounds, its history ``experiment_spec(...).run()``'s.
    Each part's wall time and the card's peak memory are printed.
 
@@ -496,12 +516,17 @@ def check_fedavg_routes(torch, shapes, dev, flush):
     empty launch through the same timing, the main route (``fedavg_f32``,
     unchanged) at the bucket as the control, a PyTorch copy of the wire
     route's bytes as a yardstick of the card's rate, and the registers, local
-    bytes and blocks an SM of every instantiation of the two routes (no
-    local bytes allowed).  Returns the two records."""
+    bytes and blocks an SM of every instantiation of the routes (no
+    local bytes allowed).  The pod route's bfloat16 and float16 ops are
+    held bit for bit at every residue of N, at the bucket on (2, 4) and (2,
+    9) grids and 1 and 3 elements into their storage, and timed beside a
+    ``torch.einsum`` in their type.  Returns the four records (wire, pod
+    f32, pod bf16, pod f16)."""
     from repro_torch.kernels.fedavg import kernel as fk
     from repro_torch.kernels.fedavg.kernel import (fedavg_flat, fedavg_pod_flat,
                                                    fedavg_wire_flat)
-    from repro_torch.kernels.fedavg.ref import fedavg_pod_ref, fedavg_wire_ref
+    from repro_torch.kernels.fedavg.ref import (fedavg_pod_low_ref, fedavg_pod_ref,
+                                                fedavg_wire_ref)
     gen = torch.Generator(device=dev).manual_seed(2)
     N = sum(math.prod(s) for s in shapes["gen"])
     for n in range(100_000, 100_008):
@@ -518,9 +543,18 @@ def check_fedavg_routes(torch, shapes, dev, flush):
                 x = _offset_view(torch, gen, dev, grid + (n,), torch.float32, offset)
                 check(same_bits(torch, fedavg_pod_flat(w, x), fedavg_pod_ref(w, x)),
                       f"fedavg_pod {grid + (n,)} at offset {offset}: kernel differs from plain")
+        for offset in (0, 1, 3):
+            for grid in ((2, 4), (2, 9)):
+                w = torch.rand(grid, generator=gen, device=dev) + 0.1
+                for dtype in (torch.bfloat16, torch.float16):
+                    x = _offset_view(torch, gen, dev, grid + (n,), dtype, offset)
+                    check(same_bits(torch, fedavg_pod_flat(w, x), fedavg_pod_low_ref(w, x)),
+                          f"fedavg_pod {grid + (n,)} {dtype} at offset {offset}: kernel "
+                          "differs from plain")
     torch.cuda.synchronize()
     log("fedavg_wire (B = 5, 33) and fedavg_pod ((2, 4), (2, 9)) at N = 100,000..100,007, "
-        "aligned and 3 elements into their storage: bit-identical to plain")
+        "aligned and 3 elements into their storage, and the pod route in bf16 and f16 "
+        "there and 1 element in: bit-identical to plain")
     w = torch.rand((1, B), generator=gen, device=dev) + 0.1
     w = w / w.sum()
     records = {}
@@ -563,6 +597,33 @@ def check_fedavg_routes(torch, shapes, dev, flush):
         "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
     log(f"fedavg_pod ({P}, {A}, {N}) f32: bit-identical to plain; kernel {ms:.4f} ms, plain "
         f"{plain:.4f} ms, torch.einsum {lib:.4f} ms, bound {b_ms:.4f} ms")
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+        for grid in ((P, A), (2, 9)):
+            wg = torch.rand(grid, generator=gen, device=dev) + 0.1
+            wg = wg / wg.sum()
+            for offset in (0, 1, 3):
+                xl = _offset_view(torch, gen, dev, grid + (N,), dtype, offset)
+                got, want = fedavg_pod_flat(wg, xl), fedavg_pod_low_ref(wg, xl)
+                torch.cuda.synchronize()
+                check(same_bits(torch, got, want),
+                      f"fedavg_pod {grid + (N,)} {dtype} at offset {offset}: kernel differs "
+                      f"from plain on {int((got != want).sum())} elements")
+        xl = torch.randn((P, A, N), generator=gen, device=dev).to(dtype)
+        ms = time_ms(torch, lambda: fedavg_pod_flat(w, xl), flush)
+        plain = time_ms(torch, lambda: fedavg_pod_low_ref(w, xl), flush)
+        wl = w_intra.to(dtype)
+        lib = time_ms(torch, lambda: torch.einsum("pa,pan->pn", wl, xl), flush)
+        b_ms, b_by = bound(2 * (P * A + P) * N + 4 * P * A, 2 * P * A * N)
+        name = f"fedavg_pod_{tag}"
+        records[name] = {
+            "name": name, "route": "cuda", "source": "src/repro_torch/csrc/fedavg.cu",
+            "replaces": "src/repro/dist/collectives.py:205", "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+        log(f"{name} ({P}, {A}, {N}) and (2, 9, {N}), aligned and 1 and 3 elements into "
+            f"their storage: bit-identical to plain; ({P}, {A}, {N}) kernel {ms:.4f} ms "
+            f"({b_ms / ms:.1%} of its bound), plain {plain:.4f} ms, torch.einsum in {tag} "
+            f"{lib:.4f} ms, bound {b_ms:.4f} ms; the f32 pod route "
+            f"{records['fedavg_pod']['ms']:.4f} ms")
     n_al = N + (-N) % 8   # every bf16 and f32 row 16-byte aligned
     x = torch.randn((B, n_al), generator=gen, device=dev).to(torch.bfloat16)
     wb = torch.rand((1, B), generator=gen, device=dev) + 0.1
@@ -583,14 +644,15 @@ def check_fedavg_routes(torch, shapes, dev, flush):
         f"against {records['fedavg_pod']['ms']:.4f}; one empty launch (torch.cuda._sleep(1)) "
         f"{floor:.4f} ms; the main route fedavg_f32 ({B}, {N}) {control:.4f} ms (the control); "
         f"a PyTorch copy_ moving the wire route's {2 * (B + 1) * N} bytes {copy:.4f} ms")
-    for route in ("wire_bf16", "wire_f16", "pod"):
-        attrs = [fk.kernel_attrs(name) for name in fk.KERNELS if name.startswith(route + "_")]
+    for route in ("wire_bf16", "wire_f16", "pod", "pod_bf16", "pod_f16"):
+        attrs = [fk.kernel_attrs(f"{route}_{rows}") for rows in (*range(1, 9), "g8")]
         regs, local, blocks = ([a[k] for a in attrs]
                                for k in ("num_regs", "local_bytes", "blocks_per_sm"))
         log(f"fedavg {route} rows 1..8, groups of 8: registers {regs}, local bytes "
             f"{local}, blocks an SM {blocks}")
         check(all(a["local_bytes"] == 0 for a in attrs), f"fedavg {route} spills: {attrs}")
-    return [records["fedavg_wire"], records["fedavg_pod"]]
+    return [records[k] for k in ("fedavg_wire", "fedavg_pod", "fedavg_pod_bf16",
+                                 "fedavg_pod_f16")]
 
 
 def _padded(leaves, block=128):
@@ -1785,30 +1847,34 @@ def _lm_gan_cfg(layers):
     return cfg.scaled(num_layers=layers)
 
 
-def _lm_gan_spec(dev, cfg, strategy, rounds):
-    """The LM GAN's RunSpec at ``cfg``: 4 agents on a (1, 4) grid, 256
-    sequences of 256 tokens an agent from ``sample_agent_tokens``, batch
-    8, K = 5, Adam at 1e-3 (the recipe of ``arch_smoke_spec`` at this
-    width)."""
+def _lm_gan_spec(dev, cfg, strategy, rounds, grid=None, K=None, opt=None):
+    """The LM GAN's RunSpec at ``cfg``: 4 agents on a (1, 4) grid (or on
+    ``grid``), 256 sequences of 256 tokens an agent from
+    ``sample_agent_tokens``, batch 8, K = 5 (or ``K``), Adam at 1e-3 (or
+    ``opt``; the recipe of ``arch_smoke_spec`` at this width)."""
     from repro_torch import prng
     from repro_torch.data.synthetic import sample_agent_tokens
     from repro_torch.launch.steps import make_lm_gan_task
     from repro_torch.launch.train import RunSpec
     from repro_torch.optim import Adam, constant, equal_timescale
     sh = LM_GAN_SHAPE
-    A = sh["agents"]
+    grid = grid or (1, sh["agents"])
+    K, opt = K or sh["K"], opt or Adam
+    A = grid[0] * grid[1]
     data = [{"tokens": sample_agent_tokens(prng.key(0), sh["sequences"], sh["T"],
                                            cfg.vocab_size, agent=i, num_agents=A)}
             for i in range(A)]
-    return RunSpec(task=make_lm_gan_task(cfg), agent_data=data, agent_grid=(1, A),
-                   K=sh["K"], steps=rounds * sh["K"], batch_size=sh["batch"],
-                   scales=equal_timescale(constant(1e-3)), opt_d=Adam(), opt_g=Adam(),
+    return RunSpec(task=make_lm_gan_task(cfg), agent_data=data, agent_grid=grid,
+                   K=K, steps=rounds * K, batch_size=sh["batch"],
+                   scales=equal_timescale(constant(1e-3)), opt_d=opt(), opt_g=opt(),
                    strategy=strategy, seed=0, log_every=0, device=str(dev))
 
 
-def run_lm_gan_path(torch, dev, layers, strategy, per_round, label, rounds, card):
+def run_lm_gan_path(torch, dev, layers, strategy, per_round, label, rounds, card, *,
+                    grid=None, K=None, opt=None, param_dtype=None):
     """``rounds`` LM GAN rounds of granite-moe-3b-a800m at full width and
-    ``layers`` deep under ``strategy``, through ``RunSpec.run_result``,
+    ``layers`` deep under ``strategy`` (on ``grid``, K, ``opt`` and
+    ``param_dtype`` when given), through ``RunSpec.run_result``,
     with every sync kernel launch held in place against its plain version
     on the round's own leaves (``torch_shared.held_sync_kernels``).  Every
     launch counter is set to 0 just before the run and read just after;
@@ -1819,10 +1885,12 @@ def run_lm_gan_path(torch, dev, layers, strategy, per_round, label, rounds, card
     from repro_torch.tree import tree_leaves
     from torch_shared import held_sync_kernels
     cfg = _lm_gan_cfg(layers)
+    if param_dtype is not None:
+        cfg = cfg.scaled(param_dtype=param_dtype)
+    spec = _lm_gan_spec(dev, cfg, strategy, rounds, grid, K, opt)
     log(f"depth cut: {LM_GAN_ARCH} LM GAN under {label} runs {layers} of 32 layers at "
         f"full width (deeper rounds pass 72 GB of the card's 80), {rounds} rounds x "
-        f"K={LM_GAN_SHAPE['K']}")
-    spec = _lm_gan_spec(dev, cfg, strategy, rounds)
+        f"K={spec.K}")
     unsynced, peaks = [], []
 
     def after(fed, state, r):
@@ -1853,7 +1921,8 @@ def run_lm_gan_path(torch, dev, layers, strategy, per_round, label, rounds, card
     check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(result.state)
               if x.is_floating_point()), f"{label}: non-finite state")
     t = result.timings
-    log(f"LM GAN {label}: {layers} layers, grid (1, 4), batch 8 x T 256, K=5: "
+    log(f"LM GAN {label}: {layers} layers, grid {spec.agent_grid}, batch 8 x T 256, "
+        f"K={spec.K}, params {cfg.param_dtype}: "
         f"lm per round {[round(m['lm'], 4) for m in result.history]}, last losses "
         f"{ {k: round(v, 4) for k, v in result.history[-1].items()} }; with every sync "
         f"launch held in place {t['total_s'] / rounds * 1e3:.1f} ms/round, "
@@ -1863,6 +1932,60 @@ def run_lm_gan_path(torch, dev, layers, strategy, per_round, label, rounds, card
         log(f"LM GAN {label}: {name} held to its plain version on {h['calls']} launches, "
             f"{h['elements']} elements, widest {h['widest']}, max_abs_err {h['max_abs_err']}")
     return counts, held, spec
+
+
+# the low-precision pod routes' paths: granite in bfloat16 params, 2 of 32
+# layers on a (2, 2) grid, K = 10 in segments of 5, 2 rounds under Adam;
+# and in float16 params, 1 layer, one round of one segment under SGD (Adam's
+# second moment of a float16 gradient underflows to 0)
+LM_GAN_POD = {"bf16": dict(layers=2, K=10, rounds=2), "f16": dict(layers=1, K=5, rounds=1)}
+
+
+def _pod_checked(torch, intra_interval):
+    """``Hierarchical(intra_interval)`` that records, after each segment
+    sync, whether every pod's agents agree (in its ``pods`` list)."""
+    from repro_torch.core import Hierarchical
+    from repro_torch.tree import tree_leaves
+
+    @dataclasses.dataclass(frozen=True)
+    class PodChecked(Hierarchical):
+        def segment_sync(self, fed, state):
+            out = super().segment_sync(fed, state)
+            self.pods.append(torch.stack([(x == x[:, :1]).all()
+                                          for x in tree_leaves(out["params"])]).all())
+            return out
+
+    strat = PodChecked(intra_interval=intra_interval)
+    object.__setattr__(strat, "pods", [])
+    return strat
+
+
+def run_lm_gan_pods(torch, dev, card):
+    """``Hierarchical(intra_interval=5)`` on granite-moe-3b-a800m at full
+    width built with ``param_dtype`` bfloat16 (and float16): the per-pod
+    mean through the pod route's low-precision op after every segment, the
+    full sync through the wire route at each round's end, every launch held
+    in place bit for bit; launches exact, agents equal within each pod
+    after each segment and across pods after each round, losses finite.
+    Returns the bfloat16 and float16 pod routes' launches."""
+    from repro_torch.optim import SGD
+    launches = {}
+    for tag, dtype, opt in (("bf16", torch.bfloat16, None), ("f16", torch.float16, SGD)):
+        t0 = time.perf_counter()
+        c = LM_GAN_POD[tag]
+        strat = _pod_checked(torch, 5)
+        segs = c["K"] // 5
+        counts, _, _ = run_lm_gan_path(
+            torch, dev, c["layers"], strat,
+            {"fedavg_pod": segs, f"fedavg_pod_{tag}": segs, "fedavg_wire": 2},
+            f"Hierarchical(intra_interval=5) {tag} params", c["rounds"], card, grid=(2, 2),
+            K=c["K"], opt=opt, param_dtype=dtype)
+        check(len(strat.pods) == segs * c["rounds"] and all(bool(p) for p in strat.pods),
+              f"Hierarchical {tag}: a pod's agents differ after a segment sync")
+        launches[tag] = counts[f"fedavg_pod_{tag}"]
+        gc_collect(torch)
+        log(f"elapsed: LM GAN Hierarchical in {tag} params {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def run_lm_gan(torch, dev):
@@ -2514,9 +2637,8 @@ def run_strategy_paths(torch, dev):
     """The sync schedules beyond the plain average, each through
     ``run_strategy_path`` with its launches and its agents' agreement
     checked.  Returns the wire and pod routes' launches."""
-    from repro_torch.core import (AdaptiveK, FedAvgSync, FedGANConfig, Hierarchical,
-                                  ParticipationSchedule, PerStepGradAvg, SubsampledFedAvg)
-    from repro_torch.tree import tree_leaves
+    from repro_torch.core import (AdaptiveK, FedAvgSync, FedGANConfig, ParticipationSchedule,
+                                  PerStepGradAvg, SubsampledFedAvg)
     bf16, K, rounds = torch.bfloat16, 20, 3
 
     def all_synced(label):
@@ -2533,20 +2655,9 @@ def run_strategy_paths(torch, dev):
     run_strategy_path(torch, dev, FedAvgSync(sync_dtype=bf16), "FedAvgSync(sync_dtype=bfloat16)",
                       {"fedavg_wire": 2 * rounds}, after_round=all_synced("FedAvgSync(bf16)"))
 
-    pods = []
-
-    @dataclasses.dataclass(frozen=True)
-    class PodChecked(Hierarchical):
-        """Hierarchical that records, after each segment sync, whether
-        every pod's agents agree."""
-
-        def segment_sync(self, fed, state):
-            out = super().segment_sync(fed, state)
-            pods.append(torch.stack([(x == x[:, :1]).all()
-                                     for x in tree_leaves(out["params"])]).all())
-            return out
-
-    pod = run_strategy_path(torch, dev, PodChecked(intra_interval=5),
+    checked = _pod_checked(torch, 5)
+    pods = checked.pods
+    pod = run_strategy_path(torch, dev, checked,
                             "Hierarchical(intra_interval=5) on (2, 4)",
                             {"fedavg_pod": (K // 5) * rounds, "fedavg": 2 * rounds},
                             agents=8, grid=(2, 4), after_round=all_synced("Hierarchical"))
@@ -3700,6 +3811,89 @@ def _mesh_lm_gan(torch, dev, mesh, card):
     _mesh_part(torch, "(c) LM GAN round", t0, card)
 
 
+MESH_DP_K = 2      # local DP-SGD steps of the mesh's DP round (e)
+
+
+def _agent_sharded(mesh, tree, dim):
+    """Every leaf of ``tree`` on the one-card ``mesh`` with its agent dim
+    ``dim`` sharded over "data" (a size-1 mesh dim, which the specs filter
+    to replicated): the state of an agent-sharded plan on one card."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: distribute_tensor(
+        x, mesh, (Shard(dim), Replicate()) if x.dim() > dim else (Replicate(), Replicate()),
+        src_data_rank=None), tree)
+
+
+def _mesh_dp(torch, dev, mesh, card):
+    """(e): a DP-SGD round (clip 1, sigma 1) of the built granite round on
+    the agent-sharded state (``AgentShards`` in use, its submesh empty:
+    the dense DP route on the rank's local tensors, the noise placed as the
+    params), bit for bit the same round on the unsharded state from one
+    generator.  At 2 layers unless the per-example gradients would pass
+    CARD_BUDGET, then 1 (printed)."""
+    from repro_torch.dist.sharding import AgentShards, use_mesh
+    from repro_torch.launch.steps import AGENTS_DATA, build_step
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.privacy import DPSGD
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    shape_cfg = ShapeConfig("train_card", 256, 8, "train")
+    layers = 2
+    cfg = _lm_gan_cfg(layers)
+    built = build_step(cfg, shape_cfg, mesh, K=MESH_DP_K, plan=AGENTS_DATA)
+    param_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves(built.input_sds[0]["params"]))
+    # each of the batch's examples holds its gradients and their clipped
+    # copy, beside the round's input and new params and Adam moments
+    per_example = 2 * shape_cfg.global_batch * param_bytes
+    if per_example + 6 * param_bytes > CARD_BUDGET:
+        layers = 1
+        cfg = _lm_gan_cfg(layers)
+        built = build_step(cfg, shape_cfg, mesh, K=MESH_DP_K, plan=AGENTS_DATA)
+    log(f"depth cut: mesh (e) DP round of {LM_GAN_ARCH} at {layers} of 32 layers "
+        f"(per-example gradients of the batch's {shape_cfg.global_batch} examples at 2 "
+        f"layers: {per_example / 2 ** 30:.1f} GiB), K={MESH_DP_K}")
+    fed = dataclasses.replace(built.fed, cfg=dataclasses.replace(
+        built.fed.cfg, dp=DPSGD(clip=1.0, noise_multiplier=1.0)))
+    state = fed.init_state(torch.Generator(device=dev).manual_seed(0), device=dev)
+    shape = tuple(built.input_sds[1]["tokens"].shape)
+    batches = {"tokens": torch.randint(0, cfg.vocab_size, shape, device=dev,
+                                       generator=torch.Generator(device=dev).manual_seed(1))}
+    placed = _agent_sharded(mesh, state, 1)
+    check(AgentShards.of(placed["params"]) is not None,
+          "mesh (e): the placed state shards no agent dim")
+    counters = launch_counters()
+    expect = {n: 2 if n == "fedavg" else 0 for n in counters}
+    _reset(counters)
+    t1 = time.perf_counter()
+    with use_mesh(mesh):
+        got, gm = fed.round(placed, _agent_sharded(mesh, batches, 2),
+                            torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t1
+    counts = _read(counters)
+    check(counts == expect, f"mesh (e) DP round: launches {counts}, expected {expect}")
+    peak = torch.cuda.max_memory_allocated()
+    del placed
+    t1 = time.perf_counter()
+    want, wm = fed.round(state, batches, torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    check(_tree_same_bits(torch, got, want), "mesh (e): the DP round on the agent-sharded "
+                                             "state differs from the unsharded DP round")
+    check(_tree_same_bits(torch, gm, wm), "mesh (e): the DP round's metrics differ")
+    check(all(bool(torch.isfinite(v).all()) for v in tree_leaves(wm)), "mesh (e): non-finite")
+    log(f"mesh (e) DP-SGD (clip 1, sigma 1) round of {LM_GAN_ARCH} {layers} of 32 layers at "
+        f"full width, batch 8 x T 256, K={MESH_DP_K}, on the agent-sharded state "
+        f"(AgentShards in use): bit-identical to the unsharded DP round "
+        f"({len(tree_leaves(got))} leaves, metrics too), fedavg launches {counts['fedavg']}; "
+        f"mean per-example norms d {float(wm['dp_grad_norm_d'].mean()):.4f}, g "
+        f"{float(wm['dp_grad_norm_g'].mean()):.4f}; {mesh_s:.2f} s against {plain_s:.2f} s "
+        f"unsharded (wall), peak {peak / 2 ** 30:.2f} GiB")
+    _mesh_part(torch, "(e) DP-SGD round", t0, card)
+
+
 def _mesh_experiment(torch, dev, card):
     """(d): run_experiment against experiment_spec(...).run()."""
     from repro_torch.launch.train import experiment_spec, run_experiment
@@ -3728,6 +3922,9 @@ def run_mesh(torch, dev, params):
     _mesh_gemma(torch, dev, params, mesh, card)
     _mesh_serve(torch, dev, params, mesh, card)
     _mesh_lm_gan(torch, dev, mesh, card)
+    gc_collect(torch)
+    _mesh_dp(torch, dev, mesh, card)
+    gc_collect(torch)
     _mesh_experiment(torch, dev, card)
     log(f"phase 15 (the mesh on one card): {time.perf_counter() - t_phase:.1f} s wall; {card}")
 
@@ -4095,6 +4292,10 @@ def main() -> int:
     run_lm_gan(torch, dev)
     gc_collect(torch)
     mark("LM GAN")
+    pod_low = run_lm_gan_pods(torch, dev, card)
+    for tag, n in pod_low.items():
+        records[f"fedavg_pod_{tag}"]["launches"] = n
+    mark("LM GAN Hierarchical in bf16 and f16 params")
     run_families(torch, dev)
     gc_collect(torch)
     mark("families")

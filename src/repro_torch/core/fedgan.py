@@ -20,11 +20,17 @@ the transforms the model's layout constraints could not act
 With ``FedGANConfig(dp=DPSGD(...))`` each agent's gradients come from
 ``repro_torch.privacy.dpsgd.dp_grads``: per-example gradients (a vmap over
 the examples nested inside the agent vmap), one joint clip, the mean and,
-with a noise multiplier, Gaussian noise.  The noise is drawn from the
+with a noise multiplier, Gaussian noise.  On a mesh, where a submesh of
+several ranks splits an agent's work, from ``dp_grads_on_mesh``: the
+examples one at a time on the tensor-parallel ranks, each rank's own
+examples where the batch is split, the clipped sums added across the
+ranks before the mean.  The noise is drawn from the
 round's generator after each step's minibatch draws (``step_noise``):
 ``round`` takes that generator as ``gen``, ``round_from_data`` draws its
 batches from it too, and ``draw_step`` makes a step's draws of both for a
-captured round.
+captured round.  On a mesh the same noise (drawn on the global (P, A)
+state) is placed as the params (``placed_noise``), so a sharded round and
+an unsharded one see the same noise tensors.
 """
 from __future__ import annotations
 
@@ -134,6 +140,18 @@ def dataset_weights(sizes) -> torch.Tensor:
     return s / torch.sum(s)
 
 
+def placed_noise(noise, like):
+    """A step's DP-SGD noise (plain tensors, drawn whole from the round's
+    generator and so the same on every rank) placed as the params it is
+    added to: every rank keeps its own shard of each leaf, so each
+    coordinate of a weight that tensor parallelism splits gets its noise
+    once.  Moves no data."""
+    from torch.distributed.tensor import distribute_tensor
+    return tree_map(lambda z, p: distribute_tensor(z, p.device_mesh, p.placements,
+                                                   src_data_rank=None)
+                    if is_sharded(p) else z, noise, like)
+
+
 def _flat(tree, B):
     """(P, A, ...) leaves -> (B, ...)."""
     return tree_map(lambda x: x.reshape((B,) + tuple(x.shape[2:])), tree)
@@ -210,18 +228,26 @@ class FedGAN:
         return {"disc": noise_like(state["params"]["disc"], gen),
                 "gen": noise_like(state["params"]["gen"], gen)}
 
-    def _grads(self, params, batch, noise):
+    def _grads(self, params, batch, noise, batch_dims=()):
         """Every agent's (grad_disc, grad_gen, metrics), (B, ...) leaves:
         the plain minibatch gradients, or with ``dp`` the DP-SGD ones with
-        ``noise`` ((B, ...) standard normals, or None)."""
+        ``noise`` ((B, ...) standard normals, or None).  On a submesh of
+        several ranks (``batch_dims``: its dims that shard the batch) one
+        agent at a time."""
         dp = self.cfg.dp
-        if dp is None and any(is_sharded(x) and x.device_mesh.size() > 1
-                              for x in tree_leaves(params)):
+        if any(is_sharded(x) and x.device_mesh.size() > 1 for x in tree_leaves(params)):
             # a rank's agents on a submesh of several ranks: one at a time,
             # outside the transforms (``sharding.grad_and_value`` says why)
-            per = [self._agent_grads(tree_map(lambda x: x[b], params),
-                                     tree_map(lambda x: x[b], batch))
-                   for b in range(tree_leaves(params)[0].shape[0])]
+            from repro_torch.privacy.dpsgd import dp_grads_on_mesh
+            per = []
+            for b in range(tree_leaves(params)[0].shape[0]):
+                p, x = tree_map(lambda v: v[b], params), tree_map(lambda v: v[b], batch)
+                if dp is None:
+                    per.append(self._agent_grads(p, x))
+                else:
+                    z = None if noise is None else tree_map(lambda v: v[b],
+                                                            (noise["disc"], noise["gen"]))
+                    per.append(dp_grads_on_mesh(self._agent_grads, p, x, dp, z, batch_dims))
             return tree_map(lambda *xs: torch.stack(xs), *per)
         if dp is None:
             return vmap(self._agent_grads)(params, batch)
@@ -252,10 +278,6 @@ class FedGAN:
                 state["params"], state["opt_d"], state["opt_g"], batch, noise, lr_a, lr_b,
                 lambda gd, gg: strat.grad_hook(self, gd, gg, state))
         else:
-            if self.cfg.dp is not None:
-                raise NotImplementedError(
-                    "DP-SGD on a mesh (per-example gradients of agent-sharded state) "
-                    "is not ported; run the DP round unsharded")
             like = state["params"]
 
             def hook(gd, gg):
@@ -265,8 +287,8 @@ class FedGAN:
 
             local = view.local((state["params"], state["opt_d"], state["opt_g"], batch))
             params, opt_d, opt_g, metrics = self._local_step(
-                *local, None, view.local(lr_a), view.local(lr_b), hook,
-                gather=view.batch_dims(local[3]))
+                *local, None if noise is None else view.local(placed_noise(noise, like)),
+                view.local(lr_a), view.local(lr_b), hook, gather=view.batch_dims(local[3]))
             P, A = tree_leaves(params)[0].shape[:2]
             params = view.to_global(params, like)
             opt_d = view.to_global(opt_d, state["opt_d"])
@@ -290,8 +312,9 @@ class FedGAN:
         B = P * A
         flat = _flat(params, B)
         use = flat if gather is None else AgentShards.gathered(flat, gather)
-        gd, gg, metrics = self._grads(use, _flat(batch, B),
-                                      None if noise is None else _flat(noise, B))
+        if noise is not None:   # as the weights in use
+            noise = AgentShards.gathered(_flat(noise, B), gather)
+        gd, gg, metrics = self._grads(use, _flat(batch, B), noise, gather or ())
         if gather is not None:
             gd = AgentShards.placed_like(gd, flat["disc"])
             gg = AgentShards.placed_like(gg, flat["gen"])

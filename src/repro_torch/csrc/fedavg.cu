@@ -18,8 +18,8 @@
 // cannot contract them into an FMA: the products are rounded before the
 // sum, as in the plain PyTorch version and the JAX reference.
 //
-// Two more routes port XLA reduces of the reference's collectives, not a
-// Pallas kernel; both are bit-identical to the reference on its own CPU:
+// Three more routes port XLA reduces of the reference's collectives, not a
+// Pallas kernel; each is bit-identical to the reference on its own CPU:
 //
 // * The wire route (fedavg_wire_bf16, fedavg_wire_f16) replaces
 //   repro.dist.collectives.weighted_mean on a bfloat16 or float16 leaf (the
@@ -37,8 +37,19 @@
 //   from +0 (__fmaf_rn), which is what the reference's einsum computes on
 //   XLA's CPU backend.  Bound: bytes, 4 * (P * A + P) * N; at the generator
 //   bucket on a (2, 4) grid 27.6 us.
+// * The low-precision pod route (fedavg_pod_bf16, fedavg_pod_f16) replaces
+//   the same einsum on a bfloat16 or float16 leaf (a model built with
+//   param_dtype bfloat16 or float16), which XLA computes in the leaf's type
+//   T: w_intra as above, rounded to T once a block; both operands widened
+//   to float32; the same fused multiply-add chain from +0 in agent order;
+//   the sum rounded to T once.  A product of two T values is exact in
+//   float32 (8 + 8 or 11 + 11 significant bits of 24, unless a bfloat16
+//   product falls below float32's normal range), so the fused chain and a
+//   multiply-then-add chain give the same bits.  Bound: bytes, P * A * N *
+//   2 read plus P * N * 2 written; at the generator bucket on a (2, 4)
+//   grid 20 N bytes, 13.8 us.
 //
-// Both routes share one kernel, rows_kernel<Op, NB>, built for the memory
+// The routes share one kernel, rows_kernel<Op, NB>, built for the memory
 // system.  A thread reading one 2- or 4-byte element of each row moves 64
 // or 128 bytes a warp request, and a runtime agent count leaves each load
 // behind the running sum; the kernel instead:
@@ -82,9 +93,13 @@
 //    evict-first (__ldcs) and out written streaming (__stcs): each byte is
 //    touched once.
 // 4. Computes the weights once a block into shared memory: the wire route
-//    w[b] rounded to T, the pod route s_p and w_intra[p, a] with the same
-//    __fadd_rn chain and __fdiv_rn as before, so each element costs one
-//    multiply-add chain step per agent and the bits are unchanged.
+//    w[b] rounded to T, the pod routes s_p and w_intra[p, a] with the same
+//    __fadd_rn chain and __fdiv_rn as before (the low-precision pod routes
+//    round them to T there), so each element costs one multiply-add chain
+//    step per agent and the bits are unchanged.  The element type's loads
+//    and stores (Half2 for 2-byte types, Pod for float32) are separate from
+//    the arithmetic (WireMath, PodMath), so the bf16/f16 pod routes share
+//    the wire route's loads and the float32 pod route's weights.
 //
 // fedavg_attrs reports each instantiation's registers, local bytes and
 // blocks an SM.
@@ -144,20 +159,49 @@ template <> __device__ __forceinline__ __half from_bits<__half>(unsigned short u
 __device__ __forceinline__ unsigned to_bits(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }
 __device__ __forceinline__ unsigned to_bits(__half v) { return __half_as_ushort(v); }
 
-// The wire route's element type and arithmetic, T = bfloat16 or float16.
+// The wire route's arithmetic in T = bfloat16 or float16: w[b] rounded to
+// T, each product rounded to T, the sum in float32.
 template <typename T>
-struct Wire {
-  static constexpr int kSize = 2;
-  // w[b] rounded to T
+struct WireMath {
   __device__ static void weights(const float* w, int, int rows, float* sw) {
     for (int a = threadIdx.x; a < rows; a += blockDim.x) sw[a] = round_to<T>(w[a]);
   }
   __device__ static float step(float acc, float wa, float x) {
     return __fadd_rn(acc, round_to<T>(__fmul_rn(wa, x)));
   }
+};
+
+// The pod route's arithmetic for leaves of type T: w[p, a] / s_p (s_p
+// summed in order from w[p, 0] by one thread into sw[rows]) rounded to T
+// (for float32 that rounds nothing), then a fused multiply-add chain.
+template <typename T>
+struct PodMath {
+  __device__ static void weights(const float* w, int p, int rows, float* sw) {
+    const float* wp = w + (long long)p * rows;
+    if (threadIdx.x == 0) {
+      float s = wp[0];
+      for (int a = 1; a < rows; ++a) s = __fadd_rn(s, wp[a]);
+      sw[rows] = s;
+    }
+    __syncthreads();
+    for (int a = threadIdx.x; a < rows; a += blockDim.x) {
+      sw[a] = round_to<T>(__fdiv_rn(wp[a], sw[rows]));
+    }
+  }
+  __device__ static float step(float acc, float wa, float x) { return __fmaf_rn(wa, x, acc); }
+};
+
+// Elements of a 2-byte type T (bfloat16 or float16) under the arithmetic M.
+template <typename T, typename M>
+struct Half2 {
+  static constexpr int kSize = 2;
+  __device__ static void weights(const float* w, int p, int rows, float* sw) {
+    M::weights(w, p, rows, sw);
+  }
   __device__ static float scalar(const char* row, long long n) {
     return to_f32(from_bits<T>(__ldcs(reinterpret_cast<const unsigned short*>(row) + n)));
   }
+  __device__ static float step(float acc, float wa, float x) { return M::step(acc, wa, x); }
   __device__ static void accumulate(float* acc, float wa, uint4 v) {
     const unsigned u[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
@@ -179,21 +223,18 @@ struct Wire {
   }
 };
 
-// The pod route's element type and arithmetic, float32.
+template <typename T> using Wire = Half2<T, WireMath<T>>;
+template <typename T> using PodLow = Half2<T, PodMath<T>>;
+
+// The pod route on float32 elements.
 struct Pod {
   static constexpr int kSize = 4;
-  // w[p, a] / s_p, s_p summed in order from w[p, 0] by one thread into sw[rows]
   __device__ static void weights(const float* w, int p, int rows, float* sw) {
-    const float* wp = w + (long long)p * rows;
-    if (threadIdx.x == 0) {
-      float s = wp[0];
-      for (int a = 1; a < rows; ++a) s = __fadd_rn(s, wp[a]);
-      sw[rows] = s;
-    }
-    __syncthreads();
-    for (int a = threadIdx.x; a < rows; a += blockDim.x) sw[a] = __fdiv_rn(wp[a], sw[rows]);
+    PodMath<float>::weights(w, p, rows, sw);
   }
-  __device__ static float step(float acc, float wa, float x) { return __fmaf_rn(wa, x, acc); }
+  __device__ static float step(float acc, float wa, float x) {
+    return PodMath<float>::step(acc, wa, x);
+  }
   __device__ static float scalar(const char* row, long long n) {
     return __ldcs(reinterpret_cast<const float*>(row) + n);
   }
@@ -438,16 +479,38 @@ extern "C" int fedavg_pod_f32(const void* w, const void* x, void* out, int P, in
   return launch_rows<Pod>(w, x, out, P, A, N, stream);
 }
 
-// Of the wire and pod routes' instantiation `which` (route which / 9: 0 wire
-// bf16, 1 wire f16, 2 pod; k = which % 9: k + 1 rows for k < 8, groups of 8
-// for k = 8): out[0] registers a thread, out[1] local (spill) bytes a
+// The pod route on bfloat16 and float16 leaves: the weights rounded to the
+// leaf's type, x and out in it.
+extern "C" int fedavg_pod_bf16(const void* w, const void* x, void* out, int P, int A,
+                               long long N, void* stream) {
+  return launch_rows<PodLow<__nv_bfloat16>>(w, x, out, P, A, N, stream);
+}
+
+extern "C" int fedavg_pod_f16(const void* w, const void* x, void* out, int P, int A,
+                              long long N, void* stream) {
+  return launch_rows<PodLow<__half>>(w, x, out, P, A, N, stream);
+}
+
+// The instantiations of route r = which / 9 (0 wire bf16, 1 wire f16, 2 pod
+// f32, 3 pod bf16, 4 pod f16).
+static const void* route_kernel(int r, int k) {
+  switch (r) {
+    case 0: return (const void*)rows_route<Wire<__nv_bfloat16>>(k);
+    case 1: return (const void*)rows_route<Wire<__half>>(k);
+    case 2: return (const void*)rows_route<Pod>(k);
+    case 3: return (const void*)rows_route<PodLow<__nv_bfloat16>>(k);
+    default: return (const void*)rows_route<PodLow<__half>>(k);
+  }
+}
+
+// Of the wire and pod routes' instantiation `which` (route which / 9, as
+// route_kernel numbers them; k = which % 9: k + 1 rows for k < 8, groups of
+// 8 for k = 8): out[0] registers a thread, out[1] local (spill) bytes a
 // thread, out[2] blocks resident an SM with the shared memory of k + 2 rows.
 extern "C" int fedavg_attrs(int which, int* out) {
-  if (which < 0 || which >= 3 * kRoutes) return (int)cudaErrorInvalidValue;
+  if (which < 0 || which >= 5 * kRoutes) return (int)cudaErrorInvalidValue;
   const int k = which % kRoutes;
-  const void* kernel = which < kRoutes     ? (const void*)rows_route<Wire<__nv_bfloat16>>(k)
-                       : which < 2 * kRoutes ? (const void*)rows_route<Wire<__half>>(k)
-                                             : (const void*)rows_route<Pod>(k);
+  const void* kernel = route_kernel(which / kRoutes, k);
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return (int)err;

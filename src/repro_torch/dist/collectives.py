@@ -7,9 +7,9 @@ in the leaf's own type as the reference computes it: float32 leaves
 through the float32 route, bfloat16 and float16 leaves (the wire of a
 ``sync_dtype`` cast) through the wire route, which rounds each product to
 that type.  The per-pod mean of hierarchical sync runs through the pod
-route.  The coded sync runs either fused, through the qsync kernel, or
-composed, leaf by leaf through the codec (the qpack kernels) around the
-fedavg reduce.  The plain average, the per-pod mean and the fused sync
+route, in the leaf's own type as well.  The coded sync runs either
+fused, through the qsync kernel, or composed, leaf by leaf through the
+codec (the qpack kernels) around the fedavg reduce.  The plain average, the per-pod mean and the fused sync
 bucket a subtree's leaves by dtype into one buffer first, so a subtree
 costs one launch per dtype however many leaves it has.  Results are
 broadcast back over the grid (eq. (3)) as expanded views.
@@ -46,6 +46,10 @@ from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 # computes it in that type
 _REDUCE = {torch.float32: fedavg_flat, torch.bfloat16: fedavg_wire_flat,
            torch.float16: fedavg_wire_flat}
+
+
+# the leaf types of the pod route (``average_intra_pod``)
+_POD_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _inexact(x) -> bool:
@@ -394,20 +398,24 @@ def masked_sync(tree, weights, key, *, sync_dtype=None, reduce=None):
 def average_intra_pod(tree, weights):
     """Average within each pod only (tier 1 of hierarchical sync): the
     weighted mean over the A dim with each pod's weights renormalised,
-    broadcast back over the pod.  Float32 leaves, bucketed into one pod
-    launch; integer leaves pass through.  On a mesh, on gathered inputs."""
+    broadcast back over the pod, in each leaf's type as the reference's
+    einsum computes it.  Float32, bfloat16 and float16 leaves, bucketed by
+    dtype into one pod launch each; integer leaves pass through.  On a
+    mesh, on gathered inputs."""
     if _any_sharded(tree):
         return _place_like(average_intra_pod(full_tree(tree), weights), tree)
     leaves, treedef = tree_flatten(tree)
     outs = list(leaves)
-    idx = [i for i, x in enumerate(leaves) if _inexact(x)]
-    for i in idx:
-        if leaves[i].dtype != torch.float32:
-            raise NotImplementedError(
-                f"average_intra_pod of a {leaves[i].dtype} leaf (the reference's "
-                f"einsum in that type) is not ported; the pod route takes float32")
-    if idx:
-        P, A = weights.shape
+    groups: dict = {}
+    for i, x in enumerate(leaves):
+        if _inexact(x):
+            if x.dtype not in _POD_DTYPES:
+                raise NotImplementedError(
+                    f"average_intra_pod of a {x.dtype} leaf (the reference's einsum in "
+                    f"that type) is not ported; ported: float32, bfloat16, float16")
+            groups.setdefault(x.dtype, []).append(i)
+    P, A = weights.shape
+    for idx in groups.values():
         flat = [leaves[i].reshape(P, A, -1) for i in idx]
         stacked = flat[0].contiguous() if len(flat) == 1 else torch.cat(flat, dim=2)
         means = _split(fedavg_pod_flat(weights, stacked), [leaves[i] for i in idx], (P,))

@@ -630,7 +630,10 @@ class AgentShards:
     puts such a tree back, its agent dims sharded as ``like``'s.  Both
     move no data.  The agents' ``vmap`` then sees no sharded agent dim:
     DTensor cannot merge a vmapped dim of more than one into a sharded one
-    (the einsum of attention fails there)."""
+    (the einsum of attention fails there).  The same view makes the data
+    parallelism inside an agent manual for DP-SGD (``agent_dims`` then the
+    dims that shard its batch, and ``summed`` the sum across them).
+    """
 
     def __init__(self, mesh, agent_dims: tuple):
         self.mesh, self.agent_dims = mesh, tuple(agent_dims)
@@ -694,6 +697,25 @@ class AgentShards:
         back to the weights' shards)."""
         return tree_map(lambda x, ref: x.redistribute(ref.device_mesh, ref.placements)
                         if is_sharded(x) else x, tree, like)
+
+    def summed(self, tree):
+        """``tree`` (this rank's part of a sum over the manual dims: plain
+        tensors, or DTensors on ``inner_mesh``) summed across those dims,
+        on the whole mesh, replicated there."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        def one(x):
+            pl = [Replicate()] * self.mesh.ndim
+            for i, p in zip(self.inner, x.placements if is_sharded(x) else ()):
+                pl[i] = p
+            want = list(pl)
+            for i in self.agent_dims:
+                pl[i] = Partial()
+            local = x.to_local() if is_sharded(x) else x
+            return DTensor.from_local(local, self.mesh, pl, run_check=False).redistribute(
+                self.mesh, want)
+
+        return tree_map(one, tree)
 
     def to_global(self, tree, like):
         """``tree`` (this rank's agents, leading (p, a) dims as ``like``'s

@@ -9,7 +9,10 @@ kernel's launches and nothing else:
 * ``fedavg_wire_flat``: the reference's ``weighted_mean`` in a bfloat16 or
   float16 leaf's own type (products rounded to it);
 * ``fedavg_pod_flat``: the reference's ``average_intra_pod`` reduce, a
-  fused multiply-add chain per pod (float32).
+  fused multiply-add chain per pod, in a float32, bfloat16 or float16
+  leaf's own type (bfloat16 and float16: the weights rounded to it, the
+  chain in float32, the sum rounded to it once).  Its ``launches`` counts
+  every pod launch, ``by_dtype`` each route's.
 
 The wire and pod routes take any contiguous input, a view with a storage
 offset included: the kernel realigns each row's 16-byte loads itself.
@@ -22,8 +25,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fedavg.ref import (fedavg_flat_ref, fedavg_pod_ref,
-                                            fedavg_wire_ref)
+from repro_torch.kernels.fedavg.ref import (fedavg_flat_ref, fedavg_pod_low_ref,
+                                            fedavg_pod_ref, fedavg_wire_ref)
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_longlong, ctypes.c_void_p]
@@ -31,13 +34,17 @@ _POD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
 _SIGNATURES = {"fedavg_f32": _ARGS, "fedavg_bf16": _ARGS, "fedavg_wire_bf16": _ARGS,
                "fedavg_wire_f16": _ARGS, "fedavg_pod_f32": _POD_ARGS,
+               "fedavg_pod_bf16": _POD_ARGS, "fedavg_pod_f16": _POD_ARGS,
                "fedavg_attrs": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]}
 _ENTRY = {torch.float32: "fedavg_f32", torch.bfloat16: "fedavg_bf16"}
 _WIRE_ENTRY = {torch.bfloat16: "fedavg_wire_bf16", torch.float16: "fedavg_wire_f16"}
+_POD_ENTRY = {torch.float32: "fedavg_pod_f32", torch.bfloat16: "fedavg_pod_bf16",
+              torch.float16: "fedavg_pod_f16"}
 # The wire and pod routes' instantiations, in the order of the C entry
 # ``fedavg_attrs``: per route, 1 to 8 agent rows unrolled, then any count
 # in unrolled groups of 8 (``_g8``).
-KERNELS = tuple(f"{route}_{rows}" for route in ("wire_bf16", "wire_f16", "pod")
+KERNELS = tuple(f"{route}_{rows}"
+                for route in ("wire_bf16", "wire_f16", "pod", "pod_bf16", "pod_f16")
                 for rows in (*range(1, 9), "g8"))
 
 
@@ -99,23 +106,47 @@ def fedavg_wire_flat(weights: torch.Tensor, stacked: torch.Tensor) -> torch.Tens
 
 def fedavg_pod_flat(weights: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor:
     """``weights`` (P, A) float32 (any positive scale: each pod's row is
-    normalised), ``stacked`` (P, A, N) float32.  Returns the (P, N) per-pod
-    weighted mean, a fused multiply-add chain over the pod's agents in
-    order."""
+    normalised), ``stacked`` (P, A, N) float32, bfloat16 or float16.
+    Returns the (P, N) per-pod weighted mean in ``stacked.dtype``, a fused
+    multiply-add chain over the pod's agents in order (for bfloat16 and
+    float16 the weights rounded to that type, the chain in float32, the sum
+    rounded once)."""
     if weights.dim() != 2 or stacked.dim() != 3 or stacked.shape[:2] != weights.shape:
         raise ValueError(f"stacked must be (P, A, N) for {tuple(weights.shape)} "
                          f"weights, got {tuple(stacked.shape)}")
+    if stacked.dtype not in _POD_ENTRY:
+        raise TypeError(f"fedavg_pod takes float32, bfloat16 or float16 data, got "
+                        f"{stacked.dtype}")
     if _on_cpu(stacked, weights):
-        return fedavg_pod_ref(weights, stacked)
+        if stacked.dtype == torch.float32:
+            return fedavg_pod_ref(weights, stacked)
+        return fedavg_pod_low_ref(weights, stacked)
     _build.require_cuda("fedavg_pod", stacked, weights)
-    if stacked.dtype != torch.float32 or weights.dtype != torch.float32:
-        raise TypeError(f"fedavg_pod takes float32 weights and data, got "
-                        f"{weights.dtype} and {stacked.dtype}")
+    if weights.dtype != torch.float32:
+        raise TypeError(f"fedavg_pod takes float32 weights, got {weights.dtype}")
     P, A, N = stacked.shape
-    out = torch.empty((P, N), dtype=torch.float32, device=stacked.device)
-    _launch("fedavg_pod_f32", weights, stacked, out, P, A, N)
+    out = torch.empty((P, N), dtype=stacked.dtype, device=stacked.device)
+    _launch(_POD_ENTRY[stacked.dtype], weights, stacked, out, P, A, N)
     fedavg_pod_flat.launches += 1
+    fedavg_pod_flat.by_dtype[stacked.dtype] += 1
     return out
+
+
+class PodRoute:
+    """The pod route's launches on ``dtype`` leaves (its share of
+    ``fedavg_pod_flat.launches``), read and set as ``launches``, like a
+    wrapper's own count."""
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+
+    @property
+    def launches(self) -> int:
+        return fedavg_pod_flat.by_dtype[self.dtype]
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        fedavg_pod_flat.by_dtype[self.dtype] = n
 
 
 def kernel_attrs(name: str) -> dict:
@@ -135,3 +166,4 @@ def kernel_attrs(name: str) -> dict:
 fedavg_flat.launches = 0
 fedavg_wire_flat.launches = 0
 fedavg_pod_flat.launches = 0
+fedavg_pod_flat.by_dtype = dict.fromkeys(_POD_ENTRY, 0)

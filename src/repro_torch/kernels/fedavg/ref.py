@@ -69,6 +69,21 @@ def fedavg_pod_ref(weights: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor
     return acc
 
 
+def fedavg_pod_low_ref(weights: torch.Tensor, stacked: torch.Tensor) -> torch.Tensor:
+    """``weights`` (P, A), ``stacked`` (P, A, N) bfloat16 or float16 -> (P,
+    N) in that type T: the reference's einsum in T, as XLA computes it.
+    Each pod's weights (``intra_pod_weights``) rounded to T, both operands
+    widened to float32, the fused multiply-add chain over the agents in
+    order from +0, the sum rounded to T once."""
+    T = stacked.dtype
+    w = intra_pod_weights(weights.float()).to(T).float()
+    acc = torch.zeros((stacked.shape[0], stacked.shape[2]), dtype=torch.float32,
+                      device=stacked.device)
+    for a in range(stacked.shape[1]):
+        acc = fma_f32(w[:, a:a + 1].expand_as(acc), stacked[:, a].float(), acc)
+    return acc.to(T)
+
+
 def agent_dims(shape, B: int, weight_dims: int = 1) -> int:
     """How many leading dims of ``shape`` make up the B agents: 1 for
     (B, ...), 2 for (P, A, ...).  One agent is ambiguous (any run of

@@ -48,13 +48,15 @@ reference keeps ``stream`` for bit parity with its own blocking loop from
 before its runtime, a loop the port never had.  ``stream`` runs the
 reference's host pipeline, with its minibatch indices bit for bit.  A
 fleet (``--a-total``) keeps its clients' data on the host and streams its
-rounds; ``--data-mode device`` beside it is refused.
+rounds one at a time whatever ``--data-mode`` and ``rounds_per_chunk``
+say, as the reference's fleet does.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import warnings
 from typing import Any
 
 import numpy as np
@@ -115,8 +117,9 @@ class RunSpec:
     of each round's cohort (drawn by ``ParticipationSchedule(
     participation_seed)``), stragglers follow ``straggler_policy``
     (``"block"`` or ``"defer"``).  The fleet streams its rounds from the
-    host (``data_mode="stream"``) and runs them one by one (a cohort
-    changes between rounds, so no chunk of rounds is captured)."""
+    host and runs them one by one (a cohort changes between rounds, so no
+    chunk of rounds is captured), whatever ``data_mode`` and
+    ``rounds_per_chunk`` say, as the reference's fleet does."""
 
     task: GANTask
     agent_data: list
@@ -146,16 +149,10 @@ class RunSpec:
 
     def __post_init__(self):
         if self.a_total and self.rounds_per_chunk > 1:
-            raise ValueError(
-                f"rounds_per_chunk={self.rounds_per_chunk} with a_total: the fleet "
-                "pages a new cohort's state into the slots between rounds, so its "
-                "rounds run one by one and cannot be captured in chunks; leave "
-                "rounds_per_chunk at 1")
-        if self.a_total and self.data_mode != "stream":
-            raise ValueError(
-                f"data_mode={self.data_mode!r} with a_total: the fleet keeps its "
-                "clients' data on the host and streams each cohort's rounds; "
-                "use data_mode='stream'")
+            warnings.warn(
+                f"rounds_per_chunk={self.rounds_per_chunk} with a_total: the fleet pages "
+                "a new cohort into the slots between rounds and streams its cohorts one "
+                "round at a time, so it runs no chunks", stacklevel=3)
 
     @property
     def n_rounds(self) -> int:

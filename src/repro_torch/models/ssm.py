@@ -23,7 +23,23 @@ from repro_torch.models.config import ArchConfig
 
 
 def causal_depthwise_conv(x, w):
-    """x: (B, T, C); w: (k, C) -> (B, T, C); y[t] = sum_j w[j] * x[t-k+1+j]."""
+    """x: (B, T, C); w: (k, C) -> (B, T, C); y[t] = sum_j w[j] * x[t-k+1+j].
+    On a mesh it runs on the local shards (``local_kernel``): it is
+    pointwise over the batch and the channels and takes T whole, so w is
+    laid out as x's channels are (torch 2.11's DTensor cannot redistribute
+    around the pad of a DTensor sharded on two mesh dims)."""
+    if not is_sharded(x):
+        return _depthwise_conv(x, w)
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    x = whole_dims(x, 1)
+    want = tuple(Shard(1) if isinstance(p, Shard) and p.dim % x.ndim == 2 else Replicate()
+                 for p in x.placements)
+    w = (w.redistribute(w.device_mesh, want) if is_sharded(w)
+         else distribute_tensor(w, x.device_mesh, want, src_data_rank=None))
+    return local_kernel(_depthwise_conv, tuple(x.placements), x, w)
+
+
+def _depthwise_conv(x, w):
     k = w.shape[0]
     y = x * w[k - 1]
     for j in range(k - 1):

@@ -107,7 +107,14 @@ class Embedding(Module):
         return {"table": (self.stddev * table).to(self.dtype)}
 
     def apply(self, params, ids):
-        return params["table"][ids]
+        from repro_torch.dist.sharding import is_sharded
+        table = params["table"]
+        if is_sharded(table) or is_sharded(ids):
+            # on a mesh: ``aten.embedding``, whose DTensor rules take ids
+            # sharded on the batch (torch 2.11 cannot propagate the backward
+            # of an index, an ``index_put``, with the ids sharded)
+            return F.embedding(ids, table)
+        return table[ids]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -78,6 +78,15 @@ class DPSGD:
                                   delta=self.delta)
 
 
+def _clipped(grad_fn, params, batch, clip: float):
+    """The gradients of ``batch`` (one example, in a batch of one), their
+    pre-clip norms and metrics, the pair clipped jointly to ``clip``."""
+    gd, gg, m = grad_fn(params, batch)
+    nd, ng = global_norm(gd), global_norm(gg)
+    (gd, gg), _ = clip_by_global_norm((gd, gg), clip)
+    return gd, gg, nd, ng, m
+
+
 def per_example_grads(grad_fn, params, batch, clip: float):
     """Per-example clipped gradients of one agent.
 
@@ -89,14 +98,8 @@ def per_example_grads(grad_fn, params, batch, clip: float):
     over (gd, gg), so each example's joint gradient has global norm <=
     clip; ``norms_d`` and ``norms_g`` are the pre-clip norms of each
     player."""
-
-    def one(ex):
-        gd, gg, m = grad_fn(params, tree_map(lambda v: v[None], ex))
-        nd, ng = global_norm(gd), global_norm(gg)
-        (gd, gg), _ = clip_by_global_norm((gd, gg), clip)
-        return gd, gg, nd, ng, m
-
-    return vmap(one)(batch)
+    return vmap(lambda ex: _clipped(grad_fn, params, tree_map(lambda v: v[None], ex), clip))(
+        batch)
 
 
 def noise_like(tree, gen: torch.Generator, std: float = 1.0):
@@ -127,3 +130,42 @@ def dp_grads(grad_fn, params, batch, dp: DPSGD, noise=None):
     metrics = {**metrics, "dp_grad_norm_d": torch.mean(nd),
                "dp_grad_norm_g": torch.mean(ng)}
     return gd, gg, metrics
+
+
+def dp_grads_on_mesh(grad_fn, params, batch, dp: DPSGD, noise=None, batch_dims=()):
+    """``dp_grads`` of one agent whose work a submesh of several ranks
+    splits (DTensor ``params`` and ``batch`` on the agent's submesh).
+
+    ``batch_dims`` (the submesh dims that shard ``batch``, over which the
+    weights are gathered: data parallelism inside the agent) are made
+    manual: each rank takes the per-example clipped gradients of its own
+    examples, sums them, and the sums are added across those dims before
+    the mean.  What is left of the submesh is tensor parallelism: there the
+    examples run one at a time by ``torch.autograd`` on the DTensors
+    (``repro_torch.dist.sharding.grad_and_value`` says why), so each
+    example's norm is that of its whole gradient, the shards of every rank
+    included; with nothing left, the local tensors take the vmap of
+    ``per_example_grads``.  ``noise`` is placed as the weights in use, so
+    every coordinate gets its own noise once."""
+    from repro_torch.dist.sharding import AgentShards, is_sharded
+    n = tree_leaves(batch)[0].shape[0]
+    view = None
+    if batch_dims:
+        view = AgentShards(tree_leaves(params)[0].device_mesh, batch_dims)
+        params, batch = view.local(params), view.local(batch)
+    if any(is_sharded(x) for x in tree_leaves(params)):
+        total = None
+        for i in range(tree_leaves(batch)[0].shape[0]):
+            one = _clipped(grad_fn, params, tree_map(lambda v: v[i:i + 1], batch), dp.clip)
+            total = one if total is None else tree_map(torch.add, total, one)
+    else:
+        total = tree_map(lambda v: torch.sum(v, dim=0),
+                         per_example_grads(grad_fn, params, batch, dp.clip))
+    if view is not None:
+        total = view.summed(total)
+    gd, gg, nd, ng, m = tree_map(lambda v: v / n, total)
+    if noise is not None:
+        std = dp.noise_multiplier * dp.clip / n
+        gd = tree_map(lambda g, z: g + std * z, gd, noise[0])
+        gg = tree_map(lambda g, z: g + std * z, gg, noise[1])
+    return gd, gg, {**m, "dp_grad_norm_d": nd, "dp_grad_norm_g": ng}

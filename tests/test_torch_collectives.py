@@ -16,7 +16,10 @@ reference, on the CPU, bit for bit.
   for P >= 3 pods of A >= 3 agents and N = 1 (mod 16) columns, XLA's dot
   computes the last column unfused (products rounded, then summed in
   order).  That column is checked to be exactly that, and the pod route's
-  value there to lie within A float32 roundings of sum_a |w_a x_a|.
+  value there to lie within A float32 roundings of sum_a |w_a x_a|.  On a
+  bfloat16 or float16 leaf the einsum runs in that type: the weights
+  rounded to it, the same chain in float32, one rounding at the end; every
+  element equal, with no exception.
 * ``fedavg_tree`` keeps the Pallas kernel's float32 products: it is held
   to the JAX ``fedavg_tree`` in interpret mode within 1e-6 of
   sum_b |w_b x_b| (the reduce order differs), and bit for bit to the
@@ -197,11 +200,126 @@ def test_intra_pod_weights_are_the_reference_bits():
 
 
 def test_average_intra_pod_refuses_non_float32_leaves():
+    """Integer leaves pass through untouched; a float64 leaf (the
+    reference's einsum in float64, which no route of the port computes)
+    is still refused, and the message names what is ported."""
     w = torch.full((2, 2), 0.25)
-    out = tcoll.average_intra_pod({"n": torch.ones((2, 2), dtype=torch.int32)}, w)
-    assert out["n"].dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="einsum"):
-        tcoll.average_intra_pod({"h": torch.ones((2, 2, 3), dtype=torch.bfloat16)}, w)
+    n = torch.ones((2, 2), dtype=torch.int32)
+    out = tcoll.average_intra_pod({"n": n}, w)
+    assert out["n"] is n
+    with pytest.raises(NotImplementedError, match="ported: float32, bfloat16, float16"):
+        tcoll.average_intra_pod({"d": torch.ones((2, 2, 3), dtype=torch.float64)}, w)
+
+
+# (P, A, N): small, a pod of 9 agents, the shape where the float32 einsum
+# takes an unfused tail (not in bf16/f16), and the ACGAN generator bucket
+LOW_POD_SHAPES = [(2, 4, 1001), (2, 9, 4097), (3, 3, 17), (2, 4, 2_314_435)]
+
+
+def _low_pod(dtype, w, x):
+    """``average_intra_pod`` of one ``dtype`` leaf (``x`` float32 numpy
+    rounded to it) in both packages: (port, reference) as float32 bits."""
+    jt, tt = _DTYPES[dtype][:2]
+    jx, tx = _as(jt, tt, x)
+    want = jcoll.average_intra_pod({"x": jx}, jnp.asarray(w))["x"]
+    got = tcoll.average_intra_pod({"x": tx}, torch.from_numpy(w))["x"]
+    assert got.dtype == tt and tuple(got.shape) == x.shape
+    for p in range(w.shape[0]):   # broadcast back over the pod
+        assert bool((got[p] == got[p, :1]).all())
+    return _bits(got), _bits(want.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("shape", LOW_POD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_low_precision_average_intra_pod_matches_the_reference(dtype, shape):
+    """On a bfloat16 or float16 leaf the reference's einsum runs in that
+    type: the port's pod route equals it on every element, the (3, 3, 17)
+    shape included (the float32 einsum's unfused tail does not occur in
+    these types)."""
+    rng = np.random.default_rng(shape[2])
+    w = rng.uniform(0.5, 2.0, shape[:2]).astype(np.float32)
+    x = rng.standard_normal(shape).astype(np.float32)
+    got, want = _low_pod(dtype, w, x)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("A", [1, 3, 4, 9])
+@pytest.mark.parametrize("P", [1, 2, 3])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_low_precision_average_intra_pod_at_every_residue(dtype, P, A):
+    """N over every residue mod 16 (33 to 48 columns), at mixed
+    magnitudes, bit for bit."""
+    rng = np.random.default_rng(100 * P + A)
+    w = _weights((P, A), rng)
+    for N in range(33, 49):
+        x = (rng.standard_normal((P, A, N))
+             * rng.choice([1e-3, 1.0, 30.0], (P, A, N))).astype(np.float32)
+        got, want = _low_pod(dtype, w, x)
+        np.testing.assert_array_equal(got, want, err_msg=f"N = {N}")
+
+
+def _rounds_up(w, dtype):
+    """Whether some pod's weights, normalised as the reference normalises
+    them and rounded to ``dtype``, sum past 65,520 / 65,504: a mean of
+    float16's largest value then rounds to inf."""
+    wi = tref.intra_pod_weights(torch.from_numpy(w)).to(dtype).double()
+    return bool((wi.sum(1) * 65504 >= 65520).any())
+
+
+def test_low_precision_average_intra_pod_at_float16_overflow():
+    """Values near float16's largest (65,504), positive and negative, with
+    weights whose float16 roundings sum past 1: the float32 sum rounds to
+    +-inf in float16 on some columns, in both packages alike."""
+    rng = np.random.default_rng(0)
+    w = next(w for w in (rng.uniform(0.5, 2.0, (2, 3)).astype(np.float32) for _ in range(2000))
+             if _rounds_up(w, torch.float16))
+    x = (rng.uniform(0.998, 1.0, (2, 3, 257)) * 65504 * rng.choice([-1, 1], (2, 3, 257))
+         ).astype(np.float32)
+    x[:, :, :64] = np.sign(x[:, :, :64]) * 65504   # whole columns of the largest value
+    x[:, :, :32] = 65504
+    got, want = _low_pod("float16", w, x)
+    np.testing.assert_array_equal(got, want)
+    assert np.isinf(got.view(np.float32)).any() and np.isfinite(got.view(np.float32)).any()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_low_precision_average_intra_pod_with_subnormal_weights(dtype):
+    """A pod whose normalised weights fall among float16's subnormals (and
+    one below its least, which rounds to 0) beside ordinary ones."""
+    rng = np.random.default_rng(1)
+    w = np.array([[1e-5, 1.0, 1.0, 1.0], [3e-8, 2e-6, 1.0, 0.5]], np.float32)
+    wi = tref.intra_pod_weights(torch.from_numpy(w))
+    assert bool((wi.abs() < 6.1e-5).any())
+    x = (rng.standard_normal((2, 4, 1000)) * 30).astype(np.float32)
+    got, want = _low_pod(dtype, w, x)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_mixed_tree_takes_one_pod_launch_per_dtype(monkeypatch):
+    """A tree of float32, bfloat16 and int32 leaves: one pod call per
+    inexact dtype (each dtype's leaves bucketed), every leaf the
+    reference's bit for bit, the int leaf passed through."""
+    rng = np.random.default_rng(2)
+    w = _weights((2, 3), rng)
+    leaves = {"a": ("float32", (7,)), "b": ("bfloat16", (3, 5)), "c": ("float32", (2, 2)),
+              "d": ("bfloat16", (11,)), "e": ("float16", (4,))}
+    jtree, ttree = {}, {}
+    for k, (dt, shape) in leaves.items():
+        jt, tt = _DTYPES[dt][:2]
+        jtree[k], ttree[k] = _as(jt, tt, rng.standard_normal((2, 3) + shape).astype(np.float32))
+    n = np.arange(6, dtype=np.int32).reshape(2, 3)
+    jtree["n"], ttree["n"] = jnp.asarray(n), torch.from_numpy(n)
+    calls = []
+    real = tcoll.fedavg_pod_flat
+    monkeypatch.setattr(tcoll, "fedavg_pod_flat",
+                        lambda wt, x: calls.append(x.dtype) or real(wt, x))
+    got = tcoll.average_intra_pod(ttree, torch.from_numpy(w))
+    want = jcoll.average_intra_pod(jtree, jnp.asarray(w))
+    assert sorted(map(str, calls)) == ["torch.bfloat16", "torch.float16", "torch.float32"]
+    assert got["n"] is ttree["n"]
+    for k in leaves:
+        assert got[k].dtype == ttree[k].dtype
+        np.testing.assert_array_equal(_bits(got[k]), _bits(want[k].astype(jnp.float32)))
 
 
 def _exact_fma(a, b, c):

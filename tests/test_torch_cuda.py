@@ -72,7 +72,8 @@ from repro_torch.core import FedAvgSync
 from repro_torch.dist import collectives
 from repro_torch.kernels.fedavg import kernel as avgkernel
 from repro_torch.kernels.fedavg.kernel import fedavg_flat, fedavg_pod_flat, fedavg_wire_flat
-from repro_torch.kernels.fedavg.ref import fedavg_flat_ref, fedavg_pod_ref, fedavg_wire_ref
+from repro_torch.kernels.fedavg.ref import (fedavg_flat_ref, fedavg_pod_low_ref, fedavg_pod_ref,
+                                            fedavg_wire_ref)
 from repro_torch.kernels.qpack import kernel as pkernel
 from repro_torch.kernels.qpack import ref as pref
 from repro_torch.kernels.qsync import kernel as qkernel
@@ -164,21 +165,32 @@ def test_fedavg_wire_kernel_matches_plain(cuda, dtype, B, N):
         fedavg_wire_flat(w, torch.cat([x, x], dim=1)[:, ::2])
 
 
+def _pod_ref(w, x):
+    return (fedavg_pod_ref if x.dtype == torch.float32 else fedavg_pod_low_ref)(w, x)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [513, *FEDAVG_NS])
 @pytest.mark.parametrize("grid", [(1, 5), (2, 4), (4, 4), (3, 5), (2, 9)])
-def test_fedavg_pod_kernel_matches_plain(cuda, grid, N):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_fedavg_pod_kernel_matches_plain(cuda, dtype, grid, N):
+    """The pod route in float32 and, with the weights rounded to the leaf's
+    type, in bfloat16 and float16: bit for bit its plain version, one
+    launch counted in all and one on its dtype's route."""
     g = torch.Generator(device=cuda).manual_seed(sum(grid) + N)
     w = torch.rand(grid, generator=g, device=cuda) + 0.1
     w = w / w.sum()
-    x = _route_input(g, cuda, grid + (N,), torch.float32)
-    before = fedavg_pod_flat.launches
+    x = _route_input(g, cuda, grid + (N,), dtype)
+    before, route = fedavg_pod_flat.launches, fedavg_pod_flat.by_dtype[dtype]
     got = fedavg_pod_flat(w, x)
     torch.cuda.synchronize()
     assert fedavg_pod_flat.launches == before + 1
-    assert _same_bits(got, fedavg_pod_ref(w, x))
-    with pytest.raises(TypeError, match="float32"):
-        fedavg_pod_flat(w, x.to(torch.bfloat16))
+    assert fedavg_pod_flat.by_dtype[dtype] == route + 1
+    assert got.dtype == dtype and _same_bits(got, _pod_ref(w, x))
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        fedavg_pod_flat(w, x.double())
+    with pytest.raises(TypeError, match="float32 weights"):
+        fedavg_pod_flat(w.double(), x)
 
 
 @pytest.mark.cuda
@@ -187,8 +199,8 @@ def test_fedavg_pod_kernel_matches_plain(cuda, grid, N):
 def test_fedavg_routes_take_unaligned_views(cuda, offset, N):
     """A contiguous view ``offset`` elements into its storage: every row of
     the wire and pod routes starts off 16-byte alignment, the first row's
-    first word before the tensor; both routes still equal their plain
-    versions bit for bit."""
+    first word before the tensor; every route still equals its plain
+    version bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(offset * N)
     w = torch.rand((1, 5), generator=g, device=cuda) + 0.1
     w = w / w.sum()
@@ -197,18 +209,20 @@ def test_fedavg_routes_take_unaligned_views(cuda, offset, N):
         assert x.is_contiguous() and x.data_ptr() % 16
         assert _same_bits(fedavg_wire_flat(w, x), fedavg_wire_ref(w, x))
     wp = torch.rand((2, 9), generator=g, device=cuda) + 0.1
-    x = _route_input(g, cuda, (2, 9, N), torch.float32, offset)
-    assert x.is_contiguous() and x.data_ptr() % 16
-    got = fedavg_pod_flat(wp, x)
-    torch.cuda.synchronize()
-    assert _same_bits(got, fedavg_pod_ref(wp, x))
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        x = _route_input(g, cuda, (2, 9, N), dtype, offset)
+        assert x.is_contiguous() and x.data_ptr() % 16
+        got = fedavg_pod_flat(wp, x)
+        torch.cuda.synchronize()
+        assert _same_bits(got, _pod_ref(wp, x))
 
 
 @pytest.mark.cuda
 def test_fedavg_kernels_do_not_spill(cuda):
-    """Every instantiation of the wire and pod routes: no local bytes, and
-    at least three blocks resident an SM (their launch bounds)."""
-    assert len(avgkernel.KERNELS) == 27
+    """Every instantiation of the wire and pod routes (bfloat16 and float16
+    wire, float32, bfloat16 and float16 pod): no local bytes, and at least
+    three blocks resident an SM (their launch bounds)."""
+    assert len(avgkernel.KERNELS) == 45
     for name in avgkernel.KERNELS:
         a = avgkernel.kernel_attrs(name)
         assert a["local_bytes"] == 0 and a["blocks_per_sm"] >= 3, (name, a)

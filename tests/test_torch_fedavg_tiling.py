@@ -1,6 +1,7 @@
 """A CPU model of the index arithmetic of fedavg's wire and pod routes
-(``rows_kernel`` in ``src/repro_torch/csrc/fedavg.cu``), which run only on
-the card.
+(``rows_kernel`` in ``src/repro_torch/csrc/fedavg.cu``: the wire route on
+2-byte elements, the pod route on 4-byte float32 and 2-byte bfloat16 or
+float16 elements), which run only on the card.
 
 The model follows the kernel lane by lane, in numpy: the launcher's grid
 and the blocks given to each pod, each output row's head, whole 16-byte
@@ -14,7 +15,10 @@ and that no byte outside the tensor is read; four planted faults must
 break it.  The intra-pod weights, computed as each block computes them,
 must equal the plain version's and the reference's bit for bit, and the
 model's gathered rows summed by the plain versions must equal the JAX
-reference.
+reference.  The low-precision pod route's arithmetic (the block's weights
+rounded to the leaf's type, the fused chain, one rounding at the end) on
+the gathered rows must equal the reference's einsum in that type, and
+fail with the weights left unrounded.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -160,25 +164,31 @@ def _check(x, base, P):
     assert 0 <= first and last < x.nbytes
 
 
+ROUTES = {"wire": (2, 1), "pod": (4, 2), "pod_low": (2, 2)}
+
+
 @pytest.mark.parametrize("rows", [1, 5, 8, 9, 16, 33])
-@pytest.mark.parametrize("esz,P", [(2, 1), (4, 2)], ids=["wire", "pod"])
+@pytest.mark.parametrize("esz,P", list(ROUTES.values()), ids=list(ROUTES))
 def test_every_element_reaches_its_lane_and_slot(esz, P, rows):
     """Both element sizes (the wire route's 2 bytes on one output row, the
-    pod route's 4 on two), N at every residue mod 8 and at N = 1 and
-    100,003, base offsets of 0 to 7 elements, 1 to 33 agent rows a pod."""
+    pod route's 4 on two, the low-precision pod route's 2 on two, whose
+    second output row starts off alignment at odd N), N at every residue
+    mod 8 and at N = 1 and 100,003, base offsets of 0 to 7 elements, 1 to
+    33 agent rows a pod."""
     for N in [1, *range(1000, 1008), 100_003]:
         x = _case(esz, P * rows, N, seed=rows * N)
         for k in range(8):
             _check(x, esz * k, P)
 
 
-@pytest.mark.parametrize("esz,P,A,k", [(2, 1, 5, 0), (2, 1, 5, 3), (4, 2, 4, 0), (4, 2, 4, 1)])
+@pytest.mark.parametrize("esz,P,A,k", [(2, 1, 5, 0), (2, 1, 5, 3), (4, 2, 4, 0), (4, 2, 4, 1),
+                                       (2, 2, 4, 0), (2, 2, 4, 1)])
 def test_every_element_reaches_its_lane_at_the_production_bucket(esz, P, A, k):
     """The ACGAN generator bucket, N = 2,314,435 (odd: the bf16 rows sit at
     byte offsets 0, 6, 12, 2, 8 mod 16), on its own allocation and at a
     view k elements past it; three pods on a small grid of blocks."""
     _check(_case(esz, P * A, 2_314_435, seed=k), esz * k, P)
-    if esz == 4:
+    if P == 2:
         _check(_case(esz, 3 * A, 5003, seed=k), esz * k, 3)
 
 
@@ -193,7 +203,7 @@ def test_a_grid_smaller_than_the_pods_covers_them(blocks):
 
 
 @pytest.mark.parametrize("fault", FAULTS)
-@pytest.mark.parametrize("esz,P", [(2, 1), (4, 2)], ids=["wire", "pod"])
+@pytest.mark.parametrize("esz,P", list(ROUTES.values()), ids=list(ROUTES))
 def test_planted_faults_fail(esz, P, fault):
     """The shift the wrong way, the neighbour word lane 31 loads for lane
     30 dropped, the tail
@@ -260,12 +270,58 @@ def test_gathered_pod_rows_sum_to_the_reference():
     np.testing.assert_array_equal(mine.numpy().view(np.int32), np.asarray(want).view(np.int32))
 
 
+_LOW = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
+
+
+def _low_pod_chain(w, gathered, dtype, round_weights=True):
+    """The low-precision pod route's arithmetic on the gathered rows (P, A,
+    N) of ``dtype``: the block's weights (``_block_weights``) rounded to
+    ``dtype`` (the planted fault: left unrounded), both operands widened
+    to float32, the fused multiply-add chain from +0 in agent order
+    (``__fmaf_rn``), the sum rounded to ``dtype`` once."""
+    wb = torch.from_numpy(_block_weights(w))
+    if round_weights:
+        wb = wb.to(dtype).float()
+    acc = torch.zeros((gathered.shape[0], gathered.shape[2]))
+    for a in range(gathered.shape[1]):
+        acc = tref.fma_f32(wb[:, a:a + 1].expand_as(acc), gathered[:, a].float(), acc)
+    return acc.to(dtype)
+
+
+def _low_pod_case(dtype, seed):
+    """Rows gathered by the model ((2, 4, 1,003) at a view one element past
+    alignment), their weights and the reference's einsum in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal((2, 4, 1003)) * 30).astype(np.float32)).to(dtype)
+    w = (rng.random((2, 4)) * rng.choice([1e-3, 1.0, 30.0], (2, 4))).astype(np.float32) + 0.01
+    got, _, _, _ = _kernel_model(x.view(torch.int16).reshape(8, -1).numpy().view(np.uint16), 2, 2)
+    gathered = torch.from_numpy(got.view(np.int16)).view(dtype).reshape(2, 4, -1)
+    jx = jnp.asarray(x.float().numpy()).astype(_LOW[dtype])
+    want = jcoll.average_intra_pod({"x": jx}, jnp.asarray(w))["x"][:, 0]
+    return w, gathered, np.asarray(want).view(np.int16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_gathered_low_pod_rows_sum_to_the_reference(dtype):
+    """The low-precision pod route's arithmetic on the model's gathered
+    rows equals the reference's einsum in that type bit for bit, and so
+    does the plain version; with the block's weights left unrounded to the
+    type (a planted fault) it departs."""
+    w, gathered, want = _low_pod_case(dtype, seed=3)
+    mine = _low_pod_chain(w, gathered, dtype)
+    np.testing.assert_array_equal(mine.view(torch.int16).numpy(), want)
+    plain = tref.fedavg_pod_low_ref(torch.from_numpy(w), gathered)
+    np.testing.assert_array_equal(plain.view(torch.int16).numpy(), want)
+    fault = _low_pod_chain(w, gathered, dtype, round_weights=False)
+    assert (fault.view(torch.int16).numpy() != want).any()
+
+
 def test_kernel_attrs_names_every_instantiation():
     """``KERNELS`` follows ``fedavg_attrs``' order: per route (wire bf16,
-    wire f16, pod) 1 to 8 rows, then groups of 8; an unknown name is
-    refused before anything is built."""
-    assert len(tkernel.KERNELS) == 27 == len(set(tkernel.KERNELS))
-    for r, route in enumerate(("wire_bf16", "wire_f16", "pod")):
+    wire f16, pod f32, pod bf16, pod f16) 1 to 8 rows, then groups of 8;
+    an unknown name is refused before anything is built."""
+    assert len(tkernel.KERNELS) == 45 == len(set(tkernel.KERNELS))
+    for r, route in enumerate(("wire_bf16", "wire_f16", "pod", "pod_bf16", "pod_f16")):
         assert tkernel.KERNELS[9 * r:9 * r + 9] == tuple(
             f"{route}_{k}" for k in (*range(1, 9), "g8"))
     with pytest.raises(ValueError, match="one of"):

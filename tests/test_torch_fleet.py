@@ -558,15 +558,37 @@ def test_experiment_spec_fleet_wiring():
 @pytest.mark.parametrize("kw,msg", [
     (dict(a_total=16, agents=4), "conflicts with"),
     (dict(a_total=4, a_active=8), "must be in"),
-    (dict(a_total=8, rounds_per_chunk=4), "rounds_per_chunk=4 with a_total"),
-    (dict(a_total=8, data_mode="device"), "data_mode='device' with a_total"),
     (dict(a_active=4), "they need a_total"),
     (dict(straggler_policy="defer"), "they need a_total"),
-], ids=["agents", "a_active", "chunks", "device_data", "cohort_without_fleet",
-        "policy_without_fleet"])
+], ids=["agents", "a_active", "cohort_without_fleet", "policy_without_fleet"])
 def test_experiment_spec_fleet_refusals(kw, msg):
     with pytest.raises(ValueError, match=re.escape(msg)):
         ttrain.experiment_spec("mixed_gaussian", device="cpu", samples_per_agent=16, **kw)
+
+
+@pytest.mark.parametrize("field", [dict(rounds_per_chunk=4), dict(data_mode="device")],
+                         ids=["chunks", "device_data"])
+def test_fleet_spec_runs_whatever_chunks_and_data_mode_say(field):
+    """The reference's fleet branch reads neither ``rounds_per_chunk`` nor
+    ``data_mode``: a fleet ``RunSpec`` with 4 rounds a chunk, or with the
+    device data mode, runs the fleet, bit for bit the same spec at the
+    fleet's values (1 round a chunk, streamed).  More rounds a chunk
+    warn."""
+    base, _ = ttrain.experiment_spec("mixed_gaussian", a_total=8, a_active=2, steps=4, K=2,
+                                     samples_per_agent=16, batch_size=4, log_every=0,
+                                     device="cpu")
+    assert (base.data_mode, base.rounds_per_chunk) == ("stream", 1)
+    want = base.run_result()
+    if "rounds_per_chunk" in field:
+        with pytest.warns(UserWarning, match="no chunks"):
+            spec = dataclasses.replace(base, **field)
+    else:
+        spec = dataclasses.replace(base, **field)
+    got = spec.run_result()
+    assert got.timings["a_total"] == 8 and len(got.history) == 2
+    assert got.history == want.history
+    for a, b in zip(tree_leaves(got.state), tree_leaves(want.state)):
+        assert torch.equal(a, b)
 
 
 def test_cli_fleet_smoke(capsys):

@@ -436,6 +436,71 @@ def test_train_then_checkpoint_then_serve():
     _close(eng.rows[0], want[:cfg.vocab_size].numpy(), 1e-5)
 
 
+def _numpy32(tree):
+    """A state's leaves as numpy, floating ones widened to float32 (numpy
+    has no bfloat16)."""
+    def one(x):
+        if isinstance(x, torch.Tensor):
+            return x.float().numpy() if x.is_floating_point() else x.numpy()
+        return np.asarray(x, np.float32) if jnp.issubdtype(x.dtype, jnp.floating) \
+            else np.asarray(x)
+    return (tree_map if isinstance(tree_leaves(tree)[0], torch.Tensor)
+            else jax.tree_util.tree_map)(one, tree)
+
+
+def test_hierarchical_bf16_param_round_matches_reference(monkeypatch):
+    """granite's ``.smoke()`` LM GAN built with ``param_dtype=bfloat16`` under
+    ``Hierarchical(intra_interval=1)`` on a (2, 2) grid, K = 1, SGD at 1e-3:
+    the step, the per-pod mean in bfloat16 (the pod route's low-precision
+    op, one call for the bfloat16 leaves) and the full sync (the wire
+    route), against the reference's round.  Held to ``round_mismatches``'
+    SGD bound (1e-5 of the leaf's largest magnitude, elementwise).  Both
+    sides take the learning rate in bfloat16: the reference's float32
+    ``constant`` would promote the bfloat16 params to float32 inside its
+    scan, which refuses the change of type."""
+    from repro.core import strategies as jstrat
+    from repro_torch.core import strategies as tstrat
+    from repro_torch.dist import collectives
+    from repro_torch.optim import TimeScales
+    K, grid, lr = 1, (2, 2), 1e-3
+    jcfg = jget_config("granite-moe-3b-a800m").smoke().scaled(param_dtype=jnp.bfloat16)
+    tcfg = port_config(jcfg)
+    jfed = JFedGAN(jmake_lm_gan_task(jcfg), JConfig(
+        agent_grid=grid, sync_interval=K, strategy=jstrat.Hierarchical(intra_interval=1)),
+        opt_g=JSGD(), opt_d=JSGD(),
+        scales=jequal_timescale(lambda n: jnp.asarray(lr, jnp.bfloat16)))
+    tfed = FedGAN(make_lm_gan_task(tcfg), FedGANConfig(
+        agent_grid=grid, sync_interval=K, strategy=tstrat.Hierarchical(intra_interval=1)),
+        opt_g=SGD(), opt_d=SGD(),
+        scales=TimeScales(*(lambda n: torch.full_like(n, lr, dtype=torch.bfloat16),) * 2,
+                          equal=True))
+    jstate = jfed.init_state(jax.random.key(0))
+    batch = lm_gan_batch(jcfg, K, grid, 2, 16)
+    jend, jm = jax.jit(jfed.round)(jstate, tree_map(jnp.asarray, batch),
+                                   jnp.zeros((K,) + grid, jnp.uint32))
+    start = jax.device_get(jstate)
+    assert {str(x.dtype) for x in jax.tree_util.tree_leaves(start["params"])} == {"bfloat16"}
+    flat = lambda t: jax.tree_util.tree_map(  # noqa: E731
+        lambda x: jnp.asarray(x).reshape((4,) + x.shape[2:]), t)
+    gd, gg, _ = jax.jit(jax.vmap(lambda p, b: jfed.task.fused_grads(p, b, None)))(
+        flat(start["params"]), flat(tree_map(lambda x: x[0], batch)))
+    pods = []
+    real = collectives.fedavg_pod_flat
+    monkeypatch.setattr(collectives, "fedavg_pod_flat",
+                        lambda w, x: pods.append(x.dtype) or real(w, x))
+    tstate, tm = tfed.round(from_jax_params(start, device="cpu"),
+                            tree_map(torch.from_numpy, batch))
+    assert pods == [torch.bfloat16]
+    assert {x.dtype for x in tree_leaves(tstate["params"])} == {torch.bfloat16}
+    losses = ((tm["d_loss"][0].item(), tm["g_loss"][0].item()),
+              (float(jm["d_loss"][0]), float(jm["g_loss"][0])))
+    exp = types.SimpleNamespace(opt="sgd", lr_d=lr, lr_g=lr)
+    bad, (ratio, path) = round_mismatches(exp, K, _numpy32(tstate), _numpy32(jax.device_get(jend)),
+                                          _numpy32(jax.device_get({"disc": gd, "gen": gg})),
+                                          losses)
+    assert bad == [], (bad, ratio, path)
+
+
 # ---------------------------------------------------------------------------
 # the in-place holds the card phase runs (torch_shared.held_sync_kernels)
 # ---------------------------------------------------------------------------
@@ -464,7 +529,8 @@ def test_held_sync_kernels_see_every_sync_call_of_the_round(case):
         assert (x == x[:1, :1]).all()
 
 
-@pytest.mark.parametrize("kernel", ["fedavg", "quant", "dequant", "pack4", "unpack4", "qsync"])
+@pytest.mark.parametrize("kernel", ["fedavg", "quant", "dequant", "pack4", "unpack4", "qsync",
+                                    "fedavg_wire", "fedavg_pod"])
 def test_held_sync_kernels_reject_a_planted_fault(kernel, monkeypatch):
     """A kernel wrapper that returns one element off (the last column, past
     the first chunk) fails its hold."""
@@ -483,6 +549,21 @@ def test_held_sync_kernels_reject_a_planted_fault(kernel, monkeypatch):
             return out
         return wrong
 
+    x = torch.randn((1, 3, 1000), generator=torch.Generator().manual_seed(0))
+    w = torch.full((1, 3), 1.0 / 3)
+    if kernel in ("fedavg_wire", "fedavg_pod"):
+        if kernel == "fedavg_wire":
+            monkeypatch.setitem(collectives._REDUCE, torch.bfloat16,
+                                planted(collectives._REDUCE[torch.bfloat16]))
+        else:
+            monkeypatch.setattr(collectives, "fedavg_pod_flat",
+                                planted(collectives.fedavg_pod_flat))
+        sync = collectives.average_agents if kernel == "fedavg_wire" else \
+            collectives.average_intra_pod
+        with pytest.raises(AssertionError, match=kernel):
+            with held_sync_kernels(columns=256):
+                sync({"x": x.to(torch.bfloat16)}, w)
+        return
     if kernel == "fedavg":
         monkeypatch.setitem(collectives._REDUCE, torch.float32,
                             planted(collectives._REDUCE[torch.float32]))
@@ -491,8 +572,6 @@ def test_held_sync_kernels_reject_a_planted_fault(kernel, monkeypatch):
         monkeypatch.setattr(where, f"{kernel}_flat", planted(getattr(where, f"{kernel}_flat")))
     codec = {"fedavg": None, "qsync": IntQuant(bits=8), "quant": IntQuant(bits=8),
              "dequant": IntQuant(bits=8)}.get(kernel, get_codec("topk+int4", fraction=0.5))
-    x = torch.randn((1, 3, 1000), generator=torch.Generator().manual_seed(0))
-    w = torch.full((1, 3), 1.0 / 3)
     with pytest.raises(AssertionError):
         with held_sync_kernels(columns=256):
             if codec is None:

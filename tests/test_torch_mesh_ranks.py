@@ -272,6 +272,121 @@ def test_planted_fault_skipping_the_cross_rank_sum_fails(tmp_path):
     assert not res["agents_equal"]
 
 
+# ---------------------------------------------------------------------------
+# one DP-SGD round (K = 1, SGD) on agent-sharded meshes
+# ---------------------------------------------------------------------------
+
+DP_CLIP = 0.05   # well under the per-example norms, so the clip bites
+
+
+def _noise_on_every_rank(noise, like):
+    """The planted fault: each rank adds the whole noise of a weight, its
+    shard of the agent grid kept but every other mesh dim summed."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+
+    from repro_torch.tree import tree_map
+
+    def one(z, p):
+        agent = [q if isinstance(q, Shard) and q.dim < 2 else Replicate() for q in p.placements]
+        whole = distribute_tensor(z, p.device_mesh, agent, src_data_rank=None)
+        return DTensor.from_local(whole.to_local(), p.device_mesh,
+                                  [q if isinstance(q, Shard) else Partial() for q in agent],
+                                  run_check=False)
+
+    return tree_map(one, noise, like)
+
+
+def _shard_norm(global_norm):
+    """The planted fault: a clip norm taken from each rank's own shards."""
+    from repro_torch.dist.sharding import is_sharded
+    from repro_torch.tree import tree_map
+    return lambda tree: global_norm(tree_map(lambda x: x.to_local() if is_sharded(x) else x,
+                                             tree))
+
+
+def _dp_round_body(rank, shape, axes, plan, fault):
+    import dataclasses
+
+    from repro_torch.core import fedgan as fedgan_mod
+    from repro_torch.dist.sharding import (AgentShards, batch_axes, full_tree,
+                                           named_shardings, place, use_mesh)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import PLANS, build_train_round
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import SGD, optimizer
+    from repro_torch.privacy import DPSGD
+    from repro_torch.tree import tree_leaves, tree_map
+
+    if fault == "noise":
+        fedgan_mod.placed_noise = _noise_on_every_rank
+    elif fault == "norm":
+        optimizer.global_norm = _shard_norm(optimizer.global_norm)
+    mesh = make_test_mesh(shape, axes)
+    cfg, K, lr = _cfg(), 1, 1e-4
+    out = {}
+    for name in ("mesh", "plain"):
+        strat = _recording_sync()
+        built = build_train_round(cfg, ShapeConfig("train", 16, 4, "train"), mesh,
+                                  plan=PLANS[plan], K=K, strategy=strat)
+        fed = dataclasses.replace(
+            built.fed, cfg=dataclasses.replace(built.fed.cfg, dp=DPSGD(
+                clip=DP_CLIP, noise_multiplier=1.0)), opt_g=SGD(), opt_d=SGD())
+        state = fed.init_state(torch.Generator().manual_seed(0), device="cpu")
+        tokens = torch.randint(0, cfg.vocab_size, tuple(built.input_sds[1]["tokens"].shape),
+                               generator=torch.Generator().manual_seed(1))
+        gen = torch.Generator().manual_seed(2)
+        if name == "mesh":
+            specs = built.meta["state_specs"]
+            specs = {**specs, **{k: PLANS[plan].specs(state[k], mesh) for k in ("opt_g", "opt_d")}}
+            placed = place(state, named_shardings(mesh, specs))
+            assert AgentShards.of(placed["params"]) is not None
+            with use_mesh(mesh), batch_axes(*PLANS[plan].act_batch_axes):
+                new, metrics = fed.round(placed, place({"tokens": tokens},
+                                                       built.in_shardings[1]), gen)
+            new = full_tree(new)
+            metrics = full_tree(metrics)
+        else:
+            new, metrics = fed.round(state, {"tokens": tokens}, gen)
+        out[name] = {"params": new["params"], "grads": strat.seen[0], "metrics": metrics}
+    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(tree_leaves(out["mesh"]["grads"]),
+                                   tree_leaves(out["plain"]["grads"])))
+    step_err = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(out["mesh"]["params"]), tree_leaves(out["plain"]["params"])))
+    m = tree_map(float, out["plain"]["metrics"])
+    return {"grad_err": grad_err, "step_err": step_err, "bound": 2 * K * lr,
+            "finite": all(bool(torch.isfinite(x).all())
+                          for x in tree_leaves(out["mesh"]["params"])),
+            "joint_norm": (m["dp_grad_norm_d"] ** 2 + m["dp_grad_norm_g"] ** 2) ** 0.5,
+            "metrics_err": max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+                               for a, b in zip(tree_leaves(out["mesh"]["metrics"]),
+                                               tree_leaves(out["plain"]["metrics"])))}
+
+
+@pytest.mark.parametrize("shape,axes,plan", ROUND_CASES, ids=[c[2] for c in ROUND_CASES])
+def test_dp_round_on_a_mesh_matches_unsharded(tmp_path, shape, axes, plan):
+    """A DP-SGD round (clip and noise) on the agent-sharded state: the
+    tensor-parallel plan takes its examples one at a time on the DTensors,
+    the data-parallel plans each rank's own examples, summed across the
+    ranks; each is the unsharded DP round with the same noise tensors, at
+    the round test's tolerance."""
+    res = run_ranks(tmp_path, _dp_round_body, shape, axes, plan, None)
+    assert res["joint_norm"] > 4 * DP_CLIP, res    # the clip bites
+    assert res["finite"], res
+    assert res["grad_err"] <= 1e-5, res
+    assert res["metrics_err"] <= 1e-5, res
+    assert res["step_err"] <= res["bound"], res
+
+
+@pytest.mark.parametrize("fault", ["noise", "norm"])
+def test_planted_dp_mesh_faults_fail(tmp_path, fault):
+    """Noise added whole on every tensor-parallel rank, or a clip norm
+    taken from a rank's own shards: either breaks the gradient hold above
+    on the tensor-parallel plan."""
+    res = run_ranks(tmp_path, _dp_round_body, (2, 2), ("data", "model"), "agents-data", fault)
+    assert res["grad_err"] > 1e-3, res
+
+
 def _coded_sync_body(rank):
     """One FedAvgSync(codec=IntQuant(8)) sync of a trained-looking state:
     on the mesh it runs on gathered inputs, so it equals the unsharded

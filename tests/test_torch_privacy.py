@@ -1164,3 +1164,73 @@ def test_registry_and_exports_match_the_reference():
         assert tstrat.get_strategy(name).name == jstrat.get_strategy(name).name
     assert WithByzantine(TrimmedMeanSync(), "nan", 2).name == \
         jprivacy.WithByzantine(jstrat.TrimmedMeanSync(), "nan", 2).name
+
+
+# ---------------------------------------------------------------------------
+# DP-SGD on an agent-sharded state, one rank
+# ---------------------------------------------------------------------------
+
+# the LM GAN round with DP (clip and noise) on a one-rank (1, 1) mesh, its
+# state and batches placed with the agent grid sharded over "data" (a
+# size-1 dim): the round takes the mesh's manual agent view, whose submesh
+# is empty, the noise placed as the params, and the dense DP route on the
+# rank's local tensors.  Its own process: a process group never lives in a
+# pytest worker.
+_ONE_RANK_DP = r"""
+import dataclasses, json, torch, torch.distributed as dist
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from repro_torch.dist.sharding import AgentShards, full_tree, use_mesh
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.steps import PLANS, build_train_round
+from repro_torch.models.config import ArchConfig, ShapeConfig
+from repro_torch.privacy import DPSGD
+from repro_torch.tree import tree_leaves, tree_map
+cfg = ArchConfig(name="t", family="dense", num_layers=2, d_model=64, num_heads=4,
+                 num_kv_heads=2, d_ff=128, vocab_size=256, dtype=torch.float32, remat=False,
+                 disc_layers=2, disc_d_model=32, disc_heads=2)
+mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+built = build_train_round(cfg, ShapeConfig("train", 16, 4, "train"), mesh,
+                          plan=PLANS["agents-data"], K=2)
+fed = dataclasses.replace(built.fed, cfg=dataclasses.replace(
+    built.fed.cfg, dp=DPSGD(clip=0.05, noise_multiplier=1.0)))
+state = fed.init_state(torch.Generator().manual_seed(0), device="cpu")
+tokens = torch.randint(0, cfg.vocab_size, tuple(built.input_sds[1]["tokens"].shape),
+                       generator=torch.Generator().manual_seed(1))
+
+def agent_sharded(tree, dim):
+    return tree_map(lambda x: distribute_tensor(
+        x, mesh, (Shard(dim), Replicate()) if x.dim() > dim else (Replicate(), Replicate()),
+        src_data_rank=None), tree)
+
+placed = agent_sharded(state, 1)
+view = AgentShards.of(placed["params"])
+with use_mesh(mesh):
+    got, got_m = fed.round(placed, agent_sharded({"tokens": tokens}, 2),
+                           torch.Generator().manual_seed(2))
+want, want_m = fed.round(state, {"tokens": tokens}, torch.Generator().manual_seed(2))
+
+def bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+same = [torch.equal(bits(a), bits(b)) for a, b in
+        zip(tree_leaves(full_tree((got, got_m))), tree_leaves((want, want_m)))]
+print("DP " + json.dumps({"view": view is not None, "inner": view is not None and
+                          view.inner_mesh is None, "same": all(same), "leaves": len(same),
+                          "norm": float(want_m["dp_grad_norm_d"][0])}))
+"""
+
+
+def test_dp_round_on_a_one_rank_mesh_is_the_dense_round_bit_for_bit():
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"), OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", _ONE_RANK_DP], capture_output=True, text=True,
+                         env=env, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    line = [ln for ln in res.stdout.splitlines() if ln.startswith("DP ")][-1]
+    out = json.loads(line[3:])
+    assert out["view"] and out["inner"], out     # the agent view, its submesh empty
+    assert out["norm"] > 0.05, out                # the clip bites
+    assert out["same"] and out["leaves"] > 20, out

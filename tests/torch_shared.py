@@ -581,20 +581,25 @@ def held_sync_kernels(columns=HOLD_COLUMNS):
     """While open, every call of a sync kernel's wrapper on the paths of
     the coded and the plain sync (fedavg's float32 route, through the
     collectives and through ``fedavg_tree``, the fleet's deferred merge and
-    async flush; qsync; and qpack's quant, dequant, pack4 and unpack4) also
-    runs the kernel's plain
+    async flush; its wire route on bfloat16 and float16 leaves and its pod
+    route, hierarchical sync's per-pod mean, in every type; qsync; and
+    qpack's quant, dequant, pack4 and unpack4) also runs the kernel's plain
     version on the same inputs, ``columns`` columns at a time (every output
     column, or block of 128 columns, depends on its own inputs alone), and
     holds the kernel's outputs to it: fedavg within 1e-6 of sum_b |w_b
     x_bn| (both sum the rounded products in agent order, so the bound is
-    slack), qsync's three outputs and the qpack kernels' bit for bit.
+    slack), the wire and pod routes, qsync's three outputs and the qpack
+    kernels' bit for bit.  A pod call on bfloat16 or float16 leaves is
+    also noted as ``fedavg_pod_bf16`` or ``fedavg_pod_f16``, as the launch
+    counters count it.
     Yields ``{kernel: {"calls", "elements", "widest", "widths",
     "max_abs_err"}}`` (``widths``: the set of column counts held); a
     departure raises ``AssertionError``.  The plain versions launch no
     kernel, so the launch counters count as they do outside."""
     from repro_torch.dist import collectives
     from repro_torch.kernels.fedavg import ops as fops
-    from repro_torch.kernels.fedavg.ref import fedavg_flat_ref
+    from repro_torch.kernels.fedavg.ref import (fedavg_flat_ref, fedavg_pod_low_ref,
+                                                fedavg_pod_ref, fedavg_wire_ref)
     from repro_torch.kernels.qpack import kernel as pk
     from repro_torch.kernels.qpack import ref as pref
     from repro_torch.kernels.qsync import kernel as qk
@@ -624,6 +629,22 @@ def held_sync_kernels(columns=HOLD_COLUMNS):
                 f"fedavg {tuple(stacked.shape)}: columns {a}:{b} off by {float(diff.max())}"
             err = max(err, float(diff.max()))
         note("fedavg", stacked.shape, err)
+
+    def hold_wire(out, weights, stacked):
+        for a, b in spans(stacked.shape[1], columns):
+            assert _bits_equal(out[a:b], fedavg_wire_ref(weights, stacked[:, a:b])), \
+                f"fedavg_wire {tuple(stacked.shape)}: columns {a}:{b} differ"
+        note("fedavg_wire", stacked.shape, 0.0)
+
+    def hold_pod(out, weights, stacked):
+        ref = fedavg_pod_ref if stacked.dtype == torch.float32 else fedavg_pod_low_ref
+        for a, b in spans(stacked.shape[2], columns):
+            assert _bits_equal(out[:, a:b], ref(weights, stacked[:, :, a:b])), \
+                f"fedavg_pod {tuple(stacked.shape)} {stacked.dtype}: columns {a}:{b} differ"
+        note("fedavg_pod", stacked.shape, 0.0)
+        route = {torch.bfloat16: "fedavg_pod_bf16", torch.float16: "fedavg_pod_f16"}
+        if stacked.dtype in route:
+            note(route[stacked.dtype], stacked.shape, 0.0)
 
     def hold_qsync(out, weights, stacked, ef=None, ef_down=None, *, qmax, block=128):
         for a, b in spans(stacked.shape[1], columns - columns % block):
@@ -666,6 +687,9 @@ def held_sync_kernels(columns=HOLD_COLUMNS):
         note("unpack4", p.shape, 0.0)
 
     patches = [(collectives._REDUCE, torch.float32, hold_fedavg),
+               (collectives._REDUCE, torch.bfloat16, hold_wire),
+               (collectives._REDUCE, torch.float16, hold_wire),
+               (collectives, "fedavg_pod_flat", hold_pod),
                (fops, "fedavg_flat", hold_fedavg),
                (qk, "qsync_flat", hold_qsync), (pk, "quant_flat", hold_quant),
                (pk, "dequant_flat", hold_dequant), (pk, "pack4_flat", hold_pack4),
