@@ -89,7 +89,7 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    ``examples/federated_images.py`` at 40 steps: FedGAN against the
    per-step baseline, the checkpoint restored bit for bit.
    A. The host-streaming pipeline (``data_mode="stream"``): image_acgan at
-   full width, 3 rounds streamed beside 3 on the device path under
+   full width, 2 rounds streamed beside 2 on the device path under
    ``FedAvgSync()`` and fused int8 + EF, launches exact and equal, ms a
    round, steps/s and the round gap of both; every uploaded round
    (pinned, side stream) bit-identical to the blocking
@@ -98,7 +98,7 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    B. Rounds in chunks through the captured CUDA graph
    (``rounds_per_chunk``): toy_2d, mixed_gaussian and swiss_roll, 12
    rounds at K = 5, bit-identical at 1, 4 and 12 rounds a chunk with
-   exact launches; image_acgan at full width, 3 rounds captured against
+   exact launches; image_acgan at full width, 2 rounds captured against
    3 eager under ``FedAvgSync()`` and fused int8 + EF with
    ``cudnn.deterministic`` set for the two runs and restored, states
    bit-identical, launches exact; mixed_gaussian (K = 10, 8 rounds) under
@@ -165,7 +165,7 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    flags and its SSM prefill state scans through the plain ``ssd_ref``).
    gemma3-4b on phase 8's params: ``ServeEngine`` with max_batch 4,
    max_seq 4,096, min_bucket 16, six greedy requests of 1,500, 300,
-   2,100, 40, 700 and 1,100 prompt tokens, 24 new tokens each (two
+   2,100, 40, 700 and 1,100 prompt tokens, 16 new tokens each (two
    admitted mid-stream, three prompts over the 1,024 window), in the full
    and the ring layout, each run eagerly and with the captured decode
    tick: the captured run equal to the eager one bit for bit (every
@@ -175,7 +175,7 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    with a scalar index over the engine's own tokens) within 2^-5 of the
    largest |logit|; the ring engine's held so to the full engine's on the
    steps whose earlier tokens agree.  mamba2-2.7b on phase 9's params:
-   max_batch 4, max_seq 1,536, five requests of 1,000, 77 (under one
+   max_batch 4, max_seq 1,536, five requests of 900, 77 (under one
    chunk: a fresh slot, the whole prompt through decode), 300, 640 and 129
    prompt tokens, 16 new each (exact-prefix prefill, the rest of the
    prompt through the shared decode tick), the same checks.  Printed with
@@ -226,11 +226,28 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    round and device busy share.  The smoke rounds: one LM GAN round (K =
    1, SGD) of each of the five archs the registry gained at ``.smoke()``
    on the card against the CPU port, within the CPU-vs-JAX bounds of
-   ``tests/torch_shared.py``.  Last, granite-moe-3b-a800m at full size (32
-   layers) served by ``ServeEngine`` (max_batch 4, four requests of 400,
-   40, 150 and 250 prompt tokens, 16 new each), the captured tick
+   ``tests/torch_shared.py``.  Then granite-moe-3b-a800m at full width, 8
+   of its 32 layers, served by ``ServeEngine`` (max_batch 4, four requests
+   of 400, 40, 150 and 250 prompt tokens, 16 new each), the captured tick
    bit-identical to the eager one, with tokens/s, tick ms p50/p99 and
-   peak memory.
+   peak memory.  Last, the remat part (``run_remat``): mamba2-2.7b's LM
+   GAN at full width (d_model 2,560, 80 SSD heads of 64, state 128, chunk
+   128, vocab 50,280 padded to 50,432; the plain scan, which training
+   runs), 2 agents on a (1, 2) grid, batch 2 of T = 2,048 tokens from
+   ``sample_agent_tokens``, K = 2, Adam at 1e-3, ``FedAvgSync()``, one
+   round each from one state and one set of batches: with ``cfg.remat``
+   off (a) and on (b) at 2 and at 7 of its 64 layers (7: the deepest
+   whose round without remat stays under 72 GiB), (b)'s new state bit for
+   bit (a)'s; (c) remat on at 12 layers (at 15 the round allocates about
+   70 GiB and the caching allocator's unused reserve takes the rest of
+   the card).  Every fedavg launch (2 a round) held in place, the remat
+   op's calls K x layers (none without remat), losses finite.  Printed:
+   ms a round, the peak beside what was resident before the round, and
+   how fast that peak grows with depth; held: (b)'s growth at most half
+   of (a)'s.  A round's peak above resident has a part that does not
+   grow with depth (the discriminator's attention over T = 2,048, the
+   vocabulary head's and embedding's Adam copies), so the whole peak
+   does not halve at any depth that fits.
 
 12. The hybrid, audio and vlm families at full width.  Phase 6 also
    holds flash at zamba2-7b's shared attention (q, k, v (2, 32, 2048,
@@ -293,7 +310,7 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    (5 slots, K = 20, batch 64, Adam): (a) ``a_total = a_active = 5``, 3
    rounds, bit-identical to the dense stream ``RoundDriver`` (params, Adam
    state, metrics; ``cudnn.deterministic`` set), both rounds/s printed;
-   (b) ``a_total = 1024``, ``participation_seed = 0``, 6 rounds under
+   (b) ``a_total = 1024``, ``participation_seed = 0``, 4 rounds under
    ``FedAvgSync()`` (2 fedavg a round) and the fused int8 + EF sync (2
    qsync a round), every launch held in place to its plain version
    (``torch_shared.held_sync_kernels``), with ``store_rows``,
@@ -354,10 +371,24 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    was resident, with their ratio (not held).  (c) the production dry
    runs, each in a subprocess over a fake group: gemma3-4b ``train_4k`` at
    K = 1 under agents-data on (16, 16) and on (2, 16, 16), at its 34
-   layers; per-rank memory, FLOPs, collective bytes by axis and the
-   roofline terms printed; each ``ok``, its argument bytes the sum of its
+   layers, with its config's remat (every local and tail layer recomputed
+   in the backward); per-rank memory, FLOPs, collective bytes by axis and
+   the roofline terms printed, the peak beside the peak without remat and
+   whether it fits 80 GB; each ``ok``, its argument bytes the sum of its
    local shards by the specs, agent- and model-axis bytes nonzero.
    The dry runs are host work, started first and run beside (a).
+
+The time budget: the whole run must end within 1,100 s (it prints its
+total).  To make room for phase 11's remat part, and for the recompute
+that ``cfg.remat`` adds to every full-width training path, these earlier
+paths were cut (no hold dropped): image_acgan's streamed and captured
+runs from 3 rounds to 2 and its profiled rounds from 3 to 1 (phase 4 A
+and B), the served granite from 32 to
+8 layers (phase 11), gemma3-4b's requests from 24 new tokens to 16
+(phases 10 and 15 (b)), the longest mamba2-2.7b and zamba2-7b request
+from 1,000 prompt tokens to 900 (phases 10 and 12: 896 of them still
+prefill, the rest through the decode tick) and the 1,024-client fleet
+from 6 rounds to 4 (phase 14).
 
 In every main-path run each kernel's launch counter is set to 0 just
 before it and read just after it, and the kernels the path does not run
@@ -1522,8 +1553,8 @@ def run_mamba(torch, dev):
 # (prompt length, new tokens): four slots, so two requests are admitted
 # mid-stream; gemma3-4b's prompts hit five buckets and three overrun its
 # 1,024 window; mamba2-2.7b's 77 is below one 128 chunk (a Tb = 0 prefill)
-GEMMA_WORK = [(1500, 24), (300, 24), (2100, 24), (40, 24), (700, 24), (1100, 24)]
-MAMBA_WORK = [(1000, 16), (77, 16), (300, 16), (640, 16), (129, 16)]
+GEMMA_WORK = [(1500, 16), (300, 16), (2100, 16), (40, 16), (700, 16), (1100, 16)]
+MAMBA_WORK = [(900, 16), (77, 16), (300, 16), (640, 16), (129, 16)]
 
 
 def _recording_engine(torch, cfg, params, dev, **kw):
@@ -1830,6 +1861,7 @@ LM_GAN_ARCH = "granite-moe-3b-a800m"
 LM_GAN_LAYERS = {"plain": 2, "composed": 1, "fused": 1}
 LM_GAN_SHAPE = dict(agents=4, batch=8, T=256, K=5, sequences=256)
 GRANITE_WORK = [(400, 16), (40, 16), (150, 16), (250, 16)]
+GRANITE_SERVE_LAYERS = 8       # of 32: the served granite's depth cut
 
 
 def _lm_gan_cfg(layers):
@@ -1988,11 +2020,153 @@ def run_lm_gan_pods(torch, dev, card):
     return launches
 
 
+# the remat part: mamba2-2.7b's LM GAN at full width, 2 agents on a (1, 2)
+# grid, batch 2 of T = 2,048 tokens, K = 2, Adam at 1e-3; (a) without and
+# (b) with remat at two depths (the deeper the deepest whose round without
+# remat stays under 72 GiB: 7 peaks at 69 GiB, 8 would pass 72), (c) with
+# remat at 12 (at 15 the round allocated about 70 GiB and the caching
+# allocator's unused reserve took the rest of the card)
+REMAT_ARCH = "mamba2-2.7b"
+REMAT_SHAPE = dict(agents=2, batch=2, T=2048, K=2, sequences=64)
+REMAT_DEPTHS = {"ab": (2, 7), "c": 12}
+
+
+def _remat_round(torch, dev, layers, remat, state, batches, label, card):
+    """One LM GAN round of ``REMAT_ARCH`` at full width, ``layers`` deep,
+    with ``cfg.remat`` set to ``remat``, on ``state`` and ``batches``
+    through ``RunSpec.build`` and ``make_lm_gan_task``: every launch counter
+    set to 0 just before the round and read just after (2 fedavg, each held
+    in place against its plain version), the remat op's calls counted (K x
+    ``layers`` with remat, none without), the losses finite; timed after
+    one warm-up round on the same inputs (its output dropped), so that
+    the caching allocator holds the round's blocks.  Returns (the new
+    state, the peak bytes above what was resident before the round)."""
+    from repro_torch.core import FedAvgSync
+    from repro_torch.launch.steps import make_lm_gan_task
+    from repro_torch.launch.train import RunSpec
+    from repro_torch.models import remat as remat_op
+    from repro_torch.optim import Adam, constant, equal_timescale
+    from torch_shared import held_sync_kernels
+    from repro_torch.configs.registry import get_config
+    sh = REMAT_SHAPE
+    cfg = get_config(REMAT_ARCH).scaled(num_layers=layers, remat=remat)
+    fed = RunSpec(task=make_lm_gan_task(cfg), agent_data=[], agent_grid=(1, sh["agents"]),
+                  K=sh["K"], steps=sh["K"], batch_size=sh["batch"],
+                  scales=equal_timescale(constant(1e-3)), opt_d=Adam(), opt_g=Adam(),
+                  strategy=FedAvgSync(), seed=0, log_every=0, device=str(dev)).build()
+    counters = launch_counters()
+    gc_collect(torch)
+    fed.round(state, batches)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(counters)
+    remat_op.reset_calls()
+    with held_sync_kernels() as held:
+        t0 = time.perf_counter()
+        new, metrics = fed.round(state, batches)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    counts = _read(counters)
+    calls = dict(remat_op.CALLS)
+    want = {name: 2 if name == "fedavg" else 0 for name in counters}
+    check(counts == want, f"remat {label}: launches {counts}, expected {want}")
+    check(held["fedavg"]["calls"] == 2, f"remat {label}: held {held}")
+    check(calls == ({"ssm": sh["K"] * layers} if remat else {}),
+          f"remat {label}: remat op calls {calls}")
+    check(all(bool(torch.isfinite(v).all()) for v in metrics.values()),
+          f"remat {label}: non-finite losses {metrics}")
+    log(f"remat {label}: {REMAT_ARCH} LM GAN at full width, {layers} of 64 layers, "
+        f"remat={remat}: {ms:.1f} ms a round (K={sh['K']}, after a warm-up round; every "
+        f"sync launch held), peak "
+        f"{peak / 2 ** 30:.2f} GiB beside {resident / 2 ** 30:.2f} GiB resident before "
+        f"the round ({(peak - resident) / 2 ** 30:.2f} above), remat op calls {calls}, "
+        f"launches {counts}, lm {[round(float(x), 4) for x in metrics['lm']]}; {card}")
+    return new, peak - resident
+
+
+def run_remat(torch, dev, card):
+    """Phase 11's remat part: mamba2-2.7b's LM GAN round at full width (the
+    plain scan, which training runs) with ``cfg.remat`` off (a) and on (b)
+    from one state and one set of batches at two depths, (b)'s new state
+    bit for bit (a)'s, and (b)'s peak above what was resident growing at
+    most half as fast with depth as (a)'s; (c) remat on at the deepest
+    depth under 72 GiB, one round.  Every fedavg launch held in place."""
+    from repro_torch import prng
+    from repro_torch.data.federated import DeviceFederatedData
+    from repro_torch.data.synthetic import sample_agent_tokens
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_lm_gan_task
+    from repro_torch.core import FedGAN, FedGANConfig
+    from repro_torch.optim import Adam
+    from repro_torch.tree import tree_leaves
+    t_part = time.perf_counter()
+    sh = REMAT_SHAPE
+    full = get_config(REMAT_ARCH)
+    check((full.d_model, full.d_inner, full.resolved_ssm_heads, full.ssm_state, full.ssm_chunk,
+           full.padded_vocab) == (2560, 5120, 80, 128, 128, 50432),
+          f"{REMAT_ARCH} is not at its full width")
+    A = sh["agents"]
+    data = DeviceFederatedData.from_agent_data(
+        [{"tokens": sample_agent_tokens(prng.key(0), sh["sequences"], sh["T"],
+                                        full.vocab_size, agent=i, num_agents=A)}
+         for i in range(A)], (1, A), sh["batch"], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = {"tokens": torch.stack([data.sample_step(gen)["tokens"]
+                                      for _ in range(sh["K"])])}
+    del data
+
+    def state_at(layers):
+        fed = FedGAN(make_lm_gan_task(full.scaled(num_layers=layers)),
+                     FedGANConfig(agent_grid=(1, A), sync_interval=sh["K"]),
+                     opt_g=Adam(), opt_d=Adam())
+        return fed.init_state(torch.Generator(device=dev).manual_seed(0), device=dev)
+
+    above = {}
+    for layers in REMAT_DEPTHS["ab"]:
+        log(f"depth cut: {REMAT_ARCH} LM GAN remat (a) and (b) at {layers} of 64 layers at "
+            f"full width (without remat a deeper round passes 72 GiB)")
+        state = state_at(layers)
+        a, above[layers, False] = _remat_round(torch, dev, layers, False, state, batches,
+                                               f"(a) {layers} layers", card)
+        b, above[layers, True] = _remat_round(torch, dev, layers, True, state, batches,
+                                              f"(b) {layers} layers", card)
+        la, lb = tree_leaves(a), tree_leaves(b)
+        check(len(la) == len(lb) and all(same_bits(torch, x, y) for x, y in zip(la, lb)),
+              f"remat at {layers} layers: (b)'s new state is not (a)'s bit for bit")
+        log(f"remat at {layers} layers: (b)'s new state bit for bit (a)'s "
+            f"({len(la)} leaves); peak above resident (b) / (a) "
+            f"{above[layers, True] / above[layers, False]:.3f}")
+        del state, a, b, la, lb
+        gc_collect(torch)
+    lo, hi = REMAT_DEPTHS["ab"]
+    slope = {r: (above[hi, r] - above[lo, r]) / (hi - lo) for r in (False, True)}
+    log(f"remat: the round's peak above resident grows {slope[False] / 2 ** 30:.3f} GiB a "
+        f"layer without remat, {slope[True] / 2 ** 30:.3f} with (ratio "
+        f"{slope[True] / slope[False]:.3f}); {card}")
+    check(slope[True] <= 0.5 * slope[False],
+          "remat: (b)'s peak grows more than half as fast with depth as (a)'s")
+    layers = REMAT_DEPTHS["c"]
+    log(f"depth cut: {REMAT_ARCH} LM GAN remat (c) at {layers} of 64 layers at full width "
+        f"(at 15 the round allocates about 70 GiB and the caching allocator's reserve "
+        f"fills the card)")
+    state = state_at(layers)
+    resident = torch.cuda.memory_allocated()
+    c, above_c = _remat_round(torch, dev, layers, True, state, batches,
+                              f"(c) {layers} layers", card)
+    check(resident + above_c < CARD_BUDGET, f"remat (c): the round passes 72 GiB")
+    del state, c
+    gc_collect(torch)
+    log(f"elapsed: LM GAN remat part {time.perf_counter() - t_part:.1f} s")
+
+
 def run_lm_gan(torch, dev):
     """Phase 11: the five new archs' smoke-width LM GAN rounds on the card
     against the CPU port; the LM GAN (FedGAN's Algorithm 1 on a backbone)
     at granite-moe-3b-a800m's full width through the sync kernels; and
-    granite-moe-3b-a800m served at full size through the captured tick."""
+    granite-moe-3b-a800m served at full width, 8 layers, through the
+    captured tick."""
     import gc
     from repro_torch.launch.train import run_arch_smoke
     from repro_torch.run.profile import profile_spec
@@ -2074,7 +2248,9 @@ def _lm_gan_leaf_count(torch):
 
 
 def run_serve_granite(torch, dev, card):
-    """granite-moe-3b-a800m at full size (32 layers) served by ServeEngine,
+    """granite-moe-3b-a800m at full width, 8 of its 32 layers (a depth cut
+    for the smoke's time: the eager ticks are host-bound, launches a layer)
+    served by ServeEngine,
     max_batch 4, max_seq 1,024: four requests of 400, 40, 150 and 250
     prompt tokens, 16 new each.  An MoE prompt prefills exactly in whole
     groups of 1,024 (the reference's rule), so these prompts go through the
@@ -2084,10 +2260,12 @@ def run_serve_granite(torch, dev, card):
     from repro_torch.models import Backbone
     from repro_torch.tree import tree_leaves
     t_phase = time.perf_counter()
-    cfg = get_config(LM_GAN_ARCH)
+    cfg = get_config(LM_GAN_ARCH).scaled(num_layers=GRANITE_SERVE_LAYERS)
     params = Backbone(cfg).init(torch.Generator(device=dev).manual_seed(0))
     n = sum(x.numel() for x in tree_leaves(params))
-    log(f"{LM_GAN_ARCH} serve: full size, {cfg.num_layers} layers, {n} params "
+    log(f"depth cut: {LM_GAN_ARCH} serve at full width, {cfg.num_layers} of 32 layers "
+        f"(the smoke's time)")
+    log(f"{LM_GAN_ARCH} serve: {cfg.num_layers} layers, {n} params "
         f"({n * 4 / 2 ** 30:.2f} GiB float32)")
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, cfg.vocab_size, T).tolist() for T, _ in GRANITE_WORK]
@@ -2294,7 +2472,7 @@ def run_zamba(torch, dev):
 
 def run_serve_zamba(torch, dev, params):
     """zamba2-7b (full size, run_zamba's params) served by ServeEngine,
-    max_batch 4, max_seq 1,536, five requests of 1,000, 77, 300, 640 and
+    max_batch 4, max_seq 1,536, five requests of 900, 77, 300, 640 and
     129 prompt tokens, 16 new each: exact-prefix prefill (whole chunks of
     128; 77 is under one, a fresh slot) with the rest of the prompt
     through the decode tick; the shared block's k/v and the Mamba2 states
@@ -2912,7 +3090,7 @@ def _finite_run(torch, result, label):
 
 def run_stream(torch, dev):
     """Phase A, the host-streaming pipeline.  ``image_acgan`` at full width
-    (B = 5, K = 20, batch 64), 3 rounds with ``data_mode="stream"`` beside
+    (B = 5, K = 20, batch 64), 2 rounds with ``data_mode="stream"`` beside
     3 on the device path, under ``FedAvgSync()`` and fused int8 + EF:
     launches exact and equal to the device path's, finite histories, ms a
     round, steps/s and round gap for both.  Every uploaded round tensor
@@ -2926,7 +3104,7 @@ def run_stream(torch, dev):
     from repro_torch.launch.train import experiment_spec
     from repro_torch.run.graph import metric_row
     from repro_torch.tree import tree_leaves, tree_map
-    rounds, K = 3, 20
+    rounds, K = 2, 20
     log(f"depth cut: the stream phase runs image_acgan {rounds} rounds x K={K} a run of "
         "the paper's 30000 steps")
     for label, strategy, per_round in (
@@ -2986,9 +3164,9 @@ def run_stream(torch, dev):
         "bit-identical to the blocking loop")
 
 
-def _profile_line(name, **kw):
+def _profile_line(name, rounds=3, **kw):
     from repro_torch.run.profile import profile_rounds
-    out = profile_rounds(name, rounds=3, **kw)
+    out = profile_rounds(name, rounds=rounds, **kw)
     return (f"{out['ms_per_round']:.2f} ms/round, busy {out['device_busy_share']:.1%} "
             f"({sum(out['device_ms_per_round'].values()):.2f} kernel ms a round on "
             f"{out['device_streams']} streams)")
@@ -3064,7 +3242,7 @@ def run_captured(torch, dev):
             f"{runs[1].timings['total_s'] / 8 * 1e3:.2f}, captured "
             f"{runs[8].timings['total_s'] / 8 * 1e3:.2f} ms/round")
 
-    K, rounds = 20, 3
+    K, rounds = 20, 2
     old = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -3104,8 +3282,9 @@ def run_captured(torch, dev):
     for name in ("toy_2d", "mixed_gaussian"):
         log(f"profile {name} K=5: eager " + _profile_line(name, K=5, device=dev)
             + "; captured " + _profile_line(name, K=5, device=dev, captured=True))
-    log("profile image_acgan: eager " + _profile_line("image_acgan", device=dev)
-        + "; captured " + _profile_line("image_acgan", device=dev, captured=True))
+    # one timed and one profiled round each (the trace of three took minutes)
+    log("profile image_acgan: eager " + _profile_line("image_acgan", 1, device=dev)
+        + "; captured " + _profile_line("image_acgan", 1, device=dev, captured=True))
 
 
 # ---------------------------------------------------------------------------
@@ -3378,7 +3557,7 @@ def run_privacy(torch, dev):
 # image_acgan's width (B = 5 slots, K = 20, batch 64, Adam); the fleet sizes
 # and rounds of each part.  A rehearsal on the CPU shrinks them.
 FLEET_K, FLEET_BATCH = 20, 64
-FLEET_TOTAL, FLEET_ROUNDS = 1024, 6
+FLEET_TOTAL, FLEET_ROUNDS = 1024, 4
 FLEET_ASYNC_CLIENTS, FLEET_FLUSHES = 64, 6
 # the demo's latency model (repro_torch.run.simclock.demo_driver)
 FLEET_ASYNC = dict(buffer_goal=2, timeout=6.0, max_retries=2, backoff=2.0)
@@ -3945,6 +4124,9 @@ rec = run_pair("granite-moe-3b-a800m", "train_card", cfg=cfg,
                shape=ShapeConfig("train_card", 256, 8, "train"), mesh_shape=(1, 1), K=5)
 print("DRYRUN " + json.dumps(rec))
 """
+# gemma3-4b train_4k's peak a rank, GiB, in the dry run without remat
+# (phase 16 (c) before the port honoured cfg.remat)
+DRY_PEAK_NO_REMAT = {"16x16": 237.8, "2x16x16": 369.0}
 _DRY_GEMMA = r"""
 import json, sys, time
 t0 = time.perf_counter()
@@ -4151,6 +4333,11 @@ def run_analysis(torch, dev):
             log(f"analysis (c) gemma3-4b train_4k on {rec['mesh']} (agents-data, K=1, "
                 f"{rec['meta']['agents']} agents of batch {rec['meta']['per_agent_batch']}) over "
                 f"a fake group: {_dry_line(rec)}")
+            log(f"analysis (c) {label} with the config's remat (every local and tail layer "
+                f"recomputed in the backward): peak {rec['memory']['peak_bytes'] / 2 ** 30:.1f} "
+                f"GiB a rank against {DRY_PEAK_NO_REMAT[label]} GiB without remat (the dry run "
+                f"of the commit before the port honoured remat), "
+                f"{'fits' if rec['memory']['fits'] else 'does not fit'} 80 GB")
         check(m["argument_bytes"] == on_card["storages"] <= on_card["allocated"],
               f"analysis (b): the dry run predicts {m['argument_bytes']} argument bytes, the "
               f"card's placed state and batches hold {on_card['storages']} in their storages "
@@ -4265,9 +4452,11 @@ def main() -> int:
         run_strategy_paths(torch, dev)
     mark("main paths and strategies")
     run_stream(torch, dev)
+    mark("stream")
     run_captured(torch, dev)
+    mark("captured")
     run_checkpoint(torch, dev)
-    mark("stream, captured, checkpoint")
+    mark("checkpoint")
     run_federated_images(torch, dev)
     run_quickstart(torch, dev)
     for name, rounds in PAPER_ROUNDS.items():
@@ -4291,11 +4480,13 @@ def main() -> int:
     mark("mamba2-2.7b and serving reload")
     run_lm_gan(torch, dev)
     gc_collect(torch)
-    mark("LM GAN")
+    mark("LM GAN and granite's serving")
     pod_low = run_lm_gan_pods(torch, dev, card)
     for tag, n in pod_low.items():
         records[f"fedavg_pod_{tag}"]["launches"] = n
     mark("LM GAN Hierarchical in bf16 and f16 params")
+    run_remat(torch, dev, card)
+    mark("LM GAN remat")
     run_families(torch, dev)
     gc_collect(torch)
     mark("families")

@@ -30,6 +30,10 @@ cached as JSON under ``--out``, so a sweep resumes.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-4b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--both-meshes] [--plan agents-data]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mamba2-2.7b --round-peak 2 5
+
+``--round-peak`` needs no process group: it predicts one card's LM GAN
+round (``lm_gan_round_peak``) with remat off and on.
 """
 from __future__ import annotations
 
@@ -208,6 +212,33 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
     return rec
 
 
+def lm_gan_round_peak(cfg, *, agents: int = 2, batch: int = 2, seq: int = 2048,
+                      K: int = 2) -> dict:
+    """One LM GAN round (``make_lm_gan_task``, ``agents`` on a (1, agents)
+    grid, K steps, Adam, ``FedAvgSync``) of the ArchConfig ``cfg`` on one
+    device without a mesh, run on fake tensors under
+    ``hlo_analysis.count_dispatch``: its state's and batches' bytes
+    (resident before the round), the high-water mark of what the round
+    allocates beside them, and its FLOPs.  What one card would hold for
+    such a round, with ``cfg.remat`` on or off, before any card runs it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.core import FedGAN, FedGANConfig
+    from repro_torch.launch.hlo_analysis import count_dispatch, tensor_bytes
+    from repro_torch.launch.steps import make_lm_gan_task
+    from repro_torch.optim import Adam
+    from repro_torch.tree import tree_leaves
+    fed = FedGAN(make_lm_gan_task(cfg), FedGANConfig(agent_grid=(1, agents), sync_interval=K),
+                 opt_g=Adam(), opt_d=Adam())
+    with FakeTensorMode():
+        state = fed.init_state(torch.Generator().manual_seed(0), device="cpu")
+        batches = {"tokens": torch.zeros((K, 1, agents, batch, seq), dtype=torch.int64)}
+        _, counts = count_dispatch(fed.round, state, batches)
+        resident = sum(tensor_bytes(x) for x in tree_leaves((state, batches)))
+    return {"arch": cfg.name, "layers": cfg.num_layers, "remat": cfg.remat, "agents": agents,
+            "batch": batch, "seq": seq, "K": K, "resident_bytes": resident,
+            "peak_above_bytes": counts.peak_bytes, "flops": counts.flops}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun",
                                  description="Dry-run (arch x shape) pairs on the production "
@@ -231,7 +262,18 @@ def main(argv=None):
     ap.add_argument("--analyze", action="store_true",
                     help="run the repro_torch.analysis trace audit on each built step "
                          "and record its findings in the JSON")
+    ap.add_argument("--round-peak", metavar="LAYERS", type=int, nargs="+",
+                    help="instead: the memory of --arch's LM GAN round on one device at "
+                         "each depth, with remat off and on (lm_gan_round_peak: 2 agents, "
+                         "batch 2 x 2,048 tokens, K = 2, Adam); one JSON line each")
     args = ap.parse_args(argv)
+    if args.round_peak:
+        from repro_torch.configs.registry import get_config
+        for layers in args.round_peak:
+            for remat in (False, True):
+                cfg = get_config(args.arch).scaled(num_layers=layers, remat=remat)
+                print(json.dumps(lm_gan_round_peak(cfg)), flush=True)
+        return
 
     from repro_torch.configs.registry import list_archs
     from repro_torch.models.config import SHAPES

@@ -61,7 +61,7 @@ class ArchConfig:
     vocab_pad_multiple: int = 256
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
-    remat: bool = True               # no effect in the port (models/transformer.py)
+    remat: bool = True               # recompute the layer bodies in the backward
 
     # --- adversarial (FedGAN) head: discriminator encoder dims ---
     disc_layers: int = 4

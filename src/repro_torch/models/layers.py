@@ -133,11 +133,15 @@ class Attention(nn.Module):
         return q, k, v
 
     def _memory_kv(self, params, memory):
-        """Cross-attention keys and values of the encoder's memory (B, S, d)."""
+        """Cross-attention keys and values of the encoder's memory (B, S, d),
+        or of a pair (the values' memory, the keys'): the remat op takes the
+        memory once per use, so that its gradient is summed use by use as
+        without remat."""
         c = self.cfg
         _, nkv, hd = self.dims
-        k = _split_heads(memory @ params["wk"]["w"].to(c.dtype), nkv, hd)
-        v = _split_heads(memory @ params["wv"]["w"].to(c.dtype), nkv, hd)
+        mv, mk = memory if isinstance(memory, tuple) else (memory, memory)
+        k = _split_heads(mk @ params["wk"]["w"].to(c.dtype), nkv, hd)
+        v = _split_heads(mv @ params["wv"]["w"].to(c.dtype), nkv, hd)
         return k, v
 
     def _query(self, params, x):

@@ -26,10 +26,10 @@ Parameters keep the reference's pytree: stacked layer params with their
 leading ``(L,)`` or ``(G, r)`` dims, so the conversion from the reference
 is leaf by leaf.  The reference's ``lax.scan`` over a stack is a Python
 loop over its leading dim here.  ``ring_cache=True`` gives the
-sliding-window layers O(W) ring-buffer caches.  The reference's ``remat``
-(``jax.checkpoint`` over the scan bodies) has no counterpart:
-``torch.utils.checkpoint`` does not compose with the ``torch.func.vmap``
-of the agents' gradients, and it changes no number.
+sliding-window layers O(W) ring-buffer caches.  ``cfg.remat`` recomputes
+in the backward the bodies the reference wraps in ``jax.checkpoint``
+(``_maybe_remat``, ``models/remat.py``), so a training forward holds each
+such layer's inputs, not its activations; it changes no number.
 """
 from __future__ import annotations
 
@@ -44,6 +44,7 @@ from repro_torch.dist.sharding import batch_spec, shard
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import Attention, SwiGLU, make_norm
 from repro_torch.models.moe import MoE
+from repro_torch.models.remat import remat
 from repro_torch.models.ssm import Mamba2Block
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -260,6 +261,12 @@ class Backbone(nn.Module):
     def _mamba(self):
         return MambaLayer(self.cfg, use_kernel=self.use_ssd_kernel)
 
+    def _maybe_remat(self, fn, site: str):
+        """``fn`` recomputed in the backward under ``cfg.remat`` (the
+        reference's ``jax.checkpoint`` over a scan body); ``site`` names
+        the body in ``remat.CALLS``."""
+        return remat(fn, site) if self.cfg.remat else fn
+
     # ---- init ----
     def init(self, gen):
         c = self.cfg
@@ -329,22 +336,28 @@ class Backbone(nn.Module):
         memory = self.encode(params, encoder_frames) if c.family == "audio" else None
         if c.family == "ssm":
             layer = self._mamba()
+            body = self._maybe_remat(
+                lambda bp, hh: layer.apply(bp, hh, return_state=collect_cache), "ssm")
             states = []
             for bp in _layers(params["blocks"], c.num_layers):
                 if collect_cache:
-                    h, st = layer.apply(bp, h, return_state=True)
+                    h, st = body(bp, h)
                     states.append(st)
                 else:
-                    h = layer.apply(bp, h)
+                    h = body(bp, h)
             if collect_cache:
                 caches["blocks"] = _stack(states)
         elif c.family == "hybrid":
             h, aux, caches = self._hybrid_forward(params, h, aux, collect_cache)
         elif c.family == "audio":
             block = self._block(cross=True)
+            body = self._maybe_remat(lambda bp, hh, mem: block.apply(
+                bp, hh, memory=mem, return_kv=collect_cache), "audio_decoder")
+            # the memory once per use (values, keys): under remat its
+            # gradient is then summed use by use, as without
             kvs, mem_kvs = [], []
             for bp in _layers(params["blocks"], c.num_layers):
-                out = block.apply(bp, h, memory=memory, return_kv=collect_cache)
+                out = body(bp, h, (memory, memory))
                 h, a = out[:2]
                 aux = aux + a
                 if collect_cache:
@@ -357,9 +370,11 @@ class Backbone(nn.Module):
         else:
             block = self._block()
             window = c.sliding_window if c.sliding_window > 0 else None
+            body = self._maybe_remat(lambda bp, hh: block.apply(
+                bp, hh, window=window, return_kv=collect_cache), "decoder")
             kvs = []
             for bp in _layers(params["blocks"], c.num_layers):
-                out = block.apply(bp, h, window=window, return_kv=collect_cache)
+                out = body(bp, h)
                 h, a = out[:2]
                 aux = aux + a
                 if collect_cache:
@@ -384,8 +399,18 @@ class Backbone(nn.Module):
         gw = W if c.global_uses_window else None
         total = [aux]
 
-        def run(bp, hh, window, kvs):
-            out = block.apply(bp, hh, window=window, return_kv=collect_cache)
+        def apply(window):
+            return lambda bp, hh: block.apply(bp, hh, window=window,
+                                              return_kv=collect_cache)
+
+        # the local and tail layers are checkpointed, the global one is not
+        # (the reference's ``group_body`` is not)
+        local_body = self._maybe_remat(apply(W), "local")
+        tail_body = self._maybe_remat(apply(W), "tail")
+        global_body = apply(gw)
+
+        def run(body, bp, hh, kvs):
+            out = body(bp, hh)
             total[0] = total[0] + out[1]
             if collect_cache:
                 kvs.append(out[2])
@@ -395,10 +420,10 @@ class Backbone(nn.Module):
         for lp, gp in zip(_layers(params["local"], self.n_groups),
                           _layers(params["global"], self.n_groups)):
             for bp in _layers(lp, c.local_global_ratio):
-                h = run(bp, h, W, local)
-            h = run(gp, h, gw, glob)
+                h = run(local_body, bp, h, local)
+            h = run(global_body, gp, h, glob)
         for bp in _layers(params["tail"], self.n_tail) if self.n_tail else ():
-            h = run(bp, h, W, tail)
+            h = run(tail_body, bp, h, tail)
         caches = {}
         if collect_cache:
             caches["local"] = _stack(local, (self.n_groups, c.local_global_ratio))
@@ -416,12 +441,20 @@ class Backbone(nn.Module):
         per = c.hybrid_period - 1
         kvs, states, tail = [], [], []
 
-        def run_mamba(bp, hh, out):
+        def apply(bp, hh):
+            return mamba.apply(bp, hh, return_state=collect_cache)
+
+        # the mamba layers are checkpointed, the shared block is not (as in
+        # the reference)
+        group_body = self._maybe_remat(apply, "hybrid_mamba")
+        tail_body = self._maybe_remat(apply, "hybrid_tail")
+
+        def run_mamba(body, bp, hh, out):
             if collect_cache:
-                hh, st = mamba.apply(bp, hh, return_state=True)
+                hh, st = body(bp, hh)
                 out.append(st)
                 return hh
-            return mamba.apply(bp, hh)
+            return body(bp, hh)
 
         for mp in _layers(params["mamba"], self.n_groups):
             out = block.apply(params["shared_attn"], h, window=None, return_kv=collect_cache)
@@ -430,9 +463,9 @@ class Backbone(nn.Module):
             if collect_cache:
                 kvs.append(out[2])
             for bp in _layers(mp, per):
-                h = run_mamba(bp, h, states)
+                h = run_mamba(group_body, bp, h, states)
         for bp in _layers(params["mamba_tail"], self.n_tail) if self.n_tail else ():
-            h = run_mamba(bp, h, tail)
+            h = run_mamba(tail_body, bp, h, tail)
         caches = {}
         if collect_cache:
             caches["attn"] = _stack(kvs)
@@ -451,8 +484,10 @@ class Backbone(nn.Module):
             raise ValueError(f"{c.name}: the audio family's forward needs encoder_frames")
         h = shard(frames.to(c.dtype), *batch_spec(None, None))
         block = self._block(causal=False)
+        body = self._maybe_remat(lambda bp, hh: block.apply(bp, hh, window=None)[0],
+                                 "encoder")
         for bp in _layers(params["enc_blocks"], c.encoder_layers):
-            h, _ = block.apply(bp, h, window=None)
+            h = body(bp, h)
         return make_norm(c, c.d_model).apply(params["enc_norm"], h)
 
     # ---- prefill ----

@@ -1059,6 +1059,36 @@ def test_lm_gan_sync_launches_held_on_card(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "qwen3-8b"])
+def test_lm_gan_round_with_remat_on_card_is_the_round_without(cuda, arch):
+    """One LM GAN round (K = 2, Adam, FedAvg) of a small ssm and a small
+    dense config (``.smoke()`` at d_model 256, 4 layers, T = 64) on a (1, 2)
+    grid on the card, from one state and one set of batches: with
+    ``cfg.remat`` the new state and the metrics equal those without, bit
+    for bit (the recompute runs the same kernels on the same inputs)."""
+    from repro_torch.core import FedGAN, FedGANConfig
+    from repro_torch.launch.steps import make_lm_gan_task
+    from repro_torch.models import remat as remat_op
+    from repro_torch.optim import Adam
+    from torch_shared import lm_gan_batch
+    base = get_config(arch).smoke().scaled(d_model=256, num_layers=4)
+    out = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(base, remat=remat)
+        fed = FedGAN(make_lm_gan_task(cfg), FedGANConfig(agent_grid=(1, 2), sync_interval=2),
+                     opt_g=Adam(), opt_d=Adam())
+        state = fed.init_state(torch.Generator(device=cuda).manual_seed(0), device=cuda)
+        batches = tree_map(lambda x: torch.from_numpy(x).to(cuda),
+                           lm_gan_batch(cfg, 2, (1, 2), 2, 64))
+        remat_op.reset_calls()
+        out[remat] = fed.round(state, batches)
+        assert bool(remat_op.CALLS) == remat
+    for a, b in zip(tree_leaves(out[False]), tree_leaves(out[True])):
+        assert a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
+                                                  b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("zero_router", [False, True])
 def test_moe_routing_on_card_matches_cpu(cuda, zero_router):
     """The MoE's routing (expert choices, slots, drops) of granite's

@@ -207,3 +207,53 @@ def test_h100_constants():
     assert tmesh.PEAK_FLOPS_BF16 == 989e12 and tmesh.HBM_BW == 3.35e12
     assert tmesh.NVLINK_BW == 450e9 and tmesh.NODE_BW == 50e9
     assert tmesh.CARDS_PER_NODE == 8 and math.isclose(tmesh.HBM_BYTES, 80e9)
+
+
+def _tiny_cfg(layers, remat):
+    import torch
+    from repro_torch.models.config import ArchConfig
+    return ArchConfig(name="t", family="dense", num_layers=layers, d_model=64, num_heads=4,
+                      num_kv_heads=2, d_ff=128, vocab_size=256, dtype=torch.float32,
+                      remat=remat, disc_layers=2, disc_d_model=32, disc_heads=2)
+
+
+def test_round_peak_with_remat_frees_the_layers_and_counts_the_recompute():
+    """``lm_gan_round_peak`` (one device, fake tensors, 2 agents, batch 2 x
+    128, K = 2) of a tiny dense config at 1 and 2 layers: with remat the
+    predicted peak above resident is lower, by more at 2 layers (each
+    layer's intermediates are freed under the op), and the FLOPs exceed
+    those without remat by exactly K forwards of every wrapped layer (the
+    recompute is counted, as XLA's cost analysis counts the reference's
+    rematerialised forward)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.dryrun import lm_gan_round_peak
+    from repro_torch.launch.hlo_analysis import count_dispatch
+    from repro_torch.models.transformer import DecoderBlock
+    r = {(L, remat): lm_gan_round_peak(_tiny_cfg(L, remat), agents=2, batch=2, seq=128, K=2)
+         for L in (1, 2) for remat in (False, True)}
+    saved = {L: r[L, False]["peak_above_bytes"] - r[L, True]["peak_above_bytes"]
+             for L in (1, 2)}
+    assert 0 < saved[1] < saved[2]
+    assert r[1, True]["resident_bytes"] == r[1, False]["resident_bytes"]
+    block = DecoderBlock(_tiny_cfg(1, False))
+    with FakeTensorMode():
+        p = block.init(torch.Generator().manual_seed(0))
+        _, fwd = count_dispatch(lambda: block.apply(p, torch.zeros(2 * 2, 128, 64)))
+    for L in (1, 2):
+        assert r[L, True]["flops"] - r[L, False]["flops"] == 2 * L * fwd.flops
+
+
+def test_round_peak_cli_prints_both_routes(capsys):
+    from repro_torch.launch import dryrun
+    from repro_torch.configs import registry
+    small = registry.get_config("qwen3-8b").smoke()
+    orig = registry.get_config
+    try:
+        registry.get_config = lambda name: small
+        dryrun.main(["--arch", "qwen3-8b", "--round-peak", "1"])
+    finally:
+        registry.get_config = orig
+    recs = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [r["remat"] for r in recs] == [False, True]
+    assert recs[1]["peak_above_bytes"] < recs[0]["peak_above_bytes"]

@@ -272,6 +272,48 @@ def test_planted_fault_skipping_the_cross_rank_sum_fails(tmp_path):
     assert not res["agents_equal"]
 
 
+def _remat_round_body(rank, shape, axes, plan):
+    """The built round on the mesh with the config's remat off and on, from
+    one state and one set of tokens: (every leaf of the two new states and
+    of the two first steps' gradients bit for bit, the remat op's calls)."""
+    from repro_torch.dist.sharding import full_tree, place
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import PLANS, build_train_round
+    from repro_torch.models import remat as remat_op
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.tree import tree_leaves
+
+    mesh = make_test_mesh(shape, axes)
+    out, calls = {}, {}
+    for remat in (False, True):
+        strat = _recording_sync()
+        built = build_train_round(_cfg(remat=remat), ShapeConfig("train", 16, 4, "train"),
+                                  mesh, plan=PLANS[plan], K=2, strategy=strat)
+        state = built.fed.init_state(torch.Generator().manual_seed(0), device="cpu")
+        tokens = torch.randint(0, 256, tuple(built.input_sds[1]["tokens"].shape),
+                               generator=torch.Generator().manual_seed(1))
+        remat_op.reset_calls()
+        new, _ = built.fn(place(state, built.in_shardings[0]),
+                          place({"tokens": tokens}, built.in_shardings[1]))
+        calls[remat] = dict(remat_op.CALLS)
+        out[remat] = tree_leaves((full_tree(new), strat.seen[0]))
+    same = len(out[False]) == len(out[True]) and all(
+        torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+        for a, b in zip(out[False], out[True]))
+    return {"same": same, "calls": calls}
+
+
+def test_remat_round_on_a_tensor_parallel_mesh_is_bit_for_bit(tmp_path):
+    """The LM GAN round under agents-data on the (2, 2) ranks, whose agents'
+    gradients run by ``torch.autograd`` on DTensors (the "model" submesh
+    has 2 ranks): with the config's remat (the op recomputes on DTensors,
+    the layout constraints acting) the new state and the gradients equal
+    those without, bit for bit."""
+    res = run_ranks(tmp_path, _remat_round_body, (2, 2), ("data", "model"), "agents-data")
+    assert res["calls"] == {False: {}, True: {"decoder": 2 * 2}}, res
+    assert res["same"], res
+
+
 # ---------------------------------------------------------------------------
 # one DP-SGD round (K = 1, SGD) on agent-sharded meshes
 # ---------------------------------------------------------------------------
