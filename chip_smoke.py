@@ -375,8 +375,23 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    in the backward); per-rank memory, FLOPs, collective bytes by axis and
    the roofline terms printed, the peak beside the peak without remat and
    whether it fits 80 GB; each ``ok``, its argument bytes the sum of its
-   local shards by the specs, agent- and model-axis bytes nonzero.
-   The dry runs are host work, started first and run beside (a).
+   local shards by the specs, agent- and model-axis bytes nonzero.  An
+   agent's batch of 8 on (2, 16, 16) divides neither the 16 "model" ranks
+   nor gemma3-4b's 8 query heads, so its attention splits the query rows:
+   (2, 16, 16)'s FLOPs a rank at most 0.55 of (16, 16)'s, and its peak
+   fits 80 GB (both peaks, both FLOPs and the model-axis bytes printed
+   beside the figures of the commit before the split, the attention whole
+   on every rank).  (d) the row
+   split's arithmetic on the card at gemma3-4b's width, with no process
+   group: batch 8 x T 4,096, 8/4 heads of 256, a local layer (window
+   1,024) and a global one, in bf16 and float32; each of 16 ranks' row
+   slices (DTensor's uneven cut, ``torch_shared.attend_by_rows``) through
+   ``Attention._sdpa`` forward and backward, q's gradient from the
+   slices, k's and v's their sum in rank order, against the unsplit
+   attention and its gradients: bf16 within 2^-6 and float32 within 1e-5
+   of max |want|; the planted fault (k's gradient of one slice) must
+   miss; ms a slice and unsplit by CUDA events.  The dry runs are host
+   work, started first and run beside (a) and (d).
 
 The time budget: the whole run must end within 1,100 s (it prints its
 total).  To make room for phase 11's remat part, and for the recompute
@@ -4292,6 +4307,84 @@ def _dry_line(rec):
             f"process")
 
 
+# gemma3-4b train_4k on (2, 16, 16) in phase 16 (c) before the query-row
+# split, its attention whole on every "model" rank: peak GiB, FLOPs a rank
+DRY_2X16X16_WHOLE_ATTENTION = (116.0, 2.245e14)
+ROW_SPLIT_RANKS = 16
+
+
+def _rank_sum(parts):
+    """The ranks' partial gradients summed in rank order, in their type."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+def _events_ms(torch, fn):
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _row_split_card(torch, dev, card):
+    """(d): attention split by query rows, rank by rank on one card, at
+    gemma3-4b's width (module docstring)."""
+    from torch_shared import attend_by_rows
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.layers import Attention
+    t0 = time.perf_counter()
+    cfg, B, T, n = get_config("gemma3-4b"), 8, 4096, ROW_SPLIT_RANKS
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(33)
+    pos = torch.arange(T, device=dev)[None]
+    for dtype, rel in ((torch.bfloat16, 2 ** -6), (torch.float32, 1e-5)):
+        attn = Attention(cfg.scaled(dtype=dtype))
+        q, g = (torch.randn((B, T, nh, hd), generator=gen, device=dev, dtype=dtype)
+                for _ in range(2))
+        k, v = (torch.randn((B, T, nkv, hd), generator=gen, device=dev, dtype=dtype)
+                for _ in range(2))
+        for window in (cfg.sliding_window, None):
+            def fn(q_, k_, v_, p_):
+                return attn._sdpa(q_, k_, v_, window=window, causal=True, q_positions=p_)
+
+            def whole():
+                leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                y = fn(*leaves, pos)
+                return (y.detach(), *torch.autograd.grad(y, leaves, g))
+
+            def split():
+                return attend_by_rows(fn, q, k, v, pos, g, n)
+
+            # the first call of each warms the libraries up; the second is timed
+            whole()
+            split()
+            want, whole_ms = _events_ms(torch, whole)
+            (y, dq, dks, dvs), split_ms = _events_ms(torch, split)
+            got = (y, dq, _rank_sum(dks), _rank_sum(dvs))
+            errs = {name: float((a.float() - b.float()).abs().max() / b.float().abs().max())
+                    for name, a, b in zip(("y", "dq", "dk", "dv"), got, want)}
+            fault = float((dks[0].float() - want[2].float()).abs().max() /
+                          want[2].float().abs().max())
+            label = f"{str(dtype)[6:]} {'window ' + str(window) if window else 'global'}"
+            log(f"analysis (d) row split {label}: B {B}, T {T}, {nh}/{nkv} heads of {hd}, "
+                f"{n} slices forward + backward (k, v gradients summed in rank order): "
+                f"error / max |want| {errs} (limit {rel:.3g}); the planted fault (k's gradient "
+                f"of slice 0 alone) {fault:.4g}; {split_ms / n:.3f} ms a slice, {split_ms:.3f} "
+                f"the {n}, unsplit {whole_ms:.3f} ms (CUDA events); {card}")
+            check(all(e <= rel for e in errs.values()),
+                  f"analysis (d) row split {label}: {errs} over {rel:.3g} of max |want|")
+            check(fault > rel, f"analysis (d) row split {label}: the planted fault passed "
+                               f"({fault:.4g} within {rel:.3g})")
+            del want, y, dq, dks, dvs, got
+        del q, k, v, g
+        torch.cuda.empty_cache()
+    log(f"analysis (d): {time.perf_counter() - t0:.1f} s wall; {card}")
+
+
 def run_analysis(torch, dev):
     """Phase 16: the trace audit of two real rounds, the dry run's memory
     model against the card, and the production dry runs (module
@@ -4313,6 +4406,8 @@ def run_analysis(torch, dev):
         _analysis_acgan(torch, dev, baseline, card)
         gc_collect(torch)
         t_a = time.perf_counter() - t_phase
+        _row_split_card(torch, dev, card)
+        gc_collect(torch)
 
         # every dry run is read and printed first, then held
         on_card = _dry_result(procs.pop("card bytes"), "analysis (b) card bytes",
@@ -4342,6 +4437,15 @@ def run_analysis(torch, dev):
               f"analysis (b): the dry run predicts {m['argument_bytes']} argument bytes, the "
               f"card's placed state and batches hold {on_card['storages']} in their storages "
               f"({on_card['allocated']} allocated)")
+        one, two = recs["16x16"], recs["2x16x16"]
+        ratio = two["flops"] / one["flops"]
+        log(f"analysis (c) the query-row split: (2, 16, 16) {two['flops']:.4e} FLOPs a rank, "
+            f"{ratio:.4f} of (16, 16)'s {one['flops']:.4e} (limit 0.55; before the split, "
+            f"attention whole on every rank: {DRY_2X16X16_WHOLE_ATTENTION[1]:.4g}); peak "
+            f"{two['memory']['peak_bytes'] / 2 ** 30:.2f} GiB against (16, 16)'s "
+            f"{one['memory']['peak_bytes'] / 2 ** 30:.2f} (before the split: "
+            f"{DRY_2X16X16_WHOLE_ATTENTION[0]} GiB); model-axis bytes "
+            f"{two['collective_by_axis']['model']} and {one['collective_by_axis']['model']}")
         for label in ("16x16", "2x16x16"):
             m, by = recs[label]["memory"], recs[label]["collective_by_axis"]
             check(m["argument_bytes"] == m["shard_sum_bytes"],
@@ -4349,6 +4453,10 @@ def run_analysis(torch, dev):
                   f"local shards' sum {m['shard_sum_bytes']}")
             check(by["agent"] > 0 and by["model"] > 0,
                   f"analysis (c) {label}: collective bytes by axis {by}")
+        check(ratio <= 0.55, f"analysis (c): (2, 16, 16) does {ratio:.4f} of (16, 16)'s FLOPs "
+                             f"a rank: its attention is not split")
+        check(two["memory"]["fits"], f"analysis (c): (2, 16, 16) peaks at "
+                                     f"{two['memory']['peak_bytes'] / 2 ** 30:.2f} GiB a rank")
     finally:
         for p in procs.values():
             if p.poll() is None:

@@ -337,7 +337,8 @@ def shard_attn_qkv(q, k, v):
     count divides, otherwise head_dim (GQA kv heads are often fewer than
     the model axis).  Under the DP plan the batch entry consumes "model"
     and the head entries are dropped by :func:`filter_spec`'s reuse
-    rule."""
+    rule.  The attention itself then splits its work by heads, batch or
+    query rows (``repro_torch.models.layers._attend_on_shards``)."""
     mesh = current_mesh()
     if mesh is None:
         return q, k, v
@@ -371,25 +372,39 @@ def whole_dims(x, *dims):
     return x if want == tuple(x.placements) else x.redistribute(x.device_mesh, want)
 
 
-def local_kernel(fn, out_placements, *args):
+def local_kernel(fn, out_placements, *args, in_grad_placements=None, out_shape=None):
     """``fn`` on the local shards of DTensor ``args`` (the kernel sees plain
     tensors), its outputs wrapped as DTensors with ``out_placements`` (one
-    placements tuple per output, or one for a single output), through
-    ``local_map``.  Plain ``args`` call ``fn`` directly."""
+    placements tuple per output, or one for a single output), as
+    ``local_map`` does.  ``in_grad_placements`` (one entry per arg, None
+    for the arg's own placements) labels each input's gradient: a kernel
+    that reads an input replicated on a mesh dim whose ranks split its
+    work (attention's k and v under the query-row split) returns there
+    each rank's share of the gradient, ``Partial()``.  ``out_shape``: a
+    single output's global shape, needed where its shards are uneven
+    (``from_local`` otherwise takes a local shape times the ranks).  Plain
+    ``args`` call ``fn`` directly."""
     dts = [a for a in args if is_sharded(a)]
     if not dts:
         return fn(*args)
-    from torch.distributed.tensor import Placement
-    from torch.distributed.tensor.experimental import local_map
+    from torch.distributed._functional_collectives import AsyncCollectiveTensor
+    from torch.distributed.tensor import DTensor, Placement
     mesh = dts[0].device_mesh
-    in_pl = tuple(a.placements if is_sharded(a) else None for a in args)
-    # one placements tuple per output, always: a bare tuple of placements
-    # is read as one output per placement by some versions of local_map
+    local = []
+    for a, g in zip(args, in_grad_placements or (None,) * len(args)):
+        if is_sharded(a):
+            a = a.to_local(grad_placements=None if g is None else tuple(g))
+            if isinstance(a, AsyncCollectiveTensor):
+                a = a.wait()
+        local.append(a)
     single = all(isinstance(p, Placement) for p in out_placements)
-    outs = local_map((lambda *a: (fn(*a),)) if single else fn,
-                     out_placements=(tuple(out_placements),) if single else
-                     tuple(tuple(p) for p in out_placements),
-                     in_placements=in_pl, device_mesh=mesh, redistribute_inputs=False)(*args)
+    kw = {}
+    if out_shape is not None:
+        kw = {"shape": torch.Size(out_shape),
+              "stride": tuple(math.prod(out_shape[i + 1:]) for i in range(len(out_shape)))}
+    outs = (fn(*local),) if single else fn(*local)
+    outs = tuple(DTensor.from_local(o, mesh, tuple(p), run_check=False, **kw)
+                 for o, p in zip(outs, (out_placements,) if single else out_placements))
     return outs[0] if single else outs
 
 

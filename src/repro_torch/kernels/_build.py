@@ -106,14 +106,14 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
 def require_cuda(what: str, *tensors) -> None:
     """Refuse what a kernel cannot take: every tensor on one CUDA device,
     contiguous, and plain (a kernel reads local memory: a DTensor enters
-    through ``local_map``, ``repro_torch.dist.sharding.local_kernel``).
+    through ``repro_torch.dist.sharding.local_kernel``).
     Dtypes and shapes are the wrapper's own check."""
     from torch.distributed.tensor import DTensor
     dev = tensors[0].device
     for t in tensors:
         if isinstance(t, DTensor):
             raise TypeError(f"{what}: the kernel takes the local shards of a DTensor "
-                            f"(run it under local_map), got {t.placements}")
+                            f"(run it under local_kernel), got {t.placements}")
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{what}: all tensors must be on one CUDA device "
                              f"(or all on the CPU), got {t.device} and {dev}")

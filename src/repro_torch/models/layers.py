@@ -5,8 +5,9 @@ Parameters keep the reference's keys and layouts (Dense ``w`` is
 ``(in, out)``).  The reference's sharding constraints stand at the same
 places (``repro_torch.dist.sharding.shard``: the identity without a mesh);
 under a mesh attention (the flash kernel or the plain route) runs on
-local shards with the sequence and head_dim whole
-(``_attend_on_shards``).  Cross-attention (the audio family's
+local shards with the keys' sequence and head_dim whole, split by heads,
+then batch, then (the plain route) query rows (``_attend_on_shards``).
+Cross-attention (the audio family's
 decoder over the encoder's memory) takes its queries from x and its keys
 and values from the memory, with no RoPE, no qk-norm and no mask, always
 through ``_sdpa``, as the reference's.
@@ -173,10 +174,11 @@ class Attention(nn.Module):
                     q_, k_, v_, causal=self.causal, window=window or 0), q, k, v)
         else:
             y = _attend_on_shards(
-                lambda q_, k_, v_: self._sdpa(q_, k_, v_, window=window,
-                                              causal=self.causal and memory is None,
-                                              q_positions=positions), q, k, v)
-        y = pin_grad(y.reshape(B, T, nh * hd))
+                lambda q_, k_, v_, pos_: self._sdpa(q_, k_, v_, window=window,
+                                                    causal=self.causal and memory is None,
+                                                    q_positions=pos_),
+                q, k, v, positions=positions)
+        y = _rows_to_features(pin_grad(y.reshape(B, T, nh * hd)))
         y = y @ params["wo"]["w"].to(c.dtype)
         y = shard(y, *batch_spec(None, None))
         if return_kv:
@@ -324,25 +326,35 @@ def _split_heads(y, heads: int, hd: int):
     return y.reshape(*y.shape[:-1], heads, hd)
 
 
-def _attend_on_shards(kernel, q, k, v, *rows):
-    """``kernel(q, k, v, *rows)`` (B, T, heads, head_dim) -> like q: flash or
-    the plain attention.  Under a mesh it runs on the local shards: the
-    sequence and head_dim enter whole (the kernel sums over the one and
-    contracts the other).  Each mesh dim of more than one rank splits the
-    work: q's heads stay sharded where its ranks divide them (k and v then
-    sharded alike, their heads repeated to q's count where the ranks do
-    not divide the kv heads, so each rank keeps whole GQA groups), else
-    the batch is sharded where it divides, else that dim is replicated
-    (``rows``, per-row masks, follow the batch).  DTensor's own
-    propagation is not asked to flatten the batch and head dims sharded on
-    two mesh axes, which some versions refuse.  Plain tensors go straight
-    in."""
+def _attend_on_shards(kernel, q, k, v, *rows, positions=None):
+    """``kernel(q, k, v, *rows[, positions])`` (B, T, heads, head_dim) ->
+    like q: flash or the plain attention.  Under a mesh it runs on the
+    local shards: head_dim enters whole (the kernel contracts it), and so
+    do the keys' sequence and, unless split by rows, the queries'.  Each
+    mesh dim of more than one rank splits the work, in this order: q's
+    heads stay sharded where its ranks divide them (k and v then sharded
+    alike, their heads repeated to q's count where the ranks do not divide
+    the kv heads, so each rank keeps whole GQA groups); else the batch is
+    sharded where it divides (``rows``, per-row masks, follow the batch);
+    else, where the kernel takes ``positions`` (the queries' global
+    positions, (1 or B, T)), the query rows are: each rank takes its
+    uneven ``Shard(1)`` cut of q and of ``positions`` and the keys and
+    values whole, so every row's softmax is whole on one rank and the
+    ranks' k and v gradients are partial sums (``_kv_grad``).  The flash
+    kernel and the decodes take no positions, so on such a dim they run
+    whole on every rank: the kernel has no query offset, and the
+    reference's Pallas call has no partitioning rule either (GSPMD runs
+    it whole on each device).
+    DTensor's own propagation is not asked to flatten the batch and head
+    dims sharded on two mesh axes, which some versions refuse.  Plain
+    tensors go straight in."""
+    pos = () if positions is None else (positions,)
     if not is_sharded(q):
-        return kernel(q, k, v, *rows)
+        return kernel(q, k, v, *rows, *pos)
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     q = whole_dims(q, 1, 3)
     mesh = q.device_mesh
-    (B, _, nh, hd), nkv = q.shape, k.shape[2]
+    (B, T, nh, hd), nkv = q.shape, k.shape[2]
     want, on_heads, on_batch = [], 1, 1
     for n, p in zip(mesh.shape, q.placements):
         if p == Shard(2) and nh % (on_heads * n) == 0:
@@ -351,10 +363,13 @@ def _attend_on_shards(kernel, q, k, v, *rows):
         elif p == Shard(0) or (n > 1 and B % (on_batch * n) == 0):
             want.append(Shard(0))
             on_batch *= n
+        elif n > 1 and pos:
+            want.append(Shard(1))
         else:
             want.append(Replicate())
     want = tuple(want)
     by_row = tuple(p if p == Shard(0) else Replicate() for p in want)
+    kv = tuple(Replicate() if p == Shard(1) else p for p in want)
 
     def put(t, placements):
         if is_sharded(t):
@@ -368,8 +383,38 @@ def _attend_on_shards(kernel, q, k, v, *rows):
             return t.unsqueeze(3).expand(B, S, nkv, nh // nkv, hd).reshape(B, S, nh, hd)
 
         k, v = repeat(k), repeat(v)
-    args = [put(t, want) for t in (q, k, v)] + [put(r, by_row) for r in rows]
-    return local_kernel(kernel, want, *args)
+    args = [put(q, want), put(k, kv), put(v, kv)] + [put(r, by_row) for r in rows]
+    if pos:
+        args.append(put(positions, tuple(p if p == Shard(1) else Replicate() for p in want)))
+    if Shard(1) not in want:
+        return local_kernel(kernel, want, *args)
+    grads = (None, _kv_grad(want, kv), _kv_grad(want, kv)) + (None,) * (len(args) - 3)
+    # contiguous: DTensor reshapes a row-split shard with ``view``, which
+    # the plain route's permuted einsum output may refuse
+    return local_kernel(lambda *a: kernel(*a).contiguous(), want, *args,
+                        in_grad_placements=grads, out_shape=(B, T, nh, hd))
+
+
+def _rows_to_features(y):
+    """A query-row split attention's output (B, T, heads * head_dim) with
+    each row-split mesh dim moved to the features, the layout of wo's rows
+    (wo is row-parallel): the product and wo's gradient are then each
+    rank's share.  From row-split y DTensor would gather wo and take its
+    whole gradient on every rank.  Other layouts are returned as they
+    are."""
+    if not is_sharded(y):
+        return y
+    from torch.distributed.tensor import Shard
+    want = tuple(Shard(2) if p == Shard(1) else p for p in y.placements)
+    return y if want == tuple(y.placements) else pin_grad(y.redistribute(y.device_mesh, want))
+
+
+def _kv_grad(want, kv):
+    """The placements of k's and v's gradients out of a query-row split
+    attention: on a dim whose ranks split the rows, each rank's gradient
+    is its own rows' share, a partial sum over the ranks."""
+    from torch.distributed.tensor import Partial, Shard
+    return tuple(Partial() if w == Shard(1) else p for w, p in zip(want, kv))
 
 
 def _write_rows(cache, slot, k1, v1, idx):

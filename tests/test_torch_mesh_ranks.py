@@ -204,20 +204,30 @@ def _skip_cross_rank_sum(m):
                               run_check=False)
 
 
-def _round_body(rank, shape, axes, plan, fault):
+def _kv_grad_replicated(want, kv):
+    """The planted fault: a query-row split attention's k and v gradients
+    labelled replicated, each rank's share of them taken for the sum."""
+    return kv
+
+
+def _round_body(rank, shape, axes, plan, fault, cfg_kw=None, seq=16, batch=4):
     from repro_torch.dist import collectives
     from repro_torch.dist.sharding import full_tree, place
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.steps import PLANS, build_train_round
+    from repro_torch.models import layers
     from repro_torch.models.config import ShapeConfig
     from repro_torch.tree import tree_leaves
 
-    if fault:
+    if fault == "sum":
         collectives._sum_over_agents = _skip_cross_rank_sum
+    kv_grad = _kv_grad_replicated if fault == "kv_grad" else layers._kv_grad
+    splits = []   # attention calls split by query rows
+    layers._kv_grad = lambda want, kv: splits.append(1) or kv_grad(want, kv)
     mesh = make_test_mesh(shape, axes)
-    cfg = _cfg()
+    cfg = _cfg(**(cfg_kw or {}))
     K = 2
-    shape_cfg = ShapeConfig("train", 16, 4, "train")
+    shape_cfg = ShapeConfig("train", seq, batch, "train")
     out = {}
     for name in ("mesh", "plain"):
         strat = _recording_sync()
@@ -244,7 +254,7 @@ def _round_body(rank, shape, axes, plan, fault):
         tree_leaves(out["mesh"]["params"]), tree_leaves(out["plain"]["params"])))
     agents_equal = all(bool((x == x[:1, :1]).all()) for x in tree_leaves(out["mesh"]["params"]))
     return {"grad_err": grad_err, "step_err": step_err, "bound": bound,
-            "agents_equal": agents_equal, "sharded_leaves": sharded,
+            "agents_equal": agents_equal, "sharded_leaves": sharded, "row_splits": len(splits),
             "agents": tuple(tree_leaves(out["mesh"]["params"])[0].shape[:2])}
 
 
@@ -255,21 +265,48 @@ ROUND_CASES = [((2, 2), ("data", "model"), "agents-data"),
 
 @pytest.mark.parametrize("shape,axes,plan", ROUND_CASES, ids=[c[2] for c in ROUND_CASES])
 def test_lm_gan_round_on_a_mesh_matches_unsharded(tmp_path, shape, axes, plan):
-    res = run_ranks(tmp_path, _round_body, shape, axes, plan, False)
+    res = run_ranks(tmp_path, _round_body, shape, axes, plan, None)
     assert res["agents"] == ((2, 1) if plan == "agents-pod-fsdp" else (1, 2))
     assert res["sharded_leaves"] > 0
     assert res["grad_err"] <= 1e-5, res
     assert res["step_err"] <= res["bound"], res
     assert res["agents_equal"], res
+    assert res["row_splits"] == 0, res       # heads or batch split every attention
 
 
 def test_planted_fault_skipping_the_cross_rank_sum_fails(tmp_path):
     """A sync that takes each rank's partial mean for the total must break
     the round bound: the check above has teeth."""
-    res = run_ranks(tmp_path, _round_body, (2, 2), ("data", "model"), "agents-data", True)
+    res = run_ranks(tmp_path, _round_body, (2, 2), ("data", "model"), "agents-data", "sum")
     assert res["grad_err"] <= 1e-5           # the local steps are untouched
     assert res["step_err"] > res["bound"], res
     assert not res["agents_equal"]
+
+
+# 3 query heads of 16 and one kv head, one example an agent: on each
+# agent's "model" submesh of 2 ranks neither the heads nor the batch
+# divide, so the generator's attention splits its 15 query rows (8 and 7)
+ROW_SPLIT = (dict(d_model=48, num_heads=3, num_kv_heads=1), 15, 2)
+
+
+@pytest.mark.parametrize("fault", [None, "kv_grad"])
+def test_lm_gan_round_split_by_query_rows_matches_unsharded(tmp_path, fault):
+    """The round with attention split by query rows meets the round
+    bounds; with the ranks' k and v gradients labelled replicated instead
+    of partial (each rank's rows' share taken for the whole) it fails
+    them."""
+    res = run_ranks(tmp_path, _round_body, (2, 2), ("data", "model"), "agents-data", fault,
+                    *ROW_SPLIT)
+    assert res["agents"] == (1, 2)
+    assert res["row_splits"] > 0, res
+    if fault is None:
+        assert res["grad_err"] <= 1e-5, res
+        assert res["step_err"] <= res["bound"], res
+        assert res["agents_equal"], res
+    else:
+        # the gradients miss by far (Adam steps each element by about lr
+        # whatever its gradient, so the step bound alone is no test here)
+        assert res["grad_err"] > 1e-3, res
 
 
 def _remat_round_body(rank, shape, axes, plan):

@@ -3,7 +3,8 @@ in both packages, the forward-and-gradient parity check of a module
 against its JAX twin, one FedGAN round of each paper experiment (and of
 the LM GAN at an arch's ``.smoke()`` config) at test size with the bounds
 a round is held to, every sync kernel launch held to its plain version in
-place (``held_sync_kernels``), and one torch thread per test process (the
+place (``held_sync_kernels``), attention split by query rows run rank by
+rank (``attend_by_rows``), and one torch thread per test process (the
 tier-1 run puts several pytest workers on the same cores, where torch's
 default of one thread per core oversubscribes them).
 
@@ -711,3 +712,34 @@ def held_sync_kernels(columns=HOLD_COLUMNS):
                 where[key] = fn
             else:
                 setattr(where, key, fn)
+
+
+def query_row_cuts(T: int, n: int) -> list:
+    """Each of ``n`` ranks' query rows under ``Shard(1)`` of T rows,
+    DTensor's uneven cut (``torch.chunk``'s): ceil(T / n) rows a rank, the
+    last ranks fewer or none."""
+    size = -(-T // n)
+    return [slice(min(r * size, T), min((r + 1) * size, T)) for r in range(n)]
+
+
+def attend_by_rows(fn, q, k, v, positions, cotangent, n: int):
+    """Attention split by query rows as its ``n`` ranks run it, one rank
+    after another and with no process group: rank r calls ``fn(q_r, k, v,
+    positions_r)`` on its cut of q's rows and of ``positions`` (1 or B, T),
+    k and v whole, and pulls its rows of ``cotangent`` back by
+    ``torch.autograd``.  Returns the output and q's gradient, each the
+    ranks' rows concatenated, and the ranks' k and v gradients, one each
+    (partial sums: the split's gradients are their sum)."""
+    ys, dqs, dks, dvs = [], [], [], []
+    for rows in query_row_cuts(q.shape[1], n):
+        q_r = q[:, rows].detach().requires_grad_(True)
+        k_r, v_r = (t.detach().requires_grad_(True) for t in (k, v))
+        y = fn(q_r, k_r, v_r, positions[:, rows])
+        grads = torch.autograd.grad(y, (q_r, k_r, v_r), cotangent[:, rows], allow_unused=True)
+        dq, dk, dv = (torch.zeros_like(t) if g is None else g
+                      for g, t in zip(grads, (q_r, k_r, v_r)))
+        ys.append(y.detach())
+        dqs.append(dq)
+        dks.append(dk)
+        dvs.append(dv)
+    return torch.cat(ys, 1), torch.cat(dqs, 1), dks, dvs
