@@ -134,15 +134,17 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    same boolean mask (named by the kernel the profiler sees; timed only,
    never on the path), and log the kernel's speed against it.
 7. The SSD scan against its plain version at mamba2-2.7b's shapes (x (2,
-   2048, 80, 64) bfloat16, state 128, chunk 128), with the same tolerance;
-   time both, and each of the kernel's three phases (chunk states, state
-   pass, chunk outputs) alone, which run in turn must give the scan's
-   output bit for bit.  Print each phase's registers, local (spill) bytes,
-   shared bytes and blocks an SM (no local bytes allowed) and the
-   workspace's bytes.  With ``--ssd-parent DIR`` (a checkout of another
-   commit, e.g. ``git archive`` of the parent unpacked under ``build/``),
-   time that checkout's SSD kernel beside this one's through each one's own
-   ``check_ssd``, in turns (other, this, this, other), one process each.
+   2048, 80, 64) bfloat16, state 128, chunk 128) and zamba2-7b's (phase
+   12), with the same tolerance; time both, and each of the kernel's three
+   phases (chunk states, state pass, chunk outputs) alone, which run in
+   turn must give the scan's output bit for bit.  Print each phase's
+   instantiation, registers, local (spill) bytes, shared bytes and blocks
+   an SM at both shapes (no local bytes allowed) and the workspace's
+   bytes.  With ``--ssd-parent DIR`` (a checkout of another commit, e.g.
+   ``git archive`` of the parent unpacked under ``build/``), time that
+   checkout's SSD kernel beside this one's at both shapes through this
+   script's ``ssd_times``, in turns (other, this, this, other), one
+   process each.
 8. gemma3-4b at full width (34 layers, d_model 2560, vocab 262,144): init
    on the card from a seeded generator; ``prefill`` of 2 prompts of 2,048
    tokens with ``max_seq`` 2,064 through ``use_flash=True`` (34 flash
@@ -256,8 +258,9 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    16, 1500, 64), non-causal), and float32 at 112, each timed against its
    plain version and ``scaled_dot_product_attention`` with its bound; phase
    7 the SSD scan at zamba2-7b's shapes (x (2, 2048, 112, 64) bfloat16,
-   state 64, chunk 128, the generic instantiation) with its final state,
-   the output and the state against ``ssd_ref(return_final_state=True)``.
+   state 64, chunk 128, its own instantiation) with its final state, the
+   output and the state against ``ssd_ref(return_final_state=True)``, each
+   phase timed alone.
    zamba2-7b at full size (81 blocks, 5.7 G float32 params): ``apply`` on
    2 x 2,048 tokens through both kernels (13 flash and 68 SSD launches),
    held to the flag-free route block by block in bfloat16 (each shared
@@ -1258,54 +1261,87 @@ def check_flash(torch, dev, flush):
     return record
 
 
-def check_ssd(torch, dev, flush):
-    """The SSD kernel against its plain version at mamba2-2.7b's shapes;
-    each phase timed alone."""
+# The SSD scan's shapes on the main path: (seed, Bsz, T, nh, hd, ds, chunk)
+SSD_SHAPES = {"mamba2-2.7b": (7, 2, 2048, 80, 64, 128, 128),
+              "zamba2-7b": (8, 2, 2048, 112, 64, 64, 128)}
+
+
+def _ssd_case(torch, dev, name):
+    """Seeded bfloat16 inputs of the SSD scan at ``SSD_SHAPES[name]``:
+    (x, dt, A, B, C), chunk."""
     import torch.nn.functional as F
-    from repro_torch.kernels.ssd_scan.kernel import (kernel_attrs, ssd_bthd, ssd_phase,
-                                                     workspace)
-    from repro_torch.kernels.ssd_scan.ref import ssd_ref
-    gen = torch.Generator(device=dev).manual_seed(7)
-    Bsz, T, nh, hd, ds, Q = 2, 2048, 80, 64, 128, 128
+    seed, Bsz, T, nh, hd, ds, Q = SSD_SHAPES[name]
+    gen = torch.Generator(device=dev).manual_seed(seed)
     x = (0.5 * torch.randn((Bsz, T, nh, hd), generator=gen, device=dev)).bfloat16()
     dt = F.softplus(torch.randn((Bsz, T, nh), generator=gen, device=dev))
     A = -torch.exp(torch.randn((nh,), generator=gen, device=dev))
     Bm, Cm = ((0.5 * torch.randn((Bsz, T, ds), generator=gen, device=dev)).bfloat16()
               for _ in range(2))
-    got = ssd_bthd(x, dt, A, Bm, Cm, chunk=Q)
-    want = ssd_ref(x, dt, A, Bm, Cm, chunk=Q)
+    return (x, dt, A, Bm, Cm), Q
+
+
+def _ssd_bound(xs, Q, state=None):
+    """The SSD scan's bound, (ms, by, ops, bytes): its products (C.B^T once
+    per (batch, chunk); per head the intra-chunk, inter-chunk and state
+    products) at the bf16 tensor-core rate, or reading x, dt, A, B, C and
+    writing y (and the final state) once."""
+    x, dt, A, Bm, _ = xs
+    Bsz, T, nh, hd = x.shape
+    ds, NC = Bm.shape[-1], T // Q
+    ops = Bsz * NC * (2 * Q * Q * ds + nh * (2 * Q * Q * hd + 4 * Q * hd * ds))
+    nbytes = (2 * x.numel() * 2 + dt.numel() * 4 + A.numel() * 4 + 2 * Bm.numel() * 2
+              + (0 if state is None else state.numel() * 4))
+    return (*bound(nbytes, ops, BF16_OPS_PER_S), ops, nbytes)
+
+
+def _ssd_phases(torch, xs, Q, got, flush, what):
+    """Each of the SSD kernel's three phases timed alone; run in turn once,
+    they must give the scan's output ``got`` bit for bit."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_phase, workspace
+    x, Bm = xs[0], xs[3]
+    ws, y = workspace(x, Bm, chunk=Q), torch.empty_like(x)
+    phase_ms = [time_ms(torch, lambda p=p: ssd_phase(p, *xs, y, ws, chunk=Q), flush)
+                for p in (1, 2, 3)]
+    for p in (1, 2, 3):      # in turn, once: the scan's output bit for bit
+        ssd_phase(p, *xs, y, ws, chunk=Q)
+    torch.cuda.synchronize()
+    check(torch.equal(y, got), f"{what}: the three phases run alone differ from the scan")
+    log(f"{what}, phases alone: chunk states {phase_ms[0]:.4f} ms, state pass "
+        f"{phase_ms[1]:.4f} ms, chunk outputs {phase_ms[2]:.4f} ms (sum "
+        f"{sum(phase_ms):.4f}); workspace {ws.numel() * 4} bytes")
+
+
+def check_ssd(torch, dev, flush):
+    """The SSD kernel against its plain version at mamba2-2.7b's shapes;
+    each phase timed alone; each instantiation's registers, spills and
+    blocks an SM."""
+    from repro_torch.kernels.ssd_scan.kernel import kernel_attrs, ssd_bthd
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    xs, Q = _ssd_case(torch, dev, "mamba2-2.7b")
+    x, ds = xs[0], xs[3].shape[-1]
+    got = ssd_bthd(*xs, chunk=Q)
+    want = ssd_ref(*xs, chunk=Q)
     torch.cuda.synchronize()
     what = f"ssd x {tuple(x.shape)} state {ds} chunk {Q} bfloat16"
     err = _kernel_close(torch, got, want, what)
     log(f"{what}: max_abs_err={err} (max |y| {float(want.float().abs().max())})")
-    for dtype in (torch.bfloat16, torch.float32):
-        for phase in (1, 2, 3):
-            a = kernel_attrs(phase, dtype)
-            log(f"ssd phase {phase} ({dtype}): {a['num_regs']} registers, {a['local_bytes']} "
-                f"local bytes a thread, {a['smem_bytes']} shared bytes a block, "
-                f"{a['blocks_per_sm']} blocks an SM")
-            check(a["local_bytes"] == 0,
-                  f"ssd phase {phase} ({dtype}) spills: {a['local_bytes']} local bytes")
-    ms = time_ms(torch, lambda: ssd_bthd(x, dt, A, Bm, Cm, chunk=Q), flush)
-    plain = time_ms(torch, lambda: ssd_ref(x, dt, A, Bm, Cm, chunk=Q), flush)
-    ws, y = workspace(x, Bm, chunk=Q), torch.empty_like(x)
-    phase_ms = [time_ms(torch, lambda p=p: ssd_phase(p, x, dt, A, Bm, Cm, y, ws, chunk=Q),
-                        flush) for p in (1, 2, 3)]
-    for p in (1, 2, 3):      # in turn, once: the scan's output bit for bit
-        ssd_phase(p, x, dt, A, Bm, Cm, y, ws, chunk=Q)
-    torch.cuda.synchronize()
-    check(torch.equal(y, got), "ssd: the three phases run alone differ from the scan")
-    NC = T // Q
-    # the chunked algorithm's products: C.B^T once per (batch, chunk); per
-    # head the intra-chunk product, the inter-chunk product and the state
-    ops = Bsz * NC * (2 * Q * Q * ds + nh * (2 * Q * Q * hd + 4 * Q * hd * ds))
-    nbytes = 2 * x.numel() * 2 + dt.numel() * 4 + A.numel() * 4 + 2 * Bm.numel() * 2
-    b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
+    for name, (*_, hd_, ds_, Q_) in SSD_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            for phase in (1, 2, 3):
+                a = kernel_attrs(phase, dtype, (Q_, hd_, ds_))
+                log(f"ssd phase {phase} ({dtype}) at {name}'s (chunk, head_dim, state) "
+                    f"({Q_}, {hd_}, {ds_}): instantiation {a['instantiation']}, "
+                    f"{a['num_regs']} registers, {a['local_bytes']} local bytes a thread, "
+                    f"{a['smem_bytes']} shared bytes a block, {a['blocks_per_sm']} blocks "
+                    f"an SM")
+                check(a["local_bytes"] == 0,
+                      f"ssd phase {phase} ({dtype}) spills: {a['local_bytes']} local bytes")
+    ms = time_ms(torch, lambda: ssd_bthd(*xs, chunk=Q), flush)
+    plain = time_ms(torch, lambda: ssd_ref(*xs, chunk=Q), flush)
+    _ssd_phases(torch, xs, Q, got, flush, what)
+    b_ms, b_by, ops, nbytes = _ssd_bound(xs, Q)
     log(f"ssd timing: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}, {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
-    log(f"ssd phases alone: chunk states {phase_ms[0]:.4f} ms, state pass "
-        f"{phase_ms[1]:.4f} ms, chunk outputs {phase_ms[2]:.4f} ms (sum "
-        f"{sum(phase_ms):.4f}); workspace {ws.numel() * 4} bytes")
     err = max(err, check_ssd_final_state(torch, dev, flush))
     return {"name": "ssd_scan", "route": "cuda", "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:26", "max_abs_err": err,
@@ -1315,51 +1351,58 @@ def check_ssd(torch, dev, flush):
 
 def check_ssd_final_state(torch, dev, flush):
     """The SSD scan at zamba2-7b's shapes (x (2, 2048, 112, 64) bfloat16,
-    state 64, chunk 128: the generic instantiation) with its final state,
-    the decode cache of a prefill: the output and the (2, 112, 64, 64)
-    float32 state against ``ssd_ref(return_final_state=True)`` with the
-    tolerance above; timed with and without the state, with its bound.
-    Returns the output's largest error."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.ssd_scan.kernel import ssd_bthd
+    state 64, chunk 128: its own instantiation) with its final state, the
+    decode cache of a prefill: the output and the (2, 112, 64, 64) float32
+    state against ``ssd_ref(return_final_state=True)`` with the tolerance
+    above; timed with and without the state beside the plain version and
+    the bound, each phase alone.  Returns the output's largest error."""
+    from repro_torch.kernels.ssd_scan.kernel import kernel_attrs, ssd_bthd
     from repro_torch.kernels.ssd_scan.ref import ssd_ref
-    gen = torch.Generator(device=dev).manual_seed(8)
-    Bsz, T, nh, hd, ds, Q = 2, 2048, 112, 64, 64, 128
-    x = (0.5 * torch.randn((Bsz, T, nh, hd), generator=gen, device=dev)).bfloat16()
-    dt = F.softplus(torch.randn((Bsz, T, nh), generator=gen, device=dev))
-    A = -torch.exp(torch.randn((nh,), generator=gen, device=dev))
-    Bm, Cm = ((0.5 * torch.randn((Bsz, T, ds), generator=gen, device=dev)).bfloat16()
-              for _ in range(2))
-    got, state = ssd_bthd(x, dt, A, Bm, Cm, chunk=Q, return_final_state=True)
-    want, want_state = ssd_ref(x, dt, A, Bm, Cm, chunk=Q, return_final_state=True)
+    xs, Q = _ssd_case(torch, dev, "zamba2-7b")
+    x, ds = xs[0], xs[3].shape[-1]
+    got, state = ssd_bthd(*xs, chunk=Q, return_final_state=True)
+    want, want_state = ssd_ref(*xs, chunk=Q, return_final_state=True)
     torch.cuda.synchronize()
     what = f"ssd x {tuple(x.shape)} state {ds} chunk {Q} bfloat16 with its final state"
     err = _kernel_close(torch, got, want, what)
     s_err = _kernel_close(torch, state, want_state, what + " (the state)")
-    check(torch.equal(got, ssd_bthd(x, dt, A, Bm, Cm, chunk=Q)),
+    check(torch.equal(got, ssd_bthd(*xs, chunk=Q)),
           f"{what}: the output differs from the scan's without the state")
     log(f"{what}: max_abs_err={err} (max |y| {float(want.float().abs().max())}); state "
         f"{tuple(state.shape)} max_abs_err={s_err} (max |state| "
-        f"{float(want_state.abs().max())})")
-    ms = time_ms(torch, lambda: ssd_bthd(x, dt, A, Bm, Cm, chunk=Q, return_final_state=True),
-                 flush)
-    ms_y = time_ms(torch, lambda: ssd_bthd(x, dt, A, Bm, Cm, chunk=Q), flush)
-    plain = time_ms(torch, lambda: ssd_ref(x, dt, A, Bm, Cm, chunk=Q, return_final_state=True),
-                    flush)
-    NC = T // Q
-    ops = Bsz * NC * (2 * Q * Q * ds + nh * (2 * Q * Q * hd + 4 * Q * hd * ds))
-    nbytes = (2 * x.numel() * 2 + dt.numel() * 4 + A.numel() * 4 + 2 * Bm.numel() * 2
-              + state.numel() * 4)
-    b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
+        f"{float(want_state.abs().max())}); instantiation "
+        f"{kernel_attrs(1, x.dtype, (Q, x.shape[-1], ds))['instantiation']}")
+    ms = time_ms(torch, lambda: ssd_bthd(*xs, chunk=Q, return_final_state=True), flush)
+    ms_y = time_ms(torch, lambda: ssd_bthd(*xs, chunk=Q), flush)
+    plain = time_ms(torch, lambda: ssd_ref(*xs, chunk=Q, return_final_state=True), flush)
+    plain_y = time_ms(torch, lambda: ssd_ref(*xs, chunk=Q), flush)
+    _ssd_phases(torch, xs, Q, got, flush, "ssd at zamba2-7b's shapes")
+    b_ms, b_by, ops, nbytes = _ssd_bound(xs, Q, state)
     log(f"ssd timing at zamba2-7b's shapes: kernel with the final state {ms:.4f} ms "
-        f"(without {ms_y:.4f} ms), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"(without {ms_y:.4f} ms), plain {plain:.4f} ms (without {plain_y:.4f} ms), bound "
+        f"{b_ms:.4f} ms (without {_ssd_bound(xs, Q)[0]:.4f} ms; {b_by}, "
         f"{ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), {b_ms / ms:.2%} of the bound")
     return err
 
 
+def ssd_times(torch, dev, flush):
+    """The SSD scan's ms at mamba2-2.7b's shapes and at zamba2-7b's, with
+    and without the final state, through whichever ``repro_torch`` is on
+    the path (``kernels_against`` puts another checkout's there)."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_bthd
+    out = {}
+    for name in SSD_SHAPES:
+        xs, Q = _ssd_case(torch, dev, name)
+        out[f"ssd {name}"] = time_ms(torch, lambda: ssd_bthd(*xs, chunk=Q), flush)
+        if name == "zamba2-7b":
+            out[f"ssd {name} with the final state"] = time_ms(
+                torch, lambda: ssd_bthd(*xs, chunk=Q, return_final_state=True), flush)
+    return out
+
+
 # What a checkout's own chip_smoke times, by --<what>-parent: {kernel: ms}.
 AGAINST = {
-    "ssd": "{'ssd': cs.check_ssd(torch, dev, flush)['ms']}",
+    "ssd": "cs.ssd_times(torch, dev, flush)",
     "fedavg": "(lambda main, routes: {'fedavg': main['ms'], **{r['name']: r['ms'] for r in "
               "routes}, **{r['name'] + ' library': r['library_ms'] for r in routes}})("
               "cs.check_fedavg(torch, cs.stream_shapes(), dev, flush), "
@@ -1369,17 +1412,24 @@ AGAINST = {
 }
 
 
+# The kinds that this script's own timing code (``AGAINST``) times on each
+# checkout's kernels: an older checkout's chip_smoke lacks it.
+TIMED_HERE = {"ssd"}
+
+
 def kernels_against(other, what):
     """The ``what`` kernels (``AGAINST``) of the checkout ``other`` timed
     beside this one's, on this card, in turns (other, this, this, other):
     each run a process of its own through its checkout's own
-    ``chip_smoke``."""
+    ``chip_smoke`` (this one's for ``TIMED_HERE``), on its checkout's
+    kernels."""
     other = os.path.abspath(other)
     check(os.path.isfile(os.path.join(other, "chip_smoke.py")),
           f"--{what}-parent {other}: no chip_smoke.py there")
     runs = {}
     for root in (other, ROOT, ROOT, other):
-        code = (f"import json, sys, torch; sys.path[:0] = [{root!r}, "
+        script = ROOT if what in TIMED_HERE else root
+        code = (f"import json, sys, torch; sys.path[:0] = [{script!r}, "
                 f"{os.path.join(root, 'src')!r}]; "
                 "import chip_smoke as cs, repro_torch; dev = torch.device('cuda'); "
                 "flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev); "

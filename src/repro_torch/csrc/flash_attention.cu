@@ -83,6 +83,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr float NEG_INF = -1073741824.0f;  // -2^30, as the reference
@@ -266,6 +268,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int nh, 
 }
 
 // ---- bfloat16: flash_fwd_tc, the tensor-core kernel ------------------------
+// (fragment layouts: mma_bf16.cuh)
 
 template <int HD>
 struct Tc {
@@ -276,45 +279,6 @@ struct Tc {
   static constexpr size_t SMEM = (size_t)(BQ + 4 * BK) * LD * sizeof(__nv_bfloat16);
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !in (src-size 0)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col): bf16 operands, float32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
 // p -> p_hi = bf16(p), p_lo = bf16(p - p_hi) (the difference is exact in
 // float32), for the two adjacent columns one A-fragment register holds
 __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
@@ -324,10 +288,6 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
                  __float2bfloat16_rn(x1 - __bfloat162float(h1)));
 }
 
-// Fragments of m16n8k16 (g = lane / 4, t = lane % 4): A regs 0..3 hold
-// (g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..) of the 16 x 16
-// slice; B regs 0, 1 hold (k = 2t..2t+1, n = g), (k = 2t+8.., n = g);
-// C holds (g, 2t..2t+1) and (g+8, 2t..2t+1).
 // Two blocks an SM leave a thread up to 255 registers: hd 256 takes them all.
 template <int HD>
 __global__ void __launch_bounds__(Tc<HD>::THREADS, 2)

@@ -29,7 +29,7 @@ _ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _SIGNATURES = {"ssd_scan_f32": _ARGS, "ssd_scan_bf16": _ARGS,
                "ssd_scan_phase": [_I, _I, *_ARGS],
                "ssd_scan_smem_bytes": [_I, _I, _I, _I],
-               "ssd_scan_attrs": [_I, _I, ctypes.POINTER(_I)]}
+               "ssd_scan_attrs": [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]}
 _ENTRY = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
 MAX_DIM = 128           # largest chunk, head_dim and state the kernel takes
 SMEM_LIMIT = 232_448    # shared memory a block may use on the H100
@@ -132,17 +132,21 @@ def ssd_phase(phase: int, x, dt, A, B, C, y, ws, *, chunk: int = 128) -> None:
     _build.check_launch(err, f"ssd phase {phase}")
 
 
-def kernel_attrs(phase: int, dtype) -> dict:
-    """What the compiler and the card make of phase 1, 2 or 3 at the main
-    path's instantiation (chunk 128, head_dim 64, state 128) for x of
-    ``dtype``: registers and local (spill) bytes a thread, dynamic shared
-    bytes a block, blocks resident on an SM.  Launches nothing."""
-    if phase not in (1, 2, 3) or dtype not in _ENTRY:
-        raise ValueError(f"kernel_attrs takes phase 1, 2 or 3 and float32 or bfloat16, "
-                         f"got {phase}, {dtype}")
+def kernel_attrs(phase: int, dtype, shape) -> dict:
+    """What the compiler and the card make of phase 1, 2 or 3 for x of
+    ``dtype`` at the instantiation that ``shape``, (chunk, head_dim,
+    state), takes: registers and local (spill) bytes a thread, dynamic
+    shared bytes a block, blocks resident on an SM, and ``instantiation``,
+    that instantiation's (chunk, head_dim, state), or ``"generic"``.
+    Launches nothing."""
+    if phase not in (1, 2, 3) or dtype not in _ENTRY or len(shape) != 3:
+        raise ValueError(f"kernel_attrs takes phase 1, 2 or 3, float32 or bfloat16 and a "
+                         f"(chunk, head_dim, state) shape, got {phase}, {dtype}, {shape}")
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_attrs reads the card's compiled kernel: needs CUDA")
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 7)()
     _build.check_launch(_build.load("ssd_scan", _SIGNATURES).ssd_scan_attrs(
-        phase, int(dtype == torch.bfloat16), out), "ssd attrs")
-    return dict(zip(("num_regs", "local_bytes", "smem_bytes", "blocks_per_sm"), out))
+        phase, int(dtype == torch.bfloat16), *shape, out), "ssd attrs")
+    attrs = dict(zip(("num_regs", "local_bytes", "smem_bytes", "blocks_per_sm"), out[:4]))
+    attrs["instantiation"] = tuple(out[4:]) if out[4] else "generic"
+    return attrs

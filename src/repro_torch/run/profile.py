@@ -12,6 +12,7 @@
     PYTHONPATH=src python -m repro_torch.run.profile --experiment mixed_gaussian  # any of the six
     PYTHONPATH=src python -m repro_torch.run.profile --arch gemma3-4b    # prefill + decode
     PYTHONPATH=src python -m repro_torch.run.profile --arch mamba2-2.7b  # forward
+    PYTHONPATH=src python -m repro_torch.run.profile --arch zamba2-7b    # forward
 
 One warm-up round, then ``--rounds`` rounds timed on the host clock
 without the profiler, then the same number under it (CPU and CUDA
@@ -31,10 +32,11 @@ selection's sort and the composed path's small PyTorch operations count as
 everything else.  On the CPU the device numbers are null.
 
 ``--arch`` profiles a backbone at full width instead (random weights from
-a seed, bfloat16 compute, through its kernel: ``use_flash`` for the
-attention archs, ``use_ssd_kernel`` for the SSM), at ``chip_smoke.py``'s
-shapes: for gemma3-4b one prefill of 2 x 2,048 tokens and decode steps
-with a per-row index, for mamba2-2.7b one forward; each part timed
+a seed, bfloat16 compute, through its kernels: ``use_flash`` for the
+attention archs, ``use_ssd_kernel`` for the SSM and the hybrid), at
+``chip_smoke.py``'s shapes: for gemma3-4b one prefill of 2 x 2,048 tokens
+and decode steps with a per-row index, for mamba2-2.7b and zamba2-7b one
+forward, whose kernel is the SSD scan's three phases; each part timed
 without the profiler, then under it, with its device busy share, the
 device time of its kernel, of the bfloat16 copy kernels (the
 float32-to-bfloat16 casts: of the weights, which the reference's
@@ -197,8 +199,8 @@ def profile_backbone(arch="gemma3-4b", *, batch=2, seq=2048, steps=4, top=8,
     if dev.type != "cuda":
         raise RuntimeError("profile --arch measures device time: it needs the card")
     cfg = get_config(arch)
-    ssm = cfg.family == "ssm"
-    bb = Backbone(cfg, use_ssd_kernel=ssm, use_flash=not ssm)
+    ssm = cfg.family in ("ssm", "hybrid")   # one forward, the SSD scan's device time
+    bb = Backbone(cfg, use_ssd_kernel=ssm, use_flash=cfg.family != "ssm")
     mark = "::ssd_" if ssm else "flash_fwd"   # the SSD scan's three phase kernels
     params = bb.init(torch.Generator(device=dev).manual_seed(0))
     toks = torch.randint(0, cfg.vocab_size, (batch, seq),

@@ -633,10 +633,11 @@ def _ssd_inputs(g, dev, Bsz, T, nh, hd, ds, dtype):
                                               (4096, 4, 64, 128, 128),  # 32 chunks
                                               (256, 80, 64, 128, 128),  # mamba2's heads
                                               (128, 3, 64, 128, 128),   # one chunk
-                                              (48, 5, 32, 16, 48)])
+                                              (48, 5, 32, 16, 48),
+                                              (256, 112, 64, 64, 128)])  # zamba2-7b's
 def test_ssd_kernel_matches_plain(cuda, dtype, T, nh, hd, ds, chunk):
-    """mamba2's (chunk, head_dim, state) take the kernel's own
-    instantiation, the rest the generic one; head counts that leave a
+    """mamba2's and zamba2-7b's (chunk, head_dim, state) take the kernel's
+    own instantiations, the rest the generic one; head counts that leave a
     partial block of four heads; one chunk (no state to pass) and 32."""
     g = torch.Generator(device=cuda).manual_seed(T + hd)
     xs = _ssd_inputs(g, cuda, 2, T, nh, hd, ds, dtype)
@@ -733,12 +734,16 @@ def test_ssd_kernel_as_accurate_as_plain(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_attrs(cuda, dtype):
-    """At mamba2's instantiation no phase spills, and the chunk-states and
-    chunk-outputs phases fit two blocks (16 warps) on an SM."""
-    for phase in (1, 2, 3):
-        a = skernel.kernel_attrs(phase, dtype)
-        assert a["num_regs"] <= 255 and a["local_bytes"] == 0, (phase, a)
-        assert a["blocks_per_sm"] >= (1 if phase == 2 else 2), (phase, a)
+    """At mamba2's and zamba2-7b's instantiations no phase spills, and the
+    chunk-states and chunk-outputs phases fit two blocks (16 warps) on an
+    SM; any other shape takes the generic instantiation."""
+    for shape in ((128, 64, 128), (128, 64, 64)):
+        for phase in (1, 2, 3):
+            a = skernel.kernel_attrs(phase, dtype, shape)
+            assert a["instantiation"] == shape, (shape, phase, a)
+            assert a["num_regs"] <= 255 and a["local_bytes"] == 0, (shape, phase, a)
+            assert a["blocks_per_sm"] >= (1 if phase == 2 else 2), (shape, phase, a)
+    assert skernel.kernel_attrs(1, dtype, (64, 64, 128))["instantiation"] == "generic"
 
 
 @pytest.mark.cuda

@@ -125,7 +125,34 @@ def test_ssd_wrapper_refusals():
 HB, QR = 4, 64   # the CUDA kernel's heads per block and query rows per block
 
 
-def _three_phases(x, dt, A, B, C, *, chunk, late=False, final=False, early=False):
+def _split3(v):
+    """float32 v as three bfloat16 terms (held in float32), hi = bf16(v),
+    mid = bf16(v - hi), lo = bf16(v - hi - mid), each difference exact:
+    the kernel's split of a float32 operand for the tensor cores."""
+    hi = v.to(torch.bfloat16).float()
+    mid = (v - hi).to(torch.bfloat16).float()
+    return hi, mid, (v - hi - mid).to(torch.bfloat16).float()
+
+
+def _tc_mm(a_terms, b_terms, acc=None):
+    """acc + sum_k a[:, k] b[k, :] as the bf16 route's tensor-core products
+    sum it: every operand term bfloat16, and per k-step of 16 each pair of
+    terms (a, b) an exactly summed product block added to the float32
+    accumulator, the terms in the order given."""
+    m, K, n = a_terms[0].shape[0], a_terms[0].shape[1], b_terms[0].shape[1]
+    for t in (*a_terms, *b_terms):
+        assert torch.equal(t, t.bfloat16().float()), "a tensor-core operand is not bfloat16"
+    acc = torch.zeros((m, n)) if acc is None else acc
+    for k0 in range(0, K, 16):
+        for a in a_terms:
+            for b in b_terms:
+                block = a[:, k0:k0 + 16].double() @ b[k0:k0 + 16].double()
+                acc = (acc.double() + block).float()
+    return acc
+
+
+def _three_phases(x, dt, A, B, C, *, chunk, late=False, final=False, early=False, tc=False,
+                  m_terms=3):
     """The CUDA kernel's decomposition, in float32, as ``csrc/ssd_scan.cu``
     orders it.  The workspace holds NS = NC - 1 states, NC with the
     ``final`` state.  Phase 1: per (batch, chunk c < NS, head) the local
@@ -136,9 +163,15 @@ def _three_phases(x, dt, A, B, C, *, chunk, late=False, final=False, early=False
     (batch, chunk, QR query rows, block of HB heads, the last block
     partial) C.B^T of those rows against the keys up to the last of them,
     once for the block; per head y = exp(L) (C . S_in^T) + M u, M the
-    decayed, masked C.B^T.  ``late`` plants a fault: chunk c reads the
-    state entering chunk c - 1; ``early`` another: the final state is the
-    one entering the last chunk.  Returns y, or (y, final state)."""
+    decayed, masked C.B^T.  ``tc`` takes the bfloat16 route's tensor-core
+    arithmetic (x, B and C must hold bfloat16 values): B^T times the split
+    (w dt) x in phase 1; in phase 3 C.B^T of the bf16 operands, C times the
+    split S_in^T, and y += M' x with dt folded into M' = M dt_p, split,
+    against x, each product in ``_tc_mm``'s k-steps.  ``late`` plants a
+    fault: chunk c reads the state entering chunk c - 1; ``early``
+    another: the final state is the one entering the last chunk;
+    ``m_terms=1`` a third (with ``tc``): M' rounded to one bf16 term.
+    Returns y, or (y, final state)."""
     Bsz, T, nh, hd = x.shape
     Q = min(chunk, T)
     NC = T // Q
@@ -158,7 +191,11 @@ def _three_phases(x, dt, A, B, C, *, chunk, late=False, final=False, early=False
     for b, c, h in itertools.product(range(Bsz), range(NS), range(nh)):
         L = cumsum(b, c, h)
         w = torch.exp(L[-1] - L)
-        ws[b, c, h] = Bf[b, c * Q:(c + 1) * Q].T @ (u(b, c, h, Q) * w[:, None])
+        t = slice(c * Q, (c + 1) * Q)
+        if tc:
+            ws[b, c, h] = _tc_mm([Bf[b, t].T], _split3(xf[b, t, h] * (w * dt[b, t, h])[:, None]))
+        else:
+            ws[b, c, h] = Bf[b, t].T @ (u(b, c, h, Q) * w[:, None])
         Llast[b, c, h] = L[-1]
     for b, h in itertools.product(range(Bsz), range(nh)):
         run = torch.zeros((B.shape[-1], hd))
@@ -171,8 +208,11 @@ def _three_phases(x, dt, A, B, C, *, chunk, late=False, final=False, early=False
     for b, c, q0, h0 in itertools.product(range(Bsz), range(NC), range(0, Q, QR),
                                           range(0, nh, HB)):
         q1, P = min(q0 + QR, Q), min(Q, q0 + QR)
-        rows = slice(c * Q + q0, c * Q + q1)
-        CB = Cf[b, rows] @ Bf[b, c * Q:c * Q + P].T          # once per head block
+        rows, keys = slice(c * Q + q0, c * Q + q1), slice(c * Q, c * Q + P)
+        if tc:                                                # once per head block
+            CB = _tc_mm([Cf[b, rows]], [Bf[b, keys].T])
+        else:
+            CB = Cf[b, rows] @ Bf[b, keys].T
         qi = torch.arange(q0, q1)[:, None]
         mask = qi >= torch.arange(P)[None, :]
         for h in range(h0, min(h0 + HB, nh)):
@@ -180,10 +220,18 @@ def _three_phases(x, dt, A, B, C, *, chunk, late=False, final=False, early=False
             k = c - 2 if late else c - 1
             acc = torch.zeros((q1 - q0, hd))
             if k >= 0:
-                acc = torch.exp(L[q0:q1])[:, None] * (Cf[b, rows] @ ws[b, k, h])
+                if tc:
+                    acc = _tc_mm([Cf[b, rows]], _split3(ws[b, k, h]))
+                else:
+                    acc = Cf[b, rows] @ ws[b, k, h]
+                acc = torch.exp(L[q0:q1])[:, None] * acc
             decay = torch.exp(torch.clamp(L[q0:q1, None] - L[None, :P], max=0.0))
             M = torch.where(mask, CB * decay, 0.0)
-            y[b, rows, h] = acc + M @ u(b, c, h, P)
+            if tc:
+                Mdt = M * dt[b, keys, h][None, :]
+                y[b, rows, h] = _tc_mm(_split3(Mdt)[:m_terms], [xf[b, keys, h]], acc)
+            else:
+                y[b, rows, h] = acc + M @ u(b, c, h, P)
     return (y.to(x.dtype), state) if final else y.to(x.dtype)
 
 
@@ -192,19 +240,47 @@ def _scaled_err(got, want):
     return float(np.abs(got - want).max()) / (float(np.abs(want).max()) + 1e-6)
 
 
-@pytest.mark.parametrize("T,nh,hd,ds,chunk,head_block",
-                         SSD_CASES + [(256, 6, 32, 16, 64, 4)])   # a partial head block
-def test_three_phase_decomposition_matches_jax_kernel(T, nh, hd, ds, chunk, head_block):
+# (case, route): the float32 route's products on every case (the ids
+# without a route); the bf16 route's tensor-core arithmetic (``tc``) on the
+# same cases with x, B and C rounded to bfloat16, and at zamba2-7b's
+# (head_dim 64, state 64, chunk 128) with a few heads; and the planted
+# fault ``tc-m1``, M' rounded to one bfloat16 term, which must fail
+THREE_PHASE_CASES = SSD_CASES + [(256, 6, 32, 16, 64, 4)]   # a partial head block
+ZAMBA2_CASE = (256, 4, 64, 64, 128, 2)
+ROUTED = ([(*case, "f32") for case in THREE_PHASE_CASES]
+          + [(*case, "tc") for case in THREE_PHASE_CASES + [ZAMBA2_CASE]]
+          + [(*ZAMBA2_CASE, "tc-m1")])
+
+
+@pytest.mark.parametrize(
+    "T,nh,hd,ds,chunk,head_block,route", ROUTED,
+    ids=["-".join(map(str, c[:6])) + ("" if c[6] == "f32" else f"-{c[6]}") for c in ROUTED])
+def test_three_phase_decomposition_matches_jax_kernel(T, nh, hd, ds, chunk, head_block, route):
     """The CUDA kernel's three phases, emulated, against the reference's
     Pallas kernel in interpret mode and the port's plain version, at the
     reference's own 3e-6 of max |y|, on the inputs that hold the plain
-    version to the Pallas kernel above.  The emulation is within 1e-7 of
-    max |y| of the plain version; at chunk 128 both are 3.0e-6 from the
-    Pallas kernel, each summing 128 decayed products in its own order."""
+    version to the Pallas kernel above.  The float32 emulation is within
+    1e-7 of max |y| of the plain version; at chunk 128 both are 3.0e-6
+    from the Pallas kernel, each summing 128 decayed products in its own
+    order.  The tensor-core emulation (``tc``: x, B and C bfloat16 values,
+    every float32 operand split in three bfloat16 terms) is within 2e-7 of
+    the plain version on every case and as far from a float64 scan (within
+    5e-8): what reaches 3e-6 at chunk 128 is L, the float32 cumsum of dt A,
+    which each package rounds in its own order (with six or eight
+    zamba2-shaped heads the plain version itself is 3.06e-6 and 6.24e-6
+    from the Pallas kernel, the emulation 3.10e-6 and 6.24e-6).  M' rounded
+    to one bfloat16 term (``tc-m1``) misses the bound by about 800x."""
     xs = _inputs(T, nh, hd, ds)
-    got = _three_phases(*_torch(xs), chunk=chunk).numpy()
+    if route != "f32":
+        xs = tuple(a if i in (1, 2) else torch.from_numpy(a).bfloat16().float().numpy()
+                   for i, a in enumerate(xs))
+    tc = dict(tc=True, m_terms=1 if route == "tc-m1" else 3) if route != "f32" else {}
+    got = _three_phases(*_torch(xs), chunk=chunk, **tc).numpy()
     want = np.asarray(jssd(*(jnp.asarray(x) for x in xs), chunk=chunk,
                            head_block=head_block, interpret=True))
+    if route == "tc-m1":
+        assert _scaled_err(got, want) > 100 * 3e-6
+        return
     assert _scaled_err(got, want) <= 3e-6
     assert _scaled_err(got, ssd_ref(*_torch(xs), chunk=chunk).numpy()) <= 3e-6
 
@@ -250,21 +326,31 @@ def test_ssd_final_state_matches_jax(T, nh, hd, ds, chunk):
     assert torch.equal(y, ssd(*_torch(xs), chunk=chunk))
 
 
-@pytest.mark.parametrize("T,nh,hd,ds,chunk", FINAL_CASES)
-def test_three_phase_final_state(T, nh, hd, ds, chunk):
+FINAL_ROUTED = [(*case, route) for route in ("f32", "tc") for case in FINAL_CASES]
+
+
+@pytest.mark.parametrize(
+    "T,nh,hd,ds,chunk,route", FINAL_ROUTED,
+    ids=["-".join(map(str, c[:5])) + ("" if c[5] == "f32" else f"-{c[5]}")
+         for c in FINAL_ROUTED])
+def test_three_phase_final_state(T, nh, hd, ds, chunk, route):
     """The kernel's decomposition with its final state (phase 1 over every
     chunk, phase 2's last run written transposed): the output and the state
     within 3e-6 of the plain version's; the output the same as without the
-    state.  Planted fault: the state entering the last chunk in its place
-    (where there are two or more chunks) fails."""
+    state; in float32 and in the bf16 route's tensor-core arithmetic (x, B
+    and C bfloat16 values).  Planted fault: the state entering the last
+    chunk in its place (where there are two or more chunks) fails."""
     xs = _torch(_inputs(T, nh, hd, ds, seed=12))
-    y, state = _three_phases(*xs, chunk=chunk, final=True)
+    tc = route == "tc"
+    if tc:
+        xs = [a if i in (1, 2) else a.bfloat16().float() for i, a in enumerate(xs)]
+    y, state = _three_phases(*xs, chunk=chunk, final=True, tc=tc)
     wy, wstate = ssd_ref(*xs, chunk=chunk, return_final_state=True)
     assert _scaled_err(y.numpy(), wy.numpy()) <= 3e-6
     assert _scaled_err(state.numpy(), wstate.numpy()) <= 3e-6
-    assert _scaled_err(_three_phases(*xs, chunk=chunk).numpy(), y.numpy()) == 0.0
+    assert _scaled_err(_three_phases(*xs, chunk=chunk, tc=tc).numpy(), y.numpy()) == 0.0
     if T > chunk:
-        _, bad = _three_phases(*xs, chunk=chunk, final=True, early=True)
+        _, bad = _three_phases(*xs, chunk=chunk, final=True, early=True, tc=tc)
         assert _scaled_err(bad.numpy(), wstate.numpy()) > 100 * 3e-6
 
 
