@@ -393,8 +393,27 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    slices, k's and v's their sum in rank order, against the unsplit
    attention and its gradients: bf16 within 2^-6 and float32 within 1e-5
    of max |want|; the planted fault (k's gradient of one slice) must
-   miss; ms a slice and unsplit by CUDA events.  The dry runs are host
-   work, started first and run beside (a) and (d).
+   miss; ms a slice and unsplit by CUDA events.  (e) decode attention
+   split as the cache is sharded ([attn-decode]): the dry runs of
+   gemma3-4b ``long_500k`` (batch 1: the cache's keys on "data", head_dim
+   on "model") and ``decode_32k`` (batch 128: head_dim on "model") on
+   (16, 16), each printed beside the figures of the commit before the
+   split (the cache gathered on every rank); held: ``long_500k`` moves at
+   most 0.01 GB a rank on the agent axis and peaks at most 2.94e9 B,
+   ``decode_32k`` does at most 9.29e9 FLOPs a rank and moves at most 1 GB
+   on "model".  Then the split's arithmetic on the card at gemma3-4b's
+   width, with no process group (``torch_shared.decode_by_slices``, the
+   port's per-slice steps): ``long_500k``'s decode attention (batch 1,
+   524,288 keys, 8/4 heads of 256) as 16 key slices under the global mask
+   and the window-1,024 one (the window straddles slices 14 and 15, the
+   slices past the index are all masked), and ``decode_32k``'s local
+   batch (8 rows at their own positions, 32,768 keys) as 16 head_dim
+   slices; in bf16 and float32, against the unsplit
+   ``Attention._attend1``: bf16 within 2^-6 (the merge in float32) and
+   float32 within 1e-5 of max |want|; the planted merge without rescaling
+   to the slices' max must miss (on the key slices); ms of the slices and
+   unsplit by CUDA events.  The dry runs are host work, started first and
+   run beside (a), (d) and (e).
 
 The time budget: the whole run must end within 1,100 s (it prints its
 total).  To make room for phase 11's remat part, and for the recompute
@@ -4200,6 +4219,26 @@ rec = run_pair("gemma3-4b", "train_4k", multi_pod=sys.argv[1] == "1", plan="agen
 rec["wall_s"] = round(time.perf_counter() - t0, 1)
 print("DRYRUN " + json.dumps(rec))
 """
+_DRY_GEMMA_DECODE = r"""
+import json, sys, time
+t0 = time.perf_counter()
+from repro_torch.launch.dryrun import run_pair
+rec = run_pair("gemma3-4b", sys.argv[1])
+rec["wall_s"] = round(time.perf_counter() - t0, 1)
+print("DRYRUN " + json.dumps(rec))
+"""
+# gemma3-4b's decodes on (16, 16) in phase 16 (e) before the decode split,
+# the cache gathered on every rank (the dry run of the commit before it,
+# torch 2.13 on the CPU): FLOPs, operand bytes, collective bytes on the
+# agent axis ("data") and on "model", and peak bytes, a rank
+DRY_DECODE_WHOLE = {
+    "long_500k": (146513854464, 1058819082986, 73014444032, 4564034560, 6090122264),
+    "decode_32k": (76894175232, 1112259601328, 0, 36512276480, 11068295248)}
+# (e)'s holds: long_500k's agent-axis bytes and peak, decode_32k's FLOPs
+# and model-axis bytes, a rank
+DRY_DECODE_LIMITS = {"long_500k": {"agent": 0.01e9, "peak": 2.94e9},
+                     "decode_32k": {"flops": 9.29e9, "model": 1e9}}
+DECODE_SLICES = 16
 # (b)'s card side in a fresh process (what the caching allocator adds for
 # the placed state depends on what it already caches): the bytes of the
 # placed tensors' storages, and what torch.cuda.memory_allocated adds
@@ -4435,6 +4474,89 @@ def _row_split_card(torch, dev, card):
     log(f"analysis (d): {time.perf_counter() - t0:.1f} s wall; {card}")
 
 
+def _decode_split_card(torch, dev, card):
+    """(e): decode attention split by the cache's keys or by head_dim,
+    slice by slice on one card, at gemma3-4b's width (module docstring)."""
+    from torch_shared import decode_by_slices
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.layers import Attention
+    t0 = time.perf_counter()
+    cfg, n = get_config("gemma3-4b"), DECODE_SLICES
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(35)
+    S, index = 524_288, 15 * 32_768 + 500
+    kpos = torch.arange(S, device=dev)
+    rows = torch.randint(16_384, 32_768, (8,), generator=gen, device=dev)
+    shapes = {  # label: (B, S, [(mask label, valid)], key slices, head_dim slices)
+        "long_500k": (1, S, [("global", kpos <= index),
+                             (f"window {cfg.sliding_window}",
+                              (kpos <= index) & (kpos > index - cfg.sliding_window))], n, 1),
+        "decode_32k": (8, 32_768, [("per row", kpos[None, :32_768] <= rows[:, None])], 1, n)}
+
+    def unrescaled(top, part, reduce):
+        return reduce(part, "sum")
+
+    for dtype, rel in ((torch.bfloat16, 2 ** -6), (torch.float32, 1e-5)):
+        for label, (B, S_, masks, on_keys, on_hd) in shapes.items():
+            q = torch.randn((B, 1, nh, hd), generator=gen, device=dev, dtype=dtype)
+            k, v = (torch.randn((B, S_, nkv, hd), generator=gen, device=dev, dtype=dtype)
+                    for _ in range(2))
+            for mask, valid in masks:
+                def whole():
+                    return Attention._attend1(q, k, v, valid)
+
+                def split():
+                    return decode_by_slices(q, k, v, valid, on_keys, on_hd)
+
+                # the first call of each warms the libraries up; the second is timed
+                whole()
+                split()
+                want, whole_ms = _events_ms(torch, whole)
+                got, split_ms = _events_ms(torch, split)
+                scale = float(want.float().abs().max())
+                err = float((got.float() - want.float()).abs().max()) / scale
+                fault = None
+                if on_keys > 1:
+                    bad = decode_by_slices(q, k, v, valid, on_keys, on_hd, merge=unrescaled)
+                    fault = float((bad.float() - want.float()).abs().max()) / scale
+                name = f"{str(dtype)[6:]} {label} {mask}"
+                planted = "n/a (one key slice)" if fault is None else f"{fault:.4g}"
+                log(f"analysis (e) decode split {name}: B {B}, {S_} keys, {nh}/{nkv} heads of "
+                    f"{hd}, {on_keys} key x {on_hd} head_dim slices: error / max |want| "
+                    f"{err:.4g} (limit {rel:.3g}); the planted unrescaled merge {planted}; "
+                    f"{split_ms:.3f} ms the slices, unsplit {whole_ms:.3f} ms (CUDA events); "
+                    f"{card}")
+                check(err <= rel, f"analysis (e) decode split {name}: {err:.4g} over {rel:.3g} "
+                                  f"of max |want|")
+                check(fault is None or not fault <= rel,
+                      f"analysis (e) decode split {name}: the planted unrescaled merge passed "
+                      f"({planted} within {rel:.3g})")
+                del want, got
+            del q, k, v
+            torch.cuda.empty_cache()
+    log(f"analysis (e): {time.perf_counter() - t0:.1f} s wall on the card; {card}")
+
+
+def _dry_decode_report(recs):
+    """(e)'s dry runs printed beside the figures before the split, then held."""
+    names = ("FLOPs", "operand bytes", "agent-axis bytes", "model-axis bytes", "peak bytes")
+    for shape, before in DRY_DECODE_WHOLE.items():
+        rec = recs[shape]
+        by = rec["collective_by_axis"]
+        now = (rec["flops"], rec["bytes_accessed"], by["agent"], by["model"],
+               rec["memory"]["peak_bytes"])
+        log(f"analysis (e) gemma3-4b {shape} on {rec['mesh']} over a fake group: "
+            f"{_dry_line(rec)}")
+        log(f"analysis (e) gemma3-4b {shape}, a rank, now / before the decode split (the cache "
+            f"gathered on every rank): " + "; ".join(
+                f"{name} {a:.4g} / {b:.4g}" for name, a, b in zip(names, now, before)))
+        got = {"flops": rec["flops"], "agent": by["agent"], "model": by["model"],
+               "peak": rec["memory"]["peak_bytes"]}
+        for key, limit in DRY_DECODE_LIMITS[shape].items():
+            check(got[key] <= limit, f"analysis (e) gemma3-4b {shape}: {key} {got[key]:.4g} a "
+                                     f"rank over its limit {limit:.4g}")
+
+
 def run_analysis(torch, dev):
     """Phase 16: the trace audit of two real rounds, the dry run's memory
     model against the card, and the production dry runs (module
@@ -4447,7 +4569,9 @@ def run_analysis(torch, dev):
     procs = {"granite": _dry_start(_DRY_GRANITE),
              "16x16": _dry_start(_DRY_GEMMA, 0),
              "2x16x16": _dry_start(_DRY_GEMMA, 1),
-             "card bytes": _dry_start(_CARD_BYTES)}
+             "card bytes": _dry_start(_CARD_BYTES),
+             "long_500k": _dry_start(_DRY_GEMMA_DECODE, "long_500k"),
+             "decode_32k": _dry_start(_DRY_GEMMA_DECODE, "decode_32k")}
     try:
         baseline = load_baseline()
         mesh = make_serving_mesh()
@@ -4457,6 +4581,8 @@ def run_analysis(torch, dev):
         gc_collect(torch)
         t_a = time.perf_counter() - t_phase
         _row_split_card(torch, dev, card)
+        gc_collect(torch)
+        _decode_split_card(torch, dev, card)
         gc_collect(torch)
 
         # every dry run is read and printed first, then held
@@ -4507,6 +4633,7 @@ def run_analysis(torch, dev):
                              f"a rank: its attention is not split")
         check(two["memory"]["fits"], f"analysis (c): (2, 16, 16) peaks at "
                                      f"{two['memory']['peak_bytes'] / 2 ** 30:.2f} GiB a rank")
+        _dry_decode_report(recs)
     finally:
         for p in procs.values():
             if p.poll() is None:

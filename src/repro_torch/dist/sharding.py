@@ -338,7 +338,8 @@ def shard_attn_qkv(q, k, v):
     the model axis).  Under the DP plan the batch entry consumes "model"
     and the head entries are dropped by :func:`filter_spec`'s reuse
     rule.  The attention itself then splits its work by heads, batch or
-    query rows (``repro_torch.models.layers._attend_on_shards``)."""
+    query rows, or a decode by the cache's keys or head_dim
+    (``repro_torch.models.layers._attend_on_shards``)."""
     mesh = current_mesh()
     if mesh is None:
         return q, k, v

@@ -6,7 +6,8 @@ Parameters keep the reference's keys and layouts (Dense ``w`` is
 places (``repro_torch.dist.sharding.shard``: the identity without a mesh);
 under a mesh attention (the flash kernel or the plain route) runs on
 local shards with the keys' sequence and head_dim whole, split by heads,
-then batch, then (the plain route) query rows (``_attend_on_shards``).
+then batch, then (the plain route) query rows; a decode keeps its cache
+where it is sharded, by its keys or by head_dim (``_attend_on_shards``).
 Cross-attention (the audio family's
 decoder over the encoder's memory) takes its queries from x and its keys
 and values from the memory, with no RoPE, no qk-norm and no mask, always
@@ -281,10 +282,7 @@ class Attention(nn.Module):
 
     def _decode_attend(self, q, k, v, valid):
         # valid: (S,) shared mask, or (B, S) per-row (continuous batching)
-        if valid.dim() == 1:
-            return _attend_on_shards(lambda q_, k_, v_: self._attend1(q_, k_, v_, valid),
-                                     q, k, v)
-        return _attend_on_shards(self._attend1, q, k, v, valid)
+        return _attend_on_shards(self._attend1, q, k, v, valid=valid)
 
     @staticmethod
     def _attend1(q, k, v, valid):
@@ -326,73 +324,185 @@ def _split_heads(y, heads: int, hd: int):
     return y.reshape(*y.shape[:-1], heads, hd)
 
 
-def _attend_on_shards(kernel, q, k, v, *rows, positions=None):
-    """``kernel(q, k, v, *rows[, positions])`` (B, T, heads, head_dim) ->
-    like q: flash or the plain attention.  Under a mesh it runs on the
-    local shards: head_dim enters whole (the kernel contracts it), and so
-    do the keys' sequence and, unless split by rows, the queries'.  Each
-    mesh dim of more than one rank splits the work, in this order: q's
-    heads stay sharded where its ranks divide them (k and v then sharded
-    alike, their heads repeated to q's count where the ranks do not divide
-    the kv heads, so each rank keeps whole GQA groups); else the batch is
-    sharded where it divides (``rows``, per-row masks, follow the batch);
-    else, where the kernel takes ``positions`` (the queries' global
-    positions, (1 or B, T)), the query rows are: each rank takes its
-    uneven ``Shard(1)`` cut of q and of ``positions`` and the keys and
-    values whole, so every row's softmax is whole on one rank and the
-    ranks' k and v gradients are partial sums (``_kv_grad``).  The flash
-    kernel and the decodes take no positions, so on such a dim they run
-    whole on every rank: the kernel has no query offset, and the
-    reference's Pallas call has no partitioning rule either (GSPMD runs
-    it whole on each device).
+def _attend_on_shards(kernel, q, k, v, *, positions=None, valid=None):
+    """``kernel(q, k, v[, valid][, positions])`` (B, T, heads, head_dim) ->
+    like q: flash or the plain attention, or a decode (``valid``, its mask:
+    (S,) shared or (B, S) per row).  Under a mesh it runs on the local
+    shards: head_dim enters whole (the kernel contracts it), and so do the
+    keys' sequence and, unless split by rows, the queries'.  Each mesh dim
+    of more than one rank splits the work, in this order: q's heads stay
+    sharded where its ranks divide them (k and v then sharded alike, their
+    heads repeated to q's count where the ranks do not divide the kv
+    heads, so each rank keeps whole GQA groups); else the batch is sharded
+    where it divides (per-row masks follow the batch); else, where the
+    kernel takes ``positions`` (the queries' global positions, (1 or B,
+    T)), the query rows are: each rank takes its uneven ``Shard(1)`` cut
+    of q and of ``positions`` and the keys and values whole, so every
+    row's softmax is whole on one rank and the ranks' k and v gradients
+    are partial sums (``_kv_grad``); else, in a decode, the cache stays
+    where ``launch.steps.cache_specs`` put it: split by its keys or by
+    head_dim (``_decode_on_shards``).  The flash kernel takes no
+    positions, so on such a dim it runs whole on every rank: the kernel
+    has no query offset, and the reference's Pallas call has no
+    partitioning rule either (GSPMD runs it whole on each device).
     DTensor's own propagation is not asked to flatten the batch and head
     dims sharded on two mesh axes, which some versions refuse.  Plain
     tensors go straight in."""
     pos = () if positions is None else (positions,)
+    mask = () if valid is None else (valid,)
     if not is_sharded(q):
-        return kernel(q, k, v, *rows, *pos)
-    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+        return kernel(q, k, v, *mask, *pos)
+    from torch.distributed.tensor import Replicate, Shard
     q = whole_dims(q, 1, 3)
     mesh = q.device_mesh
     (B, T, nh, hd), nkv = q.shape, k.shape[2]
-    want, on_heads, on_batch = [], 1, 1
-    for n, p in zip(mesh.shape, q.placements):
+    kpl = tuple(k.placements) if is_sharded(k) else (Replicate(),) * mesh.ndim
+    roles, on_heads, on_batch = [], 1, 1
+    for n, p, kp in zip(mesh.shape, q.placements, kpl):
         if p == Shard(2) and nh % (on_heads * n) == 0:
-            want.append(p)
+            roles.append("heads")
             on_heads *= n
         elif p == Shard(0) or (n > 1 and B % (on_batch * n) == 0):
-            want.append(Shard(0))
+            roles.append("batch")
             on_batch *= n
         elif n > 1 and pos:
-            want.append(Shard(1))
+            roles.append("rows")
+        elif n > 1 and mask and kp in (Shard(1), Shard(3)):
+            roles.append("keys" if kp == Shard(1) else "head_dim")
         else:
-            want.append(Replicate())
-    want = tuple(want)
-    by_row = tuple(p if p == Shard(0) else Replicate() for p in want)
-    kv = tuple(Replicate() if p == Shard(1) else p for p in want)
-
-    def put(t, placements):
-        if is_sharded(t):
-            return t.redistribute(mesh, placements)
-        return distribute_tensor(t, mesh, placements, src_data_rank=None)
-
+            roles.append(None)
+    if "keys" in roles or "head_dim" in roles:
+        return _decode_on_shards(q, k, v, valid, roles, on_heads)
+    want = _by_role(roles, heads=Shard(2), batch=Shard(0), rows=Shard(1))
+    by_row = _by_role(roles, batch=Shard(0))
+    kv = _by_role(roles, heads=Shard(2), batch=Shard(0))
     if nkv % on_heads:
-        def repeat(t):
-            t = put(t, by_row)
-            S = t.shape[1]
-            return t.unsqueeze(3).expand(B, S, nkv, nh // nkv, hd).reshape(B, S, nh, hd)
-
-        k, v = repeat(k), repeat(v)
-    args = [put(q, want), put(k, kv), put(v, kv)] + [put(r, by_row) for r in rows]
+        k, v = (_repeat_heads(_put(t, mesh, by_row), nh) for t in (k, v))
+    args = [_put(q, mesh, want), _put(k, mesh, kv), _put(v, mesh, kv)]
+    if mask:
+        args.append(_put(valid, mesh, by_row if valid.dim() == 2 else _by_role(roles)))
     if pos:
-        args.append(put(positions, tuple(p if p == Shard(1) else Replicate() for p in want)))
-    if Shard(1) not in want:
+        args.append(_put(positions, mesh, _by_role(roles, rows=Shard(1))))
+    if "rows" not in roles:
         return local_kernel(kernel, want, *args)
     grads = (None, _kv_grad(want, kv), _kv_grad(want, kv)) + (None,) * (len(args) - 3)
     # contiguous: DTensor reshapes a row-split shard with ``view``, which
     # the plain route's permuted einsum output may refuse
     return local_kernel(lambda *a: kernel(*a).contiguous(), want, *args,
                         in_grad_placements=grads, out_shape=(B, T, nh, hd))
+
+
+# decode attention calls split over a mesh dim by the cache's keys or by
+# head_dim (``_decode_on_shards``), by kind
+DECODE_SPLITS = {"keys": 0, "head_dim": 0}
+
+
+def _decode_on_shards(q, k, v, valid, roles, on_heads):
+    """Decode attention (one query a row) on a mesh where a dim of more
+    than one rank splits neither q's heads nor the batch and the cache is
+    sharded there (``roles``: "keys" where k is sharded by its sequence,
+    the batch-1 long decode's context parallelism; "head_dim" where by
+    head_dim, the reference's ``shard_attn_qkv`` fallback).  Each rank
+    contracts its slice of head_dim against its slice of the keys; the
+    partial logits are summed over the head_dim dims; each rank's softmax
+    part over its keys, masked by its slice of ``valid``, is merged over
+    the keys dims (``_merge_keys``: one max, one sum); ``probs @ v`` gives
+    the rank's slice of y, gathered at the end (y is batch x heads x
+    head_dim, never the cache).  Heads and batch dims split as in
+    ``_attend_on_shards``; no dim gathers the cache."""
+    from torch.distributed.tensor import Shard
+    mesh = q.device_mesh
+    _, _, nh, hd = q.shape
+    if k.shape[2] % on_heads:
+        keep = _by_role(roles, batch=Shard(0), keys=Shard(1), head_dim=Shard(3))
+        k, v = (_repeat_heads(_put(t, mesh, keep), nh) for t in (k, v))
+    qy = _by_role(roles, heads=Shard(2), batch=Shard(0), head_dim=Shard(3))
+    kv = _by_role(roles, heads=Shard(2), batch=Shard(0), keys=Shard(1), head_dim=Shard(3))
+    mask = (_by_role(roles, batch=Shard(0), keys=Shard(1)) if valid.dim() == 2 else
+            _by_role(roles, keys=Shard(0)))
+    dims = {role: [i for i, r in enumerate(roles) if r == role] for role in DECODE_SPLITS}
+    for role, on in dims.items():
+        DECODE_SPLITS[role] += bool(on)
+
+    def reduce_over(role):
+        return lambda t, op: _all_reduce(t, op, mesh, dims[role])
+
+    def kernel(q_, k_, v_, valid_):
+        logits = reduce_over("head_dim")(_decode_logits(q_, k_), "sum")
+        top, part = _decode_part(logits, v_, valid_, hd)
+        return _decode_out(_merge_keys(top, part, reduce_over("keys")), q_)
+
+    y = local_kernel(kernel, qy, _put(q, mesh, qy), _put(k, mesh, kv), _put(v, mesh, kv),
+                     _put(valid, mesh, mask))
+    return whole_dims(y, 3)
+
+
+def _decode_logits(q, k):
+    """q (B, 1, heads, d) against k (B, S, kv heads, d): the float32 logits
+    (B, kv heads, group, S), unscaled; over a slice of head_dim, that
+    slice's share of them."""
+    (B, _, nh, d), nkv = q.shape, k.shape[2]
+    return torch.einsum("bkgd,bskd->bkgs", q.reshape(B, nkv, nh // nkv, d).float(), k.float())
+
+
+def _decode_part(logits, v, valid, hd):
+    """One slice of the keys: its logits (summed over head_dim) scaled by
+    1/sqrt(hd) and masked by its ``valid`` ((S,) or (B, S)); their max
+    ``top`` (B, kv heads, group, 1), and ``part``: the float32
+    ``exp(logits - top) @ v``, unnormalised, beside its row sums (B, kv
+    heads, group, d + 1).  A slice with every key masked has top NEG_INF
+    and no NaN: the merge weighs it by zero beside a slice with a key."""
+    logits = torch.where(valid[None, None, None] if valid.dim() == 1 else
+                         valid[:, None, None, :], logits * (1.0 / math.sqrt(hd)), NEG_INF)
+    top = (logits.amax(-1, keepdim=True) if logits.shape[-1] else
+           logits.new_full(logits.shape[:-1] + (1,), NEG_INF))
+    p = torch.exp(logits - top)
+    return top, torch.cat([torch.einsum("bkgs,bskd->bkgd", p, v.float()),
+                           p.sum(-1, keepdim=True)], -1)
+
+
+def _merge_keys(top, part, reduce):
+    """The key slices' parts merged: each rescaled to the slices' max and
+    summed.  ``reduce(t, "max" | "sum")`` reduces over the slices: an
+    all-reduce over the mesh dims that split the keys (the identity where
+    none does), or over a leading dim of slices stacked in one tensor."""
+    best = reduce(top, "max")
+    return reduce(part * torch.exp(top - best), "sum")
+
+
+def _decode_out(part, q):
+    """The merged part normalised: y like q (B, 1, heads, d)."""
+    return (part[..., :-1] / part[..., -1:]).to(q.dtype).reshape(q.shape)
+
+
+def _all_reduce(t, op, mesh, dims):
+    """``t`` all-reduced by ``op`` ("sum" or "max") over the mesh dims
+    ``dims`` in turn (a functional collective each)."""
+    from torch.distributed import _functional_collectives as funcol
+    for d in dims:
+        t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, d)))
+    return t
+
+
+def _by_role(roles, **placement):
+    """One placement a mesh dim: the one given for its role, else
+    ``Replicate()``."""
+    from torch.distributed.tensor import Replicate
+    return tuple(placement.get(r, Replicate()) if r else Replicate() for r in roles)
+
+
+def _put(t, mesh, placements):
+    if is_sharded(t):
+        return t.redistribute(mesh, placements)
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
+
+
+def _repeat_heads(t, nh):
+    """k or v (B, S, kv heads, d) with each kv head repeated to its group
+    of q's ``nh`` heads."""
+    B, S, nkv, d = t.shape
+    return t.unsqueeze(3).expand(B, S, nkv, nh // nkv, d).reshape(B, S, nh, d)
 
 
 def _rows_to_features(y):

@@ -572,93 +572,66 @@ class Backbone(nn.Module):
         batching).  Returns (logits (B, 1, V), new_cache).  ``donate=True``
         writes every layer's cache in place and returns ``cache`` itself:
         the port's counterpart of the reference engine donating the cache
-        to its compiled decode (no cache copy in a tick).  The audio
-        family reads its cross-attention caches (``cache["cross"]``) and
-        returns them as given."""
+        to its compiled decode (no cache copy in a tick).  Without it the
+        cache is copied once and the copy written in place: one new cache,
+        as the reference's decode returns.  The audio family reads its
+        cross-attention caches (``cache["cross"]``) and returns them as
+        given."""
         c = self.cfg
+        if not donate:
+            cache = {k: v if k == "cross" else tree_map(torch.clone, v)
+                     for k, v in cache.items()}
         h = self._embed(params, token)
         if c.family == "ssm":
             mamba = self._mamba()
-            new = []
             for i in range(c.num_layers):
-                h, nc = mamba.decode(_layer(params["blocks"], i), h,
-                                     _layer(cache["blocks"], i), donate=donate)
-                new.append(nc)
-            new_cache = cache if donate else {"blocks": _stack(new)}
+                h, _ = mamba.decode(_layer(params["blocks"], i), h,
+                                    _layer(cache["blocks"], i), donate=True)
         elif c.family == "hybrid":
-            h, new_cache = self._hybrid_decode(params, h, cache, index, donate)
+            h = self._hybrid_decode(params, h, cache, index)
         elif c.family == "audio":
             block = self._block(cross=True)
-            new = []
             for i in range(c.num_layers):
-                h, nc = block.decode(_layer(params["blocks"], i), h, _layer(cache["self"], i),
-                                     index, donate=donate,
-                                     mem_cache=_layer(cache["cross"], i))
-                new.append(nc)
-            new_cache = cache if donate else {"self": _stack(new), "cross": cache["cross"]}
+                h, _ = block.decode(_layer(params["blocks"], i), h, _layer(cache["self"], i),
+                                    index, donate=True, mem_cache=_layer(cache["cross"], i))
         elif self.grouped:
-            h, new_cache = self._grouped_decode(params, h, cache, index, donate)
+            h = self._grouped_decode(params, h, cache, index)
         else:
             block = self._block()
             window = c.sliding_window if c.sliding_window > 0 else None
-            new = []
             for i in range(c.num_layers):
-                h, nc = block.decode(_layer(params["blocks"], i), h,
-                                     _layer(cache["blocks"], i), index, window=window,
-                                     ring=self._ring, donate=donate)
-                new.append(nc)
-            new_cache = cache if donate else {"blocks": _stack(new)}
+                h, _ = block.decode(_layer(params["blocks"], i), h, _layer(cache["blocks"], i),
+                                    index, window=window, ring=self._ring, donate=True)
         _, logits = self._head(params, h)
-        return logits, new_cache
+        return logits, cache
 
-    def _grouped_decode(self, params, h, cache, index, donate):
+    def _grouped_decode(self, params, h, cache, index):
         c = self.cfg
         block = self._block()
         gw = c.sliding_window if c.global_uses_window else None
         ring, g_ring = self._ring, self._ring and c.global_uses_window
-        local, glob, tail = [], [], []
         for g in range(self.n_groups):
             for r in range(c.local_global_ratio):
-                h, nc = block.decode(_layer(params["local"], g, r), h,
-                                     _layer(cache["local"], g, r), index,
-                                     window=c.sliding_window, ring=ring, donate=donate)
-                local.append(nc)
-            h, nc = block.decode(_layer(params["global"], g), h,
-                                 _layer(cache["global"], g), index, window=gw,
-                                 ring=g_ring, donate=donate)
-            glob.append(nc)
+                h, _ = block.decode(_layer(params["local"], g, r), h,
+                                    _layer(cache["local"], g, r), index,
+                                    window=c.sliding_window, ring=ring, donate=True)
+            h, _ = block.decode(_layer(params["global"], g), h, _layer(cache["global"], g),
+                                index, window=gw, ring=g_ring, donate=True)
         for t in range(self.n_tail):
-            h, nc = block.decode(_layer(params["tail"], t), h, _layer(cache["tail"], t),
-                                 index, window=c.sliding_window, ring=ring, donate=donate)
-            tail.append(nc)
-        if donate:
-            return h, cache
-        new_cache = {"local": _stack(local, (self.n_groups, c.local_global_ratio)),
-                     "global": _stack(glob)}
-        if self.n_tail:
-            new_cache["tail"] = _stack(tail)
-        return h, new_cache
+            h, _ = block.decode(_layer(params["tail"], t), h, _layer(cache["tail"], t), index,
+                                window=c.sliding_window, ring=ring, donate=True)
+        return h
 
-    def _hybrid_decode(self, params, h, cache, index, donate):
+    def _hybrid_decode(self, params, h, cache, index):
         c = self.cfg
         block, mamba = self._block(), self._mamba()
-        per = c.hybrid_period - 1
-        attn, states, tail = [], [], []
         for g in range(self.n_groups):
-            h, nc = block.decode(params["shared_attn"], h, _layer(cache["attn"], g), index,
-                                 donate=donate)
-            attn.append(nc)
-            for r in range(per):
-                h, nc = mamba.decode(_layer(params["mamba"], g, r), h,
-                                     _layer(cache["mamba"], g, r), donate=donate)
-                states.append(nc)
+            h, _ = block.decode(params["shared_attn"], h, _layer(cache["attn"], g), index,
+                                donate=True)
+            for r in range(c.hybrid_period - 1):
+                h, _ = mamba.decode(_layer(params["mamba"], g, r), h,
+                                    _layer(cache["mamba"], g, r), donate=True)
         for t in range(self.n_tail):
-            h, nc = mamba.decode(_layer(params["mamba_tail"], t), h, _layer(cache["tail"], t),
-                                 donate=donate)
-            tail.append(nc)
-        if donate:
-            return h, cache
-        new_cache = {"attn": _stack(attn), "mamba": _stack(states, (self.n_groups, per))}
-        if self.n_tail:
-            new_cache["tail"] = _stack(tail)
-        return h, new_cache
+            h, _ = mamba.decode(_layer(params["mamba_tail"], t), h, _layer(cache["tail"], t),
+                                donate=True)
+        return h

@@ -1089,8 +1089,8 @@ def test_lm_gan_round_with_remat_on_card_is_the_round_without(cuda, arch):
         out[remat] = fed.round(state, batches)
         assert bool(remat_op.CALLS) == remat
     for a, b in zip(tree_leaves(out[False]), tree_leaves(out[True])):
-        assert a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
-                                                  b.reshape(-1).view(torch.uint8))
+        # contiguous bytes: a synced leaf is a stride-0 view over the agents
+        assert a.dtype == b.dtype and torch.equal(_bits(a.reshape(-1)), _bits(b.reshape(-1)))
 
 
 @pytest.mark.cuda

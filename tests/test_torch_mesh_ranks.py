@@ -309,6 +309,79 @@ def test_lm_gan_round_split_by_query_rows_matches_unsharded(tmp_path, fault):
         assert res["grad_err"] > 1e-3, res
 
 
+# 3 query heads of 16 and one kv head: a batch-1 decode's cache on the
+# (2, 2) mesh has its keys on "data" and head_dim on "model", and neither
+# the heads nor the batch divide either axis
+SPLIT_DECODE = dict(d_model=48, num_heads=3, num_kv_heads=1)
+
+
+def _decode_split_body(rank, steps=4, seq=16):
+    """The serving decode step (``build_decode``) on the (2, 2) ranks for
+    ``steps`` greedy steps after an 8-token prefill, against the
+    unsharded decode fed the same tokens (the unsharded greedy choice):
+    each step's largest logit error over max |logit|, the new cache's
+    largest error, the decode splits taken and the cache's placements.
+    "split": the batch-1 decode at 3/1 heads; "fault": the same with the
+    key slices' parts merged without rescaling to their max; "heads": 4/2
+    heads at batch 2 (heads and batch split, no new split)."""
+    from repro_torch.dist.sharding import full_tree, place
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import build_decode
+    from repro_torch.models import layers
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.transformer import Backbone
+    from repro_torch.tree import tree_leaves
+
+    mesh = make_test_mesh((2, 2))
+    merge, res = layers._merge_keys, {}
+    for name, kw, batch in (("split", SPLIT_DECODE, 1), ("fault", SPLIT_DECODE, 1),
+                            ("heads", {}, 2)):
+        if name == "fault":
+            layers._merge_keys = lambda top, part, reduce: reduce(part, "sum")
+        cfg = _cfg(**kw)
+        bb = Backbone(cfg)
+        params = bb.init(torch.Generator().manual_seed(0))
+        prompt = torch.randint(0, cfg.vocab_size, (batch, 8),
+                               generator=torch.Generator().manual_seed(1))
+        ref = bb.prefill(params, prompt, max_seq=seq)
+        built = build_decode(cfg, ShapeConfig("d", seq, batch, "decode"), mesh)
+        placed = place(params, built.in_shardings[0])
+        want_cache = ref["cache"]
+        cache = place(want_cache, built.in_shardings[2])
+        tok = ref["logits"][:, -1:, :cfg.vocab_size].argmax(-1)
+        splits, errs = dict(layers.DECODE_SPLITS), []
+        for i in range(8, 8 + steps):
+            lg, cache = built.fn(placed, place(tok, built.in_shardings[1]), cache,
+                                 torch.tensor(i))
+            want, want_cache = bb.decode(params, tok, want_cache, i)
+            errs.append(float((lg.full_tensor() - want).abs().max() / want.abs().max()))
+            tok = want[:, :, :cfg.vocab_size].argmax(-1)
+        layers._merge_keys = merge
+        res[name] = {
+            "errs": errs,
+            "cache_err": max(float((a - b).abs().max()) for a, b in zip(
+                tree_leaves(full_tree(cache)), tree_leaves(want_cache))),
+            "splits": {k: v - splits[k] for k, v in layers.DECODE_SPLITS.items()},
+            "placements": str(tree_leaves(cache)[0].placements)}
+    return res
+
+
+def test_batch1_decode_split_by_keys_and_head_dim_matches_unsharded(tmp_path):
+    """The batch-1 serving decode with the cache's keys on "data" and
+    head_dim on "model" (2 layers: one key split and one head_dim split
+    a layer a step) within 1e-5 of the unsharded decode at every step, its
+    cache too; with the parts merged unrescaled it misses; 4/2 heads at
+    batch 2 take no new split."""
+    res = run_ranks(tmp_path, _decode_split_body)
+    split, fault, heads = res["split"], res["fault"], res["heads"]
+    assert split["placements"] == "(Shard(dim=2), Shard(dim=4))", split
+    assert max(split["errs"]) <= 1e-5 and split["cache_err"] <= 1e-5, split
+    assert split["splits"] == {"keys": 8, "head_dim": 8}, split
+    assert not max(fault["errs"]) <= 1e-3, fault
+    assert max(heads["errs"]) <= 1e-5 and heads["cache_err"] <= 1e-5, heads
+    assert heads["splits"] == {"keys": 0, "head_dim": 0}, heads
+
+
 def _remat_round_body(rank, shape, axes, plan):
     """The built round on the mesh with the config's remat off and on, from
     one state and one set of tokens: (every leaf of the two new states and

@@ -4,9 +4,11 @@ against its JAX twin, one FedGAN round of each paper experiment (and of
 the LM GAN at an arch's ``.smoke()`` config) at test size with the bounds
 a round is held to, every sync kernel launch held to its plain version in
 place (``held_sync_kernels``), attention split by query rows run rank by
-rank (``attend_by_rows``), and one torch thread per test process (the
-tier-1 run puts several pytest workers on the same cores, where torch's
-default of one thread per core oversubscribes them).
+rank (``attend_by_rows``), decode attention split by the cache's keys and
+by head_dim slice by slice (``decode_by_slices``), and one torch thread
+per test process (the tier-1 run puts several pytest workers on the same
+cores, where torch's default of one thread per core oversubscribes
+them).
 
 The module imports JAX and the reference package only inside the helpers
 that run them: ``test_torch_cuda.py`` and ``chip_smoke.py`` read the round
@@ -743,3 +745,42 @@ def attend_by_rows(fn, q, k, v, positions, cotangent, n: int):
         dks.append(dk)
         dvs.append(dv)
     return torch.cat(ys, 1), torch.cat(dqs, 1), dks, dvs
+
+
+def stacked_reduce(t, op: str):
+    """The reduction over key slices stacked in a leading dim, the stand-in
+    of the all-reduce over the mesh dims that split the keys."""
+    return t.amax(0) if op == "max" else t.sum(0)
+
+
+def decode_by_slices(q, k, v, valid, n_keys: int, n_hd: int, *, merge=None,
+                     reduce=stacked_reduce, valid_cut=None):
+    """Decode attention split by the cache's keys over ``n_keys`` ranks and
+    by head_dim over ``n_hd`` as they run it, one slice after another and
+    with no process group: q (B, 1, heads, head_dim), k and v (B, S, kv
+    heads, head_dim), ``valid`` (S,) or (B, S); each cut as DTensor cuts
+    (``query_row_cuts``).  The port's per-rank steps
+    (``models.layers._decode_logits``, ``_decode_part``, ``_decode_out``):
+    every (keys, head_dim) slice's partial logits, summed over the head_dim
+    slices in slice order; each key slice's part masked by its cut of
+    ``valid``; the parts merged over the key slices by ``merge`` (the
+    port's ``_merge_keys``) with the slices stacked in a leading dim and
+    reduced by ``reduce``.  Returns y like q, the head_dim slices
+    concatenated.  ``merge``, ``reduce`` and ``valid_cut(r, cut)`` (the
+    columns of ``valid`` key slice r reads; its own cut by default) plant
+    faults."""
+    from repro_torch.models import layers
+    hd = q.shape[-1]
+    keys, dims = query_row_cuts(k.shape[1], n_keys), query_row_cuts(hd, n_hd)
+    merge = merge or layers._merge_keys
+    valid_cut = valid_cut or (lambda r, cut: cut)
+    logits = [functools.reduce(torch.add, [layers._decode_logits(q[..., d], k[:, cut][..., d])
+                                           for d in dims]) for cut in keys]
+    ys = []
+    for d in dims:
+        tops, parts = zip(*(layers._decode_part(logits[r], v[:, cut][..., d],
+                                                valid[..., valid_cut(r, cut)], hd)
+                            for r, cut in enumerate(keys)))
+        ys.append(layers._decode_out(merge(torch.stack(tops), torch.stack(parts), reduce),
+                                     q[..., d]))
+    return torch.cat(ys, -1)
