@@ -61,9 +61,18 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    and one round (K = 1) of each of the six paper experiments at test
    size (ACGAN nets at 8x8) on the card against the CPU port, within the
    bounds the CPU round is held to against the reference
-   (``tests/torch_shared.py``, which imports no JAX on this path); each
-   prints its largest ratio of a difference to its limit, and that ratio
-   at K = 2, not held.
+   (``tests/torch_shared.py``, which imports no JAX on this path); then
+   the taught round at K = 4 of each of them (the small round plain and
+   int8): every step on the card from the CPU's whole state before it,
+   held to the CPU's step at one step's bounds (where a step departs,
+   with its kinks within rounding taught, then at Adam's first step its
+   eps-zone gradients: ``held_step``),
+   and the sync from the CPU's state before it, bit for bit (plain) or by
+   the int8 rule.  Each prints its largest ratio of a difference to its
+   limit a step, how a departed step was held, and beside it the free
+   round's ratio at K = 2, not held; and the first activation input that
+   changes sign at step 2 of image_acgan's free K = 2 round, with its
+   rounding scale.
 4. Drive the main paths, ``experiment_spec("image_acgan")`` at full width
    (B = 5, K = 20, batch 64) for 3 rounds each: ``FedAvgSync()``,
    ``FedAvgSync(codec=IntQuant(8))`` (fused), ``FedAvgSync(codec=TopK(0.25)
@@ -74,7 +83,16 @@ CUDA toolkit.  Phases, each of which fails the run when it fails:
    fused run one qsync per subtree, the composed runs per float32 leaf one
    fedavg and, per direction, one quant and one dequant (and for int4 one
    pack4 and one unpack4).  Losses and parameters must be finite and every
-   agent must hold the synced parameters after every round.  Then the
+   agent must hold the synced parameters after every round.  The plain
+   and the fused run then take one more round step by step from the state
+   they ended in (Adam's moments carried, the step counter at 60), with
+   the sync's launches exact: the CPU port takes the card's state before
+   steps 1, 2 and 20 and before the sync and runs that step, and the
+   card's is held to it (``held_full_round``: one step's bounds, kinks
+   within rounding taught where it departs, its untaught ratio printed;
+   the sync bit for bit or by the int8 rule).  Step 20 takes ``Adam.update`` and
+   the sync fedavg or qsync: the round reaches no adam_sync (kernel 7),
+   in this package as in the reference.  Then the
    other sync schedules, 3 rounds each the same way, with their launches
    and their agents' agreement after every round: ``PerStepGradAvg()``
    (2 fedavg a step, agents identical), ``PerStepGradAvg(sync_dtype=
@@ -1068,17 +1086,13 @@ def check_composed_vs_fused(torch, dev):
             f"bit-identical")
 
 
-def _small_round(torch, dev, codec, K):
-    """One K-step round of the image experiment's nets at 8x8, SGD, from
-    the same weights and batches on the card and on the CPU (the plain
-    versions).  Returns the leaves over their limit, the largest ratio of
-    a difference to its limit with its leaf, and (int8) the elements over
-    the plain limit and the elements compared."""
+def _small_fed(torch, codec, K):
+    """The image experiment's nets at 8x8 under SGD at 0.05, B agents, K
+    steps a round, ``FedAvgSync(codec=codec)``, and a round's batches
+    (CPU tensors, from a seeded generator)."""
     from repro_torch.core import FedAvgSync, FedGAN, FedGANConfig
     from repro_torch.launch.train import acgan_task
     from repro_torch.optim import SGD, constant, equal_timescale
-    from repro_torch.tree import tree_map
-    from torch_shared import named_leaves
     grid, b = (1, B), 8
     g = torch.Generator().manual_seed(3)
     batches = {"x": torch.rand((K,) + grid + (b, 8, 8, 3), generator=g) * 2 - 1,
@@ -1088,6 +1102,24 @@ def _small_round(torch, dev, codec, K):
     fed = FedGAN(task, FedGANConfig(agent_grid=grid, sync_interval=K,
                                     strategy=FedAvgSync(codec=codec)),
                  opt_g=SGD(), opt_d=SGD(), scales=equal_timescale(constant(0.05)))
+    return fed, batches
+
+
+def _small_limit(c):
+    """The small round's plain limit on a leaf ``c`` (numpy): 1e-4 of its
+    magnitude (float32 roundoff of cuDNN against the CPU library)."""
+    return 1e-4 * max(1.0, float(np.abs(c).max()))
+
+
+def _small_round(torch, dev, codec, K):
+    """One K-step round of the image experiment's nets at 8x8, SGD, from
+    the same weights and batches on the card and on the CPU (the plain
+    versions).  Returns the leaves over their limit, the largest ratio of
+    a difference to its limit with its leaf, and (int8) the elements over
+    the plain limit and the elements compared."""
+    from repro_torch.tree import tree_map
+    from torch_shared import named_leaves
+    fed, batches = _small_fed(torch, codec, K)
     out = {}
     for d in ("cpu", dev):
         state = fed.init_state(torch.Generator().manual_seed(4), device=d)
@@ -1096,7 +1128,7 @@ def _small_round(torch, dev, codec, K):
     for (path, c), (_, k) in zip(named_leaves(out["cpu"]["params"]),
                                  named_leaves(out[str(dev)]["params"])):
         diff = (c - k.cpu()).abs()
-        tol = 1e-4 * max(1.0, float(c.abs().max()))
+        tol = _small_limit(c.numpy())
         lim = tol
         if codec is not None:
             # a downlink code flip moves one quantum; an uplink flip
@@ -1110,6 +1142,55 @@ def _small_round(torch, dev, codec, K):
     return bad, worst, over, total
 
 
+def _small_step_hold(k, got, want, grads, losses):
+    """A taught step of the small round: every parameter within
+    ``_small_limit`` of the CPU's (the step's SGD update carries no code)."""
+    from torch_shared import named_leaves
+    bad, worst = [], (0.0, None)
+    for (path, c), (_, g) in zip(named_leaves(want["params"]), named_leaves(got["params"])):
+        d, lim = np.abs(g - c), _small_limit(c)
+        if (d > lim).any():
+            bad.append((path, "off", int((d > lim).sum()), float(d.max())))
+        worst = max(worst, (float(d.max()) / lim, path), key=lambda r: r[0])
+    if int(got["step"]) != int(want["step"]):
+        bad.append(("step", int(got["step"])))
+    return bad, worst
+
+
+TAUGHT_K = 4   # the taught round's K in phase 3
+
+
+def _taught_line(steps, sync):
+    """One log line of a taught round: each step's largest ratio (and the
+    kinks taught where the step departed first), the sync's."""
+    parts = []
+    for k, (bad, (ratio, path), kinks) in enumerate(steps, 1):
+        part = f"step {k} {ratio:.4g} at {path}"
+        if kinks is not None:
+            part += f" ({_taught_how(kinks)})"
+        parts.append(part + ("" if not bad else f" OVER on {len(bad)} leaves"))
+    bad_sync, (ratio, path), differ = sync
+    return "; ".join(parts) + f"; sync {ratio:.4g} at {path}, {differ} elements differ"
+
+
+def _taught_how(how):
+    """How a taught step that departed first was held (``held_step``)."""
+    first, spread = how["first"], how["spread"]
+    flip = (f"first flip call {first[0]} |x| {max(abs(first[4]), abs(first[5])):.3g} against "
+            f"its rounding scale {first[6]:.3g}" if first else "no flip")
+    return (f"untaught {how['untaught'][0]:.4g} at {how['untaught'][1]}; {how['taught']} "
+            f"kinks taught, {how['far']} flips farther than rounding, {flip}, largest "
+            f"|card - CPU| input / rounding scale "
+            f"{'n/a' if spread is None else format(spread, '.3g')}; eps-zone gradients "
+            f"taught {how.get('zone', 0)}")
+
+
+def _held_taught(what, steps, sync):
+    for k, (bad, _, kinks) in enumerate(steps, 1):
+        check(bad == [], f"{what}: taught step {k} departs: {bad[:6]} (kinks {kinks})")
+    check(sync[0] == [], f"{what}: taught sync departs: {sync[0][:6]}")
+
+
 def check_small_round(torch, dev):
     """One round (K = 1, ``torch_shared.CARD_K``) of the image experiment's
     nets at 8x8, SGD, from the same weights and batches on the card and on
@@ -1117,24 +1198,39 @@ def check_small_round(torch, dev):
     magnitude (float32 roundoff of cuDNN against the CPU library); int8
     sync additionally within 1.5 quanta of the leaf's coarsest block on at
     most 2% of the elements (values at a rounding tie may take the
-    neighbouring code).  Prints the largest ratio of a difference to its
-    limit, and its leaf, and that ratio at K = 2, not held: there the
-    second step amplifies a rounding difference (``CARD_K``), and the CPU
-    round alone moves by most of the plain limit with the host's kernel
-    dispatch (ATen's scalar kernels against its vector ones, say), so the
-    reference would depend on the machine."""
+    neighbouring code).  Then the taught round at K = ``TAUGHT_K``
+    (``torch_shared.taught_mismatches``): each step on the card from the
+    CPU's state before it, held to the CPU's step by the same 1e-4, kinks
+    taught where a step departs; the sync from the CPU's state before it
+    bit for bit (plain) or by the int8 rule (``sync_mismatches``).  Prints
+    each one's largest ratio of a difference to its limit, and beside it
+    that ratio of the free round at K = 2, not held: there the second step
+    amplifies a rounding difference (``CARD_K``)."""
     from repro_torch.comm import IntQuant
-    from torch_shared import CARD_K
+    from repro_torch.tree import tree_map
+    from torch_shared import CARD_K, port_kinks, port_steps, taught_mismatches
     for codec in (None, IntQuant(8)):
         what = "int8" if codec else "plain"
         bad, worst, over, total = _small_round(torch, dev, codec, CARD_K)
         check(bad == [], f"small {what} round: card and CPU differ on {bad}")
         check(over <= 0.02 * max(total, 1), f"small int8 round: {over} codes moved")
         bad2, worst2, over2, _ = _small_round(torch, dev, codec, 2)
+        t0 = time.perf_counter()
+        fed, batches = _small_fed(torch, codec, TAUGHT_K)
+        start = fed.init_state(torch.Generator().manual_seed(4), device="cpu")
+        with torch.backends.mkldnn.flags(enabled=False, allow_tf32=None):
+            checker = port_steps(fed, start, batches)
+        numpy = tree_map(lambda x: x.numpy(), batches)
+        steps, sync = taught_mismatches(fed, checker, numpy, dev, _small_step_hold,
+                                        coded=codec is not None,
+                                        kinks=port_kinks(fed, checker[0], numpy))
         log(f"small round card vs CPU ({what}): agree at K = {CARD_K}; largest "
-            f"|card - CPU| / limit {worst[0]:.4g} at {worst[1]} (K = 2, not held: "
+            f"|card - CPU| / limit {worst[0]:.4g} at {worst[1]}; taught K = {TAUGHT_K} "
+            f"({time.perf_counter() - t0:.1f} s): "
+            f"{_taught_line(steps, sync)} (free K = 2, not held: "
             f"{worst2[0]:.4g} at {worst2[1]}, {len(bad2)} leaves over"
             + (f", {over2} elements past the plain limit)" if codec else ")"))
+        _held_taught(f"small {what} round", steps, sync)
 
 
 def check_card_rounds(torch, dev):
@@ -1142,18 +1238,32 @@ def check_card_rounds(torch, dev):
     at 8x8) on the card against the same round on the CPU port, from one
     start state and the same numpy batches, held to the bounds the CPU
     round is held to against the reference (``tests/torch_shared.py``).
-    Prints each experiment's largest ratio of a difference to its limit,
-    and, not held, the same at K = 2, where an activation input at rounding
-    distance from its kink that changes sign moves an agent's second step
-    (``torch_shared.CARD_K``)."""
-    from torch_shared import CARD_K, ROUND_TASKS, port_round_mismatches
+    Then the taught round at K = ``TAUGHT_K`` of each
+    (``torch_shared.port_taught_mismatches``): every step on the card from
+    the CPU's state before it, held at one step's bounds (kinks taught
+    where a step departs), and the sync from the CPU's state before it.
+    Prints each one's largest ratio of a difference to its limit, and, not
+    held, the same of the free round at K = 2, where an activation input
+    at rounding distance from its kink that changes sign moves an agent's
+    second step (``torch_shared.CARD_K``); and the first activation that
+    flips in image_acgan's free K = 2 round (``torch_shared.free_flip``)."""
+    from torch_shared import (CARD_K, ROUND_TASKS, free_flip, port_round_mismatches,
+                              port_taught_mismatches)
     for name in sorted(ROUND_TASKS):
         bad, (ratio, path) = port_round_mismatches(name, dev, K=CARD_K)
         check(bad == [], f"{name} round, card against CPU: {bad}")
         bad2, (ratio2, path2) = port_round_mismatches(name, dev, K=2)
+        t0 = time.perf_counter()
+        steps, sync = port_taught_mismatches(name, dev, TAUGHT_K)
         log(f"{name} round card vs CPU: agree at K = {CARD_K}; largest |card - CPU| / limit "
-            f"{ratio:.4g} at {path} (K = 2, not held: {ratio2:.4g} at {path2}, "
-            f"{len(bad2)} leaves over)")
+            f"{ratio:.4g} at {path}; taught K = {TAUGHT_K} ({time.perf_counter() - t0:.1f} "
+            f"s): {_taught_line(steps, sync)} (free K = 2, not held: {ratio2:.4g} at "
+            f"{path2}, {len(bad2)} leaves over)")
+        _held_taught(f"{name} round", steps, sync)
+    t0 = time.perf_counter()
+    flip = free_flip("image_acgan", dev)
+    log(f"image_acgan free K = 2, card against CPU: the first activation input that "
+        f"changes sign at step 2: {flip} ({time.perf_counter() - t0:.1f} s)")
 
 
 def _kernel_close(torch, got, want, what):
@@ -2796,11 +2906,13 @@ def run_families(torch, dev):
     gc_collect(torch)
 
 
-def run_main_path(torch, dev, strategy, label, per_round):
+def run_main_path(torch, dev, strategy, label, per_round, held=False):
     """Three full-width rounds of ``image_acgan`` under ``strategy``, every
     launch counter set to 0 just before and read just after.
     ``per_round`` is the launches per round of each kernel the path runs;
-    every other kernel must launch no time."""
+    every other kernel must launch no time.  With ``held``, one more
+    round from the state they end in, held step by step
+    (``held_full_round``)."""
     from repro_torch.launch.train import experiment_spec
     from repro_torch.tree import tree_leaves
     rounds, K = 3, 20
@@ -2841,7 +2953,83 @@ def run_main_path(torch, dev, strategy, label, per_round):
         f"{t['steps_per_s']:.3f} steps/s, {t['total_s'] / rounds * 1e3:.1f} ms/round, "
         f"round gap {t['round_gap_s'] * 1e3:.2f} ms, launches {counts}, "
         f"last losses {result.history[-1]}")
+    if held:
+        held_full_round(torch, dev, spec, result.state, label, per_round)
     return counts, t
+
+
+HELD_STEPS = (1, 2, 20)   # the full-width round's steps held against the CPU
+
+
+def held_full_round(torch, dev, spec, state, label, per_round):
+    """One more full-width round of ``spec`` (image_acgan, B = 5, K = 20,
+    batch 64) on the card from ``state``, where its counted rounds ended
+    (Adam's moments and counts carried, the step counter at 3 K), run step
+    by step, every launch counter set to 0 just before and read just after
+    (``per_round``: the sync's launches, nothing else).  The CPU port
+    (oneDNN off) takes the card's state before each step of ``HELD_STEPS``
+    and runs that step; the card's step from the same state is held to it
+    by ``round_mismatches`` at one step's bounds with the CPU step's own
+    gradients (``torch_shared.held_step``; kinks taught where it departs).
+    The card's sync from its state before the sync is held to the CPU's
+    from the same state: bit for bit (plain) or by the int8 rule
+    (``sync_mismatches``).  Prints each ratio, where a step departed its
+    untaught ratio and the kinks taught (a flip farther than rounding
+    fails it), and the CPU's seconds a step."""
+    from repro_torch.configs.paper_gans import ALL_EXPERIMENTS
+    from repro_torch.tree import tree_map
+    from torch_shared import (_SeenGrads, _np, held_step, kinked_step, paper_step_hold,
+                              sync_mismatches)
+    t_start = time.perf_counter()
+    fed = spec.build()
+    data = spec.build_data()
+    strat = fed.cfg.resolve_strategy()
+    K = spec.K
+    exp = ALL_EXPERIMENTS["image_acgan"]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    draws = [data.sample_step(gen) for _ in range(K)]
+    counters = launch_counters()
+    _reset(counters)
+    before, st = {}, state
+    for k in range(1, K + 1):
+        if k in HELD_STEPS:
+            before[k] = st
+        st, _ = fed._step(st, draws[k - 1], strat)
+    synced = strat.round_sync(fed, st)
+    torch.cuda.synchronize()
+    counts = _read(counters)
+    want = {name: per_round.get(name, 0) for name in counters}
+    check(counts == want, f"{label} held round: launches {counts}, expected {want}")
+    cpu = lambda t: tree_map(lambda x: x.cpu(), t)  # noqa: E731
+    hold = paper_step_hold(exp)
+    parts, cpu_s = [], []
+    with torch.backends.mkldnn.flags(enabled=False, allow_tf32=None):
+        for k in HELD_STEPS:
+            t0 = time.perf_counter()
+            b_cpu, s_cpu = cpu(draws[k - 1]), cpu(before[k])
+            seen = _SeenGrads(strat)
+            # the step with its activation inputs kept, for kinks to teach
+            ref, ref_m, records = kinked_step(fed, s_cpu, b_cpu, strat=seen)
+            cpu_s.append(time.perf_counter() - t0)
+            bad, (ratio, path), kinks = held_step(
+                fed, before[k], draws[k - 1], _np(ref), ref_m, hold, k, grads=seen.grads,
+                kinks=lambda records=records: records)
+            part = f"step {k} (count {int(before[k]['step']) + 1}) {ratio:.4g} at {path}"
+            if kinks is not None:
+                part += f" ({_taught_how(kinks)})"
+            parts.append(part)
+            check(bad == [], f"{label} held round, step {k}: {bad[:6]} (kinks {kinks})")
+        t0 = time.perf_counter()
+        ref_sync = strat.round_sync(fed, cpu(st))
+        cpu_s.append(time.perf_counter() - t0)
+    coded = getattr(strat, "codec", None) is not None
+    bad, (ratio, path), differ = sync_mismatches(_np(synced), _np(ref_sync), coded)
+    check(bad == [], f"{label} held round, sync: {bad[:6]}")
+    log(f"main path {label}, held round (count {int(state['step'])} to "
+        f"{int(state['step']) + K}): card against the CPU port from the card's state, "
+        f"{'; '.join(parts)}; sync {ratio:.4g} at {path}, {differ} elements differ "
+        f"(launches {counts}); CPU s a step {[round(x, 2) for x in cpu_s[:-1]]}, "
+        f"sync {cpu_s[-1]:.2f} s; the held round {time.perf_counter() - t_start:.1f} s in all")
 
 
 def _agents_equal(torch, state, key="params"):
@@ -4715,10 +4903,11 @@ def main() -> int:
     mark("sync checks")
 
     L = sum(len(v) for v in shapes.values())   # float32 leaves of gen + disc
-    plain_counts, _ = run_main_path(torch, dev, None, "FedAvgSync()", {"fedavg": 2})
+    plain_counts, _ = run_main_path(torch, dev, None, "FedAvgSync()", {"fedavg": 2},
+                                    held=True)
     int8_counts, _ = run_main_path(
         torch, dev, FedAvgSync(codec=IntQuant(bits=8), error_feedback=True),
-        "FedAvgSync(codec=IntQuant(8), error_feedback=True)", {"qsync": 2})
+        "FedAvgSync(codec=IntQuant(8), error_feedback=True)", {"qsync": 2}, held=True)
     chain_counts, _ = run_main_path(
         torch, dev, FedAvgSync(codec=get_codec("topk+int4", fraction=0.25),
                                error_feedback=True),

@@ -21,9 +21,13 @@ coordinates in the mesh.
   * bytes: the operand and result bytes of every aten op that is not a
     view: an upper bound, since nothing is fused (the reference counts
     XLA's fusions once at their boundary);
-  * memory: every storage the call allocates is live until it is freed
-    (a weak reference on it); ``peak_bytes`` is the high-water mark of
-    what the call itself holds, its arguments not included.
+  * memory: every storage an op makes is live until it is freed (a weak
+    reference on it); ``peak_bytes`` is the high-water mark of what the
+    call itself holds, its arguments not included.  An op makes the
+    storage of an output that is not a view, not a return its schema
+    aliases to an argument (in place, ``out=``) and not an argument's
+    storage (``_unsafe_view``): a view or an in-place result of an
+    argument allocates nothing.
 
 A step may run on real tensors, or on fake ones (``FakeTensorMode``) to
 count a full-size step without allocating it.  ``in_loop`` marks what is
@@ -333,7 +337,7 @@ class DispatchCount(TorchDispatchMode):
         from torch.utils._pytree import tree_leaves
         packet = func._overloadpacket
         outs = [x for x in tree_leaves(out) if isinstance(x, torch.Tensor)]
-        for x in outs:
+        for x in _made(func, args, kwargs, out):
             self._track(x)
         kind = _collective_kind(packet)
         if kind is not None:
@@ -350,9 +354,8 @@ class DispatchCount(TorchDispatchMode):
         return out
 
     def _track(self, t) -> None:
-        """Count a new storage as allocated until it is freed: ``live_bytes``
-        and its high-water mark ``peak_bytes`` (the storages the call makes,
-        its arguments not included)."""
+        """Count a storage an op made as allocated until it is freed:
+        ``live_bytes`` and its high-water mark ``peak_bytes``."""
         st = t.untyped_storage()
         if st in self._live:
             return
@@ -364,6 +367,22 @@ class DispatchCount(TorchDispatchMode):
 
     def _free(self, n: int) -> None:
         self.live_bytes -= n
+
+
+def _made(func, args, kwargs, out) -> list:
+    """The output tensors of ``func`` whose storage the op made: none of a
+    view op, no return its schema aliases to an argument (in place,
+    ``out=``), and no output on an argument's storage."""
+    from torch.utils._pytree import tree_leaves
+    if func.is_view:
+        return []
+    rets = func._schema.returns
+    parts = (out,) if len(rets) == 1 else tuple(out)
+    given = {id(x.untyped_storage()) for x in tree_leaves((args, kwargs))
+             if isinstance(x, torch.Tensor)}
+    return [x for r, part in zip(rets, parts) if r.alias_info is None
+            for x in tree_leaves(part)
+            if isinstance(x, torch.Tensor) and id(x.untyped_storage()) not in given]
 
 
 def _indices(shape):

@@ -6,6 +6,7 @@ Every measurement runs over a fake process group of 8 ranks in a
 subprocess (never a process group in a pytest worker); each test reads
 its numbers.  Rounds run on fake tensors
 (``FakeTensorMode``) at the reference's small configs."""
+import contextlib
 import json
 import os
 import subprocess
@@ -238,3 +239,30 @@ def test_in_round_loop_sees_only_the_steps():
     state = fed.init_state(torch.Generator().manual_seed(0), device="cpu")
     fed.round(state, {"x": torch.zeros((1, 1, 2, 4)), "z": torch.zeros((1, 1, 2, 4))})
     assert seen == {"hook": True, "sync": False}
+
+
+# two calls whose outputs view or write their argument's storage: the row
+# views (2 x 4,000 B read, 2 x 4,000 B made) and the in-place add (no new
+# storage, then one 32,000 B product)
+PEAK_CASES = {
+    "views": (lambda x: [x[i] * 1 for i in range(2)], 8000),
+    "in_place": (lambda x: (x.add_(1), x * 2)[1], 32000),
+    "out_argument": (lambda x: torch.mul(x, 2, out=torch.empty_like(x)), 32000),
+}
+
+
+@pytest.mark.parametrize("fake", [False, True], ids=["real", "fake"])
+@pytest.mark.parametrize("case", sorted(PEAK_CASES))
+def test_peak_counts_only_the_storages_an_op_made(case, fake):
+    """``peak_bytes`` holds what the call allocates: a view of an argument,
+    an in-place result and an ``out=`` result are no new storage, on real
+    tensors and on fake ones (``lm_gan_round_peak`` runs on fake tensors).
+    The FLOPs and operand bytes count every op as before."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.hlo_analysis import count_dispatch
+    fn, want = PEAK_CASES[case]
+    ctx = FakeTensorMode() if fake else contextlib.nullcontext()
+    with ctx:
+        _, mode = count_dispatch(fn, torch.zeros(8, 1000))
+    assert mode.peak_bytes == want
+    assert mode.live_bytes <= want

@@ -5,7 +5,9 @@ the LM GAN at an arch's ``.smoke()`` config) at test size with the bounds
 a round is held to, every sync kernel launch held to its plain version in
 place (``held_sync_kernels``), attention split by query rows run rank by
 rank (``attend_by_rows``), decode attention split by the cache's keys and
-by head_dim slice by slice (``decode_by_slices``), and one torch thread
+by head_dim slice by slice (``decode_by_slices``), the taught hold of a
+K-step round step by step (``taught_mismatches``, ``held_step``) and the
+first activation that flips in a free one (``free_flip``), and one torch thread
 per test process (the tier-1 run puts several pytest workers on the same
 cores, where torch's default of one thread per core oversubscribes
 them).
@@ -17,6 +19,8 @@ bounds on a machine without them.
 import contextlib
 import dataclasses
 import functools
+import os
+import sys
 import types
 
 import numpy as np
@@ -329,7 +333,7 @@ def noise_leaves(grads, net):
     return {p for p, g in leaves if float(np.abs(g).max()) <= _ZERO_TO_ROUNDING * top}
 
 
-def round_mismatches(exp, K, got, want, grads, losses, synced=True):
+def round_mismatches(exp, K, got, want, grads, losses, synced=True, step=None):
     """Every way the round ``got`` departs from ``want`` under the bounds
     above, and the worst leaf.  ``got``, ``want``: the states after the
     round as trees of numpy arrays (``params`` leaves (P, A, ...),
@@ -340,12 +344,13 @@ def round_mismatches(exp, K, got, want, grads, losses, synced=True):
     within its bounds, and the largest ratio of |got - want| to its limit
     with the leaf where it sits.  ``synced=False`` drops the check that
     every agent holds the same params (a fleet round whose faulted slots
-    keep their own)."""
+    keep their own).  ``step``: the step counter ``got`` must hold, K
+    unless given (a taught step k holds k at one step's bounds)."""
     bad, worst = [], (-1.0, None)
     for k, g, w in zip(("d_loss", "g_loss"), *losses):
         if not np.isclose(g, w, rtol=_LOSS_RTOL, atol=0):
             bad.append((k, g, w))
-    if int(got["step"]) != K:
+    if int(got["step"]) != (K if step is None else step):
         bad.append(("step", int(got["step"])))
     for net in ("disc", "gen"):
         lr = exp.lr_d if net == "disc" else exp.lr_g
@@ -427,6 +432,582 @@ def port_round_mismatches(name, device, K=CARD_K, order=None, strategy=None, dp=
     losses = tuple((m["d_loss"][0].item(), m["g_loss"][0].item()) for m in (gm, wm))
     return round_mismatches(tpaper.ALL_EXPERIMENTS[name], K, to_np(got), to_np(want),
                             to_np(grads), losses)
+
+
+# ---------------------------------------------------------------------------
+# The taught hold of a K-step round, step by step
+# ---------------------------------------------------------------------------
+
+# A free round amplifies from step 2 on what step 1 rounded differently
+# (``CARD_K``).  A taught round leaves nothing to amplify: the side under
+# test runs each step k, and the sync, from the checker's own state before
+# it, and each result is held to the checker's.  Step k is held by
+# ``round_mismatches`` at one step's bounds (K = 1, the checker's
+# gradients of that step, agents not required to agree; ``held_step``);
+# the sync by ``sync_mismatches``.  A correct K-step round passes every
+# step; a fault that shows only from step 2 on (Adam's moments reset, its
+# bias correction frozen, a rate read at n = 0) fails some step k >= 2.
+
+
+def port_steps(fed, start, batches):
+    """The round of ``fed`` on the port, step by step, on the device of
+    ``start``, as ``FedGAN.round`` runs it (``batches``: tensors with
+    leading (K, P, A)): (the K + 1 states before each step and after the
+    last, each step's metrics, the synced state, each step's (P, A, ...)
+    gradients as the strategy's ``grad_hook`` receives them).  Strategies
+    without a segment sync."""
+    strat = fed.cfg.resolve_strategy()
+    assert not strat.intra_interval
+    states, metrics, grads = [start], [], []
+    for k in range(fed.cfg.sync_interval):
+        seen = _SeenGrads(strat)
+        state, m = fed._step(states[-1], tree_map(lambda x: x[k], batches), seen)
+        states.append(state)
+        metrics.append(m)
+        grads.append(seen.grads)
+    return states, metrics, strat.round_sync(fed, states[-1]), grads
+
+
+def _np(tree):
+    return tree_map(lambda x: x.detach().cpu().numpy(), tree)
+
+
+def _float_bits(x):
+    return x.view(np.int32) if x.dtype == np.float32 else x
+
+
+class _SeenGrads:
+    """A strategy for one ``FedGAN._step`` that keeps the (P, A)-stacked
+    gradients its ``grad_hook`` receives."""
+
+    def __init__(self, strat):
+        self.strat, self.grads = strat, None
+
+    def grad_hook(self, fed, gd, gg, state):
+        self.grads = {"disc": gd, "gen": gg}
+        return self.strat.grad_hook(fed, gd, gg, state)
+
+
+class _TaughtGrads(_SeenGrads):
+    """A strategy for one ``FedGAN._step`` whose ``grad_hook`` receives the
+    checker's gradients ``taught`` in place of the step's own where
+    ``mask`` is set (both (P, A, ...) trees ``{"disc", "gen"}``, the mask
+    fixed before the step)."""
+
+    def __init__(self, strat, taught, mask):
+        super().__init__(strat)
+        self.taught, self.mask = taught, mask
+
+    def grad_hook(self, fed, gd, gg, state):
+        super().grad_hook(fed, gd, gg, state)
+        gd, gg = (tree_map(torch.where, self.mask[k], self.taught[k], g)
+                  for k, g in (("disc", gd), ("gen", gg)))
+        return self.strat.grad_hook(fed, gd, gg, state)
+
+
+# A taught step can still meet one discrete event inside itself: an
+# activation input that the two sides compute at rounding distance from
+# its kink, on opposite sides of it.  Its gradient then takes the other
+# branch on one side, a batch norm spreads that over the channel, and Adam
+# past its first step scales the change to a good part of lr (against the
+# reference, image_acgan's step 2 departs 9,322x, timeseries_cgan's step 3
+# 2,133x; the port's step 2 on the card may meet one as well).  Where a
+# taught step departs, the kinks are taught too: every ReLU and leaky ReLU
+# input where the two sides take opposite branches and both values lie
+# within _KINK_ROUNDING times its own rounding scale (float32's unit
+# roundoff times the ``_Rounding`` bound, the side under test's) takes the
+# checker's branch on the side under test, and the step is run again and
+# held to the same bounds.  A flip farther from the kink is never taught:
+# the step departs.  The port's activation inputs differ from the
+# reference's by at most 1.9 times that scale at the CPU's taught steps
+# (``python tests/test_torch_steps.py``), the card's from the CPU's by at
+# most 1.24 (the ``spread`` that ``chip_smoke.py`` prints); deep in a net
+# the scale is loose, a few hundred times the differences seen there.
+_UNIT = 2.0 ** -24
+_KINK_ROUNDING = 8.0
+
+_OPEN = []
+
+
+def _plain(x):
+    """``x``'s value outside torch.func's wrappers, a vmapped tensor's
+    batch dim first."""
+    F = torch._C._functorch
+    while F.is_functorch_wrapped_tensor(x):
+        if F.is_batchedtensor(x):
+            x = F.get_unwrapped(x).movedim(F.maybe_get_bdim(x), 0)
+        else:
+            x = F.get_unwrapped(x)
+    return x.detach().clone()
+
+
+def _abs(x):
+    return x.abs() if isinstance(x, torch.Tensor) else abs(x)
+
+
+class _Rounding(torch.overrides.TorchFunctionMode):
+    """While active, every tensor that the nets compute from a dot product
+    (a matmul or a convolution) carries a scale of its float32 rounding, in
+    units of the unit roundoff, grown op by op to first order: a dot
+    product of n terms adds sqrt(n) sum |w a| of its own (the
+    probabilistic bound of its n roundings) and carries its inputs' scales
+    S through w in quadrature, sqrt(sum w^2 S^2) (their roundings
+    independent); sums, means and reshapes carry theirs; products and the
+    elementwise functions scale them by their slopes.  An op without a
+    rule drops the scale (what follows counts its input as exact).
+    ``bound(t)``: ``t``'s, or None."""
+
+    _SHAPE = {"permute", "reshape", "flip", "expand", "__getitem__", "detach", "to", "float",
+              "pad"}
+
+    def __init__(self):
+        super().__init__()
+        self.bounds = {}
+
+    def bound(self, t):
+        kept = self.bounds.get(id(t))
+        return kept[1] if kept is not None and kept[0] is t else None
+
+    def _rule(self, name, out, args, kw):
+        S = [self.bound(a) if isinstance(a, torch.Tensor) else None for a in args]
+        if name in ("matmul", "conv1d", "conv2d", "conv_transpose2d"):
+            rest = tuple(None if isinstance(r, torch.Tensor) else r for r in args[2:])
+            kw = {k: v for k, v in kw.items() if k != "bias"}
+            dot, (a, w) = getattr(torch, name), args[:2]
+            n = w.shape[-2] if name == "matmul" else w[0].numel() if name != "conv_transpose2d" \
+                else w.numel() // w.shape[1]
+            own = dot(a.abs(), w.abs(), *rest, **kw) * n ** 0.5
+            if S[0] is None:
+                return own
+            return own + torch.sqrt(dot(S[0] * S[0], w * w, *rest, **kw))
+        if name == "cat":
+            parts = [self.bound(t) for t in args[0]]
+            if all(p is None for p in parts):
+                return None
+            return torch.cat([torch.zeros_like(t) if p is None else p
+                              for t, p in zip(args[0], parts)], *args[1:], **kw)
+        if S[0] is None and not any(s is not None for s in S[1:]):
+            return None
+        zero = lambda i: torch.zeros_like(out) if S[i] is None else S[i]  # noqa: E731
+        if name in self._SHAPE:
+            return getattr(torch.nn.functional, name)(S[0], *args[1:], **kw) \
+                if name == "pad" else getattr(S[0], name)(*args[1:], **kw)
+        if name in ("add", "sub", "__rsub__"):
+            return torch.broadcast_to(zero(0) + (zero(1) if len(S) > 1 else 0), out.shape)
+        if name == "neg":
+            return S[0]
+        if name == "mul":
+            return (zero(0) * _abs(args[1]) + (_abs(args[0]) * zero(1) if len(S) > 1 else 0))
+        if name == "div":
+            return (zero(0) + out.abs() * (zero(1) if len(S) > 1 else 0)) / _abs(args[1])
+        if name == "mean":
+            return torch.mean(S[0] + args[0].abs(), *args[1:], **kw)
+        if name == "square":
+            return 2 * args[0].abs() * S[0]
+        if name == "rsqrt":
+            return 0.5 * out.abs() ** 3 * S[0]
+        if name == "tanh":
+            return (1 - out * out) * S[0]
+        if name == "relu":
+            return torch.where(out > 0, S[0], 0)
+        if name == "where":
+            return torch.where(args[0], zero(1), zero(2))
+        return None
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if isinstance(out, torch.Tensor) and out.is_floating_point():
+            s = self._rule(getattr(func, "__name__", ""), out, args, kwargs)
+            if s is not None:
+                self.bounds[id(out)] = (out, s)
+        return out
+
+
+class _Kinks:
+    """The open ``kink_context``: each call's (kind, input, rounding bound
+    or None) in call order, the (mask, branch) pairs still to teach, one a
+    call (``queue``, or None), the rounding mode when it bounds, and each
+    call's site (``_site``)."""
+
+    def __init__(self, rounding):
+        self.records, self.queue, self.rounding, self.sites = [], None, rounding, []
+
+
+def _site():
+    """The source line of the port's nets that called an activation."""
+    frame = sys._getframe(2)
+    while frame is not None and "models" not in frame.f_code.co_filename:
+        frame = frame.f_back
+    return None if frame is None else \
+        f"{os.path.basename(frame.f_code.co_filename)}:{frame.f_lineno}"
+
+
+def _kinked(kind, fn, slope=0.0):
+    def act(x):
+        ctx = _OPEN[-1] if _OPEN else None
+        if ctx is None:
+            return fn(x)
+        s = None if ctx.rounding is None else ctx.rounding.bound(x)
+        ctx.records.append((kind, _plain(x), None if s is None else _plain(s)))
+        ctx.sites.append(_site())
+        if not ctx.queue:
+            return fn(x)
+        mask, branch = ctx.queue.pop(0)
+        low = slope * x if slope else torch.zeros_like(x)
+        return torch.where(mask, torch.where(branch, x, low), fn(x))
+    return act
+
+
+@contextlib.contextmanager
+def kink_context(bounds=False):
+    """While open, every ReLU (``torch.relu``) and leaky ReLU
+    (``repro_torch.nn.leaky_relu``) of the port's nets records its input
+    (``(kind, value, rounding bound)`` in the yielded context's
+    ``records``, the bound ``_Rounding``'s where ``bounds``, else None),
+    and, while its ``queue`` is set, the masked elements of each call take
+    the branch given (True: the x >= 0 side of a leaky ReLU, x > 0 of a
+    ReLU)."""
+    from repro_torch import nn as tnn
+    relu, leaky = torch.relu, tnn.leaky_relu
+    ctx = _Kinks(_Rounding() if bounds else None)
+    torch.relu = _kinked("relu", relu)
+    tnn.leaky_relu = lambda slope=0.2: _kinked("leaky_relu", leaky(slope), slope)
+    _OPEN.append(ctx)
+    try:
+        with ctx.rounding or contextlib.nullcontext():
+            yield ctx
+    finally:
+        _OPEN.pop()
+        torch.relu, tnn.leaky_relu = relu, leaky
+
+
+_TEACH = "kinks to teach"
+
+
+def _teaching(loss, ctx, first):
+    """``loss`` handing its batch's ``_TEACH`` entry, per agent as the
+    step's vmap slices it, to ``ctx``'s queue (``first``: the disc loss,
+    which the agent's gradients run first)."""
+    def run(params, batch):
+        batch = dict(batch)
+        masks = batch.pop(_TEACH)
+        if first:
+            ctx.queue = list(masks)
+        return loss(params, batch)
+    return run
+
+
+def kinked_step(fed, state, batch, teach=None, strat=None, bounds=False):
+    """``fed._step`` on (P, A, ...) ``batch`` inside ``kink_context``
+    (``bounds``: with the rounding bounds), ``teach`` (per call a (mask,
+    branch) pair of (B, ...) bool tensors, or None) applied: the pairs
+    ride in the batch, so the step's own agent vmap hands each agent its
+    own, and the losses put them in the queue.  ``strat`` in place of the
+    config's strategy when given.  Returns (state, metrics, records)."""
+    with kink_context(bounds) as ctx:
+        if teach is not None:
+            task = fed.task
+            fed = dataclasses.replace(fed, task=dataclasses.replace(
+                task, disc_loss=_teaching(task.disc_loss, ctx, True),
+                gen_loss=_teaching(task.gen_loss, ctx, False)))
+            lead = tree_leaves(state["params"])[0].shape[:2]
+            batch = {**batch, _TEACH: [tuple(t.reshape(lead + t.shape[1:]) for t in pair)
+                                       for pair in teach]}
+        out, m = fed._step(state, batch, strat or fed.cfg.resolve_strategy())
+    return out, m, ctx.records
+
+
+def _branch(kind, x):
+    return x >= 0 if kind == "leaky_relu" else x > 0
+
+
+def kink_flips(test, checker):
+    """The activation inputs on which ``test`` and ``checker`` (records of
+    one step, (kind, (B, ...) input, bound) per call, the bounds the test
+    side's) take opposite branches: per call (mask of those within
+    rounding of the kink: both values within _KINK_ROUNDING times the
+    test side's rounding bound, in unit roundoffs; the checker's branch),
+    the count of the others (farther from the kink), the first flip in
+    call order as (call, kind, agent, index, test value, checker value,
+    its rounding scale: unit roundoff times the bound) or None, and the
+    largest |test - checker| over its rounding scale on any element (how
+    much of the window rounding takes)."""
+    teach, far, first, spread = [], 0, None, 0.0
+    assert [k for k, *_ in test] == [k for k, *_ in checker]
+    for c, ((kind, t, s), (_, w, _)) in enumerate(zip(test, checker)):
+        w = w.to(t.device)
+        assert t.shape == w.shape, (c, t.shape, w.shape)
+        pos = _branch(kind, w)
+        flip = _branch(kind, t) != pos
+        scale = torch.zeros_like(t) if s is None else _UNIT * s
+        near = flip & (torch.maximum(t.abs(), w.abs()) <= _KINK_ROUNDING * scale)
+        far += int((flip & ~near).sum())
+        if s is not None:
+            spread = max(spread, float(((t - w).abs() / scale).nan_to_num(0.0).max()))
+        if first is None and bool(flip.any()):
+            idx = tuple(int(i) for i in flip.nonzero()[0])
+            first = (c, kind, idx[0], idx[1:], float(t[idx]), float(w[idx]), float(scale[idx]))
+        teach.append((near, pos))
+    return teach, far, first, spread
+
+
+def taught_step(fed, state, batch, checker_records, hold, tries=4):
+    """Step k of a taught round whose plain hold departed, again with the
+    kinks taught (the block comment above): the side under test records its
+    activation inputs with their rounding bounds (those of its untaught
+    run) and takes the checker's
+    branch wherever both lie within rounding of the kink on opposite
+    sides, run again until no new such flip appears (at most ``tries``
+    runs).  ``hold(got, metrics)`` holds a result.  Returns (hold's result,
+    kinks taught, flips farther from the kink, the first flip and the
+    spread of the untaught step (``kink_flips``), the last run's
+    ``teach``)."""
+    teach, taught, first0, spread0 = None, 0, None, None
+    for i in range(tries):
+        got, m, records = kinked_step(fed, state, batch, teach, bounds=i == 0)
+        if i == 0:
+            scales = [s for _, _, s in records]
+        else:   # the untaught run's scales
+            records = [(kind, x, s) for (kind, x, _), s in zip(records, scales)]
+        near, far, first, spread = kink_flips(records, checker_records)
+        if i == 0:
+            first0, spread0 = first, spread
+        if teach is not None:   # a taught input keeps its own sign: still listed
+            near = [(a | b, torch.where(a, pa, pb)) for (a, pa), (b, pb) in zip(teach, near)]
+        n = sum(int(mk.sum()) for mk, _ in near)
+        if n == taught:
+            break
+        teach, taught = near, n
+    return hold(got, m), taught, far, first0, spread0, teach
+
+
+# Adam's first update lr g / (|g| + eps) has the slope lr eps / (|g| +
+# eps)^2 in g: at |g| within a hundred eps or so of 0 it turns a rounding
+# difference of the gradient alone into more than the tight bound of the
+# round bounds, before any moment could damp it.  The reference against
+# itself departs so at timeseries_cgan's first step on the K = 4 batches
+# (9.9-20.8x on disc/conv/14/b, at a gradient of 94.6 eps:
+# test_torch_steps.py).  Where a step at Adam's count 0 still departs, the
+# gradient elements whose checker's value lies within _EPS_ZONE eps of 0
+# take the checker's value: a set fixed by the checker's gradients and
+# this constant alone, before the step, and never past count 0.
+_EPS_ZONE = 128
+
+
+def eps_zone(fed, before, grads):
+    """The gradient elements to teach (``_EPS_ZONE`` above) as bool
+    (P, A, ...) trees ``{"disc", "gen"}`` beside the checker's ``grads``,
+    or None: where either net's optimizer is not Adam, or the step is not
+    its first (``before``'s counts not all 0)."""
+    opts = {"disc": (fed.opt_d, before["opt_d"]), "gen": (fed.opt_g, before["opt_g"])}
+    if not all(isinstance(o, Adam) and int(s["count"].max()) == 0 for o, s in opts.values()):
+        return None
+    return {net: tree_map(lambda g: g.abs() <= _EPS_ZONE * opts[net][0].eps, grads[net])
+            for net in ("disc", "gen")}
+
+
+def held_step(fed, before, batch, want, metrics, hold_step, k, grads=None, kinks=None):
+    """One taught step: ``FedGAN._step`` from ``before`` on the (P, A, ...)
+    ``batch`` (both on the device under test), held to the checker's
+    result ``want`` (numpy) and ``metrics`` by ``hold_step(k, got, want,
+    grads, losses)``, with ``grads`` the checker's gradients in that step
+    ((P, A, ...) torch tree on the CPU), else the step's own as its
+    ``grad_hook`` receives them.
+
+    A step that departs is run again with more of the checker taught, and
+    held again to the same bounds:
+    1. its kinks, where ``kinks()`` gives the checker's activation inputs
+       in that step (``taught_step``); a flip farther from the kink than
+       rounding is a departure;
+    2. then, where ``grads`` is given and the step is Adam's first, the
+       gradient elements of ``eps_zone`` take the checker's value (its set
+       is the checker's alone, so a larger fault does not grow it).  Every
+       other gradient element stays the step's own, and every update is
+       the side's own, so a fault of the optimizer, its state or its
+       rates, or of the forward or the backward beyond those elements,
+       still departs.
+    Returns (departures, (ratio, leaf), how): ``how`` None where the step
+    held untaught, else {"untaught": its (ratio, leaf, departures),
+    "taught": kinks taught, "far": flips farther from the kink, "first":
+    the first flip and "spread" the largest |difference| over its rounding
+    scale of any activation input (``kink_flips``), "zone": gradient
+    elements taught (where that tier ran)}."""
+    strat = fed.cfg.resolve_strategy()
+    seen = _SeenGrads(strat)
+    out = fed._step(before, batch, seen)
+    mask_grads = _np(seen.grads if grads is None else grads)
+
+    def hold(got, gm):
+        losses = tuple((float(m["d_loss"]), float(m["g_loss"])) for m in (gm, metrics))
+        return hold_step(k, _np(got), want, mask_grads, losses)
+
+    bad, worst = hold(*out)
+    if not bad:
+        return bad, worst, None
+    how = {"untaught": (worst[0], worst[1], len(bad)), "taught": 0, "far": 0, "first": None,
+           "spread": None}
+    teach = None
+    if kinks is not None:
+        (bad, worst), how["taught"], how["far"], how["first"], how["spread"], teach = \
+            taught_step(fed, before, batch, kinks(), hold)
+    zone = None if grads is None else eps_zone(fed, before, grads)
+    if bad and zone is not None:
+        dev = tree_leaves(before["params"])[0].device
+        taught = _TaughtGrads(strat, tree_map(lambda x: x.to(dev), grads),
+                              tree_map(lambda x: x.to(dev), zone))
+        got, m, _ = kinked_step(fed, before, batch, teach, taught)
+        bad, worst = hold(got, m)
+        how["zone"] = sum(int(z.sum()) for z in tree_leaves(zone))
+    if how["far"]:
+        bad.append(("kinks", "flips farther than rounding", how["far"], how["first"]))
+    return bad, worst, how
+
+
+def sync_mismatches(got, want, coded=False):
+    """The sync ``got`` (``round_sync`` on the checker's state before it)
+    against the checker's ``want``, whole states as trees of numpy arrays.
+    The plain average: every leaf bit for bit.  A coded sync (int8), as
+    ``chip_smoke.py``'s small round holds it: the params, the EF residuals
+    and the downlink residual within 1e-4 of the matching params leaf's
+    magnitude m, and on at most 2% of their elements within 1.5 m / 127
+    more (a value at a rounding tie may take the neighbouring code: one
+    quantum of the leaf's coarsest block, on an uplink flip 1/B of an
+    agent's on top); every other leaf bit for bit.  Returns (departures,
+    (largest ratio of a difference to its limit, its leaf), elements that
+    differ at all)."""
+    bad, worst, differ, over, total = [], (0.0, None), 0, 0, 0
+    mags = {p.split("/", 1)[1]: max(1.0, float(np.abs(w).max()))
+            for p, w in named_leaves(want["params"], "params")}
+    for (path, g), (wpath, w) in zip(named_leaves(got), named_leaves(want)):
+        assert path == wpath
+        g, w = np.asarray(g), np.asarray(w)
+        same = _float_bits(g) == _float_bits(w)
+        differ += int((~same).sum())
+        top, _, rest = path.partition("/")
+        if not (coded and top in ("params", "ef", "ef_down")):
+            if not same.all():
+                bad.append((path, "not bit for bit", int((~same).sum())))
+                worst = max(worst, (float("inf"), path), key=lambda r: r[0])
+            continue
+        mag = mags[rest]
+        d = np.abs(g - w)
+        tol = 1e-4 * mag
+        lim = tol + 1.5 * mag / 127
+        over += int((d > tol).sum())
+        total += d.size
+        if (d > lim).any():
+            bad.append((path, "off", int((d > lim).sum()), float(d.max())))
+        ratio = float(d.max()) / lim if d.size else 0.0
+        worst = max(worst, (ratio, path), key=lambda r: r[0])
+    if over > 0.02 * max(total, 1):
+        bad.append(("codes", "moved past 1e-4", over, total))
+    return bad, worst, differ
+
+
+def taught_mismatches(fed, checker, batches, device, hold_step, coded=False, kinks=None,
+                      upto=None):
+    """The taught round of ``fed``: for k = 1..K, one ``held_step`` on
+    ``device`` from the checker's whole state before step k (params,
+    ``opt_d``, ``opt_g``, ``step`` and what the strategy carries, such as
+    EF residuals), held to the checker's step k; then the strategy's
+    ``round_sync`` on ``device`` from the checker's state before its sync,
+    held by ``sync_mismatches``.  ``checker``: ``port_steps``' (states,
+    metrics, synced, gradients) as CPU torch trees, from whichever package;
+    ``batches``: numpy (K, P, A, ...).  ``kinks(k)``,
+    when given, returns the checker's activation inputs on step k
+    (``kinked_step``'s records).  ``upto``: the last step to run (all K
+    unless given; with it, no sync).  Runs with oneDNN off, as every round
+    held to the reference.  Returns ([``held_step``'s result for each
+    step], ``sync_mismatches``')."""
+    states, metrics, synced, grads = checker
+    strat = fed.cfg.resolve_strategy()
+    to_dev = lambda t: tree_map(lambda x: x.to(device), t)  # noqa: E731
+    steps = []
+    with torch.backends.mkldnn.flags(enabled=False, allow_tf32=None):
+        for k in range(1, (upto or fed.cfg.sync_interval) + 1):
+            batch = tree_map(lambda x: torch.from_numpy(np.ascontiguousarray(x[k - 1])), batches)
+            of = None if kinks is None else functools.partial(kinks, k)
+            steps.append(held_step(fed, to_dev(states[k - 1]), to_dev(batch),
+                                   _np(states[k]), metrics[k - 1], hold_step, k,
+                                   grads=grads[k - 1], kinks=of))
+        if upto is not None:
+            return steps, None
+        got = strat.round_sync(fed, to_dev(states[-1]))
+    return steps, sync_mismatches(_np(got), _np(synced), coded)
+
+
+def port_kinks(fed, states, batches):
+    """``taught_mismatches``' ``kinks`` with the CPU port as the checker:
+    its activation inputs at ``states[k - 1]`` on step k's batch."""
+    def of(k):
+        batch = tree_map(lambda x: torch.from_numpy(np.ascontiguousarray(x[k - 1])), batches)
+        with torch.backends.mkldnn.flags(enabled=False, allow_tf32=None):
+            return kinked_step(fed, states[k - 1], batch)[2]
+    return of
+
+
+def paper_step_hold(exp):
+    """``held_step``'s ``hold_step`` for a paper experiment:
+    ``round_mismatches`` at one step's bounds, the step counter the
+    checker's."""
+    return lambda k, got, want, grads, losses: round_mismatches(
+        exp, 1, got, want, grads, losses, synced=False, step=int(want["step"]))
+
+
+def port_taught_mismatches(name, device, K, strategy=None):
+    """``taught_mismatches`` of ``name``'s round at test size
+    (``round_fed`` with ``strategy``, ``round_inputs``) on ``device``
+    against the CPU port's steps from one start state, drawn on the CPU
+    from a seeded generator.  The free round's ratio stays beside it in
+    ``port_round_mismatches``."""
+    fed = round_fed(name, K, strategy=strategy)
+    batches = round_inputs(name, K)[1]
+    start = fed.init_state(torch.Generator().manual_seed(0), device="cpu")
+    with torch.backends.mkldnn.flags(enabled=False, allow_tf32=None):
+        checker = port_steps(fed, start, tree_map(torch.from_numpy, batches))
+    coded = getattr(fed.cfg.resolve_strategy(), "codec", None) is not None
+    return taught_mismatches(fed, checker, batches, device,
+                             paper_step_hold(tpaper.ALL_EXPERIMENTS[name]), coded,
+                             kinks=port_kinks(fed, checker[0], batches))
+
+
+def free_flip(name, device, order=None):
+    """The first activation that flips in a free K = 2 round of ``name``
+    at test size on ``device`` against the CPU port: both sides run step 1
+    from one start state, then each side's step-2 activation inputs at its
+    own state (``kinked_step``'s records, the device's with its rounding
+    bounds) are compared in call order.  With ``order`` (a seed) the side
+    on ``device`` takes each agent's samples in another order (its records
+    are put back in the CPU's order).  Returns None, or {"call", "kind",
+    "site" (the net's source line that called it), "agent", "index",
+    "test", "checker" (the two float32 inputs), "scale" (unit roundoff
+    times the device side's rounding bound there), "near" and "far" (the
+    step-2 flips within _KINK_ROUNDING of their scale and farther)}."""
+    fed = round_fed(name, 2)
+    batches = tree_map(torch.from_numpy, round_inputs(name, 2)[1])
+    start = fed.init_state(torch.Generator().manual_seed(0), device="cpu")
+    strat = fed.cfg.resolve_strategy()
+    perm = torch.arange(ROUND_BATCH) if order is None else torch.from_numpy(
+        np.random.default_rng(order).permutation(ROUND_BATCH))
+    step_of = lambda k, t: tree_map(lambda x: x[k][:, :, t], batches)  # noqa: E731
+    to_dev = lambda t: tree_map(lambda x: x.to(device), t)  # noqa: E731
+    with torch.backends.mkldnn.flags(enabled=False, allow_tf32=None):
+        s1, _ = fed._step(start, step_of(0, slice(None)), strat)
+        want = kinked_step(fed, s1, step_of(1, slice(None)))[2]
+        t1, _ = fed._step(to_dev(start), to_dev(step_of(0, perm)), strat)
+        with kink_context(bounds=True) as ctx:
+            fed._step(t1, to_dev(step_of(1, perm)), strat)
+    inv = torch.argsort(perm)
+    got = [(kind, x.cpu()[:, inv], None if s is None else s.cpu()[:, inv])
+           for kind, x, s in ctx.records]
+    teach, far, first, _ = kink_flips(got, want)
+    if first is None:
+        return None
+    call, kind, agent, idx, t, c, scale = first
+    return {"call": call, "kind": kind, "site": ctx.sites[call], "agent": agent,
+            "index": idx, "test": t, "checker": c, "scale": scale,
+            "near": sum(int(m.sum()) for m, _ in teach), "far": far}
 
 
 def port_fleet_round_mismatches(device, K=CARD_K):
